@@ -7,26 +7,42 @@ Phases (each prints its lines; any failure exits non-zero before the
 result lines):
 
 1. the card: ``nvidia-smi`` name and power limit, TF32 switched off;
-2. the build: ``nvcc`` compiles the CUDA sources of the port;
-3. the kernels: each CUDA kernel against its plain torch version on the
-   card, at the paper's design size and at the full size below, in fp32
-   and bf16, with held rounds, ``nact = 0``, lambda vectors and
+2. the build: ``nvcc`` compiles the CUDA sources of the port, one process
+   per source, all at once;
+3. the CSVM kernels: each against its plain torch version on the card,
+   at the paper's design size and at the full size below, in fp32 and
+   bf16, with held rounds, ``nact = 0``, lambda vectors and
    ``lam0 > 0``; then their times (CUDA events) beside the plain
    versions' and the bound;
-4. the main path at full size — ``SimConfig(p=4095, s=10, m=16, n=1024,
+4. the fit path at full size — ``SimConfig(p=4095, s=10, m=16, n=1024,
    rho=0.5)`` on ``erdos_renyi(16, 0.5, seed=0)``, X (16, 1024, 4096):
    ``decsvm_fit`` under ``megakernel`` (with and without
    ``track_history``) and ``pallas``, ``decsvm_fit_tol`` (KKT stop) under
    ``megakernel_bf16``, each against the plain ``jnp`` backend on the
    card, with the launch counters read around the fits; the KKT fits
    must stop before ``max_iter`` and within one check block of each
-   other.
+   other;
+5. ``flash_attention`` against its plain version (``ref.mha``) at the
+   shapes of ``tests/test_kernels.py`` (every mask, MQA, D = 32/64/128,
+   ragged S) and at qwen3-14b's (q (1, 40, S, 128), kv (1, 8, S, 128),
+   S = 1023 and 2048, causal, fed as the model's strided views), fp32 and
+   bf16; then its times beside the plain version's, the bound and
+   ``scaled_dot_product_attention``'s (timed only, never on the path);
+6. the serving path at full width — qwen3-14b (40 layers, d_model 5120,
+   bf16, random weights from seed 0) in ``ServeEngine(max_batch=4,
+   max_len=2048, block_prefill=True)``: 8 requests of ragged prompt
+   lengths, 16 new tokens each, with the launch counters read around the
+   run (40 flash launches per prefilled request);
+7. the kernel against the plain attention inside the model: block-prefill
+   logits of a 1023-token prompt at full width in bf16, and with 2 layers
+   in fp32.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -63,12 +79,48 @@ FIT_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 KKT_TOL = 3e-2
 CHECK_EVERY = 4         # decsvm_fit_tol's default check interval
 
+# flash_attention against its plain version.  fp32: the repo's kernel
+# tier (tests/test_kernels.py:86).  bf16: both sides read the same bf16
+# inputs, compute in fp32 and round the output once, so they may differ by
+# one bf16 ulp of the output: |dev| <= 2^-7 |o_plain| + 1e-6.
+FLASH_TOL_F32 = 2e-5
+BF16_ULP = 2.0 ** -7
+# (B, H, KV, S, D, causal, window): tests/test_kernels.py:75-105, then
+# qwen3-14b's attention at the prompt lengths of the kernel table
+FLASH_CASES = [
+    (1, 2, 2, 128, 64, True, None), (2, 4, 2, 256, 64, True, None),
+    (1, 4, 1, 128, 32, True, None), (1, 8, 2, 200, 64, True, None),
+    (1, 14, 2, 128, 64, True, None), (1, 10, 1, 128, 128, True, None),
+    (1, 4, 2, 160, 32, True, None), (1, 4, 2, 160, 32, False, None),
+    (1, 4, 2, 160, 32, True, 64), (1, 4, 2, 160, 32, True, 17),
+    (1, 40, 8, 1023, 128, True, None), (1, 40, 8, 2048, 128, True, None),
+]
+# The serving path: qwen3-14b at full width, ragged prompts (none a
+# multiple of the 64-row tile), 16 new tokens each.
+SERVE_PROMPTS = (2000, 1500, 1023, 777, 500, 257, 129, 64)
+SERVE_NEW = 16
+SERVE_BATCH, SERVE_LEN = 4, 2048
+# Block-prefill logits with the kernel against the plain attention inside
+# the model, one 1023-token prompt (random weights, seed 0; logits up to
+# ~8.7).  fp32 (2 layers): the kernel's fp32 summation order through two
+# layers and the LM head; measured 3.05e-5 on an H100.  bf16 (40 layers):
+# one-ulp differences of each layer's attention output, carried and
+# amplified through 40 layers of bf16 rounding; measured 0.361 on an H100
+# (the same bits from run to run: the kernel and the products are
+# deterministic).  Each limit is about 3x its measured deviation.
+MODEL_PROMPT = 1023
+MODEL_TOL = {"float32": 1e-4, "bfloat16": 1.0}
+
+FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
     "csvm_local_update": "src/repro/kernels/csvm_update.py:83",
     "csvm_block_update": "src/repro/kernels/csvm_update.py:349",
     "csvm_round_block": "src/repro/kernels/csvm_update.py:277",
+    "flash_attention": "src/repro/kernels/flash_attention.py:74",
 }
-SOURCE = "src/repro_torch/kernels/csrc/csvm_update.cu"
+SOURCES = {name: "src/repro_torch/kernels/csrc/csvm_update.cu"
+           for name in FIT_KERNELS}
+SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 
 
 def log(*args):
@@ -85,15 +137,16 @@ def check(ok: bool, msg: str):
 
 
 def ptxas_report(log_text: str):
-    """(kernel<type>, registers, spills) per entry function of nvcc's
-    ``-Xptxas -v`` output."""
+    """(kernel<type[, int]>, registers, spills) per entry function of
+    nvcc's ``-Xptxas -v`` output."""
     out, name, spills = [], None, ""
     for line in log_text.splitlines():
         entry = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)I"
-                          r"(f|13__nv_bfloat16)E", line)
+                          r"(f|13__nv_bfloat16)(?:Li(\d+)E)?E", line)
         if entry:
             dtype = "float" if entry.group(2) == "f" else "bf16"
-            name = f"{entry.group(1)}<{dtype}>"
+            extra = f", {entry.group(3)}" if entry.group(3) else ""
+            name = f"{entry.group(1)}<{dtype}{extra}>"
         elif "spill" in line:
             spills = line.strip()
         else:
@@ -320,15 +373,11 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
         return core.ADMMConfig(lam=d.lam, h=d.h, max_iter=max_iter,
                                backend=backend)
 
-    def synchronize():
-        if d.device.type == "cuda":
-            torch.cuda.synchronize()
-
     def timed(fn):
-        synchronize()
+        synchronize(torch, d.device)
         t0 = time.perf_counter()
         out = fn()
-        synchronize()
+        synchronize(torch, d.device)
         return out, time.perf_counter() - t0
 
     def report(name, B, secs, ref=None, tol=None):
@@ -401,11 +450,206 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
     check(n_blocks == math.ceil(t16 / CHECK_EVERY),
           f"bf16 tol fit: {n_blocks} csvm_round_block launches for "
           f"t={t16} rounds in blocks of {CHECK_EVERY}")
-    launches = counts()
-    for name in ops.KERNELS:
-        check(launches[name] >= 1, f"main path never launched {name}")
-    log(f"main path launches: {json.dumps(launches)}")
+    launches = {name: ops.launches[name] for name in FIT_KERNELS}
+    for name in FIT_KERNELS:
+        check(launches[name] >= 1, f"fit path never launched {name}")
+    log(f"fit path launches: {json.dumps(launches)}")
     return launches
+
+
+def synchronize(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def attention_inputs(torch, case, dtype, device, seed):
+    """q (B, H, S, D), k and v (B, KV, S, D) from a seeded generator; the
+    qwen3-14b cases are the model's (B, S, heads, D) buffers seen through
+    ``.transpose(1, 2)``, as ``attention.self_attend`` feeds the kernel."""
+    B, H, KV, S, D = case[:5]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    strided = H == 40
+
+    def draw(heads):
+        shape = (B, S, heads, D) if strided else (B, heads, S, D)
+        t = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32).to(getattr(torch, dtype))
+        return t.transpose(1, 2) if strided else t
+    return draw(H), draw(KV), draw(KV)
+
+
+def flash_deviation(torch, got, want, dtype):
+    """(max |got - want|, the share of the limit it uses): fp32 against
+    FLASH_TOL_F32, bf16 against one bf16 ulp of the plain output."""
+    dev = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        limit = torch.full_like(dev, FLASH_TOL_F32)
+    else:
+        limit = BF16_ULP * want.float().abs() + 1e-6
+    return float(dev.max()), float((dev / limit).max())
+
+
+def flash_checks(torch, ops, ref, device, devs: dict):
+    """``flash_attention`` against ``ref.mha`` on the same inputs."""
+    for i, case in enumerate(FLASH_CASES):
+        B, H, KV, S, D, causal, window = case
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = attention_inputs(torch, case, dtype, device, seed=i)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.mha(q, k, v, causal=causal, window=window)
+            check(tuple(got.shape) == tuple(q.shape) and got.dtype == q.dtype,
+                  f"flash_attention {case}: output {tuple(got.shape)} "
+                  f"{got.dtype}")
+            check(bool(torch.isfinite(got).all()),
+                  f"flash_attention {case} {dtype}: non-finite output")
+            dev, share = flash_deviation(torch, got, want, dtype)
+            record(devs, "flash_attention", dtype, dev)
+            what = (f"flash_attention B={B} H={H} KV={KV} S={S} D={D} "
+                    f"causal={causal} window={window} {dtype}")
+            check(share <= 1.0, f"{what}: max|dev| {dev:.3e} is "
+                  f"{share:.2f}x the limit")
+            log(f"check {what}: max|dev| {dev:.3e} ({share:.3f} of the "
+                "limit)")
+
+
+def attention_bound(B, H, KV, S, D, itemsize):
+    """Causal attention: 4*B*H*D*S(S+1)/2 flops against the bf16 tensor
+    peak, or q, k, v read and o written once against the memory rate."""
+    flops = 4 * B * H * D * S * (S + 1) / 2
+    nbytes = (2 * B * H + 2 * B * KV) * S * D * itemsize
+    return bound(flops, nbytes, PEAK_BF16)
+
+
+def flash_timings(torch, ops, ref, device):
+    """The kernel beside its plain version (in turns), its bound and
+    ``scaled_dot_product_attention`` on the same bf16 inputs, at
+    qwen3-14b's shapes; the first row is S = 2048."""
+    F = torch.nn.functional
+    rows = []
+    for S in (2048, 1023):
+        case = (1, 40, 8, S, 128, True, None)
+        q, k, v = attention_inputs(torch, case, "bfloat16", device, seed=S)
+        times = paired_ms(
+            torch, lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: ref.mha(q, k, v, causal=True), 10, 3)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10)
+        bms, by = attention_bound(1, 40, 8, S, 128, 2)
+        rows.append(dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
+                         shape=f"q (1, 40, {S}, 128), kv (1, 8, {S}, 128) "
+                               "bf16, causal"))
+    for v in rows:
+        log(f"time flash_attention [{v['shape']}]: {v['ms']:.4f} ms "
+            f"(samples {v['ms_samples'][0]:.4f}, {v['ms_samples'][1]:.4f}), "
+            f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+            f"({v['bound_by']}), scaled_dot_product_attention "
+            f"{v['library_ms']:.4f} ms")
+    return dict(rows[0], variants=rows[1:])
+
+
+def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
+                 max_new=SERVE_NEW, max_batch=SERVE_BATCH,
+                 max_len=SERVE_LEN, seed=0):
+    """Serve len(prompts) requests through ``ServeEngine`` with block
+    prefill, with the launch counters set to 0 just before the run and
+    read just after; every request must finish with ``max_new`` tokens of
+    the padded vocabulary and every prefill must launch the kernel once
+    per layer.  Returns the launches and the prefill / decode times."""
+    import numpy as np
+    device = params.device
+    eng = engine.ServeEngine(cfg, params, max_batch=max_batch,
+                             max_len=max_len, block_prefill=True,
+                             device=device)
+    prefills, decodes = [], []
+
+    def timed(fn, out, label):
+        def run(*args):
+            synchronize(torch, device)
+            t0 = time.perf_counter()
+            result = fn(*args)
+            synchronize(torch, device)
+            out.append((label(*args), 1e3 * (time.perf_counter() - t0)))
+            return result
+        return run
+
+    eng._prefill_slot = timed(eng._prefill_slot, prefills,
+                              lambda b, req: len(req.prompt) - 1)
+    eng._decode = timed(eng._decode, decodes,
+                        lambda toks, pos: sum(s is not None
+                                              for s in eng.slots))
+    rng = np.random.default_rng(seed)
+    for rid, n in enumerate(prompts):
+        eng.submit(engine.Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, n).tolist(), max_new=max_new))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    synchronize(torch, device)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    check(sorted(done) == list(range(len(prompts))),
+          f"serving: completed {sorted(done)} of {len(prompts)} requests")
+    for rid, req in sorted(done.items()):
+        check(len(req.generated) == max_new and all(
+            0 <= t < cfg.padded_vocab for t in req.generated),
+            f"serving: request {rid} generated {req.generated}")
+    want = cfg.num_layers * len(prompts)
+    check(launches["flash_attention"] == want,
+          f"serving: {launches['flash_attention']} flash_attention launches,"
+          f" expected {want} ({cfg.num_layers} per prefilled request)")
+    check(len(prefills) == len(prompts), "serving: a prompt skipped prefill")
+    for name in FIT_KERNELS:
+        check(launches[name] == 0, f"serving launched {name}")
+    for S, ms in prefills:
+        log(f"serve prefill S={S}: {ms:.2f} ms")
+    steps = [ms for _, ms in decodes]
+    log(f"serve: {len(done)} requests x {max_new} tokens in {wall:.2f} s, "
+        f"{len(decodes)} decode steps, median {float(np.median(steps)):.2f}"
+        f" ms (min {min(steps):.2f}, max {max(steps):.2f}); launches "
+        f"{json.dumps(launches)}; first tokens "
+        f"{[done[r].generated[:4] for r in sorted(done)]}")
+    return dict(launches=launches, prefill_ms=prefills, decode_ms=decodes,
+                wall_s=wall)
+
+
+def plain_self_attend(q, k, v, *, causal, window):
+    """The plain attention on any device (the check's yardstick only)."""
+    import torch
+    from repro_torch.models import attention
+    pos = torch.arange(q.shape[1], device=q.device)
+    return attention._attend(q, k, v, pos, pos, causal=causal,
+                             window=window)
+
+
+def kernel_vs_plain_in_model(torch, ops, cfg, params, *, label, tol,
+                             prompt=MODEL_PROMPT, seed=1):
+    """Block-prefill logits of one prompt with the kernel and with the
+    plain attention swapped in; returns (max |dev|, max |logit|)."""
+    import numpy as np
+    from repro_torch.models import attention
+    from repro_torch.models.prefill import prefill
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (1, prompt))
+    batch = {"tokens": toks}
+    before = ops.launches["flash_attention"]
+    kern, _, _ = prefill(params, batch, cfg, prompt + 1)
+    check(ops.launches["flash_attention"] - before == cfg.num_layers,
+          f"{label}: the prefill did not launch the kernel once per layer")
+    kernel_attend = attention.self_attend
+    attention.self_attend = plain_self_attend
+    try:
+        plain, _, _ = prefill(params, batch, cfg, prompt + 1)
+    finally:
+        attention.self_attend = kernel_attend
+    check(bool(torch.isfinite(kern).all()), f"{label}: non-finite logits")
+    dev = float((kern.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    log(f"model {label}: prefill logits {tuple(kern.shape)}, kernel vs plain "
+        f"attention max|dev| {dev:.4e} (limit {tol:g}), max|logit| "
+        f"{scale:.4f}")
+    check(dev <= tol, f"{label}: max|dev| {dev:.4e} > {tol}")
+    return dev, scale
 
 
 def main() -> int:
@@ -418,9 +662,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
     import repro_torch.core as core
-    from repro_torch.kernels import build, ops
+    from repro_torch import configs
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import csvm_update as cu
+    from repro_torch.models import model
+    from repro_torch.serving import engine
 
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -435,15 +683,18 @@ def main() -> int:
         "torch.backends.cudnn.allow_tf32 = False)")
 
     t0 = time.perf_counter()
-    lib = build.build("csvm_update")
-    log(f"build: {time.perf_counter() - t0:.1f} s, {lib.name}")
-    for kernel, regs, spills in ptxas_report(build.build_log("csvm_update")):
-        log(f"ptxas {kernel}: {regs} registers, {spills}")
+    libs = build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s (one nvcc per source, "
+        f"in parallel), {sorted(p.name for p in libs.values())}")
+    for name in libs:
+        for kernel, regs, spills in ptxas_report(build.build_log(name)):
+            log(f"ptxas {kernel}: {regs} registers, {spills}")
     for bf16 in (False, True):
         per_sm, sms = ops.round_block_occupancy(0, bf16)
         log(f"round kernel ({'bf16' if bf16 else 'fp32'} X): {per_sm} "
             f"co-resident blocks per SM x {sms} SMs")
 
+    # phases 3-4: the CSVM kernels and the fit path
     devs = {}
     t0 = time.perf_counter()
     design = Data(torch, core, core.SimConfig(p=100, s=10, m=10, n=200))
@@ -455,18 +706,75 @@ def main() -> int:
     kernel_checks(torch, ops, cu, full, "full (16, 1024, 4096)", devs)
     torch.cuda.synchronize()
     rows = kernel_timings(torch, ops, cu, full, 300)
-
     launches = main_path(torch, core, ops, full)
+    del design, full
 
+    # phase 5: flash_attention against its plain version, and its times
+    flash_checks(torch, ops, ref, "cuda", devs)
+    torch.cuda.synchronize()
+    rows["flash_attention"] = flash_timings(torch, ops, ref, "cuda")
+
+    # phase 6: the serving path at full width
+    cfg = configs.get("qwen3_14b")
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    log(f"model {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.padded_vocab} (padded), "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+        f"parameters, {weight_bytes / 1e9:.2f} GB {cfg.param_dtype}, drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    served = serving_path(torch, ops, engine, cfg, params)
+    launches["flash_attention"] = served["launches"]["flash_attention"]
+    cache_bytes = (2 * cfg.num_layers * SERVE_BATCH * SERVE_LEN
+                   * cfg.num_kv_heads * cfg.head_dim * 2)
+    steps = [ms for _, ms in served["decode_ms"]]
+    decode_bound = 1e3 * weight_bytes / PEAK_BYTES
+    log(f"serve decode: median {float(np.median(steps)):.2f} ms a step "
+        f"against the weight-read bound {decode_bound:.2f} ms "
+        f"({weight_bytes / 1e9:.2f} GB / 3.35 TB/s); the KV cache is "
+        f"{cache_bytes / 1e9:.3f} GB")
+
+    # phase 7: the kernel against the plain attention inside the model
+    model_devs = {"bfloat16": kernel_vs_plain_in_model(
+        torch, ops, cfg, params, label=f"{cfg.name} bf16 40 layers",
+        tol=MODEL_TOL["bfloat16"])}
+    del params
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32")
+    params = model.init_params(cfg2, seed=0, device="cuda")
+    model_devs["float32"] = kernel_vs_plain_in_model(
+        torch, ops, cfg2, params, label=f"{cfg.name} fp32 2 layers",
+        tol=MODEL_TOL["float32"])
+    del params
+
+    flash_tol = {"float32": FLASH_TOL_F32,
+                 "bfloat16": "2^-7 |o_plain| + 1e-6 (one bf16 ulp)"}
     kernels = []
     for name in ops.KERNELS:
         dev = max(devs[name].values())
+        row = dict(rows[name])
+        extra = {}
+        if name == "flash_attention":
+            tol = flash_tol
+            extra = dict(serve=dict(
+                prefill_ms=served["prefill_ms"],
+                decode_ms_median=float(np.median(steps)),
+                decode_bound_ms=decode_bound, wall_s=served["wall_s"]),
+                model_kernel_vs_plain={
+                    dt: dict(max_abs_dev=d, max_abs_logit=m,
+                             tol=MODEL_TOL[dt])
+                    for dt, (d, m) in model_devs.items()})
+        else:
+            tol = {dt: TOL[dt] for dt in devs[name]}
+            row["library_ms"] = None
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=dev, max_abs_dev=dev,
-            max_abs_dev_by_dtype=devs[name],
-            tol={dt: TOL[dt] for dt in devs[name]},
-            library_ms=None, **rows[name]))
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=dev, max_abs_dev=dev,
+            max_abs_dev_by_dtype=devs[name], tol=tol, **row, **extra))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@ The library lands in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``); its name carries a hash of the source and the flags, so a
 changed source is rebuilt.  ptxas's register and spill report is kept
 beside it as ``<name>-<hash>.log``.  No PyTorch header is included, so a
-build takes seconds.
+build takes seconds; ``build_all`` starts one ``nvcc`` per source, all
+together.
 """
 from __future__ import annotations
 
@@ -20,10 +21,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"csvm_update": CSRC / "csvm_update.cu"}
+SOURCES = {"csvm_update": CSRC / "csvm_update.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -55,20 +57,37 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile ``name``'s source unless its library is already built;
     returns the library's path."""
-    out = library_path(name)
-    if out.exists():
-        return out
+    return build_all([name])[name]
+
+
+def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile the sources of ``names`` whose libraries are not built yet,
+    one ``nvcc`` process each, all started together; returns every
+    library's path.  Raises after all have ended if any failed."""
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name, out in paths.items() if not out.exists()]
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {SOURCES[name]}:\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)        # atomic: concurrent builders never see a half file
-    return out
+    compiler = nvcc()
+    procs = {}
+    for name in todo:
+        tmp = paths[name].with_name(f"{paths[name].stem}.{os.getpid()}.tmp.so")
+        procs[name] = (tmp, subprocess.Popen(
+            [compiler, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {SOURCES[name]}:\n{report}")
+            continue
+        paths[name].with_suffix(".log").write_text(report)
+        os.replace(tmp, paths[name])   # atomic: no reader sees a half file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def build_log(name: str) -> str:

@@ -1,11 +1,14 @@
-"""Wrappers of the CSVM kernels: checks, launch counters, residency rule.
+"""Wrappers of the CUDA kernels: checks, launch counters, residency rule.
 
 For tensors on the CPU each wrapper computes its kernel's plain torch
-version (``csvm_update.*_plain``); for CUDA tensors it launches the CUDA
-kernel of ``csrc/csvm_update.cu`` on ``torch.cuda.current_stream()`` or
+version (``csvm_update.*_plain``, ``ref.mha``); for CUDA tensors it
+launches the CUDA kernel of ``csrc/csvm_update.cu`` or
+``csrc/flash_attention.cu`` on ``torch.cuda.current_stream()`` or
 raises — there is no fallback from one to the other.  Operands must be
-contiguous, on one device, fp32 (X may be bf16 where stated), with the
-documented shapes; anything else raises before launch.
+on one device with the documented shapes and dtypes: the CSVM kernels
+take contiguous fp32 (X may be bf16 where stated), ``flash_attention``
+fp32 or bf16 views with a unit stride over D; anything else raises
+before launch.
 
 ``launches[name]`` counts the kernel launches of each wrapper (one per
 call that reached the kernel, none for the plain version), so a run can
@@ -20,15 +23,17 @@ from typing import Dict
 import torch
 
 from repro_torch.core.losses import KERNEL_IDS
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.csvm_update import (csvm_block_update_plain,
                                              csvm_local_update_plain,
                                              csvm_round_block_plain)
 
-KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
+KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block",
+           "flash_attention")
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
 _SIGNATURES = {
     "csvm_block_update": [_P, _I] + [_P] * 9 + [_I, _I, _I, _F, _I, _F, _P],
     "csvm_local_update": [_P] * 10 + [_I, _I, _I, _F, _I, _F, _P],
@@ -56,9 +61,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_call(name: str, err: int) -> None:
+@functools.lru_cache(maxsize=None)
+def _flash_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    lib.flash_attention.argtypes = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [
+        _F, _I, _I, _P]
+    lib.flash_attention.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_call(name: str, err: int, error_string=None) -> None:
     if err != 0:
-        msg = _lib().csvm_error_string(err).decode()
+        error_string = error_string or _lib().csvm_error_string
+        msg = error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
     launches[name] += 1
 
@@ -309,3 +326,69 @@ def csvm_round_block(X, y, B, P, W, deg, rho, omega, lam_vec, nact, *,
             _stream(X.device))
     _check_call("csvm_round_block", err)
     return Bout, Pout, stat
+
+
+# --------------------------------------------------------------------------
+# Flash attention
+# --------------------------------------------------------------------------
+
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_attention(q, k, v, window):
+    name = "flash_attention"
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise ValueError(f"{name}: {what} must be a 4-d tensor")
+        if t.dtype != q.dtype or t.dtype not in _ATTN_DTYPES:
+            raise TypeError(f"{name}: q, k, v must share one dtype of "
+                            f"{_ATTN_DTYPES}, got {what} {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, q on "
+                             f"{q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {what} needs a unit stride over D")
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    if tuple(k.shape) != (B, KV, S, D) or tuple(v.shape) != (B, KV, S, D):
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be (B, KV, S, D) for q "
+                         f"{tuple(q.shape)}")
+    if min(B, H, S, KV) < 1 or H % KV or not 1 <= D <= 256:
+        raise ValueError(f"{name}: needs H % KV == 0 and D <= 256, got "
+                         f"q {tuple(q.shape)}, KV={KV}")
+    if (S + 63) // 64 > 65535:
+        raise ValueError(f"{name}: S={S} exceeds the grid's 65535 q tiles")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"{name}: window={window} would mask every key")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    sm_scale=None):
+    """Grouped-query attention with an online softmax: q (B, H, S, D),
+    k and v (B, KV, S, D), fp32 or bf16, H % KV == 0, D <= 256; causal
+    and sliding-window (``window``) masks; ``sm_scale`` defaults to
+    D ** -0.5.  Returns (B, H, S, D) in q's dtype.
+
+    On the card the inputs may be strided views (unit stride over D), so
+    the model's (B, S, H, D) projections go in as ``.transpose(1, 2)``
+    without a copy; the output takes q's strides when q is dense (a
+    transposed (B, S, H, D) buffer), so it transposes back for free.
+    """
+    if not _is_cuda(q, "flash_attention"):
+        return ref.mha(q, k, v, causal=causal, window=window,
+                       sm_scale=sm_scale)
+    _check_attention(q, k, v, window)
+    B, H, S, D = q.shape
+    out = torch.empty_like(q)
+    scale = float(sm_scale) if sm_scale is not None else D ** -0.5
+    lib = _flash_lib()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, H, k.shape[1], S, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], scale, int(bool(causal)),
+            int(window) if window is not None else 0, _stream(q.device))
+    _check_call("flash_attention", err, lib.flash_attention_error_string)
+    return out

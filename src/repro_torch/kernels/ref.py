@@ -3,7 +3,8 @@
 Counterpart of ``repro.kernels.ref``: each oracle is the exact math every
 driver runs (``core.solver``), in fp32, independent of the kernels and of
 their plain versions in ``csvm_update.py`` (which repeat the kernels'
-bf16 rounding points).  ``mha`` waits for the port of the LM stack.
+bf16 rounding points).  ``mha`` is the oracle of ``flash_attention`` and
+its plain version: ``ops.flash_attention`` runs it for CPU tensors.
 """
 from __future__ import annotations
 
@@ -63,3 +64,43 @@ def decsvm_round_block(X: Tensor, y: Tensor, B: Tensor, P: Tensor,
             stat = solver.kkt_residual(prob, cfg, B, 1.0, lam_arr)
         return B, P, stat
     return B, P, delta
+
+
+NEG_INF = -1e30
+
+
+def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+        window: int | None = None, sm_scale: float | None = None) -> Tensor:
+    """Grouped-query attention oracle (port of ``repro.kernels.ref.mha``).
+
+    q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0; query head h
+    reads kv head h // (H // KV).  window: sliding-window width (attend to
+    [i-window+1, i]); None = full.  Logits, softmax and the product with v
+    are fp32; the output is rounded once to q's dtype.
+
+    Two choices follow the Pallas kernel rather than the JAX oracle, so that
+    the kernel and this plain version round alike: the scale is the Python
+    float ``D ** -0.5`` (the JAX oracle takes 1/sqrt(D) in q's dtype, a
+    bf16-rounded scale for bf16 q), and masked logits are -1e30, not -inf
+    (the same softmax wherever a row sees at least one key, as every row
+    does under a causal mask or a window >= 1).
+    """
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    g = H // KV
+    scale = float(sm_scale) if sm_scale is not None else D ** -0.5
+    f32 = torch.float32
+    kr = k.to(f32).repeat_interleave(g, dim=1)
+    vr = v.to(f32).repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kr) * scale
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vr)
+    return out.to(q.dtype)

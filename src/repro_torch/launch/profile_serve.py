@@ -1,0 +1,90 @@
+"""Where the serving path's time goes on the card: one block prefill and a
+few decode steps of full-width qwen3-14b under ``torch.profiler``.
+
+    PYTHONPATH=src python3 -m repro_torch.launch.profile_serve
+
+The shapes are those of ``chip_smoke.py``'s serving run: a 1023-token
+prompt, and decode steps of 4 slots at position 1023 over a 2048-long
+cache.  For each phase it prints the host wall time (synchronized;
+without and with the profiler), the device time (the sum of the kernels'
+times, one stream), the device's idle share within the profiled run
+(1 - device / wall), the number of kernel launches, and the kernels that
+take the most device time, one JSON row per phase.  The weights are
+random (seed 0), the tokens random (seed 1).  Needs a card.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.models import model
+from repro_torch.models.prefill import prefill
+
+PROMPT, BATCH, MAX_LEN, STEPS = 1023, 4, 2048, 8
+
+
+def _kernels(prof):
+    """(name, device microseconds) of every kernel the profiler saw."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == cuda]
+
+
+def _wall_ms(fn, reps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _phase(label, fn, reps):
+    """Time ``reps`` calls of ``fn`` after one warm-up, then profile as
+    many: the idle share is taken within the profiled run."""
+    fn()
+    unprofiled = _wall_ms(fn, reps)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall = _wall_ms(fn, reps)
+    kernels = _kernels(prof)
+    device = sum(us for _, us in kernels) / 1e3 / reps
+    by_name = collections.Counter()
+    for name, us in kernels:
+        by_name[name] += us / 1e3 / reps
+    row = dict(phase=label, wall_ms_unprofiled=unprofiled,
+               wall_ms=wall, device_ms=device,
+               idle_share=1.0 - device / wall,
+               launches=len(kernels) / reps,
+               top=[(name[:90], ms) for name, ms in by_name.most_common(8)])
+    print(json.dumps(row), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve: needs a CUDA device")
+    cfg = configs.get("qwen3_14b")
+    print(f"{torch.cuda.get_device_name(0)}; {cfg.name}: {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.param_dtype}", flush=True)
+    params = model.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (1, PROMPT))
+    _phase(f"prefill_S{PROMPT}",
+           lambda: prefill(params, {"tokens": toks}, cfg, MAX_LEN), 2)
+    cache = model.init_cache(cfg, BATCH, MAX_LEN, device="cuda")
+    token = torch.as_tensor(rng.integers(0, cfg.vocab_size, BATCH),
+                            device="cuda")
+    pos = torch.full((BATCH,), PROMPT, device="cuda")
+    _phase(f"decode_B{BATCH}",
+           lambda: model.decode_step(params, cache, token, pos, cfg), STEPS)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,211 @@
+"""Grouped-query attention: init, full-sequence (prefill) forward, and
+one-token decode against a preallocated KV cache.
+
+Counterpart of ``repro.models.attention``.  The full-sequence self-
+attention is where the JAX package's Pallas ``flash_attention`` kernel
+replaces its q-chunked XLA twin ``_attend`` 1:1.  Here ``self_attend``
+runs the hand-written CUDA kernel (``repro_torch.kernels.ops.
+flash_attention``) for tensors on the card and the plain ``_attend`` for
+tensors on the CPU; the q chunking of the JAX twin is a memory measure for
+XLA that neither needs (the kernel streams the keys itself).  The one-token
+decode attention is plain torch, as the JAX package leaves it to XLA.
+
+``repro.models.shardctx.constrain`` has no counterpart: it pins activation
+layouts on a mesh and is a no-op off one, and the port runs on one card
+until the mesh comes (ROADMAP Queue 1 item 12).  Cross-attention
+(``kv_x`` / ``cross_kv``) comes with the encoder-decoder slice (ROADMAP
+Queue 1 item 13) and raises until then.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+NEG_INF = -1e30     # never -inf: a row with every key masked stays finite
+
+_CROSS = ("cross-attention comes with the encoder-decoder slice of the port "
+          "(ROADMAP Queue 1 item 13)")
+
+
+class Attention(nn.Module):
+    """wq (d, A), wk and wv (d, KV*D), wo (A, d); biases bq, bk, bv with
+    ``attn_bias``; q_norm and k_norm (D,) with ``qk_norm``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, gen: torch.Generator,
+                 cross: bool = False):
+        super().__init__()
+        d, A, KVD = cfg.d_model, cfg.attn_dim, cfg.kv_dim
+        dev = gen.device
+        self.wq = layers.dense_init(gen, (d, A), dtype)
+        self.wk = layers.dense_init(gen, (d, KVD), dtype)
+        self.wv = layers.dense_init(gen, (d, KVD), dtype)
+        self.wo = layers.dense_init(gen, (A, d), dtype)
+        if cfg.attn_bias:
+            self.bq = layers.frozen(torch.zeros(A, dtype=dtype, device=dev))
+            self.bk = layers.frozen(torch.zeros(KVD, dtype=dtype, device=dev))
+            self.bv = layers.frozen(torch.zeros(KVD, dtype=dtype, device=dev))
+        if cfg.qk_norm and not cross:
+            D = cfg.head_dim
+            self.q_norm = layers.frozen(torch.zeros(D, dtype=dtype, device=dev))
+            self.k_norm = layers.frozen(torch.zeros(D, dtype=dtype, device=dev))
+
+
+def init_attention(cfg: ModelConfig, dtype, gen: torch.Generator,
+                   cross: bool = False) -> Attention:
+    return Attention(cfg, dtype, gen, cross)
+
+
+def _project_qkv(params: Attention, x, kv_x, cfg: ModelConfig, *,
+                 rope: bool, q_positions: Optional[Tensor],
+                 k_positions: Optional[Tensor]):
+    """q (B, S, H, D) and k, v (B, Skv, KV, D): projections, biases,
+    qk-norm and RoPE.  (``attn_act_shard`` only pins layouts on a mesh.)"""
+    B = x.shape[0]
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ params.wq
+    k = kv_x @ params.wk
+    v = kv_x @ params.wv
+    if cfg.attn_bias:
+        q, k, v = q + params.bq, k + params.bk, v + params.bv
+    q = q.reshape(B, -1, H, D)
+    k = k.reshape(B, -1, KV, D)
+    v = v.reshape(B, -1, KV, D)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(q, params.q_norm)
+        k = layers.rmsnorm(k, params.k_norm)
+    if rope and cfg.pos_embedding == "rope":
+        q = layers.apply_rope(q, q_positions, fraction=cfg.rope_fraction,
+                              theta=cfg.rope_theta)
+        k = layers.apply_rope(k, k_positions, fraction=cfg.rope_fraction,
+                              theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _attend(q, k, v, q_pos, k_pos, *, causal: bool,
+            window: Optional[int]):
+    """Plain attention.  q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  Returns
+    (B, Sq, H, D); fp32 logits and softmax."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    f32 = torch.float32
+    qg = q.reshape(B, Sq, KV, g, D).to(f32)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(f32)) * (D ** -0.5)
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(f32))
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def self_attend(q, k, v, *, causal: bool, window: Optional[int]):
+    """Self-attention over positions 0..S-1: q (B, S, H, D), k and v
+    (B, S, KV, D) -> (B, S, H, D).  On the card: the CUDA flash kernel,
+    fed the (B, S, H, D) tensors as strided (B, H, S, D) views (no copy);
+    on the CPU: the plain ``_attend``."""
+    if q.device.type == "cuda":
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window)
+        return out.transpose(1, 2)
+    pos = torch.arange(q.shape[1], device=q.device)
+    return _attend(q, k, v, pos, pos, causal=causal, window=window)
+
+
+def attention_forward(params: Attention, x, cfg: ModelConfig, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      kv_x: Optional[Tensor] = None) -> Tensor:
+    """Full-sequence self-attention.  x: (B, S, d) -> (B, S, d)."""
+    if kv_x is not None:
+        raise NotImplementedError(_CROSS)
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(params, x, x, cfg, rope=True, q_positions=pos,
+                           k_positions=pos)
+    out = self_attend(q, k, v, causal=causal, window=window)
+    return out.reshape(B, S, -1) @ params.wo
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device) -> dict:
+    KV, D = cfg.num_kv_heads, cfg.head_dim
+    shape = (batch, max_len, KV, D)
+    if cfg.kv_cache_dtype == "int8":
+        scales = (batch, max_len, KV, 1)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(scales, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(scales, dtype=torch.float32, device=device),
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(x):
+    """(B, 1, KV, D) -> int8 values + per-(token, head) absmax scale."""
+    xf = x.to(torch.float32)
+    scale = torch.amax(torch.abs(xf), dim=-1, keepdim=True) / 127.0
+    q = torch.round(xf / torch.clamp(scale, min=1e-9))
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def attention_decode(params: Attention, x1, cache: dict, pos,
+                     cfg: ModelConfig, *, window: Optional[int] = None,
+                     cross_kv: Optional[dict] = None):
+    """One-token decode.  x1: (B, 1, d); pos: a scalar (lockstep batch) or
+    a (B,) vector (every slot at its own position).
+
+    The cache is a ring buffer (slot = pos mod cache length) and is
+    updated in place (the JAX package returns a new one); returns
+    (out (B, 1, d), cache).
+    """
+    if cross_kv is not None:
+        raise NotImplementedError(_CROSS)
+    B = x1.shape[0]
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pos_b = torch.as_tensor(pos, device=x1.device).reshape(-1).long()
+    pos_b = pos_b.expand(B)                                       # (B,)
+    q, k1, v1 = _project_qkv(params, x1, x1, cfg, rope=True,
+                             q_positions=pos_b[:, None],
+                             k_positions=pos_b[:, None])
+    Smax = cache["k"].shape[1]
+    slot = pos_b % Smax                                           # (B,)
+    rows = torch.arange(B, device=x1.device)
+    if cfg.kv_cache_dtype == "int8":
+        for name, new in (("k", k1), ("v", v1)):
+            vals, scale = _quantize_kv(new)
+            cache[name][rows, slot] = vals[:, 0]
+            cache[f"{name}_scale"][rows, slot] = scale[:, 0]
+        k = cache["k"].to(torch.float32) * cache["k_scale"]
+        v = cache["v"].to(torch.float32) * cache["v_scale"]
+    else:
+        cache["k"][rows, slot] = k1[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v1[:, 0].to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+    slots = torch.arange(Smax, device=x1.device)
+    # absolute position held by each slot: the largest p <= pos with
+    # p = slot (mod Smax); negative => slot not yet written
+    k_pos = pos_b[:, None] - ((pos_b[:, None] - slots[None, :]) % Smax)
+    f32 = torch.float32
+    qg = q.reshape(B, 1, KV, H // KV, D).to(f32)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(f32)) * (D ** -0.5)
+    mask = (k_pos >= 0) & (k_pos <= pos_b[:, None])                # (B, S)
+    if window is not None:
+        mask &= k_pos > pos_b[:, None] - window
+    logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(f32))
+    out = out.reshape(B, 1, H * D).to(x1.dtype)
+    return out @ params.wo, cache

@@ -1,0 +1,92 @@
+"""Block prefill: one full-sequence forward that also seeds the decode
+cache, so that serving pays one forward for the prompt instead of
+len(prompt) decode steps.
+
+Counterpart of ``repro.models.prefill`` for blocks of kind "attn".  Each
+layer's self-attention runs ``attention.self_attend``: the CUDA flash
+kernel on the card (one launch per layer), the plain ``_attend`` on the
+CPU.
+
+Ring placement: decode writes slot = pos mod cache_len, so after
+prefilling positions [0, S) the slot s must hold the largest position
+p = s (mod L), p < S — a pure gather ``p(s) = S-1 - ((S-1-s) mod L)``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import attention, blocks, layers, mlp
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+
+
+def _ring_fill(kv_seq: Tensor, cache_len: int) -> Tensor:
+    """kv_seq: (B, S, KV, D) -> ring cache (B, cache_len, KV, D)."""
+    S = kv_seq.shape[1]
+    if S >= cache_len:
+        s_idx = torch.arange(cache_len, device=kv_seq.device)
+        p = (S - 1) - ((S - 1 - s_idx) % cache_len)
+        return kv_seq[:, p]
+    return F.pad(kv_seq, (0, 0, 0, 0, 0, cache_len - S))
+
+
+def _attn_prefill(params: attention.Attention, x, cfg: ModelConfig, *,
+                  window, cache_len):
+    """Attention block forward that also returns the seeded ring cache."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    q, k, v = attention._project_qkv(params, x, x, cfg, rope=True,
+                                     q_positions=pos, k_positions=pos)
+    out = attention.self_attend(q, k, v, causal=True, window=window)
+    out = out.reshape(B, S, -1) @ params.wo
+    cache = {"k": _ring_fill(k.to(x.dtype), cache_len),
+             "v": _ring_fill(v.to(x.dtype), cache_len)}
+    return out, cache
+
+
+def _block_prefill(params: blocks.Block, x, cfg: ModelConfig, kind: str, *,
+                   window, cache_len):
+    blocks.require_attn(kind)
+    h = layers.apply_norm(x, params.ln1, cfg.norm)
+    y, cache = _attn_prefill(params.attn, h, cfg, window=window,
+                             cache_len=cache_len)
+    x = x + y
+    h2 = layers.apply_norm(x, params.ln2, cfg.norm)
+    return x + mlp.mlp_forward(params.mlp, h2, cfg), cache
+
+
+def _cache_len(max_len: int, window) -> int:
+    """Length of a layer's ring cache (as ``blocks.init_block_cache``)."""
+    return min(max_len, window) if window else max_len
+
+
+def prefill(params: M.LM, batch: Dict[str, Any], cfg: ModelConfig,
+            max_len: int, mode: str = "decode"
+            ) -> Tuple[Tensor, Dict[str, Any], int]:
+    """Run the prompt in one forward and seed the decode cache.
+
+    Returns (logits (B, S, V), cache, next_pos = S).  The seeded cache is
+    in the model's dtype; an int8 cache has no prefill (the JAX package's
+    prefill seeds no scales either) and raises.
+    """
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("prefill seeds a cache in the model's "
+                                  "dtype; the int8 cache is decode-only")
+    tokens = M._tokens(batch["tokens"], params.device)
+    B, S = tokens.shape
+    x = M._embed_tokens(params, tokens, cfg)
+    window = M._decoder_window(cfg, "long" if mode == "long" else "decode")
+    cache = M.init_cache(cfg, B, max_len, mode, device=x.device)
+    for i, (kind, lp) in enumerate(zip(blocks.block_kinds(cfg),
+                                       params.layers)):
+        x, entry = _block_prefill(lp, x, cfg, kind, window=window,
+                                  cache_len=_cache_len(max_len, window))
+        for name, t in entry.items():
+            cache["layers"][name][i] = t
+    x = layers.apply_norm(x, params.final_norm, cfg.norm)
+    return x @ M._head(params, cfg), cache, S

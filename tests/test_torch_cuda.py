@@ -1,5 +1,6 @@
 """Torch port on the card: each CUDA kernel against its plain torch version,
-and the port's fits through the kernels against the plain backend.
+the port's fits through the kernels against the plain backend, and the
+serving path through the flash-attention kernel.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CUDA kernels have no CPU mode).  The file imports no jax, so
@@ -11,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import repro_torch.core as tc
 from repro_torch.core.graph import ring
 from repro_torch.kernels import csvm_update as cu
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 from _torch_cases import ROUND_CASES, problem
 
@@ -167,3 +169,89 @@ def test_refused_round_block_loops_the_block_update_kernel(cuda,
     assert ops.launches["csvm_block_update"] == 60
     assert ops.launches["csvm_round_block"] == 0
     _close(got, want, ATOL)
+
+
+# --------------------------------------------------------------------------
+# flash_attention and the serving path
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    """The shapes and limits of chip_smoke.py: fp32 within 2e-5, bf16
+    within one bf16 ulp of the plain output; qwen3-14b's shapes go in as
+    the model's strided views."""
+    q, k, v = chip_smoke.attention_inputs(torch, case, dtype, cuda, seed=1)
+    causal, window = case[5], case[6]
+    before = ops.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.launches["flash_attention"] == before + 1
+    want = ref.mha(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _, share = chip_smoke.flash_deviation(torch, got, want, dtype)
+    assert share <= 1.0
+
+
+def test_flash_attention_raises_without_its_library(cuda, monkeypatch,
+                                                    tmp_path):
+    """A CUDA tensor gets the kernel or an error — never the plain
+    version."""
+    from repro_torch.kernels import build
+    q = torch.randn(1, 4, 64, 32, device=cuda)
+    k = torch.randn(1, 2, 64, 32, device=cuda)
+    monkeypatch.setitem(build.SOURCES, "flash_attention",
+                        tmp_path / "missing.cu")
+    monkeypatch.delitem(build._loaded, "flash_attention", raising=False)
+    ops._flash_lib.cache_clear()
+    before = dict(ops.launches)
+    try:
+        with pytest.raises((OSError, RuntimeError)):
+            ops.flash_attention(q, k, k)
+    finally:
+        ops._flash_lib.cache_clear()
+    assert ops.launches == before
+
+
+def test_attention_and_prefill_launch_the_kernel(cuda, monkeypatch):
+    """attention_forward launches the kernel once, a block prefill once
+    per layer, and both agree with the plain attention on the card."""
+    from repro_torch import configs
+    from repro_torch.models import attention, model
+    from repro_torch.models.prefill import prefill
+    cfg = configs.get_reduced("qwen3_14b")
+    params = model.init_params(cfg, seed=0, device=cuda)
+    x = torch.randn(2, 75, cfg.d_model, device=cuda) * 0.5
+    ops.reset_launches()
+    got = attention.attention_forward(params.layers[0].attn, x, cfg)
+    assert ops.launches["flash_attention"] == 1
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 75))
+    logits, _, _ = prefill(params, {"tokens": toks}, cfg, 80)
+    assert ops.launches["flash_attention"] == 1 + cfg.num_layers
+    monkeypatch.setattr(attention, "self_attend",
+                        chip_smoke.plain_self_attend)
+    want = attention.attention_forward(params.layers[0].attn, x, cfg)
+    plain_logits, _, _ = prefill(params, {"tokens": toks}, cfg, 80)
+    assert ops.launches["flash_attention"] == 1 + cfg.num_layers
+    _close(got, want, 2e-5)
+    _close(logits, plain_logits, 1e-4)
+
+
+def test_serve_engine_on_the_card_matches_the_cpu(cuda):
+    """Greedy tokens of the reduced fp32 qwen3-14b with block prefill, on
+    the card (kernel) and on the CPU (plain attention)."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.serving import Request, ServeEngine
+    cfg = configs.get_reduced("qwen3_14b")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (70, 9, 130)]
+    out = {}
+    for device in ("cpu", cuda):
+        eng = ServeEngine(cfg, model.init_params(cfg, seed=0, device="cpu"),
+                          max_batch=2, max_len=160, block_prefill=True,
+                          device=device)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=6))
+        out[str(device)] = {r: q.generated for r, q in eng.run().items()}
+    assert out["cpu"] == out[str(cuda)]

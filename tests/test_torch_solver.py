@@ -392,7 +392,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     checks run too)."""
     import chip_smoke
 
-    for name in ops.KERNELS:
+    for name in chip_smoke.FIT_KERNELS:
         def counted(*a, _fn=getattr(ops, name), _name=name, **k):
             ops.launches[_name] += 1
             return _fn(*a, **k)
@@ -402,12 +402,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                                                 rho=0.5), device="cpu")
     devs = {}
     chip_smoke.kernel_checks(torch, ops, cu, d, "tiny", devs)
-    assert set(devs) == set(ops.KERNELS)
+    assert set(devs) == set(chip_smoke.FIT_KERNELS)
     # timings: CUDA events stand in for a call that runs the function once
     monkeypatch.setattr(chip_smoke, "cuda_ms",
                         lambda torch_, fn, reps, warmup=1: (fn(), 1.0)[1])
     rows = chip_smoke.kernel_timings(torch, ops, cu, d, max_iter=7)
-    assert set(rows) == set(ops.KERNELS)
+    assert set(rows) == set(chip_smoke.FIT_KERNELS)
     assert rows["csvm_round_block"]["bound_by"] in ("bytes", "operations")
     # KKT stop at 0.05: both tiny fits reach it at t = 24, before max_iter
     launches = chip_smoke.main_path(torch, tc, ops, d, max_iter=30,
@@ -420,4 +420,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 48 registers, used 1 barriers\n") == [
         ("round_block_kernel<float>", 48,
+         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+    assert chip_smoke.ptxas_report(
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112"
+        "flash_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_iiiiNS_7Strides"
+        "ES5_S5_S5_fii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n") == [
+        ("flash_kernel<bf16, 128>", 168,
          "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
