@@ -35,7 +35,21 @@ result lines):
    run (40 flash launches per prefilled request);
 7. the kernel against the plain attention inside the model: block-prefill
    logits of a 1023-token prompt at full width in bf16, and with 2 layers
-   in fp32.
+   in fp32;
+8. ``ssd_scan`` against its plain version (``ref.ssd_scan``) at the
+   shapes of ``tests/test_kernels.py`` and at mamba2-370m's (x (1, S, 32,
+   64), B and C (1, S, 128), S = 1023, 1999 and 2048, fed as the model's
+   strided slices of one conv output), fp32 and bf16, y and the final
+   state; then its times beside the plain version's and the bound (no
+   single torch call computes the scan: no library time);
+9. the serving path at full width — mamba2-370m (48 layers, d_model 1024,
+   bf16, random weights from seed 0) in the same engine and with the same
+   8 requests, with the launch counters read around the run (48
+   ``ssd_scan`` launches per prefilled request, no ``flash_attention``);
+10. the kernel against the plain scan inside the model: block-prefill
+   logits and the seeded SSM state of a 1999-token prompt (prime, so the
+   last chunk is ragged), with all 48 layers in bf16 and with 2 layers in
+   fp32.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -111,16 +125,46 @@ SERVE_BATCH, SERVE_LEN = 4, 2048
 MODEL_PROMPT = 1023
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 1.0}
 
+# ssd_scan against its plain version.  fp32: the repo's SSD tier
+# (tests/test_kernels.py:120); the two sum the cumulative decays in the
+# same order and differ only in the order of the other fp32 sums.  bf16:
+# both widen the same bf16 x, B, C exactly, compute in fp32 and round y
+# once, so y may differ by one bf16 ulp (the flash limit).  The final
+# state is fp32 on both sides: within 5e-5 (1 + |s_plain|), the fp32 tier
+# relative to the state's size.
+SSD_TOL_F32 = 5e-5
+# (b, s, h, p, n, chunk): tests/test_kernels.py:105-108, then mamba2-370m's
+# scan at prompt lengths of the serving run (1999 is prime: ragged tail)
+SSD_CASES = [
+    (1, 64, 2, 8, 16, 32), (2, 128, 3, 16, 32, 64), (1, 96, 4, 32, 128, 32),
+    (1, 128, 1, 8, 16, 128),
+    (1, 1023, 32, 64, 128, 64), (1, 1999, 32, 64, 128, 64),
+    (1, 2048, 32, 64, 128, 64),
+]
+# Block-prefill logits and the seeded SSM state with the kernel against
+# the plain scan inside mamba2-370m, one 1999-token prompt (random weights,
+# seed 0; logits up to ~3.7, states up to ~1.6).  fp32 (2 layers): the
+# kernel's fp32 summation order through two layers and the LM head;
+# measured 4.5e-6 (logits) and 3.6e-7 (state) on an H100, held to the
+# flash phase's 1e-4.  bf16 (48 layers): one-ulp differences of each
+# layer's y, carried and amplified through 48 layers of bf16 rounding;
+# measured 0.148 (logits) and 0.0335 (state) on an H100.  The limit is
+# about 3x the larger.
+MAMBA_PROMPT = 1999
+MAMBA_TOL = {"float32": 1e-4, "bfloat16": 0.5}
+
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
     "csvm_local_update": "src/repro/kernels/csvm_update.py:83",
     "csvm_block_update": "src/repro/kernels/csvm_update.py:349",
     "csvm_round_block": "src/repro/kernels/csvm_update.py:277",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:76",
 }
 SOURCES = {name: "src/repro_torch/kernels/csrc/csvm_update.cu"
            for name in FIT_KERNELS}
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCES["ssd_scan"] = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 
 
 def log(*args):
@@ -550,12 +594,13 @@ def flash_timings(torch, ops, ref, device):
 
 def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
                  max_new=SERVE_NEW, max_batch=SERVE_BATCH,
-                 max_len=SERVE_LEN, seed=0):
+                 max_len=SERVE_LEN, seed=0, kernel="flash_attention"):
     """Serve len(prompts) requests through ``ServeEngine`` with block
     prefill, with the launch counters set to 0 just before the run and
     read just after; every request must finish with ``max_new`` tokens of
-    the padded vocabulary and every prefill must launch the kernel once
-    per layer.  Returns the launches and the prefill / decode times."""
+    the padded vocabulary, every prefill must launch ``kernel`` once per
+    layer, and no other kernel may launch.  Returns the launches and the
+    prefill / decode times."""
     import numpy as np
     device = params.device
     eng = engine.ServeEngine(cfg, params, max_batch=max_batch,
@@ -595,12 +640,12 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
             0 <= t < cfg.padded_vocab for t in req.generated),
             f"serving: request {rid} generated {req.generated}")
     want = cfg.num_layers * len(prompts)
-    check(launches["flash_attention"] == want,
-          f"serving: {launches['flash_attention']} flash_attention launches,"
-          f" expected {want} ({cfg.num_layers} per prefilled request)")
+    check(launches[kernel] == want,
+          f"serving: {launches[kernel]} {kernel} launches, expected {want} "
+          f"({cfg.num_layers} per prefilled request)")
     check(len(prefills) == len(prompts), "serving: a prompt skipped prefill")
-    for name in FIT_KERNELS:
-        check(launches[name] == 0, f"serving launched {name}")
+    for name, count in launches.items():
+        check(name == kernel or count == 0, f"serving launched {name}")
     for S, ms in prefills:
         log(f"serve prefill S={S}: {ms:.2f} ms")
     steps = [ms for _, ms in decodes]
@@ -650,6 +695,159 @@ def kernel_vs_plain_in_model(torch, ops, cfg, params, *, label, tol,
         f"{scale:.4f}")
     check(dev <= tol, f"{label}: max|dev| {dev:.4e} > {tol}")
     return dev, scale
+
+
+def ssd_inputs(torch, case, dtype, device, seed):
+    """x (b, s, h, p), dt (b, s, h), A, D (h,), B and C (b, s, n).  The
+    tests/test_kernels.py cases draw them as that file does (standard
+    normal x, B, C; dt = |N| 0.1 + 0.01; A = -(|N| + 0.5); D = |N|).
+    mamba2-370m's cases draw them as the model forms them: x, B and C are
+    column slices of one (b, s, h·p + 2n) conv output, silu(0.5 N); dt =
+    softplus(N); A = -linspace(1, 16, h) and D = 1, as ``init_mamba``."""
+    b, s, h, p, n = case[:5]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    f32 = dict(generator=gen, device=device, dtype=torch.float32)
+    wide = getattr(torch, dtype)
+    if (h, p, n) == (32, 64, 128):
+        buf = torch.nn.functional.silu(
+            0.5 * torch.randn((b, s, h * p + 2 * n), **f32)).to(wide)
+        x = buf[..., :h * p].reshape(b, s, h, p)
+        B, C = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), **f32))
+        A = -torch.linspace(1.0, 16.0, h, device=device)
+        D = torch.ones(h, device=device)
+        return x, dt, A, B, C, D
+    x = torch.randn((b, s, h, p), **f32).to(wide)
+    B = torch.randn((b, s, n), **f32).to(wide)
+    C = torch.randn((b, s, n), **f32).to(wide)
+    dt = torch.randn((b, s, h), **f32).abs() * 0.1 + 0.01
+    A = -(torch.randn((h,), **f32).abs() + 0.5)
+    D = torch.randn((h,), **f32).abs()
+    return x, dt, A, B, C, D
+
+
+def ssd_deviation(torch, got, want, dtype):
+    """((y max |dev|, share of its limit), (state max |dev|, share)): y
+    against SSD_TOL_F32 (fp32) or one bf16 ulp of the plain y (bf16); the
+    state against SSD_TOL_F32 (1 + |s_plain|)."""
+    dy = (got[0].float() - want[0].float()).abs()
+    if dtype == "float32":
+        limit = torch.full_like(dy, SSD_TOL_F32)
+    else:
+        limit = BF16_ULP * want[0].float().abs() + 1e-6
+    ds = (got[1] - want[1]).abs()
+    slimit = SSD_TOL_F32 * (1.0 + want[1].abs())
+    return ((float(dy.max()), float((dy / limit).max())),
+            (float(ds.max()), float((ds / slimit).max())))
+
+
+def ssd_checks(torch, ops, ref, device, devs: dict):
+    """``ssd_scan`` against ``ref.ssd_scan`` on the same inputs: y and the
+    final state."""
+    for i, case in enumerate(SSD_CASES):
+        b, s, h, p, n, chunk = case
+        for dtype in ("float32", "bfloat16"):
+            args = ssd_inputs(torch, case, dtype, device, seed=i)
+            got = ops.ssd_scan(*args, chunk=chunk)
+            want = ref.ssd_scan(*args, chunk=chunk)
+            what = f"ssd_scan b={b} s={s} h={h} p={p} n={n} chunk={chunk} {dtype}"
+            check(tuple(got[0].shape) == (b, s, h, p)
+                  and got[0].dtype == args[0].dtype
+                  and tuple(got[1].shape) == (b, h, p, n)
+                  and got[1].dtype == torch.float32,
+                  f"{what}: outputs {tuple(got[0].shape)} {got[0].dtype}, "
+                  f"{tuple(got[1].shape)} {got[1].dtype}")
+            check(bool(torch.isfinite(got[0]).all()
+                       and torch.isfinite(got[1]).all()),
+                  f"{what}: non-finite output")
+            (dy, sy), (dst, sst) = ssd_deviation(torch, got, want, dtype)
+            record(devs, "ssd_scan", dtype, max(dy, dst))
+            check(sy <= 1.0, f"{what}: y max|dev| {dy:.3e} is {sy:.2f}x the "
+                  "limit")
+            check(sst <= 1.0, f"{what}: state max|dev| {dst:.3e} is "
+                  f"{sst:.2f}x the limit")
+            log(f"check {what}: y max|dev| {dy:.3e} ({sy:.3f} of the limit),"
+                f" state max|dev| {dst:.3e} ({sst:.3f} of the limit)")
+
+
+def ssd_bound(b, s, h, p, n, chunk, itemsize):
+    """One scan: 2·b·h·s·(Q·n + Q·p + 2·p·n) flops (C B^T and its product
+    with x·dt over full Q x Q tiles, the carry-in and the state update)
+    against the peak of the input type, or x read and y written (itemsize),
+    B and C read (itemsize), dt read and the final state written (fp32)
+    against the memory rate."""
+    flops = 2 * b * h * s * (chunk * n + chunk * p + 2 * p * n)
+    nbytes = ((2 * b * s * h * p + 2 * b * s * n) * itemsize
+              + b * s * h * 4 + 2 * h * 4 + b * h * p * n * 4)
+    return bound(flops, nbytes, PEAK_BF16 if itemsize == 2 else PEAK_FP32)
+
+
+def ssd_timings(torch, ops, ref, device):
+    """The kernel beside its plain version (in turns) and its bound at
+    mamba2-370m's bf16 shapes; the first row is S = 2048.  No single torch
+    call computes the scan, so there is no library time."""
+    rows = []
+    for S in (2048, 1023):
+        case = (1, S, 32, 64, 128, 64)
+        args = ssd_inputs(torch, case, "bfloat16", device, seed=S)
+        times = paired_ms(torch, lambda: ops.ssd_scan(*args, chunk=64),
+                          lambda: ref.ssd_scan(*args, chunk=64), 20, 3)
+        bms, by = ssd_bound(*case, 2)
+        rows.append(dict(times, bound_ms=bms, bound_by=by, library_ms=None,
+                         shape=f"x (1, {S}, 32, 64), B/C (1, {S}, 128) "
+                               "bf16 strided, chunk 64"))
+    for v in rows:
+        log(f"time ssd_scan [{v['shape']}]: {v['ms']:.4f} ms (samples "
+            f"{v['ms_samples'][0]:.4f}, {v['ms_samples'][1]:.4f}), plain "
+            f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+            f"({v['bound_by']}), library: none")
+    return dict(rows[0], variants=rows[1:])
+
+
+def plain_ssd(x, dt, A, B, C, D, cfg):
+    """The plain scan on any device, at the kernel's chunk (the check's
+    yardstick only)."""
+    from repro_torch.kernels import ref
+    return ref.ssd_scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
+
+
+def ssd_vs_plain_in_model(torch, ops, cfg, params, *, label, tol,
+                          prompt=MAMBA_PROMPT, seed=1):
+    """Block-prefill logits and seeded SSM states of one prompt with the
+    kernel and with the plain scan swapped in; returns (logits max |dev|,
+    max |logit|, state max |dev|)."""
+    import numpy as np
+    from repro_torch.models import ssm
+    from repro_torch.models.prefill import prefill
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (1, prompt))
+    batch = {"tokens": toks}
+    before = ops.launches["ssd_scan"]
+    kern, kcache, _ = prefill(params, batch, cfg, prompt + 1)
+    check(ops.launches["ssd_scan"] - before == cfg.num_layers,
+          f"{label}: the prefill did not launch the kernel once per layer")
+    kernel_ssd = ssm.ssd
+    ssm.ssd = plain_ssd
+    try:
+        plain, pcache, _ = prefill(params, batch, cfg, prompt + 1)
+    finally:
+        ssm.ssd = kernel_ssd
+    check(bool(torch.isfinite(kern).all()), f"{label}: non-finite logits")
+    check(bool(torch.isfinite(kcache["layers"]["ssm"]).all()),
+          f"{label}: non-finite SSM state")
+    dev = float((kern.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    sdev = float((kcache["layers"]["ssm"] - pcache["layers"]["ssm"])
+                 .abs().max())
+    smax = float(pcache["layers"]["ssm"].abs().max())
+    log(f"model {label}: prefill logits {tuple(kern.shape)}, kernel vs plain "
+        f"scan max|dev| {dev:.4e} (limit {tol:g}), max|logit| {scale:.4f}; "
+        f"seeded SSM state {tuple(kcache['layers']['ssm'].shape)} max|dev| "
+        f"{sdev:.4e} (limit {tol:g}), max|state| {smax:.4f}")
+    check(dev <= tol, f"{label}: logits max|dev| {dev:.4e} > {tol}")
+    check(sdev <= tol, f"{label}: state max|dev| {sdev:.4e} > {tol}")
+    return dev, scale, sdev
 
 
 def main() -> int:
@@ -749,9 +947,60 @@ def main() -> int:
         torch, ops, cfg2, params, label=f"{cfg.name} fp32 2 layers",
         tol=MODEL_TOL["float32"])
     del params
+    torch.cuda.empty_cache()
+
+    # phase 8: ssd_scan against its plain version, and its times
+    ssd_checks(torch, ops, ref, "cuda", devs)
+    torch.cuda.synchronize()
+    rows["ssd_scan"] = ssd_timings(torch, ops, ref, "cuda")
+
+    # phase 9: the mamba2 serving path at full width
+    mcfg = configs.get("mamba2_370m")
+    t0 = time.perf_counter()
+    params = model.init_params(mcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    m_weight_bytes = sum(p.numel() * p.element_size()
+                         for p in params.parameters())
+    log(f"model {mcfg.name}: {mcfg.num_layers} layers, d_model "
+        f"{mcfg.d_model}, d_inner {mcfg.ssm_dinner}, {mcfg.ssm_nheads} heads "
+        f"x {mcfg.ssm_headdim}, state {mcfg.ssm_state}, chunk "
+        f"{mcfg.ssm_chunk}, vocab {mcfg.padded_vocab} (padded, tied), "
+        f"{sum(p.numel() for p in params.parameters()) / 1e6:.1f} M "
+        f"parameters, {m_weight_bytes / 1e9:.3f} GB {mcfg.param_dtype}, "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    m_served = serving_path(torch, ops, engine, mcfg, params,
+                            kernel="ssd_scan")
+    launches["ssd_scan"] = m_served["launches"]["ssd_scan"]
+    m_steps = [ms for _, ms in m_served["decode_ms"]]
+    conv_ch = mcfg.ssm_dinner + 2 * mcfg.ssm_groups * mcfg.ssm_state
+    m_state_bytes = mcfg.num_layers * SERVE_BATCH * (
+        mcfg.ssm_nheads * mcfg.ssm_headdim * mcfg.ssm_state * 4
+        + (mcfg.conv_width - 1) * conv_ch * 2)
+    m_decode_bound = 1e3 * (m_weight_bytes + 2 * m_state_bytes) / PEAK_BYTES
+    log(f"serve decode {mcfg.name}: median {float(np.median(m_steps)):.2f} "
+        f"ms a step against the bound {m_decode_bound:.3f} ms (the weights "
+        f"read once, {m_weight_bytes / 1e9:.3f} GB, and the "
+        f"{m_state_bytes / 1e9:.3f} GB conv and SSM state read and written "
+        "once, at 3.35 TB/s)")
+
+    # phase 10: the kernel against the plain scan inside the model
+    mamba_devs = {"bfloat16": ssd_vs_plain_in_model(
+        torch, ops, mcfg, params, label=f"{mcfg.name} bf16 48 layers",
+        tol=MAMBA_TOL["bfloat16"])}
+    del params
+    torch.cuda.empty_cache()
+    mcfg2 = dataclasses.replace(mcfg, num_layers=2, param_dtype="float32")
+    params = model.init_params(mcfg2, seed=0, device="cuda")
+    mamba_devs["float32"] = ssd_vs_plain_in_model(
+        torch, ops, mcfg2, params, label=f"{mcfg.name} fp32 2 layers",
+        tol=MAMBA_TOL["float32"])
+    del params
 
     flash_tol = {"float32": FLASH_TOL_F32,
                  "bfloat16": "2^-7 |o_plain| + 1e-6 (one bf16 ulp)"}
+    ssd_tol = {"float32": f"y {SSD_TOL_F32:g}",
+               "bfloat16": "y 2^-7 |y_plain| + 1e-6 (one bf16 ulp)",
+               "state": f"{SSD_TOL_F32:g} (1 + |s_plain|)"}
     kernels = []
     for name in ops.KERNELS:
         dev = max(devs[name].values())
@@ -767,6 +1016,16 @@ def main() -> int:
                     dt: dict(max_abs_dev=d, max_abs_logit=m,
                              tol=MODEL_TOL[dt])
                     for dt, (d, m) in model_devs.items()})
+        elif name == "ssd_scan":
+            tol = ssd_tol
+            extra = dict(serve=dict(
+                prefill_ms=m_served["prefill_ms"],
+                decode_ms_median=float(np.median(m_steps)),
+                decode_bound_ms=m_decode_bound, wall_s=m_served["wall_s"]),
+                model_kernel_vs_plain={
+                    dt: dict(max_abs_dev=d, max_abs_logit=m,
+                             max_abs_state_dev=sd, tol=MAMBA_TOL[dt])
+                    for dt, (d, m, sd) in mamba_devs.items()})
         else:
             tol = {dt: TOL[dt] for dt in devs[name]}
             row["library_ms"] = None

@@ -1,14 +1,15 @@
 """Wrappers of the CUDA kernels: checks, launch counters, residency rule.
 
 For tensors on the CPU each wrapper computes its kernel's plain torch
-version (``csvm_update.*_plain``, ``ref.mha``); for CUDA tensors it
-launches the CUDA kernel of ``csrc/csvm_update.cu`` or
-``csrc/flash_attention.cu`` on ``torch.cuda.current_stream()`` or
-raises — there is no fallback from one to the other.  Operands must be
-on one device with the documented shapes and dtypes: the CSVM kernels
-take contiguous fp32 (X may be bf16 where stated), ``flash_attention``
-fp32 or bf16 views with a unit stride over D; anything else raises
-before launch.
+version (``csvm_update.*_plain``, ``ref.mha``, ``ref.ssd_scan``); for
+CUDA tensors it launches the CUDA kernel of ``csrc/csvm_update.cu``,
+``csrc/flash_attention.cu`` or ``csrc/ssd_scan.cu`` on
+``torch.cuda.current_stream()`` or raises — there is no fallback from one
+to the other.  Operands must be on one device with the documented shapes
+and dtypes: the CSVM kernels take contiguous fp32 (X may be bf16 where
+stated), ``flash_attention`` fp32 or bf16 views with a unit stride over
+D, ``ssd_scan`` fp32 or bf16 x/B/C views with a unit stride over their
+last axis; anything else raises before launch.
 
 ``launches[name]`` counts the kernel launches of each wrapper (one per
 call that reached the kernel, none for the plain version), so a run can
@@ -29,7 +30,7 @@ from repro_torch.kernels.csvm_update import (csvm_block_update_plain,
                                              csvm_round_block_plain)
 
 KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block",
-           "flash_attention")
+           "flash_attention", "ssd_scan")
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -69,6 +70,16 @@ def _flash_lib() -> ctypes.CDLL:
     lib.flash_attention.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_lib() -> ctypes.CDLL:
+    lib = build.load("ssd_scan")
+    lib.ssd_scan.argtypes = [_P] * 8 + [_I] * 7 + [_LL] * 10 + [_P]
+    lib.ssd_scan.restype = ctypes.c_int
+    lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -392,3 +403,105 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
             int(window) if window is not None else 0, _stream(q.device))
     _check_call("flash_attention", err, lib.flash_attention_error_string)
     return out
+
+
+# --------------------------------------------------------------------------
+# SSD scan (Mamba-2)
+# --------------------------------------------------------------------------
+
+_SSD_PT = 16           # columns of p per block (csrc/ssd_scan.cu kPT)
+_SSD_MAX_CHUNK = 128
+_SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory, bytes
+
+
+def ssd_smem_bytes(chunk: int, n: int) -> int:
+    """Shared memory of one ``ssd_scan`` block (``smem_floats`` of
+    ``csrc/ssd_scan.cu``): cum, dt and two decays (Q each), x and x*dt
+    (Q x 16), B^T and C^T (n x (Q+8)), the decayed B (Q x (n+4)), the
+    masked scores (Q x (Q+8)) and the state slice (n x 16), fp32."""
+    Q = chunk
+    return 4 * (4 * Q + 2 * Q * _SSD_PT + 2 * n * (Q + 8) + Q * (n + 4)
+                + Q * (Q + 8) + n * _SSD_PT)
+
+
+def _check_ssd(x, dt, A, B, C, D, chunk):
+    name = "ssd_scan"
+    for what, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C),
+                    ("D", D)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {what} must be a tensor, got {type(t)}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, x on "
+                             f"{x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be (b, s, h, p), got "
+                         f"{tuple(x.shape)}")
+    b, s, h, p = x.shape
+    if B.dim() != 3 or B.shape[:2] != (b, s) or C.shape != B.shape:
+        raise ValueError(f"{name}: B {tuple(B.shape)} and C "
+                         f"{tuple(C.shape)} must be (b, s, n) for x "
+                         f"{tuple(x.shape)}")
+    n = B.shape[2]
+    if tuple(dt.shape) != (b, s, h):
+        raise ValueError(f"{name}: dt has shape {tuple(dt.shape)}, expected "
+                         f"{(b, s, h)}")
+    for what, t in (("A", A), ("D", D)):
+        if tuple(t.shape) != (h,) or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a dense ({h},) tensor")
+    for what, t in (("dt", dt), ("A", A), ("D", D)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+    if x.dtype not in _ATTN_DTYPES or B.dtype != x.dtype or \
+            C.dtype != x.dtype:
+        raise TypeError(f"{name}: x, B, C must share one dtype of "
+                        f"{_ATTN_DTYPES}, got {x.dtype}, {B.dtype}, "
+                        f"{C.dtype}")
+    for what, t in (("x", x), ("B", B), ("C", C)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {what} needs a unit stride over its "
+                             "last axis")
+    if min(b, s, h, p) < 1 or n < 4 or n % 4:
+        raise ValueError(f"{name}: needs non-empty x and n a multiple of 4,"
+                         f" got x {tuple(x.shape)}, n={n}")
+    if chunk % 8 or not 8 <= chunk <= _SSD_MAX_CHUNK:
+        raise ValueError(f"{name}: chunk={chunk} must be a multiple of 8 in "
+                         f"[8, {_SSD_MAX_CHUNK}]")
+    if ssd_smem_bytes(chunk, n) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: chunk={chunk}, n={n} need "
+                         f"{ssd_smem_bytes(chunk, n)} bytes of shared "
+                         f"memory, over {_SMEM_LIMIT}")
+    if b * h > 2 ** 31 - 1 or -(-p // _SSD_PT) > 65535:
+        raise ValueError(f"{name}: x {tuple(x.shape)} exceeds the grid")
+
+
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):
+    """Mamba-2 SSD chunked scan with the final state: x (b, s, h, p) fp32
+    or bf16; dt (b, s, h), A and D (h,) fp32; B and C (b, s, n) in x's
+    dtype, shared by the heads.  Any s (a ragged tail is padded with
+    dt = 0, an exact fixed point).  Returns (y (b, s, h, p) in x's dtype,
+    dense; final_state (b, h, p, n) fp32).
+
+    On the card x, B and C may be strided views with a unit stride over
+    their last axis — the model's column slices of one conv output go in
+    without a copy; dt may be strided too.  The chunk is a multiple of 8
+    up to 128 and n a multiple of 4 within the shared memory of a block.
+    """
+    if not _is_cuda(x, "ssd_scan"):
+        return ref.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    chunk = int(chunk)
+    _check_ssd(x, dt, A, B, C, D, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    lib = _ssd_lib()
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), y.data_ptr(), final.data_ptr(),
+            int(x.dtype == torch.bfloat16), b, s, h, p, n, chunk,
+            x.stride(0), x.stride(1), x.stride(2), *dt.stride(),
+            B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+            _stream(x.device))
+    _check_call("ssd_scan", err, lib.ssd_scan_error_string)
+    return y, final

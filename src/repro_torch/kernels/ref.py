@@ -4,7 +4,9 @@ Counterpart of ``repro.kernels.ref``: each oracle is the exact math every
 driver runs (``core.solver``), in fp32, independent of the kernels and of
 their plain versions in ``csvm_update.py`` (which repeat the kernels'
 bf16 rounding points).  ``mha`` is the oracle of ``flash_attention`` and
-its plain version: ``ops.flash_attention`` runs it for CPU tensors.
+its plain version: ``ops.flash_attention`` runs it for CPU tensors;
+``ssd_scan`` is the plain version of the ``ssd_scan`` kernel, which
+``ops.ssd_scan`` runs for CPU tensors.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import math
 import types
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import solver
 
@@ -104,3 +107,72 @@ def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vr)
     return out.to(q.dtype)
+
+
+def _sequential_cumsum(a: Tensor, dim: int) -> Tensor:
+    """Inclusive prefix sum along ``dim``, one fp32 addition at a time in
+    index order — the order of the ``ssd_scan`` kernel, so that both
+    round the cumulative decays alike (``torch.cumsum`` may sum in
+    another order on the card)."""
+    out = a.clone()
+    for i in range(1, a.shape[dim]):
+        out.select(dim, i).add_(out.select(dim, i - 1))
+    return out
+
+
+def ssd_scan(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
+             D: Tensor, *, chunk: int = 64):
+    """Plain version of the ``ssd_scan`` kernel: the Mamba-2 SSD chunked
+    scan of ``repro.kernels.ssd_scan._ssd_kernel``, plus the final state.
+
+    x: (b, s, h, p); dt: (b, s, h) fp32 (softplus'd, > 0); A, D: (h,) fp32
+    (A < 0); B, C: (b, s, n), shared by the heads.  Any s: a ragged tail
+    is padded to a whole chunk with dt = 0, an exact fixed point (the
+    decay is exp(0) = 1 and x*dt = 0, so the state does not move), and
+    the padded rows of y are dropped.  For each chunk, with
+    cum = cumsum(dt*A) (summed in index order, as the kernel sums):
+
+        y     = ((C B^T) * exp(cum_i - cum_j) [j <= i]) @ (x*dt)
+                + exp(cum) * (C @ state^T) + D * x
+        state = state * exp(cum[-1]) + (x*dt)^T @ (B * exp(cum[-1] - cum))
+
+    Every decay is formed from a difference of cumulative sums, never as a
+    ratio of exp(cum) (which underflows to 0 over a chunk when A*dt is
+    large).  All arithmetic is fp32; y is rounded once to x's dtype.
+    Returns (y (b, s, h, p), final_state (b, h, p, n) fp32).
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    f32 = torch.float32
+    Q = int(chunk)
+    nc = -(-s // Q)
+    pad = nc * Q - s
+    xf, dtf = x.to(f32), dt.to(f32)
+    Bf, Cf = B.to(f32), C.to(f32)
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, pad))
+    xc = xf.reshape(b, nc, Q, h, p)
+    dtc = dtf.reshape(b, nc, Q, h)
+    Bc, Cc = Bf.reshape(b, nc, Q, n), Cf.reshape(b, nc, Q, n)
+    cum = _sequential_cumsum(dtc * A.to(f32), dim=2)        # (b, nc, Q, h)
+    xdt = xc * dtc[..., None]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (b, nc, i, j, h)
+    L = torch.where(tri[:, :, None], torch.exp(diff), 0.0)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None] * L
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xdt)
+    decay_in = torch.exp(cum[:, :, -1:, :] - cum)           # (b, nc, Q, h)
+    inputs = torch.einsum("bcjn,bcjhp->bchpn", Bc,
+                          xdt * decay_in[..., None])
+    state = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+    carry = []
+    for c in range(nc):
+        carry.append(torch.einsum("bin,bhpn->bihp", Cc[:, c], state)
+                     * torch.exp(cum[:, c])[..., None])
+        state = (state * torch.exp(cum[:, c, -1])[..., None, None]
+                 + inputs[:, c])
+    y = y + torch.stack(carry, dim=1) + D.to(f32)[:, None] * xc
+    return y.reshape(b, nc * Q, h, p)[:, :s].to(x.dtype), state

@@ -1,11 +1,14 @@
 """Where the serving path's time goes on the card: one block prefill and a
-few decode steps of full-width qwen3-14b under ``torch.profiler``.
+few decode steps of a full-width model under ``torch.profiler``.
 
     PYTHONPATH=src python3 -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python3 -m repro_torch.launch.profile_serve \
+        --arch mamba2_370m --prompt 1999
 
-The shapes are those of ``chip_smoke.py``'s serving run: a 1023-token
-prompt, and decode steps of 4 slots at position 1023 over a 2048-long
-cache.  For each phase it prints the host wall time (synchronized;
+``--arch`` names the configuration (qwen3-14b by default; any family the
+port serves).  The shapes are those of ``chip_smoke.py``'s serving runs: a
+``--prompt``-token prompt (1023 by default), and decode steps of 4 slots
+at that position over a 2048-long cache.  For each phase it prints the host wall time (synchronized;
 without and with the profiler), the device time (the sum of the kernels'
 times, one stream), the device's idle share within the profiled run
 (1 - device / wall), the number of kernel launches, and the kernels that
@@ -14,6 +17,7 @@ random (seed 0), the tokens random (seed 1).  Needs a card.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import time
@@ -66,21 +70,27 @@ def _phase(label, fn, reps):
     print(json.dumps(row), flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen3_14b",
+                    help="configuration to profile (default qwen3_14b)")
+    ap.add_argument("--prompt", type=int, default=PROMPT,
+                    help=f"prompt length (default {PROMPT})")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
-    cfg = configs.get("qwen3_14b")
+    cfg = configs.get(args.arch)
     print(f"{torch.cuda.get_device_name(0)}; {cfg.name}: {cfg.num_layers} "
           f"layers, d_model {cfg.d_model}, {cfg.param_dtype}", flush=True)
     params = model.init_params(cfg, seed=0, device="cuda")
     rng = np.random.default_rng(1)
-    toks = rng.integers(0, cfg.vocab_size, (1, PROMPT))
-    _phase(f"prefill_S{PROMPT}",
+    toks = rng.integers(0, cfg.vocab_size, (1, args.prompt))
+    _phase(f"prefill_S{args.prompt}",
            lambda: prefill(params, {"tokens": toks}, cfg, MAX_LEN), 2)
     cache = model.init_cache(cfg, BATCH, MAX_LEN, device="cuda")
     token = torch.as_tensor(rng.integers(0, cfg.vocab_size, BATCH),
                             device="cuda")
-    pos = torch.full((BATCH,), PROMPT, device="cuda")
+    pos = torch.full((BATCH,), args.prompt, device="cuda")
     _phase(f"decode_B{BATCH}",
            lambda: model.decode_step(params, cache, token, pos, cfg), STEPS)
     return 0

@@ -1,9 +1,10 @@
 """Decoder blocks: dispatch over block kinds.
 
 Counterpart of ``repro.models.blocks``.  The port runs kind ``"attn"``
-(pre-norm attention + MLP, the dense decoder-only families); the other
-kinds and the encoder-decoder stack wait for later slices of the port and
-raise ``NotImplementedError`` naming their ROADMAP item.
+(pre-norm attention + MLP, the dense decoder-only families) and kind
+``"ssm"`` (pre-norm Mamba-2 mixer, mamba2); the other kinds and the
+encoder-decoder stack wait for later slices of the port and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -12,11 +13,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, layers, mlp, ssm
 from repro_torch.models.config import ModelConfig
 
+PORTED = ("attn", "ssm")
 _WAITS = {
-    "ssm": "the mamba2 slice with the ssd_scan kernel",
     "moe": "the MoE slice",
     "rec": "the RG-LRU hybrid slice",
 }
@@ -43,26 +44,32 @@ def check_supported(cfg: ModelConfig) -> None:
             "decoder stack wait for a later slice of the port (ROADMAP "
             "Queue 1 item 13)")
     for kind in sorted(set(block_kinds(cfg))):
-        require_attn(kind)
+        require_ported(kind)
 
 
-def require_attn(kind: str) -> None:
-    if kind != "attn":
+def require_ported(kind: str) -> None:
+    if kind not in PORTED:
         raise NotImplementedError(
             f"'{kind}' blocks wait for {_WAITS.get(kind, 'a later slice')} "
             "of the port (ROADMAP Queue 1 item 13)")
 
 
 class Block(nn.Module):
-    """Pre-norm block of kind "attn": ln1 -> attn -> residual, ln2 -> mlp
-    -> residual."""
+    """Pre-norm block.  Kind "attn": ln1 -> attn -> residual, ln2 -> mlp
+    -> residual.  Kind "ssm": ln1 -> mixer (Mamba-2) -> residual; it also
+    holds an ``ln2`` that it never uses, because the JAX package's
+    ``init_block`` creates one for every kind and the weight carrier
+    (``convert.params_from_jax``) loads every leaf of the JAX tree."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype,
                  gen: torch.Generator):
         super().__init__()
-        require_attn(kind)
+        require_ported(kind)
         self.ln1 = layers.init_norm(cfg.d_model, cfg.norm, dtype, gen.device)
         self.ln2 = layers.init_norm(cfg.d_model, cfg.norm, dtype, gen.device)
+        if kind == "ssm":
+            self.mixer = ssm.init_mamba(cfg, dtype, gen)
+            return
         self.attn = attention.init_attention(cfg, dtype, gen)
         self.mlp = mlp.init_mlp(cfg, dtype, gen)
 
@@ -75,18 +82,22 @@ def init_block(cfg: ModelConfig, kind: str, dtype,
 def block_forward(params: Block, x, cfg: ModelConfig, kind: str, *,
                   causal: bool = True, window: Optional[int] = None):
     """Full-sequence block.  Returns (x, aux_loss)."""
-    require_attn(kind)
+    require_ported(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(x, params.ln1, cfg.norm)
+    if kind == "ssm":
+        return x + ssm.mamba_forward(params.mixer, h, cfg), aux
     x = x + attention.attention_forward(params.attn, h, cfg, causal=causal,
                                         window=window)
     h = layers.apply_norm(x, params.ln2, cfg.norm)
-    x = x + mlp.mlp_forward(params.mlp, h, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + mlp.mlp_forward(params.mlp, h, cfg), aux
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, window: Optional[int] = None) -> dict:
-    require_attn(kind)
+    require_ported(kind)
+    if kind == "ssm":
+        return ssm.init_mamba_cache(cfg, batch, dtype, device)
     cache_len = min(max_len, window) if window else max_len
     return attention.init_kv_cache(cfg, batch, cache_len, dtype, device)
 
@@ -95,8 +106,11 @@ def block_decode(params: Block, x1, cache, pos, cfg: ModelConfig,
                  kind: str, *, window: Optional[int] = None):
     """One-token block step (the cache is updated in place).  Returns
     (x1, cache)."""
-    require_attn(kind)
+    require_ported(kind)
     h = layers.apply_norm(x1, params.ln1, cfg.norm)
+    if kind == "ssm":
+        y, cache = ssm.mamba_decode(params.mixer, h, cache, cfg)
+        return x1 + y, cache
     y, cache = attention.attention_decode(params.attn, h, cache, pos, cfg,
                                           window=window)
     x1 = x1 + y

@@ -10,8 +10,13 @@ JAX arrays handed over as they are).
 - ``params_from_jax(tree, cfg, device)``: the ``repro.models.model.
   init_params`` pytree -> the port's ``LM``, with ``tree["layers"]``
   (stacked on a leading L axis) unstacked into ``LM.layers``.
+  The mamba2 tree carries over as it is: its fp32 ``A_log``, ``D`` and
+  ``dt_bias`` stay fp32 in a bf16 model (the port's ``ssm.Mamba`` holds
+  them so, and the dtype check below holds it to that), and the SSM
+  block's unused ``ln2`` has its counterpart in ``blocks.Block``.
 - ``cache_from_jax(tree, device)`` / ``cache_to_numpy(cache)``: the
-  decode cache, whose (L, B, S, KV, D) layout both packages share.
+  decode cache, whose layout both packages share ((L, B, S, KV, D) k and
+  v; (L, B, W-1, conv_ch) conv and (L, B, H, P, N) ssm).
 """
 from __future__ import annotations
 
@@ -94,8 +99,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 
 
 def cache_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """A JAX decode cache {"layers": {"k": (L, B, S, KV, D), ...}} -> the
-    port's cache (the same layout)."""
+    """A JAX decode cache {"layers": {"k": (L, B, S, KV, D), ...}} or
+    {"layers": {"conv": ..., "ssm": ...}} -> the port's cache (the same
+    layout and dtypes)."""
     device = resolve_device(None, device)
     return {"layers": {name: to_tensor(a, device)
                        for name, a in tree["layers"].items()}}

@@ -1,16 +1,18 @@
 """Top-level language model: init, forward, decode.
 
 Counterpart of ``repro.models.model`` for the dense decoder-only families
-(qwen3-14b, qwen3-32b, glm4-9b, command-r-35b).  The JAX package stacks
-the per-layer parameters on a leading L axis and scans over them; here
-the layers are an ``nn.ModuleList`` and ``forward`` / ``decode_step`` loop
-over it.  The decode cache keeps the JAX layout, one stacked tensor per
-name with a leading L axis ((L, B, S, KV, D) for k and v), and each layer
-reads and writes its own view of it in place.
+(qwen3-14b, qwen3-32b, glm4-9b, command-r-35b) and the SSM family
+(mamba2-370m).  The JAX package stacks the per-layer parameters on a
+leading L axis and scans over them; here the layers are an
+``nn.ModuleList`` and ``forward`` / ``decode_step`` loop over it, each
+layer dispatching on its kind.  The decode cache keeps the JAX layout, one
+stacked tensor per name with a leading L axis ((L, B, S, KV, D) for k and
+v; (L, B, W-1, conv_ch) for conv and (L, B, H, P, N) fp32 for ssm), and
+each layer reads and writes its own view of it in place.
 
 The training surface (``loss_fn``, remat), media frontends, the
-encoder-decoder stack and the other block kinds wait for later slices of
-the port (ROADMAP Queue 1 item 13); ``init_params`` raises
+encoder-decoder stack and the MoE and RG-LRU blocks wait for later slices
+of the port (ROADMAP Queue 1 item 13); ``init_params`` raises
 ``NotImplementedError`` for their configurations.
 """
 from __future__ import annotations
@@ -99,13 +101,17 @@ def forward(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                mode: str = "decode", device="cuda") -> Dict[str, Any]:
-    """Decode state: {"layers": {"k": (L, B, S, KV, D), "v": ...}} (plus
-    the int8 scales), zeros.  In "long" mode (or with an always-on
-    sliding window) the caches are ring buffers of the window's size."""
+    """Decode state, zeros: {"layers": {"k": (L, B, S, KV, D), "v": ...}}
+    (plus the int8 scales) for attention stacks, {"layers": {"conv":
+    (L, B, W-1, conv_ch) in the model dtype, "ssm": (L, B, H, P, N) fp32}}
+    for SSM stacks.  In "long" mode (or with an always-on sliding window)
+    the attention caches are ring buffers of the window's size.  (Every
+    family the port runs has one block kind.)"""
     blocks.check_supported(cfg)
     device = resolve_device(None, device)
     window = _decoder_window(cfg, "long" if mode == "long" else "decode")
-    one = blocks.init_block_cache(cfg, "attn", batch, max_len,
+    kind, = set(blocks.block_kinds(cfg))
+    one = blocks.init_block_cache(cfg, kind, batch, max_len,
                                   layers.torch_dtype(cfg), device,
                                   window=window)
     L = cfg.num_layers

@@ -2,10 +2,13 @@
 cache, so that serving pays one forward for the prompt instead of
 len(prompt) decode steps.
 
-Counterpart of ``repro.models.prefill`` for blocks of kind "attn".  Each
-layer's self-attention runs ``attention.self_attend``: the CUDA flash
-kernel on the card (one launch per layer), the plain ``_attend`` on the
-CPU.
+Counterpart of ``repro.models.prefill`` for blocks of kind "attn" and
+"ssm".  Each attention layer's self-attention runs
+``attention.self_attend``: the CUDA flash kernel on the card (one launch
+per layer), the plain ``_attend`` on the CPU.  Each SSM layer runs
+``ssm.ssd``: the CUDA ``ssd_scan`` kernel on the card (one launch per
+layer), whose final state seeds the layer's decode state, and the plain
+``ssd_chunked`` on the CPU.
 
 Ring placement: decode writes slot = pos mod cache_len, so after
 prefilling positions [0, S) the slot s must hold the largest position
@@ -18,7 +21,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import attention, blocks, layers, mlp
+from repro_torch.models import attention, blocks, layers, mlp, ssm
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -49,10 +52,29 @@ def _attn_prefill(params: attention.Attention, x, cfg: ModelConfig, *,
     return out, cache
 
 
+def _last_rows(t: Tensor, n: int) -> Tensor:
+    """Last n rows along axis 1, left-zero-padded if the sequence is
+    shorter."""
+    S = t.shape[1]
+    if S >= n:
+        return t[:, S - n:]
+    return F.pad(t, (0, 0, n - S, 0))
+
+
+def _ssm_prefill(params: ssm.Mamba, u, cfg: ModelConfig):
+    """Mamba forward that also returns {"conv": the last W-1 rows of the
+    pre-conv xbc, "ssm": the final SSM state (B, H, P, N) fp32}."""
+    out, xbc, final = ssm.mamba_mix(params, u, cfg)
+    return out, {"conv": _last_rows(xbc, cfg.conv_width - 1), "ssm": final}
+
+
 def _block_prefill(params: blocks.Block, x, cfg: ModelConfig, kind: str, *,
                    window, cache_len):
-    blocks.require_attn(kind)
+    blocks.require_ported(kind)
     h = layers.apply_norm(x, params.ln1, cfg.norm)
+    if kind == "ssm":
+        y, cache = _ssm_prefill(params.mixer, h, cfg)
+        return x + y, cache
     y, cache = _attn_prefill(params.attn, h, cfg, window=window,
                              cache_len=cache_len)
     x = x + y

@@ -6,12 +6,14 @@ shared ring cache; every slot advances at its own position (vector-pos
 up.  A prompt enters either through the decode path (one token a step) or,
 with ``block_prefill=True``, through one block-prefill forward of all but
 its last token, whose cache is spliced into the slot (on the card that
-forward runs the CUDA flash-attention kernel once per layer).
+forward runs the CUDA flash-attention kernel, or for mamba2 the CUDA
+``ssd_scan`` kernel, once per layer).
 
-Slot hygiene: on admission the slot's cache entries are zeroed;
-correctness does not depend on it for attention (the ring mask
-k_pos <= pos already hides unwritten slots).  The cache is updated in
-place.
+Slot hygiene: on admission every cache entry of the slot is zeroed — k
+and v, and the conv history and SSM state of mamba2.  Attention does not
+depend on it (the ring mask k_pos <= pos already hides unwritten slots);
+the SSM state does: a reused slot would otherwise carry its previous
+request's state.  The cache is updated in place.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Torch port on the card: each CUDA kernel against its plain torch version,
 the port's fits through the kernels against the plain backend, and the
-serving path through the flash-attention kernel.
+serving paths through the flash-attention and ssd_scan kernels.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the CUDA kernels have no CPU mode).  The file imports no jax, so
@@ -246,6 +246,98 @@ def test_serve_engine_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (70, 9, 130)]
+    out = {}
+    for device in ("cpu", cuda):
+        eng = ServeEngine(cfg, model.init_params(cfg, seed=0, device="cpu"),
+                          max_batch=2, max_len=160, block_prefill=True,
+                          device=device)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=6))
+        out[str(device)] = {r: q.generated for r, q in eng.run().items()}
+    assert out["cpu"] == out[str(cuda)]
+
+
+# --------------------------------------------------------------------------
+# ssd_scan and the mamba2 serving path
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.SSD_CASES)
+def test_ssd_scan_matches_plain(cuda, case, dtype):
+    """The shapes and limits of chip_smoke.py: y fp32 within 5e-5, bf16
+    within one bf16 ulp of the plain y; the fp32 final state within
+    5e-5 (1 + |s_plain|); mamba2-370m's shapes go in as the model's strided
+    slices of one conv output (1999: a ragged last chunk)."""
+    args = chip_smoke.ssd_inputs(torch, case, dtype, cuda, seed=1)
+    chunk = case[5]
+    before = ops.launches["ssd_scan"]
+    got = ops.ssd_scan(*args, chunk=chunk)
+    assert ops.launches["ssd_scan"] == before + 1
+    want = ref.ssd_scan(*args, chunk=chunk)
+    assert got[0].dtype == args[0].dtype and got[0].shape == want[0].shape
+    assert got[1].dtype == torch.float32 and got[1].shape == want[1].shape
+    (_, y_share), (_, s_share) = chip_smoke.ssd_deviation(torch, got, want,
+                                                          dtype)
+    assert y_share <= 1.0 and s_share <= 1.0
+
+
+def test_ssd_scan_raises_on_bad_operands_and_without_its_library(
+        cuda, monkeypatch, tmp_path):
+    """A CUDA tensor gets the kernel or an error — never the plain
+    version: bad operands raise before launch, and so does a missing
+    library."""
+    from repro_torch.kernels import build
+    args = chip_smoke.ssd_inputs(torch, (1, 70, 2, 8, 16, 16), "float32",
+                                 cuda, seed=2)
+    before = dict(ops.launches)
+    for bad, err in (
+            (dict(chunk=12), ValueError),
+            (dict(chunk=256), ValueError),
+            (dict(args=(args[0].double(), *args[1:])), TypeError),
+            (dict(args=(args[0], args[1].cpu(), *args[2:])), ValueError),
+            (dict(args=(args[0].transpose(2, 3), *args[1:])), ValueError)):
+        with pytest.raises(err):
+            ops.ssd_scan(*bad.get("args", args), chunk=bad.get("chunk", 16))
+    monkeypatch.setitem(build.SOURCES, "ssd_scan", tmp_path / "missing.cu")
+    monkeypatch.delitem(build._loaded, "ssd_scan", raising=False)
+    ops._ssd_lib.cache_clear()
+    try:
+        with pytest.raises((OSError, RuntimeError)):
+            ops.ssd_scan(*args, chunk=16)
+    finally:
+        ops._ssd_lib.cache_clear()
+    assert ops.launches == before
+
+
+def test_mamba2_prefill_launches_the_kernel_once_per_layer(cuda,
+                                                           monkeypatch):
+    """Full-width mamba2-370m (48 layers, bf16): a block prefill launches
+    ssd_scan 48 times and no flash_attention; its logits and seeded SSM
+    state agree with the plain scan swapped in (chip_smoke.py's bf16
+    model limit)."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get("mamba2_370m")
+    params = model.init_params(cfg, seed=0, device=cuda)
+    ops.reset_launches()
+    dev, _, sdev = chip_smoke.ssd_vs_plain_in_model(
+        torch, ops, cfg, params, label="mamba2-370m bf16", prompt=300,
+        tol=chip_smoke.MAMBA_TOL["bfloat16"])
+    assert ops.launches["ssd_scan"] == cfg.num_layers
+    assert ops.launches["flash_attention"] == 0
+
+
+def test_mamba2_serve_engine_on_the_card_matches_the_cpu(cuda):
+    """Greedy tokens of the reduced fp32 mamba2-370m with block prefill, on
+    the card (kernel at chunk 16, ragged tails) and on the CPU (plain
+    ssd_chunked at JAX's chunk), across a reused slot."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.serving import Request, ServeEngine
+    cfg = configs.get_reduced("mamba2_370m")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (70, 9, 131)]
     out = {}
     for device in ("cpu", cuda):
         eng = ServeEngine(cfg, model.init_params(cfg, seed=0, device="cpu"),

@@ -4,7 +4,9 @@ positions, the int8 cache and a window), the forward pass and the weight
 carrier, each against the JAX package on the same numpy inputs and
 JAX-initialised weights.  Reduced configs of the four dense families the
 port serves: qwen3-14b, qwen3-32b, glm4-9b (partial RoPE, biases) and
-command-r-35b (layernorm, tied embeddings).
+command-r-35b (layernorm, tied embeddings); the forward pass, the blocks
+and the weight carrier also for the SSM family, mamba2-370m (its mixer:
+``test_torch_ssm.py``).
 """
 import dataclasses
 
@@ -29,14 +31,27 @@ DENSE = ["qwen3_14b", "qwen3_32b", "glm4_9b", "command_r_35b"]
 KEY = jax.random.PRNGKey(0)
 
 
-@pytest.fixture(scope="module", params=DENSE)
-def pair(request):
-    """(arch, JAX config, JAX params, port config, port model) on the same
-    weights."""
-    arch = request.param
+# the families the port serves (tests/test_prefill.py:16 covers mamba2)
+SERVED = DENSE + ["mamba2_370m"]
+
+
+def _pair(arch):
     jcfg, tcfg = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
     jp = jmodel.init_params(jcfg, KEY)
     return arch, jcfg, jp, tcfg, convert.params_from_jax(jp, tcfg, "cpu")
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def pair(request):
+    """(arch, JAX config, JAX params, port config, port model) on the same
+    weights: the dense families (attention tests)."""
+    return _pair(request.param)
+
+
+@pytest.fixture(scope="module", params=SERVED)
+def any_pair(request):
+    """As ``pair``, over every family the port serves."""
+    return _pair(request.param)
 
 
 def _layer0(jp):
@@ -63,7 +78,7 @@ def test_config_registry_is_a_copy(arch):
     assert tconfigs.get("qwen3_14b").padded_vocab == 152064
 
 
-@pytest.mark.parametrize("arch", ["mamba2_370m", "granite_moe_1b_a400m",
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m",
                                   "recurrentgemma_2b",
                                   "seamless_m4t_large_v2", "internvl2_1b"])
 def test_families_not_ported_raise_at_construction(arch):
@@ -148,8 +163,8 @@ def test_mlp_matches_jax(act):
            jmlp.mlp_forward(jp, jnp.asarray(x), jcfg))
 
 
-def test_params_from_jax_carries_every_weight(pair):
-    arch, jcfg, jp, tcfg, tp = pair
+def test_params_from_jax_carries_every_weight(any_pair):
+    arch, jcfg, jp, tcfg, tp = any_pair
     flat = {name: convert.to_numpy(p) for name, p in tp.named_parameters()}
     stacked = jax.tree_util.tree_flatten_with_path(jp)[0]
     assert len(flat) == sum(
@@ -227,8 +242,8 @@ def test_attention_decode_matches_jax(pair, variant):
                              else torch.float32)
 
 
-def test_forward_matches_jax(pair):
-    arch, jcfg, jp, tcfg, tp = pair
+def test_forward_matches_jax(any_pair):
+    arch, jcfg, jp, tcfg, tp = any_pair
     toks = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, 24))
     jl, _ = jmodel.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
                            jcfg)
@@ -238,17 +253,18 @@ def test_forward_matches_jax(pair):
     _close(tl, jl)
 
 
-def test_block_kinds_and_blocks_match_jax(pair):
-    arch, jcfg, jp, tcfg, tp = pair
+def test_block_kinds_and_blocks_match_jax(any_pair):
+    arch, jcfg, jp, tcfg, tp = any_pair
     from repro.models import blocks as jblocks
     assert blocks.block_kinds(tcfg) == jblocks.block_kinds(jcfg)
+    kind = blocks.block_kinds(tcfg)[0]
     x = _randn(1, 9, jcfg.d_model, seed=8) * 0.5
-    jy, _ = jblocks.block_forward(_layer0(jp), jnp.asarray(x), jcfg, "attn")
+    jy, _ = jblocks.block_forward(_layer0(jp), jnp.asarray(x), jcfg, kind)
     ty, _ = blocks.block_forward(tp.layers[0], torch.from_numpy(x), tcfg,
-                                 "attn")
+                                 kind)
     _close(ty, jy)
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        blocks.block_forward(tp.layers[0], torch.from_numpy(x), tcfg, "ssm")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        blocks.block_forward(tp.layers[0], torch.from_numpy(x), tcfg, "moe")
 
 
 # bf16 reduced qwen3-14b, JAX and the port on the same bf16 weights: both

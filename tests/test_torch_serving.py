@@ -3,7 +3,8 @@ and the seeded cache) and decode against the JAX package on JAX-initialised
 weights, the port's prefill-then-decode against its pure decode, and
 ``ServeEngine`` / ``greedy_generate`` tokens against JAX's, with and without
 block prefill and across reused slots; plus a rehearsal of
-``chip_smoke.py``'s serving phases at a tiny size.
+``chip_smoke.py``'s serving phases at a tiny size.  The dense families and
+mamba2-370m (whose seeded cache is the conv history and the SSM state).
 """
 import jax
 import jax.numpy as jnp
@@ -26,10 +27,13 @@ from repro_torch.serving import Request, ServeEngine
 # fp32: the tier of tests/test_prefill.py
 ATOL = 5e-5
 DENSE = ["qwen3_14b", "qwen3_32b", "glm4_9b", "command_r_35b"]
+# the families the port serves (tests/test_prefill.py:16 and
+# tests/test_serving.py:74 cover mamba2)
+SERVED = DENSE + ["mamba2_370m"]
 KEY = jax.random.PRNGKey(0)
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=SERVED)
 def pair(request):
     arch = request.param
     jcfg, tcfg = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
@@ -96,7 +100,7 @@ def test_decode_from_a_jax_cache_matches_jax(pair):
     _close(td, jd)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_prefill_then_decode_matches_pure_decode(arch):
     """The port against itself (tests/test_prefill.py's invariant)."""
     cfg = tconfigs.get_reduced(arch)
@@ -133,7 +137,8 @@ def _run_engines(jcfg, jp, tcfg, tp, prompts, *, max_batch, block_prefill,
             {r: q.generated for r, q in tdone.items()})
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "command_r_35b"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "command_r_35b",
+                                  "mamba2_370m"])
 def test_engine_tokens_match_jax_with_and_without_block_prefill(arch):
     """tests/test_prefill.py::test_engine_block_prefill_matches_tokenwise,
     held against JAX's engine: the same greedy tokens from the port with
@@ -169,6 +174,30 @@ def test_engine_continuous_batching_matches_jax():
                        block_prefill=True, device="cpu")
     solo.submit(Request(rid=0, prompt=list(prompts[2]), max_new=4))
     assert solo.run()[0].generated == got[2]
+
+
+def test_mamba2_reused_slot_does_not_inherit_state():
+    """tests/test_serving.py::test_engine_continuous_batching_is_isolation_safe
+    on the port, with and without block prefill: a request admitted into
+    a reused slot reproduces its solo run (the carried SSM state and conv
+    history of the previous occupant must not leak), and the tokens equal
+    JAX's engine's."""
+    jcfg, tcfg = (jconfigs.get_reduced("mamba2_370m"),
+                  tconfigs.get_reduced("mamba2_370m"))
+    jp = jmodel.init_params(jcfg, KEY)
+    tp = convert.params_from_jax(jp, tcfg, "cpu")
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, jcfg.vocab_size, 8).tolist()
+    first = rng.integers(0, jcfg.vocab_size, 12).tolist()
+    for block_prefill in (False, True):
+        solo = ServeEngine(tcfg, tp, max_batch=1, max_len=64,
+                           block_prefill=block_prefill, device="cpu")
+        solo.submit(Request(rid=0, prompt=prompt, max_new=5))
+        want = solo.run()[0].generated
+        want_j, got = _run_engines(jcfg, jp, tcfg, tp, [first, prompt],
+                                   max_batch=1, block_prefill=block_prefill)
+        assert got[1] == want == want_j[1]
+        assert got[0] == want_j[0]
 
 
 def test_greedy_generate_and_serve_step_match_jax():
@@ -233,3 +262,46 @@ def test_chip_smoke_serving_phases_rehearse_on_cpu(monkeypatch):
     dev, scale = chip_smoke.kernel_vs_plain_in_model(
         torch, ops, cfg, params, label="tiny", tol=1e-5, prompt=30)
     assert dev == 0.0 and scale > 0
+
+
+def test_chip_smoke_mamba2_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's ssd_scan checks, mamba2 serving run and
+    kernel-vs-plain model check end to end on the CPU at a tiny size.  The
+    CPU has no kernel: ``ops.ssd_scan`` runs its plain version, and a
+    stand-in for ``ssm.ssd`` that runs the wrapper feeds the launch
+    counter, so that the count checks (one launch per layer and prefilled
+    request, no flash_attention) run too."""
+    import chip_smoke
+    from repro_torch.kernels import ref
+    from repro_torch.models import ssm
+
+    monkeypatch.setattr(chip_smoke, "SSD_CASES",
+                        chip_smoke.SSD_CASES[:2]
+                        + [(1, 77, 32, 64, 128, 64)])
+    devs = {}
+    chip_smoke.ssd_checks(torch, ops, ref, "cpu", devs)
+    assert set(devs["ssd_scan"]) == {"float32", "bfloat16"}
+    assert devs["ssd_scan"]["float32"] == 0.0   # the wrapper is ref here
+
+    def counted(x, dt, A, B, C, D, cfg):
+        ops.launches["ssd_scan"] += 1
+        return ops.ssd_scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
+    monkeypatch.setattr(ssm, "ssd", counted)
+    from repro_torch.serving import engine
+    cfg = tconfigs.get_reduced("mamba2_370m")
+    params = model.init_params(cfg, seed=0, device="cpu")
+    out = chip_smoke.serving_path(torch, ops, engine, cfg, params,
+                                  prompts=(20, 15, 9, 4, 2), max_new=3,
+                                  max_batch=2, max_len=32, kernel="ssd_scan")
+    assert out["launches"]["ssd_scan"] == 5 * cfg.num_layers
+    assert out["launches"]["flash_attention"] == 0
+    assert [S for S, _ in out["prefill_ms"]] == [19, 14, 8, 3, 1]
+    dev, scale, sdev = chip_smoke.ssd_vs_plain_in_model(
+        torch, ops, cfg, params, label="tiny", tol=1e-5, prompt=37)
+    assert dev == 0.0 and sdev == 0.0 and scale > 0
+    for S in (2048, 1023):
+        bms, by = chip_smoke.ssd_bound(1, S, 32, 64, 128, 64, 2)
+        assert by == "bytes"
+    # at S = 2048: 3.76 GFLOP and 19.1 MB, a 5.7 us bound set by the bytes
+    assert chip_smoke.ssd_bound(1, 2048, 32, 64, 128, 64, 2)[0] == \
+        pytest.approx(5.70e-3, rel=0.01)
