@@ -8,7 +8,9 @@ result lines):
 
 1. the card: ``nvidia-smi`` name and power limit, TF32 switched off;
 2. the build: ``nvcc`` compiles the CUDA sources of the port, one process
-   per source, all at once;
+   per source, all at once; ptxas's registers and spills per kernel, and
+   the wgmma (HGMMA) and TMA-load (UTMALDG) instructions ``cuobjdump
+   -sass`` finds in the tensor-core flash instance (none fails the run);
 3. the CSVM kernels: each against its plain torch version on the card,
    at the paper's design size and at the full size below, in fp32 and
    bf16, with held rounds, ``nact = 0``, lambda vectors and
@@ -24,18 +26,23 @@ result lines):
    other;
 5. ``flash_attention`` against its plain version (``ref.mha``) at the
    shapes of ``tests/test_kernels.py`` (every mask, MQA, D = 32/64/128,
-   ragged S) and at qwen3-14b's (q (1, 40, S, 128), kv (1, 8, S, 128),
-   S = 1023 and 2048, causal, fed as the model's strided views), fp32 and
-   bf16; then its times beside the plain version's, the bound and
-   ``scaled_dot_product_attention``'s (timed only, never on the path);
+   ragged S), at qwen3-14b's (q (1, 40, S, 128), kv (1, 8, S, 128),
+   S = 1023 and 2048, causal, fed as the model's strided views) and at
+   the edges of the tensor-core instance (windows, no mask, B = 2 at a
+   ragged S, S < 128, D = 64), fp32 and bf16, each case on the instance
+   ``ops.flash_instance`` names (bf16 at D = 64/128: tensor cores; the
+   rest: fp32 FMAs); then its times beside the plain version's, the
+   bound, the fp32-FMA instance's and ``scaled_dot_product_attention``'s
+   (timed only, never on the path);
 6. the serving path at full width — qwen3-14b (40 layers, d_model 5120,
    bf16, random weights from seed 0) in ``ServeEngine(max_batch=4,
    max_len=2048, block_prefill=True)``: 8 requests of ragged prompt
    lengths, 16 new tokens each, with the launch counters read around the
-   run (40 flash launches per prefilled request);
+   run (40 flash launches per prefilled request, every one on the
+   tensor-core instance);
 7. the kernel against the plain attention inside the model: block-prefill
-   logits of a 1023-token prompt at full width in bf16, and with 2 layers
-   in fp32;
+   logits of a 1023-token prompt at full width in bf16, with 2 layers in
+   fp32, and in the reduced config (D = 64, group 2) in bf16;
 8. ``ssd_scan`` against its plain version (``ref.ssd_scan``) at the
    shapes of ``tests/test_kernels.py`` and at mamba2-370m's (x (1, S, 32,
    64), B and C (1, S, 128), S = 1023, 1999 and 2048, fed as the model's
@@ -100,7 +107,10 @@ CHECK_EVERY = 4         # decsvm_fit_tol's default check interval
 FLASH_TOL_F32 = 2e-5
 BF16_ULP = 2.0 ** -7
 # (B, H, KV, S, D, causal, window): tests/test_kernels.py:75-105, then
-# qwen3-14b's attention at the prompt lengths of the kernel table
+# qwen3-14b's attention at the prompt lengths of the kernel table, then the
+# edges of the tensor-core instance (bf16 at D = 64 and 128): windows of 64
+# and 17, no mask, a batch of 2 at a ragged S, S below one 128-row q tile,
+# and D = 64 at group 2 (the reduced dense configs)
 FLASH_CASES = [
     (1, 2, 2, 128, 64, True, None), (2, 4, 2, 256, 64, True, None),
     (1, 4, 1, 128, 32, True, None), (1, 8, 2, 200, 64, True, None),
@@ -108,6 +118,9 @@ FLASH_CASES = [
     (1, 4, 2, 160, 32, True, None), (1, 4, 2, 160, 32, False, None),
     (1, 4, 2, 160, 32, True, 64), (1, 4, 2, 160, 32, True, 17),
     (1, 40, 8, 1023, 128, True, None), (1, 40, 8, 2048, 128, True, None),
+    (1, 8, 2, 300, 128, True, 64), (1, 8, 2, 300, 128, True, 17),
+    (1, 8, 2, 300, 128, False, None), (2, 8, 2, 333, 128, True, None),
+    (1, 8, 2, 100, 128, True, None), (1, 8, 4, 333, 64, True, None),
 ]
 # The serving path: qwen3-14b at full width, ragged prompts (none a
 # multiple of the 64-row tile), 16 new tokens each.
@@ -181,16 +194,19 @@ def check(ok: bool, msg: str):
 
 
 def ptxas_report(log_text: str):
-    """(kernel<type[, int]>, registers, spills) per entry function of
+    """(kernel<[type, ][int]>, registers, spills) per entry function of
     nvcc's ``-Xptxas -v`` output."""
     out, name, spills = [], None, ""
     for line in log_text.splitlines():
         entry = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)I"
-                          r"(f|13__nv_bfloat16)(?:Li(\d+)E)?E", line)
+                          r"(f|13__nv_bfloat16)?(?:Li(\d+)E)?E", line)
         if entry:
-            dtype = "float" if entry.group(2) == "f" else "bf16"
-            extra = f", {entry.group(3)}" if entry.group(3) else ""
-            name = f"{entry.group(1)}<{dtype}{extra}>"
+            args = []
+            if entry.group(2):
+                args.append("float" if entry.group(2) == "f" else "bf16")
+            if entry.group(3):
+                args.append(entry.group(3))
+            name = f"{entry.group(1)}<{', '.join(args)}>"
         elif "spill" in line:
             spills = line.strip()
         else:
@@ -199,6 +215,44 @@ def ptxas_report(log_text: str):
                 out.append((name, int(regs.group(1)), spills))
                 name = None
     return out
+
+
+def sass_counts(sass_text: str):
+    """{function: (HGMMA, UTMALDG)} of ``cuobjdump -sass`` output: the
+    wgmma and TMA-load instructions each compiled kernel issues."""
+    counts, fn = {}, None
+    for line in sass_text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "UTMALDG" in line
+    return {fn: tuple(c) for fn, c in counts.items()}
+
+
+def tensor_core_sass(build):
+    """Disassemble the flash library and check that the tensor-core
+    instance (``flash_tc_kernel`` at D = 64 and 128) issues wgmma and TMA
+    loads; returns {D: (HGMMA, UTMALDG)}."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    found = {}
+    for fn, (hgmma, utmaldg) in sass_counts(sass.stdout).items():
+        inst = re.search(r"flash_tc_kernelILi(\d+)E", fn)
+        if inst:
+            found[int(inst.group(1))] = (hgmma, utmaldg)
+            log(f"sass flash_tc_kernel<{inst.group(1)}>: {hgmma} HGMMA, "
+                f"{utmaldg} UTMALDG")
+    check(set(found) == {64, 128} and all(
+        h > 0 and u > 0 for h, u in found.values()),
+        f"the tensor-core flash instance issues no wgmma or TMA load: "
+        f"{found}")
+    return found
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -535,12 +589,22 @@ def flash_deviation(torch, got, want, dtype):
 
 
 def flash_checks(torch, ops, ref, device, devs: dict):
-    """``flash_attention`` against ``ref.mha`` on the same inputs."""
+    """``flash_attention`` against ``ref.mha`` on the same inputs; on the
+    card each case must launch the instance ``ops.flash_instance`` names."""
     for i, case in enumerate(FLASH_CASES):
         B, H, KV, S, D, causal, window = case
         for dtype in ("float32", "bfloat16"):
             q, k, v = attention_inputs(torch, case, dtype, device, seed=i)
+            before = dict(ops.flash_launches)
             got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            instance = "plain"
+            if torch.device(device).type == "cuda":
+                instance = ops.flash_instance(q.dtype, D)
+                ran = {name: n - before[name]
+                       for name, n in ops.flash_launches.items()}
+                check(ran[instance] == 1 and sum(ran.values()) == 1,
+                      f"flash_attention {case} {dtype}: launched {ran}, "
+                      f"expected one {instance} launch")
             want = ref.mha(q, k, v, causal=causal, window=window)
             check(tuple(got.shape) == tuple(q.shape) and got.dtype == q.dtype,
                   f"flash_attention {case}: output {tuple(got.shape)} "
@@ -550,7 +614,7 @@ def flash_checks(torch, ops, ref, device, devs: dict):
             dev, share = flash_deviation(torch, got, want, dtype)
             record(devs, "flash_attention", dtype, dev)
             what = (f"flash_attention B={B} H={H} KV={KV} S={S} D={D} "
-                    f"causal={causal} window={window} {dtype}")
+                    f"causal={causal} window={window} {dtype} [{instance}]")
             check(share <= 1.0, f"{what}: max|dev| {dev:.3e} is "
                   f"{share:.2f}x the limit")
             log(f"check {what}: max|dev| {dev:.3e} ({share:.3f} of the "
@@ -568,27 +632,43 @@ def attention_bound(B, H, KV, S, D, itemsize):
 def flash_timings(torch, ops, ref, device):
     """The kernel beside its plain version (in turns), its bound and
     ``scaled_dot_product_attention`` on the same bf16 inputs, at
-    qwen3-14b's shapes; the first row is S = 2048."""
+    qwen3-14b's shapes; the first row is S = 2048.  The tensor-core
+    instance runs, as on the main path; the fp32-FMA instance, the earlier
+    design, is timed on the same bf16 inputs as ``fma_ms`` (and, on fp32
+    inputs of the same shapes, its own use, as ``fma_fp32_ms``)."""
     F = torch.nn.functional
     rows = []
     for S in (2048, 1023):
         case = (1, 40, 8, S, 128, True, None)
         q, k, v = attention_inputs(torch, case, "bfloat16", device, seed=S)
+        check(ops.flash_instance(q.dtype, 128) == "wgmma",
+              "qwen3-14b's attention does not take the tensor-core instance")
         times = paired_ms(
             torch, lambda: ops.flash_attention(q, k, v, causal=True),
-            lambda: ref.mha(q, k, v, causal=True), 10, 3)
+            lambda: ref.mha(q, k, v, causal=True), 20, 3)
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10)
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        fma = cuda_ms(torch, lambda: ops._flash_launch(
+            q, k, v, "fma", causal=True, window=None, sm_scale=None), 5)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        fma32 = cuda_ms(torch, lambda: ops.flash_attention(
+            q32, k32, v32, causal=True), 3)
         bms, by = attention_bound(1, 40, 8, S, 128, 2)
+        flops = 4 * 40 * 128 * S * (S + 1) / 2
         rows.append(dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
+                         fma_ms=fma, fma_fp32_ms=fma32,
+                         tflops=flops / times["ms"] / 1e9,
                          shape=f"q (1, 40, {S}, 128), kv (1, 8, {S}, 128) "
                                "bf16, causal"))
     for v in rows:
         log(f"time flash_attention [{v['shape']}]: {v['ms']:.4f} ms "
-            f"(samples {v['ms_samples'][0]:.4f}, {v['ms_samples'][1]:.4f}), "
-            f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-            f"({v['bound_by']}), scaled_dot_product_attention "
-            f"{v['library_ms']:.4f} ms")
+            f"(samples {v['ms_samples'][0]:.4f}, {v['ms_samples'][1]:.4f}; "
+            f"{v['tflops']:.1f} TFLOP/s, {v['bound_ms'] / v['ms']:.3f} of the "
+            f"bound), plain {v['plain_ms']:.4f} ms, bound "
+            f"{v['bound_ms']:.4f} ms ({v['bound_by']}), "
+            f"scaled_dot_product_attention {v['library_ms']:.4f} ms; fp32-FMA "
+            f"instance {v['fma_ms']:.4f} ms on the same bf16 inputs, "
+            f"{v['fma_fp32_ms']:.4f} ms on fp32")
     return dict(rows[0], variants=rows[1:])
 
 
@@ -633,6 +713,7 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
     synchronize(torch, device)
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
+    instances = dict(ops.flash_launches)
     check(sorted(done) == list(range(len(prompts))),
           f"serving: completed {sorted(done)} of {len(prompts)} requests")
     for rid, req in sorted(done.items()):
@@ -654,8 +735,8 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
         f" ms (min {min(steps):.2f}, max {max(steps):.2f}); launches "
         f"{json.dumps(launches)}; first tokens "
         f"{[done[r].generated[:4] for r in sorted(done)]}")
-    return dict(launches=launches, prefill_ms=prefills, decode_ms=decodes,
-                wall_s=wall)
+    return dict(launches=launches, flash_instances=instances,
+                prefill_ms=prefills, decode_ms=decodes, wall_s=wall)
 
 
 def plain_self_attend(q, k, v, *, causal, window):
@@ -887,6 +968,7 @@ def main() -> int:
     for name in libs:
         for kernel, regs, spills in ptxas_report(build.build_log(name)):
             log(f"ptxas {kernel}: {regs} registers, {spills}")
+    sass = tensor_core_sass(build)
     for bf16 in (False, True):
         per_sm, sms = ops.round_block_occupancy(0, bf16)
         log(f"round kernel ({'bf16' if bf16 else 'fp32'} X): {per_sm} "
@@ -926,6 +1008,10 @@ def main() -> int:
         f"on the card in {time.perf_counter() - t0:.1f} s")
     served = serving_path(torch, ops, engine, cfg, params)
     launches["flash_attention"] = served["launches"]["flash_attention"]
+    check(served["flash_instances"] == {
+        "wgmma": launches["flash_attention"], "fma": 0},
+        f"serving: flash launches by instance {served['flash_instances']}, "
+        "expected every one on the tensor-core instance")
     cache_bytes = (2 * cfg.num_layers * SERVE_BATCH * SERVE_LEN
                    * cfg.num_kv_heads * cfg.head_dim * 2)
     steps = [ms for _, ms in served["decode_ms"]]
@@ -946,6 +1032,18 @@ def main() -> int:
     model_devs["float32"] = kernel_vs_plain_in_model(
         torch, ops, cfg2, params, label=f"{cfg.name} fp32 2 layers",
         tol=MODEL_TOL["float32"])
+    del params
+    torch.cuda.empty_cache()
+    # the reduced config (D = 64, group 2) in bf16: the tensor-core
+    # instance at its other head dim, inside the model
+    cfg3 = configs.get_reduced("qwen3_14b", param_dtype="bfloat16")
+    params = model.init_params(cfg3, seed=0, device="cuda")
+    before = ops.flash_launches["wgmma"]
+    model_devs["bfloat16 reduced"] = kernel_vs_plain_in_model(
+        torch, ops, cfg3, params, label=f"{cfg3.name} bf16 D = "
+        f"{cfg3.head_dim}", tol=MODEL_TOL["bfloat16"])
+    check(ops.flash_launches["wgmma"] - before == cfg3.num_layers,
+          f"{cfg3.name}: the prefill did not take the tensor-core instance")
     del params
     torch.cuda.empty_cache()
 
@@ -1014,8 +1112,11 @@ def main() -> int:
                 decode_bound_ms=decode_bound, wall_s=served["wall_s"]),
                 model_kernel_vs_plain={
                     dt: dict(max_abs_dev=d, max_abs_logit=m,
-                             tol=MODEL_TOL[dt])
-                    for dt, (d, m) in model_devs.items()})
+                             tol=MODEL_TOL[dt.split()[0]])
+                    for dt, (d, m) in model_devs.items()},
+                serve_instances=served["flash_instances"],
+                sass={f"flash_tc_kernel<{D}>": dict(HGMMA=h, UTMALDG=u)
+                      for D, (h, u) in sass.items()})
         elif name == "ssd_scan":
             tol = ssd_tol
             extra = dict(serve=dict(

@@ -13,7 +13,9 @@ last axis; anything else raises before launch.
 
 ``launches[name]`` counts the kernel launches of each wrapper (one per
 call that reached the kernel, none for the plain version), so a run can
-show that its path went through the kernels.
+show that its path went through the kernels; ``flash_launches`` splits
+``launches["flash_attention"]`` by the instance that ran
+(``flash_instance``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,10 @@ from repro_torch.kernels.csvm_update import (csvm_block_update_plain,
 KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block",
            "flash_attention", "ssd_scan")
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# flash_attention's two instances: bf16 tensor cores (wgmma, TMA) and fp32
+# FMAs on the CUDA cores
+FLASH_INSTANCES = ("wgmma", "fma")
+flash_launches: Dict[str, int] = {name: 0 for name in FLASH_INSTANCES}
 
 _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
@@ -48,6 +54,8 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    for name in FLASH_INSTANCES:
+        flash_launches[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,6 +76,9 @@ def _flash_lib() -> ctypes.CDLL:
     lib.flash_attention.argtypes = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [
         _F, _I, _I, _P]
     lib.flash_attention.restype = ctypes.c_int
+    lib.flash_attention_tc.argtypes = [_P] * 4 + [_I] * 5 + [_LL] * 12 + [
+        _F, _I, _I, _P]
+    lib.flash_attention_tc.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -344,6 +355,16 @@ def csvm_round_block(X, y, B, P, W, deg, rho, omega, lam_vec, nact, *,
 # --------------------------------------------------------------------------
 
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
+_TC_HEAD_DIMS = (64, 128)   # csrc/flash_attention.cu flash_attention_tc
+
+
+def flash_instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The instance of the flash kernel that a CUDA call runs, by dtype and
+    head dim alone: ``"wgmma"`` (bf16 tensor cores, TMA) for bf16 at
+    D = 64 or 128, ``"fma"`` (fp32 FMAs on the CUDA cores) otherwise."""
+    if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
 
 
 def _check_attention(q, k, v, window):
@@ -372,6 +393,53 @@ def _check_attention(q, k, v, window):
         raise ValueError(f"{name}: S={S} exceeds the grid's 65535 q tiles")
     if window is not None and int(window) < 1:
         raise ValueError(f"{name}: window={window} would mask every key")
+    if flash_instance(q.dtype, D) == "wgmma":
+        # the tensor maps: 16-byte-aligned bases, strides of 16 bytes
+        for what, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: {what}'s base is not 16-byte "
+                                 "aligned, as the bf16 kernel's TMA loads "
+                                 "need")
+            if any(n > 1 and st % 8 for n, st in zip(t.shape[:3],
+                                                     t.stride()[:3])):
+                raise ValueError(f"{name}: {what}'s strides {t.stride()} "
+                                 "are not multiples of 16 bytes, as the "
+                                 "bf16 kernel's TMA loads need")
+
+
+def _tma_strides(t):
+    """t's element strides over (B, heads, S) for a tensor map; a dimension
+    of size 1 is never stepped over, so its stride becomes the tensor's
+    span (rounded up to 8 elements), which the map accepts."""
+    span = -(-max(n * st for n, st in zip(t.shape, t.stride())) // 8) * 8
+    return [st if n > 1 else span for n, st in zip(t.shape[:3],
+                                                    t.stride()[:3])]
+
+
+def _flash_launch(q, k, v, instance, *, causal, window, sm_scale):
+    """One launch of ``instance`` on checked operands; returns the output.
+    ``flash_attention`` calls it with ``flash_instance``'s choice."""
+    B, H, S, D = q.shape
+    out = torch.empty_like(q)
+    scale = float(sm_scale) if sm_scale is not None else D ** -0.5
+    lib = _flash_lib()
+    shape = (B, H, k.shape[1], S, D)
+    tail = (*out.stride()[:3], scale, int(bool(causal)),
+            int(window) if window is not None else 0, _stream(q.device))
+    with torch.cuda.device(q.device):
+        if instance == "wgmma":
+            err = lib.flash_attention_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *shape, *_tma_strides(q), *_tma_strides(k),
+                *_tma_strides(v), *tail)
+        else:
+            err = lib.flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                int(q.dtype == torch.bfloat16), *shape, *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], *tail)
+    _check_call("flash_attention", err, lib.flash_attention_error_string)
+    flash_launches[instance] += 1
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -385,24 +453,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     the model's (B, S, H, D) projections go in as ``.transpose(1, 2)``
     without a copy; the output takes q's strides when q is dense (a
     transposed (B, S, H, D) buffer), so it transposes back for free.
+    ``flash_instance`` picks the kernel: bf16 at D = 64 or 128 runs on the
+    tensor cores and needs 16-byte-aligned bases and strides of 16 bytes
+    (it raises otherwise); the rest runs the fp32-FMA kernel.
     """
     if not _is_cuda(q, "flash_attention"):
         return ref.mha(q, k, v, causal=causal, window=window,
                        sm_scale=sm_scale)
     _check_attention(q, k, v, window)
-    B, H, S, D = q.shape
-    out = torch.empty_like(q)
-    scale = float(sm_scale) if sm_scale is not None else D ** -0.5
-    lib = _flash_lib()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, H, k.shape[1], S, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], scale, int(bool(causal)),
-            int(window) if window is not None else 0, _stream(q.device))
-    _check_call("flash_attention", err, lib.flash_attention_error_string)
-    return out
+    return _flash_launch(q, k, v, flash_instance(q.dtype, q.shape[-1]),
+                         causal=causal, window=window, sm_scale=sm_scale)
 
 
 # --------------------------------------------------------------------------

@@ -184,12 +184,43 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     q, k, v = chip_smoke.attention_inputs(torch, case, dtype, cuda, seed=1)
     causal, window = case[5], case[6]
     before = ops.launches["flash_attention"]
+    instance = ops.flash_instance(q.dtype, q.shape[-1])
+    before_instance = ops.flash_launches[instance]
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert ops.launches["flash_attention"] == before + 1
+    assert ops.flash_launches[instance] == before_instance + 1
     want = ref.mha(q, k, v, causal=causal, window=window)
     assert got.dtype == q.dtype and got.shape == q.shape
     _, share = chip_smoke.flash_deviation(torch, got, want, dtype)
     assert share <= 1.0
+
+
+def test_tensor_core_flash_raises_on_a_misaligned_base(cuda):
+    """bf16 at D = 128 takes the tensor-core instance; a base off a 16-byte
+    boundary raises before any launch, and is not rerouted."""
+    flat = torch.zeros(1 + 4 * 64 * 128, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:].view(1, 4, 64, 128)
+    k = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device=cuda)
+    before = dict(ops.launches), dict(ops.flash_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, k, k)
+    assert (dict(ops.launches), dict(ops.flash_launches)) == before
+
+
+def test_reduced_bf16_prefill_takes_the_tensor_core_instance(cuda):
+    """A bf16 block prefill of the reduced qwen3-14b (D = 64, group 2):
+    one tensor-core launch per layer, logits within chip_smoke's bf16
+    in-model limit of the plain attention's."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get_reduced("qwen3_14b", param_dtype="bfloat16")
+    params = model.init_params(cfg, seed=0, device=cuda)
+    ops.reset_launches()
+    dev, _ = chip_smoke.kernel_vs_plain_in_model(
+        torch, ops, cfg, params, label="reduced bf16",
+        tol=chip_smoke.MODEL_TOL["bfloat16"], prompt=333)
+    assert ops.flash_launches == {"wgmma": cfg.num_layers, "fma": 0}
+    assert dev <= chip_smoke.MODEL_TOL["bfloat16"]
 
 
 def test_flash_attention_raises_without_its_library(cuda, monkeypatch,

@@ -122,3 +122,161 @@ def test_wrapper_checks_window_and_accept_strided_views():
         ops._check_attention(q, k, k, 0)
     # the output buffer takes q's strides, so it transposes back for free
     assert torch.empty_like(q).transpose(1, 2).is_contiguous()
+
+
+# --------------------------------------------------------------------------
+# The tensor-core instance (bf16, D = 64 or 128): its numerics and its rules
+# --------------------------------------------------------------------------
+
+def _emulate_tensor_core_instance(q, k, v, *, causal, window=None, terms=3,
+                                  tile=64):
+    """Plain torch at the rounding points of ``flash_tc_kernel``
+    (csrc/flash_attention.cu): 64-key tiles, an online softmax in fp32 in
+    log2 units, P = 2^(s - m) split into ``terms`` bf16 terms (each the
+    rounding of what the earlier ones leave) whose products with the bf16
+    V are summed in fp32, one rounding of the output to bf16."""
+    B, H, S, D = q.shape
+    g = H // k.shape[1]
+    f32 = torch.float32
+    qf = q.to(f32)
+    kf = k.to(f32).repeat_interleave(g, 1)
+    vf = v.to(f32).repeat_interleave(g, 1)
+    scale_log2 = D ** -0.5 * 1.4426950408889634
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros(B, H, S, 1)
+    acc = torch.zeros(B, H, S, D)
+    qi = torch.arange(S)[:, None]
+    for k0 in range(0, S, tile):
+        ki = torch.arange(k0, min(k0 + tile, S))[None, :]
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) * scale_log2
+        ok = torch.ones(S, ki.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= ki <= qi
+        if window is not None:
+            ok &= ki > qi - window
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        for _ in range(terms):
+            part = p.to(torch.bfloat16).to(f32)
+            acc = acc + part @ vf[:, :, k0:k0 + tile]
+            p = p - part
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).to(q.dtype)
+
+
+def _bf16_inputs(B, H, KV, S, D, seed):
+    return tuple(torch.from_numpy(a).to(torch.bfloat16)
+                 for a in _inputs(B, H, KV, S, D, seed))
+
+
+def test_tensor_core_numerics_hold_the_one_ulp_limit():
+    """The tensor-core instance's rounding points, emulated, against the
+    plain version under the card's limit (chip_smoke.flash_deviation: one
+    bf16 ulp of the plain output plus 1e-6), at qwen3-14b's head dim, GQA
+    group 5, causal, a ragged S.  P rounded once to bf16 before P.V breaks
+    the limit there, which is why the kernel splits P."""
+    import chip_smoke
+    q, k, v = _bf16_inputs(1, 10, 2, 997, 128, seed=0)
+    want = ref.mha(q, k, v, causal=True)
+    got = _emulate_tensor_core_instance(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    assert chip_smoke.flash_deviation(torch, got, want, "bfloat16")[1] <= 1.0
+    once = _emulate_tensor_core_instance(q, k, v, causal=True, terms=1)
+    assert chip_smoke.flash_deviation(torch, once, want, "bfloat16")[1] > 1.0
+
+
+def test_tensor_core_numerics_need_three_terms_of_p():
+    """Rows that see few keys (a window of 17) have small outputs, where
+    the limit's 1e-6 floor binds: P split into two bf16 terms (p to about
+    2^-17) misses it, three terms (all 24 bits of p) hold it."""
+    import chip_smoke
+    q, k, v = _bf16_inputs(1, 8, 2, 300, 128, seed=1)
+    want = ref.mha(q, k, v, causal=True, window=17)
+    shares = {terms: chip_smoke.flash_deviation(
+        torch, _emulate_tensor_core_instance(q, k, v, causal=True, window=17,
+                                             terms=terms),
+        want, "bfloat16")[1] for terms in (2, 3)}
+    assert shares[2] > 1.0 >= shares[3]
+
+
+@pytest.mark.parametrize("dtype,D,instance", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 256, "fma"),
+    (torch.bfloat16, 96, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 64, "fma"),
+])
+def test_flash_instance_is_chosen_by_dtype_and_head_dim(dtype, D, instance):
+    assert ops.flash_instance(dtype, D) == instance
+
+
+def _bf16_zeros(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("what", ["q", "k", "v"])
+def test_tensor_core_instance_rejects_a_misaligned_base(what):
+    """A base 2 bytes past a 16-byte boundary (strides fine) raises
+    ValueError before any launch; the same tensor in fp32 takes the FMA
+    instance, which has no such rule."""
+    ops_in = {"q": _bf16_zeros(1, 4, 8, 128), "k": _bf16_zeros(1, 2, 8, 128),
+              "v": _bf16_zeros(1, 2, 8, 128)}
+    shape = tuple(ops_in[what].shape)
+    flat = _bf16_zeros(1 + ops_in[what].numel())
+    ops_in[what] = flat[1:].view(shape)
+    assert ops_in[what].data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops._check_attention(ops_in["q"], ops_in["k"], ops_in["v"], None)
+    ops._check_attention(*(t.float() for t in ops_in.values()), None)
+
+
+@pytest.mark.parametrize("row", [132, 68])
+def test_tensor_core_instance_rejects_strides_off_16_bytes(row):
+    """A row pitch of 132 (D = 128) or 68 (D = 64) bf16 elements is not a
+    multiple of 16 bytes: ValueError before any launch."""
+    D = row - 4
+    q = _bf16_zeros(1, 4, 8, row)[..., :D]
+    k = _bf16_zeros(1, 2, 8, D)
+    assert ops.flash_instance(q.dtype, D) == "wgmma"
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ops._check_attention(q, k, k, None)
+
+
+def test_tensor_core_instance_takes_the_models_transposed_views():
+    """The model's (B, S, H, D) projections go in as .transpose(1, 2);
+    a batch of 1 or one head leaves a size-1 dimension whose stride is
+    never stepped over, and the tensor map gets the tensor's span there."""
+    for B, heads in ((2, 40), (1, 40), (1, 1)):
+        q = _bf16_zeros(B, 100, heads, 128).transpose(1, 2)
+        k = _bf16_zeros(B, 100, 1 if heads == 1 else 8, 128).transpose(1, 2)
+        ops._check_attention(q, k, k, 64)
+        strides = ops._tma_strides(q)
+        assert all(st > 0 and st % 8 == 0 for st in strides)
+        assert strides[2] == heads * 128
+    odd = _bf16_zeros(3, 1, 5, 64)
+    assert ops._tma_strides(odd) == [320, 960, 64]   # the span, 3 x 320
+
+
+def test_chip_smoke_reads_the_tensor_core_build():
+    """chip_smoke.py's readers of the tensor-core instance: the ptxas line
+    of flash_tc_kernel<128> and cuobjdump's HGMMA / UTMALDG counts."""
+    import chip_smoke
+    assert chip_smoke.ptxas_report(
+        "ptxas info    : Compiling entry function '_ZN2tc15flash_tc_kernelI"
+        "Li128EEEv14CUtensorMap_stS1_S1_NS_7OutArgsEiiifii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n") == [
+        ("flash_tc_kernel<128>", 168,
+         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+    sass = ("\t\tFunction : _ZN2tc15flash_tc_kernelILi64EEEv14CUtensorMap\n"
+            "        /*0100*/  UTMALDG.4D [UR8], [UR4] ;\n"
+            "        /*0200*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ ;\n"
+            "        /*0210*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n"
+            "\t\tFunction : _ZN12_GLOBAL__N_112flash_kernelIfLi32EEEv\n"
+            "        /*0100*/  FFMA R1, R2, R3, R1 ;\n")
+    assert chip_smoke.sass_counts(sass) == {
+        "_ZN2tc15flash_tc_kernelILi64EEEv14CUtensorMap": (2, 1),
+        "_ZN12_GLOBAL__N_112flash_kernelIfLi32EEEv": (0, 0)}
