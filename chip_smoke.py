@@ -8,20 +8,27 @@ result lines):
 
 1. the card: ``nvidia-smi`` name and power limit, TF32 switched off;
 2. the build: ``nvcc`` compiles the CUDA sources of the port, one process
-   per source, all at once; ptxas's registers and spills per kernel, and
-   the wgmma (HGMMA) and TMA-load (UTMALDG) instructions ``cuobjdump
-   -sass`` finds in the tensor-core flash instance (none fails the run);
+   per source, all at once; ptxas's registers and spills per kernel (and
+   shared memory of the round kernel's stream instance), the wgmma (HGMMA)
+   and TMA-load (UTMALDG) instructions ``cuobjdump -sass`` finds in the
+   tensor-core flash instance and the bulk copies (UBLKCP) in the stream
+   instance of ``csvm_round_block`` (none fails the run);
 3. the CSVM kernels: each against its plain torch version on the card,
    at the paper's design size and at the full size below, in fp32 and
    bf16, with held rounds, ``nact = 0``, lambda vectors and
-   ``lam0 > 0``; then their times (CUDA events) beside the plain
-   versions' and the bound;
+   ``lam0 > 0`` — ``csvm_round_block`` on both its instances (``stream``,
+   one read of X a round, and ``direct``, the earlier design); then their
+   times (CUDA events) beside the plain versions' and the bound, the round
+   kernel's two instances in turns with their effective TB/s and the
+   floor of one read of X a round (the stream instance must take at most
+   0.6x the direct one's time);
 4. the fit path at full size — ``SimConfig(p=4095, s=10, m=16, n=1024,
    rho=0.5)`` on ``erdos_renyi(16, 0.5, seed=0)``, X (16, 1024, 4096):
    ``decsvm_fit`` under ``megakernel`` (with and without
    ``track_history``) and ``pallas``, ``decsvm_fit_tol`` (KKT stop) under
    ``megakernel_bf16``, each against the plain ``jnp`` backend on the
-   card, with the launch counters read around the fits; the KKT fits
+   card, with the launch counters read around the fits (every
+   ``csvm_round_block`` launch on the stream instance); the KKT fits
    must stop before ``max_iter`` and within one check block of each
    other;
 5. ``flash_attention`` against its plain version (``ref.mha``) at the
@@ -166,6 +173,11 @@ SSD_CASES = [
 MAMBA_PROMPT = 1999
 MAMBA_TOL = {"float32": 1e-4, "bfloat16": 0.5}
 
+# csvm_round_block's stream instance (one read of X a round) against the
+# direct one (two reads) in the same call, at both main-path shapes: at
+# most this share of its time.
+STREAM_RATIO = 0.6
+
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
     "csvm_local_update": "src/repro/kernels/csvm_update.py:83",
@@ -193,9 +205,9 @@ def check(ok: bool, msg: str):
         raise SmokeFailure(msg)
 
 
-def ptxas_report(log_text: str):
-    """(kernel<[type, ][int]>, registers, spills) per entry function of
-    nvcc's ``-Xptxas -v`` output."""
+def _ptxas_entries(log_text: str):
+    """(kernel<[type, ][int]>, its "Used ..." line, spills) per entry
+    function of nvcc's ``-Xptxas -v`` output."""
     out, name, spills = [], None, ""
     for line in log_text.splitlines():
         entry = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)I"
@@ -209,40 +221,61 @@ def ptxas_report(log_text: str):
             name = f"{entry.group(1)}<{', '.join(args)}>"
         elif "spill" in line:
             spills = line.strip()
-        else:
-            regs = re.search(r"Used (\d+) registers", line)
-            if regs and name:
-                out.append((name, int(regs.group(1)), spills))
-                name = None
+        elif re.search(r"Used \d+ registers", line) and name:
+            out.append((name, line, spills))
+            name = None
     return out
 
 
-def sass_counts(sass_text: str):
-    """{function: (HGMMA, UTMALDG)} of ``cuobjdump -sass`` output: the
-    wgmma and TMA-load instructions each compiled kernel issues."""
+def ptxas_report(log_text: str):
+    """(kernel<[type, ][int]>, registers, spills) per entry function of
+    nvcc's ``-Xptxas -v`` output."""
+    return [(name, int(re.search(r"Used (\d+) registers", used).group(1)),
+             spills) for name, used, spills in _ptxas_entries(log_text)]
+
+
+def ptxas_smem(log_text: str):
+    """{kernel<...>: static shared memory bytes} of the same output (0
+    where ptxas reports none)."""
+    out = {}
+    for name, used, _ in _ptxas_entries(log_text):
+        smem = re.search(r"(\d+) bytes smem", used)
+        out[name] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def sass_counts(sass_text: str, opcodes=("HGMMA", "UTMALDG")):
+    """{function: (count of each opcode)} of ``cuobjdump -sass`` output:
+    by default the wgmma and TMA-load instructions each compiled kernel
+    issues."""
     counts, fn = {}, None
     for line in sass_text.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
             fn = head.group(1)
-            counts[fn] = [0, 0]
+            counts[fn] = [0] * len(opcodes)
         elif fn is not None:
-            counts[fn][0] += "HGMMA" in line
-            counts[fn][1] += "UTMALDG" in line
+            for i, op in enumerate(opcodes):
+                counts[fn][i] += op in line
     return {fn: tuple(c) for fn, c in counts.items()}
+
+
+def disassemble(build, name: str) -> str:
+    """``cuobjdump -sass`` of the library built from source ``name``."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    return sass.stdout
 
 
 def tensor_core_sass(build):
     """Disassemble the flash library and check that the tensor-core
     instance (``flash_tc_kernel`` at D = 64 and 128) issues wgmma and TMA
     loads; returns {D: (HGMMA, UTMALDG)}."""
-    tool = Path(build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(build.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300)
-    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
     found = {}
-    for fn, (hgmma, utmaldg) in sass_counts(sass.stdout).items():
+    for fn, (hgmma, utmaldg) in sass_counts(
+            disassemble(build, "flash_attention")).items():
         inst = re.search(r"flash_tc_kernelILi(\d+)E", fn)
         if inst:
             found[int(inst.group(1))] = (hgmma, utmaldg)
@@ -252,6 +285,26 @@ def tensor_core_sass(build):
         h > 0 and u > 0 for h, u in found.values()),
         f"the tensor-core flash instance issues no wgmma or TMA load: "
         f"{found}")
+    return found
+
+
+def bulk_copy_sass(build):
+    """Disassemble the CSVM library and check that the stream instance of
+    the round kernel (``round_stream_kernel`` for fp32 and bf16 X) issues
+    TMA bulk copies (UBLKCP; UTMALDG with a tensor map); returns
+    {dtype: (UBLKCP, UTMALDG)}."""
+    found = {}
+    for fn, (blk, tma) in sass_counts(disassemble(build, "csvm_update"),
+                                      ("UBLKCP", "UTMALDG")).items():
+        inst = re.search(r"round_stream_kernelI(f|13__nv_bfloat16)E", fn)
+        if inst:
+            dtype = "float32" if inst.group(1) == "f" else "bfloat16"
+            found[dtype] = (blk, tma)
+            log(f"sass round_stream_kernel<{dtype}>: {blk} UBLKCP, {tma} "
+                "UTMALDG")
+    check(set(found) == {"float32", "bfloat16"} and all(
+        b + u > 0 for b, u in found.values()),
+        f"the stream round kernel issues no bulk copy: {found}")
     return found
 
 
@@ -386,22 +439,45 @@ def kernel_checks(torch, ops, cu, d: Data, label: str, devs: dict):
              ("bfloat16", 5, 5, True, d.lam0, True),
              ("bfloat16", 5, 2, False, 0.0, False),
              ("bfloat16", 4, 0, True, 0.0, True)]
+    # on the card each case runs on both instances of the round kernel
+    # (the wrapper's choice first); on the CPU the wrapper's plain version
+    m, n, p = d.X.shape
+    on_card = d.device.type == "cuda"
     for dtype, R, nact, kkt, lam0, vec in cases:
         omega = d.omega0 if lam0 else d.omega
         args = (d.x(dtype), d.y, d.B, d.P, d.W, d.deg, d.rho, omega,
                 d.lam_vec if vec else d.lam_flat)
         kw = dict(tau=1.0, lam0=lam0, h=d.h, num_rounds=R, want_kkt=kkt)
-        got = ops.csvm_round_block(*args, nact_t(nact), **kw)
         want = cu.csvm_round_block_plain(*args, nact, **kw)
-        what = (f"csvm_round_block {label} {dtype} rounds={R} nact={nact} "
-                f"kkt={kkt} lam0={lam0} lam_vector={vec}")
-        dev = compare(torch, got, want, dtype, what)
-        if nact == 0:
-            check(torch.equal(got[0], d.B) and torch.equal(got[1], d.P),
-                  f"{what}: held rounds changed B or P")
-        record(devs, "csvm_round_block", dtype, dev)
-        log(f"check {what}: max|dev| {dev:.3e} stat {float(got[2]):.6g} "
-            f"(plain {float(want[2]):.6g})")
+        chosen = ops.round_block_instance(m, n, p, args[0].dtype)
+        instances = ([chosen] + [i for i in ops.ROUND_INSTANCES
+                                 if i != chosen]) if on_card else ["plain"]
+        for instance in instances:
+            before = dict(ops.round_block_launches)
+            if instance == chosen:
+                got = ops.csvm_round_block(*args, nact_t(nact), **kw)
+            elif on_card:
+                got = ops._round_block_launch(*args, nact_t(nact), instance,
+                                              **kw)
+            else:
+                got = ops.csvm_round_block(*args, nact_t(nact), **kw)
+            if on_card:
+                ran = {k: v - before[k]
+                       for k, v in ops.round_block_launches.items()}
+                check(ran == {k: int(k == instance)
+                              for k in ops.ROUND_INSTANCES},
+                      f"csvm_round_block {label}: launched {ran}, expected "
+                      f"one {instance} launch")
+            what = (f"csvm_round_block [{instance}] {label} {dtype} "
+                    f"rounds={R} nact={nact} kkt={kkt} lam0={lam0} "
+                    f"lam_vector={vec}")
+            dev = compare(torch, got, want, dtype, what)
+            if nact == 0:
+                check(torch.equal(got[0], d.B) and torch.equal(got[1], d.P),
+                      f"{what}: held rounds changed B or P")
+            record(devs, "csvm_round_block", dtype, dev)
+            log(f"check {what}: max|dev| {dev:.3e} stat {float(got[2]):.6g}"
+                f" (plain {float(want[2]):.6g})")
 
 
 def kernel_timings(torch, ops, cu, d: Data, max_iter: int):
@@ -424,6 +500,7 @@ def kernel_timings(torch, ops, cu, d: Data, max_iter: int):
         rows[name] = dict(times, bound_ms=bms, bound_by=by,
                           shape=f"X ({m}, {n}, {p}) fp32, one round")
     variants = []
+    on_card = d.device.type == "cuda"
     for dtype, R, kkt in (("float32", max_iter, False),
                           ("bfloat16", 4, True)):
         args = (d.x(dtype), d.y, d.B, d.P, d.W, d.deg, d.rho, d.omega,
@@ -431,21 +508,45 @@ def kernel_timings(torch, ops, cu, d: Data, max_iter: int):
         kw = dict(tau=1.0, lam0=0.0, h=d.h, num_rounds=R, want_kkt=kkt)
         nact = torch.tensor(R, dtype=torch.int32, device=d.device)
         reps = 3 if R > 10 else 20
-        times = paired_ms(
-            torch, lambda: ops.csvm_round_block(*args, nact, **kw),
-            lambda: cu.csvm_round_block_plain(*args, R, **kw), reps,
-            max(1, reps // 3))
+        instance = ops.round_block_instance(m, n, p, args[0].dtype)
+        check(instance == "stream", f"csvm_round_block at X ({m}, {n}, {p})"
+              f" {dtype} takes the {instance} instance, not the stream one")
+        kernel = lambda: ops.csvm_round_block(*args, nact, **kw)
+        plain = lambda: cu.csvm_round_block_plain(*args, R, **kw)
+        # in turns: stream, direct, plain, plain, direct, stream
+        k1 = cuda_ms(torch, kernel, reps)
+        earlier = (lambda: ops._round_block_launch(*args, nact, "direct",
+                                                   **kw)) if on_card else None
+        e1 = cuda_ms(torch, earlier, reps) if earlier else None
+        p1 = cuda_ms(torch, plain, max(1, reps // 3))
+        p2 = cuda_ms(torch, plain, max(1, reps // 3))
+        e2 = cuda_ms(torch, earlier, reps) if earlier else None
+        k2 = cuda_ms(torch, kernel, reps)
+        times = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                     ms_samples=[k1, k2], plain_ms_samples=[p1, p2])
         isz = 4 if dtype == "float32" else 2
         nbytes = (ops.round_block_bytes(m, n, p, isz, R)
                   - 4 * ops.round_block_scratch_floats(m, n, p, R))
         # the margins and X^T w of each round, and once more at beta_bar
         # for the KKT epilogue; the W@B sums (2 m^2 p a round) are left out
-        flops = 4 * m * n * p * (R + (1 if kkt else 0))
+        passes = R + (1 if kkt else 0)
+        flops = 4 * m * n * p * passes
         bms, by = bound(flops, nbytes,
                         PEAK_FP32 if dtype == "float32" else PEAK_BF16)
-        variants.append(dict(times, bound_ms=bms, bound_by=by,
-                             shape=f"X ({m}, {n}, {p}) {dtype}, {R} rounds, "
-                                   f"want_kkt={kkt}"))
+        # X must come from device memory once a pass: it does not fit on
+        # the chip; the direct instance reads it twice a pass
+        x_bytes = m * n * p * isz
+        row = dict(times, bound_ms=bms, bound_by=by,
+                   floor_ms=1e3 * passes * x_bytes / PEAK_BYTES,
+                   stream_tbs=passes * x_bytes / times["ms"] / 1e9,
+                   shape=f"X ({m}, {n}, {p}) {dtype}, {R} rounds, "
+                         f"want_kkt={kkt}")
+        if earlier:
+            row.update(earlier_ms=(e1 + e2) / 2, earlier_ms_samples=[e1, e2],
+                       earlier_tbs=2 * passes * x_bytes / ((e1 + e2) / 2)
+                       / 1e9)
+            row["ratio"] = row["ms"] / row["earlier_ms"]
+        variants.append(row)
     rows["csvm_round_block"] = dict(variants[0], variants=variants[1:])
     for name, row in rows.items():
         for v in [row] + row.get("variants", []):
@@ -455,6 +556,20 @@ def kernel_timings(torch, ops, cu, d: Data, max_iter: int):
                 f"(samples {v['plain_ms_samples'][0]:.4f}, "
                 f"{v['plain_ms_samples'][1]:.4f}), bound "
                 f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
+    for v in [rows["csvm_round_block"]] + rows["csvm_round_block"]["variants"]:
+        if "earlier_ms" not in v:
+            continue
+        log(f"time csvm_round_block instances [{v['shape']}]: stream "
+            f"{v['ms']:.4f} ms ({v['stream_tbs']:.3f} TB/s, X once a pass),"
+            f" direct {v['earlier_ms']:.4f} ms (samples "
+            f"{v['earlier_ms_samples'][0]:.4f}, "
+            f"{v['earlier_ms_samples'][1]:.4f}; {v['earlier_tbs']:.3f} TB/s,"
+            f" X twice a pass), stream/direct {v['ratio']:.3f}; floor of one"
+            f" read of X a pass {v['floor_ms']:.4f} ms, the guide's bound "
+            f"{v['bound_ms']:.4f} ms")
+        check(v["ratio"] <= STREAM_RATIO,
+              f"csvm_round_block [{v['shape']}]: the stream instance takes "
+              f"{v['ratio']:.3f}x the direct one's time, over {STREAM_RATIO}")
     return rows
 
 
@@ -501,11 +616,19 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
     ref, s = timed(lambda: core.decsvm_fit(X, y, W, cfg("jnp"), **on))
     ref = report("jnp (plain, reference)", ref, s)
 
-    c0 = counts()
+    on_card = d.device.type == "cuda"
+    instances = lambda: dict(ops.round_block_launches)
+
+    c0, i0 = counts(), instances()
     B, s = timed(lambda: core.decsvm_fit(X, y, W, cfg("megakernel"), **on))
     report("megakernel", B, s, ref, FIT_TOL["float32"])
     check(ops.launches["csvm_round_block"] - c0["csvm_round_block"] == 1,
           "megakernel fit: expected one csvm_round_block launch")
+    if on_card:
+        ran = {k: v - i0[k] for k, v in instances().items()}
+        check(ran == {"stream": 1, "direct": 0},
+              f"megakernel fit: round kernel instances {ran}, expected one "
+              "stream launch")
 
     c0 = counts()
     (B, H), s = timed(lambda: core.decsvm_fit(X, y, W, cfg("megakernel"),
@@ -532,7 +655,7 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
     check(tt < max_iter, f"plain KKT fit: tol {kkt_tol:g} not reached in "
           f"{max_iter} rounds, so the stopping round is not compared")
 
-    c0 = counts()
+    c0, i0 = counts(), instances()
     (B16, t16), s = timed(lambda: core.decsvm_fit_tol(
         X, y, W, cfg("megakernel_bf16"), **tol_kw, **on))
     t16 = int(t16)
@@ -548,10 +671,16 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
     check(n_blocks == math.ceil(t16 / CHECK_EVERY),
           f"bf16 tol fit: {n_blocks} csvm_round_block launches for "
           f"t={t16} rounds in blocks of {CHECK_EVERY}")
+    if on_card:
+        ran = {k: v - i0[k] for k, v in instances().items()}
+        check(ran == {"stream": n_blocks, "direct": 0},
+              f"bf16 tol fit: round kernel instances {ran}, expected all "
+              f"{n_blocks} on the stream instance")
     launches = {name: ops.launches[name] for name in FIT_KERNELS}
     for name in FIT_KERNELS:
         check(launches[name] >= 1, f"fit path never launched {name}")
-    log(f"fit path launches: {json.dumps(launches)}")
+    log(f"fit path launches: {json.dumps(launches)}; csvm_round_block by "
+        f"instance: {json.dumps(instances())}")
     return launches
 
 
@@ -966,13 +1095,25 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (one nvcc per source, "
         f"in parallel), {sorted(p.name for p in libs.values())}")
     for name in libs:
+        smem = ptxas_smem(build.build_log(name))
         for kernel, regs, spills in ptxas_report(build.build_log(name)):
-            log(f"ptxas {kernel}: {regs} registers, {spills}")
+            extra = ""
+            if kernel.startswith("round_stream_kernel"):
+                isz = 4 if "float" in kernel else 2
+                extra = (f", {smem[kernel]} bytes static shared memory + "
+                         f"{ops.round_stream_smem_bytes(4096, isz)} dynamic "
+                         "at p = 4096")
+            log(f"ptxas {kernel}: {regs} registers, {spills}{extra}")
     sass = tensor_core_sass(build)
+    bulk = bulk_copy_sass(build)
     for bf16 in (False, True):
         per_sm, sms = ops.round_block_occupancy(0, bf16)
-        log(f"round kernel ({'bf16' if bf16 else 'fp32'} X): {per_sm} "
-            f"co-resident blocks per SM x {sms} SMs")
+        st_sm, _ = ops.round_block_occupancy(0, bf16, "stream", 4096)
+        grid = ops.round_block_grid(
+            0, 16, 1024, 4096, torch.bfloat16 if bf16 else torch.float32)
+        log(f"round kernel ({'bf16' if bf16 else 'fp32'} X): direct {per_sm} "
+            f"co-resident blocks per SM x {sms} SMs; stream {st_sm} per SM at"
+            f" p = 4096, grid {grid} at X (16, 1024, 4096)")
 
     # phases 3-4: the CSVM kernels and the fit path
     devs = {}
@@ -987,6 +1128,7 @@ def main() -> int:
     torch.cuda.synchronize()
     rows = kernel_timings(torch, ops, cu, full, 300)
     launches = main_path(torch, core, ops, full)
+    round_instances = dict(ops.round_block_launches)
     del design, full
 
     # phase 5: flash_attention against its plain version, and its times
@@ -1130,6 +1272,12 @@ def main() -> int:
         else:
             tol = {dt: TOL[dt] for dt in devs[name]}
             row["library_ms"] = None
+            if name == "csvm_round_block":
+                extra = dict(
+                    instance_launches=round_instances,
+                    sass={f"round_stream_kernel<{dt}>": dict(UBLKCP=b,
+                                                             UTMALDG=u)
+                          for dt, (b, u) in bulk.items()})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],

@@ -16,7 +16,9 @@ it (wrappers, launch counters and the residency rule in ``ops.py``):
 - ``csvm_round_block``  replaces ``csvm_round_block``
   (``_round_megakernel``): ``num_rounds`` full ADMM rounds, and the
   optional KKT epilogue, in ONE cooperative launch with grid-wide
-  barriers between the phases of a round.
+  barriers between the phases of a round.  Two instances
+  (``ops.round_block_instance``): ``stream`` reads X once a round (p up
+  to 8192), ``direct`` twice.
 
 Each kernel's plain version below computes the same function with the
 same bf16 rounding points (B, w and beta_bar are rounded to the compute

@@ -13,9 +13,10 @@ last axis; anything else raises before launch.
 
 ``launches[name]`` counts the kernel launches of each wrapper (one per
 call that reached the kernel, none for the plain version), so a run can
-show that its path went through the kernels; ``flash_launches`` splits
-``launches["flash_attention"]`` by the instance that ran
-(``flash_instance``).
+show that its path went through the kernels; ``flash_launches`` and
+``round_block_launches`` split ``launches["flash_attention"]`` and
+``launches["csvm_round_block"]`` by the instance that ran
+(``flash_instance``, ``round_block_instance``).
 """
 from __future__ import annotations
 
@@ -38,6 +39,10 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # FMAs on the CUDA cores
 FLASH_INSTANCES = ("wgmma", "fma")
 flash_launches: Dict[str, int] = {name: 0 for name in FLASH_INSTANCES}
+# csvm_round_block's two instances: X streamed through shared memory once a
+# round (TMA bulk copies) and X read twice a round with plain loads
+ROUND_INSTANCES = ("stream", "direct")
+round_block_launches: Dict[str, int] = {name: 0 for name in ROUND_INSTANCES}
 
 _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
@@ -48,6 +53,10 @@ _SIGNATURES = {
                          + [_F, _F, _F, _I, _F, _F, _F, _P]),
     "csvm_round_block_occupancy": [_I, ctypes.POINTER(_I),
                                    ctypes.POINTER(_I)],
+    "csvm_round_stream": ([_P, _I] + [_P] * 14 + [_I] * 9
+                          + [_F, _F, _F, _I, _F, _F, _F, _P]),
+    "csvm_round_stream_occupancy": [_I, _I, ctypes.POINTER(_I),
+                                    ctypes.POINTER(_I)],
 }
 
 
@@ -56,6 +65,8 @@ def reset_launches() -> None:
         launches[name] = 0
     for name in FLASH_INSTANCES:
         flash_launches[name] = 0
+    for name in ROUND_INSTANCES:
+        round_block_launches[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,42 +234,153 @@ def csvm_local_update(X, y, beta, p_dual, neigh, rho, omega, lam, *, h,
 # Round kernel: residency rule, buffers, wrapper
 # --------------------------------------------------------------------------
 
-def round_block_scratch_floats(m: int, n: int, p: int,
-                               num_rounds: int) -> int:
-    """fp32 scratch of one round-kernel launch: the margin weights w
-    (m, n), the second B buffer (m, p), beta_bar (p,) and one reduction
-    slot per round plus the KKT stationarity and consensus slots."""
-    return m * n + m * p + p + num_rounds + 2
+# The stream instance's layout (csrc/csvm_update.cu, round_stream_kernel):
+# 512 consumer threads of up to 16 columns each, a ring of three stages of
+# whole rows of X (about 64 KB each, at most 32 rows), and after the ring
+# its mbarriers, per-warp row sums and row weights (kStreamFixedBytes).
+_STREAM_CONSUMERS = 512
+_STREAM_MAX_COLS = 16
+STREAM_MAX_P = _STREAM_CONSUMERS * _STREAM_MAX_COLS
+_STREAM_STAGES = 3
+_STREAM_MAX_ROWS = 32
+_STREAM_TILE_BYTES = 65536
+_STREAM_FIXED_BYTES = (128 + _STREAM_MAX_ROWS * (_STREAM_CONSUMERS // 32) * 4
+                       + _STREAM_MAX_ROWS * 4 + 128)
+_SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory, bytes
+_STATIC_SMEM = 1024    # kept free for a kernel's static shared memory
+
+
+def round_stream_tile_rows(p: int, itemsize: int) -> int:
+    """Rows of X in one stage of the stream instance's ring: ~64 KB of
+    whole rows, between 1 and 32."""
+    return max(1, min(_STREAM_MAX_ROWS, _STREAM_TILE_BYTES // (p * itemsize)))
+
+
+def round_stream_stage_bytes(p: int, itemsize: int) -> int:
+    """Bytes of one stage: the tile's rows plus the 16-byte alignment of a
+    span that starts or ends mid-row, rounded up to 128."""
+    need = round_stream_tile_rows(p, itemsize) * p * itemsize + 32
+    return -(-need // 128) * 128
+
+
+def round_stream_smem_bytes(p: int, itemsize: int) -> int:
+    """Dynamic shared memory of one stream-instance block."""
+    return (_STREAM_STAGES * round_stream_stage_bytes(p, itemsize)
+            + _STREAM_FIXED_BYTES)
+
+
+def round_block_instance(m: int, n: int, p: int, dtype=torch.float32) -> str:
+    """The instance of the round kernel a CUDA call runs, by shape alone:
+    ``"stream"`` (X read once a round) while a consumer thread's registers
+    hold its columns (p <= 8192) and the ring fits a block's shared memory,
+    ``"direct"`` (X read twice a round) beyond."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    if (p <= STREAM_MAX_P and round_stream_smem_bytes(p, itemsize)
+            <= _SMEM_LIMIT - _STATIC_SMEM):
+        return "stream"
+    return "direct"
+
+
+def round_stream_plan(m: int, n: int, grid: int):
+    """The stream instance's partition of the m*n rows of X (flattened) over
+    ``grid`` blocks: ``rows`` (grid + 1) bounds block b's contiguous range
+    [rows[b], rows[b+1]), which may cross node boundaries; a block's range
+    splits at them into node segments, numbered in row order, so a node's
+    segments are consecutive and in block order: ``seg0`` (grid) is each
+    block's first segment and ``node_seg`` (m + 1) bounds each node's.
+    Returns (rows, seg0, node_seg) as lists of ints."""
+    total = m * n
+    if not 1 <= grid <= total:
+        raise ValueError(f"round_stream_plan: grid={grid} for {total} rows")
+    rows = [b * total // grid for b in range(grid + 1)]
+    seg0, node_seg, seg = [], [0] * (m + 1), 0
+    for b in range(grid):
+        seg0.append(seg)
+        row = rows[b]
+        while row < rows[b + 1]:
+            end = min(rows[b + 1], (row // n + 1) * n)
+            seg += 1
+            node_seg[row // n + 1] = seg
+            row = end
+    return rows, seg0, node_seg
+
+
+def round_stream_grid(m: int, n: int, p: int, itemsize: int,
+                      blocks_per_sm: int, num_sms: int) -> int:
+    """Blocks of a stream launch: every co-resident block (one per SM on an
+    H100: 512 threads of 128 registers fill its register file), and no
+    more blocks than tiles' worth of rows."""
+    tiles = -(-(m * n) // round_stream_tile_rows(p, itemsize))
+    return max(1, min(blocks_per_sm * num_sms, tiles))
+
+
+def round_block_scratch_floats(m: int, n: int, p: int, num_rounds: int,
+                               instance: str = "direct",
+                               grid: int = 1) -> int:
+    """fp32 scratch of one round-kernel launch.  ``"direct"``: the margin
+    weights w (m, n), the second B buffer (m, p), beta_bar (p,) and one
+    reduction slot per round plus the KKT stationarity and consensus
+    slots.  ``"stream"``: the same without w, plus one partial X^T w row
+    (p,) per node segment of the ``grid``-block plan (at most grid + m -
+    1)."""
+    if instance == "direct":
+        return m * n + m * p + p + num_rounds + 2
+    nseg = round_stream_plan(m, n, grid)[2][-1]
+    return m * p + p + num_rounds + 2 + nseg * p
 
 
 def round_block_bytes(m: int, n: int, p: int, itemsize: int = 4,
-                      num_rounds: int = 1) -> int:
+                      num_rounds: int = 1, instance: str = "direct",
+                      grid: int = 1) -> int:
     """Device bytes one ``csvm_round_block`` launch touches: its operands
     (X in the compute dtype; y, B, P, W, deg, rho, omega, lam in fp32;
-    the int32 active-round count), its outputs (B, P and the statistic)
-    and its scratch.  Pinned to the wrapper's real buffers by
-    ``tests/test_torch_kernels.py``."""
+    the int32 active-round count), its outputs (B, P and the statistic),
+    its scratch and, for the stream instance, its int32 plan.  Pinned to
+    the wrapper's real buffers by ``tests/test_torch_kernels.py``."""
     f = 4
     operands = (m * n * p * itemsize + m * n * f + 2 * m * p * f
                 + m * m * f + 3 * m * f + p * f + 4)
     outputs = 2 * m * p * f + f
-    scratch = round_block_scratch_floats(m, n, p, num_rounds) * f
-    return operands + outputs + scratch
+    scratch = round_block_scratch_floats(m, n, p, num_rounds, instance,
+                                         grid) * f
+    plan = 4 * (2 * grid + m + 2) if instance == "stream" else 0
+    return operands + outputs + scratch + plan
 
 
 @functools.lru_cache(maxsize=None)
-def round_block_occupancy(device_index: int, bf16: bool):
-    """(co-resident round-kernel blocks per SM, SM count) on a card; the
-    blocks per SM are 0 where the card has no cooperative launch."""
+def round_block_occupancy(device_index: int, bf16: bool,
+                          instance: str = "direct", p: int = 1):
+    """(co-resident blocks per SM, SM count) of a round-kernel instance on
+    a card; the blocks per SM are 0 where the card has no cooperative
+    launch.  The stream instance's depend on its shared memory, so on p."""
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _lib().csvm_round_block_occupancy(
-            int(bf16), ctypes.byref(per_sm), ctypes.byref(sms))
+        if instance == "stream":
+            err = _lib().csvm_round_stream_occupancy(
+                int(bf16), round_stream_smem_bytes(p, 2 if bf16 else 4),
+                ctypes.byref(per_sm), ctypes.byref(sms))
+        else:
+            err = _lib().csvm_round_block_occupancy(
+                int(bf16), ctypes.byref(per_sm), ctypes.byref(sms))
     if err != 0:
         msg = _lib().csvm_error_string(err).decode()
-        raise RuntimeError(f"csvm_round_block_occupancy: CUDA error {err} "
-                           f"({msg})")
+        raise RuntimeError(f"csvm_round_block_occupancy ({instance}): CUDA "
+                           f"error {err} ({msg})")
     return per_sm.value, sms.value
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def round_block_grid(device, m: int, n: int, p: int, dtype) -> int:
+    """The grid of a stream-instance launch on a card (``round_stream_grid``
+    at the card's occupancy)."""
+    bf16 = dtype == torch.bfloat16
+    per_sm, sms = round_block_occupancy(_device_index(torch.device(device)),
+                                        bf16, "stream", p)
+    return round_stream_grid(m, n, p, 2 if bf16 else 4, per_sm, sms)
 
 
 def megakernel_supported(m: int, n: int, p: int, dtype=None, device=None,
@@ -267,35 +389,45 @@ def megakernel_supported(m: int, n: int, p: int, dtype=None, device=None,
     ``device``; drivers take the loop of single rounds otherwise.
 
     On the CPU the plain version takes any size.  On a card, decided from
-    shapes before launch: every byte the launch touches
-    (``round_block_bytes``: X plus the other operands, outputs and
-    scratch) must fit the device's memory, and the cooperative grid must
-    be co-resident (at least one round-kernel block per SM).
+    shapes before launch, for the instance ``round_block_instance`` picks:
+    every byte the launch touches (``round_block_bytes``: X plus the other
+    operands, outputs, scratch and plan, the stream instance's partial rows
+    at the grid its occupancy gives) must fit the device's memory, and the
+    cooperative grid must be co-resident (at least one block per SM).
     """
     device = torch.device("cpu" if device is None else device)
     if device.type == "cpu":
         return True
     if device.type != "cuda":
         raise ValueError(f"megakernel_supported: device {device}")
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
+    index = _device_index(device)
     bf16 = dtype == torch.bfloat16
-    need = round_block_bytes(m, n, p, 2 if bf16 else 4, num_rounds)
-    if need > torch.cuda.get_device_properties(index).total_memory:
+    instance = round_block_instance(m, n, p, dtype)
+    per_sm, sms = round_block_occupancy(index, bf16, instance,
+                                        p if instance == "stream" else 1)
+    if per_sm < 1:
         return False
-    return round_block_occupancy(index, bf16)[0] >= 1
+    itemsize = 2 if bf16 else 4
+    grid = (round_stream_grid(m, n, p, itemsize, per_sm, sms)
+            if instance == "stream" else 1)
+    need = round_block_bytes(m, n, p, itemsize, num_rounds, instance, grid)
+    return need <= torch.cuda.get_device_properties(index).total_memory
 
 
 def _round_block_buffers(X, y, B, P, W, deg, rho, omega, lam_vec, nact,
-                         num_rounds: int):
+                         num_rounds: int, instance: str = "direct",
+                         grid: int = 1):
     """Check the round kernel's operands and allocate its outputs and
-    scratch on X's device: (Bout, Pout, stat, scratch)."""
+    scratch on X's device: (Bout, Pout, stat, scratch), and for the stream
+    instance its int32 plan for ``grid`` blocks as a fifth buffer."""
     name = "csvm_round_block"
     if X.dim() != 3 or min(X.shape) < 1:
         raise ValueError(f"{name}: X must be a non-empty (m, n, p) tensor, "
                          f"got shape {tuple(X.shape)}")
     if num_rounds < 1:
         raise ValueError(f"{name}: num_rounds={num_rounds} must be >= 1")
+    if instance not in ROUND_INSTANCES:
+        raise ValueError(f"{name}: unknown instance {instance!r}")
     m, n, p = X.shape
     dev = X.device
     _expect(name, "X", X, (m, n, p), _X_DTYPES, dev)
@@ -308,11 +440,71 @@ def _round_block_buffers(X, y, B, P, W, deg, rho, omega, lam_vec, nact,
     _expect(name, "lam_vec", lam_vec, (p,), _F32, dev)
     _expect(name, "nact", nact, (), (torch.int32,), dev)
     f32 = torch.float32
-    return (torch.empty((m, p), dtype=f32, device=dev),
-            torch.empty((m, p), dtype=f32, device=dev),
-            torch.empty((), dtype=f32, device=dev),
-            torch.empty(round_block_scratch_floats(m, n, p, num_rounds),
-                        dtype=f32, device=dev))
+    buffers = (torch.empty((m, p), dtype=f32, device=dev),
+               torch.empty((m, p), dtype=f32, device=dev),
+               torch.empty((), dtype=f32, device=dev),
+               torch.empty(round_block_scratch_floats(
+                   m, n, p, num_rounds, instance, grid), dtype=f32,
+                   device=dev))
+    if instance == "direct":
+        return buffers
+    if m * n > 2 ** 31 - 1:
+        raise ValueError(f"{name}: m*n={m * n} rows exceed int32")
+    return buffers + (_plan_tensor(m, n, grid, dev),)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tensor(m: int, n: int, grid: int, device: torch.device):
+    """``round_stream_plan`` as one int32 tensor on ``device`` (rows, seg0,
+    node_seg), kept so that a loop of launches copies it once."""
+    rows, seg0, node_seg = round_stream_plan(m, n, grid)
+    return torch.tensor(rows + seg0 + node_seg, dtype=torch.int32).to(device)
+
+
+def _round_block_launch(X, y, B, P, W, deg, rho, omega, lam_vec, nact,
+                        instance: str, *, tau, lam0, h,
+                        kernel="epanechnikov", num_rounds=1, want_kkt=False,
+                        grid=None):
+    """One launch of round-kernel ``instance`` on CUDA operands; returns
+    (B, P, stat).  ``csvm_round_block`` calls it with
+    ``round_block_instance``'s choice and the stream instance's grid from
+    ``round_block_grid``; ``grid`` may name a smaller co-resident grid."""
+    name = "csvm_round_block"
+    m, n, p = X.shape
+    if instance == "stream":
+        if p > STREAM_MAX_P:
+            raise ValueError(f"{name}: the stream instance takes p <= "
+                             f"{STREAM_MAX_P}, got p={p}")
+        if X.data_ptr() % 16:
+            raise ValueError(f"{name}: X's base is not 16-byte aligned, as "
+                             "the stream instance's bulk copies need")
+        if grid is None:
+            grid = round_block_grid(X.device, m, n, p, X.dtype)
+    bufs = _round_block_buffers(X, y, B, P, W, deg, rho, omega, lam_vec,
+                                nact, num_rounds, instance, grid or 1)
+    Bout, Pout, stat, scratch = bufs[:4]
+    head = (X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
+            B.data_ptr(), P.data_ptr(), W.data_ptr(), deg.data_ptr(),
+            rho.data_ptr(), omega.data_ptr(), lam_vec.data_ptr(),
+            nact.data_ptr(), Bout.data_ptr(), Pout.data_ptr(),
+            stat.data_ptr(), scratch.data_ptr())
+    tail = (float(tau), float(lam0), float(h), _kernel_id(kernel), 1.0 / n,
+            1.0 / m, (1.0 / n) / m, _stream(X.device))
+    with torch.cuda.device(X.device):
+        if instance == "stream":
+            isz = X.element_size()
+            err = _lib().csvm_round_stream(
+                *head, bufs[4].data_ptr(), m, n, p, int(num_rounds),
+                int(bool(want_kkt)), int(grid),
+                round_stream_tile_rows(p, isz),
+                round_stream_stage_bytes(p, isz),
+                round_stream_smem_bytes(p, isz), *tail)
+        else:
+            err = _lib().csvm_round_block(
+                *head, m, n, p, int(num_rounds), int(bool(want_kkt)), *tail)
+    _check_call(name, err)
+    round_block_launches[instance] += 1
+    return Bout, Pout, stat
 
 
 def csvm_round_block(X, y, B, P, W, deg, rho, omega, lam_vec, nact, *,
@@ -326,28 +518,20 @@ def csvm_round_block(X, y, B, P, W, deg, rho, omega, lam_vec, nact, *,
     deg/rho/omega (m,); lam_vec (p,), all fp32; nact the active-round
     count, a 0-d int32 tensor on X's device (rounds past it are held).
     Returns (B, P, stat): fp32 B/P and the 0-d statistic — the KKT
-    residual (``want_kkt``) or the last active round's max|dB|.
+    residual (``want_kkt``) or the last active round's max|dB|.  On the
+    card ``round_block_instance`` picks the kernel: p <= 8192 streams X
+    once a round (and needs X's base 16-byte aligned, or raises); larger p
+    reads it twice.
     """
     if not _is_cuda(X, "csvm_round_block"):
         return csvm_round_block_plain(
             X, y, B, P, W, deg, rho, omega, lam_vec, nact, tau=tau,
             lam0=lam0, h=h, kernel=kernel, num_rounds=num_rounds,
             want_kkt=want_kkt)
-    Bout, Pout, stat, scratch = _round_block_buffers(
-        X, y, B, P, W, deg, rho, omega, lam_vec, nact, num_rounds)
-    m, n, p = X.shape
-    with torch.cuda.device(X.device):
-        err = _lib().csvm_round_block(
-            X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
-            B.data_ptr(), P.data_ptr(), W.data_ptr(), deg.data_ptr(),
-            rho.data_ptr(), omega.data_ptr(), lam_vec.data_ptr(),
-            nact.data_ptr(), Bout.data_ptr(), Pout.data_ptr(),
-            stat.data_ptr(), scratch.data_ptr(), m, n, p, int(num_rounds),
-            int(bool(want_kkt)), float(tau), float(lam0), float(h),
-            _kernel_id(kernel), 1.0 / n, 1.0 / m, (1.0 / n) / m,
-            _stream(X.device))
-    _check_call("csvm_round_block", err)
-    return Bout, Pout, stat
+    return _round_block_launch(
+        X, y, B, P, W, deg, rho, omega, lam_vec, nact,
+        round_block_instance(*X.shape, X.dtype), tau=tau, lam0=lam0, h=h,
+        kernel=kernel, num_rounds=num_rounds, want_kkt=want_kkt)
 
 
 # --------------------------------------------------------------------------
@@ -471,7 +655,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 
 _SSD_PT = 16           # columns of p per block (csrc/ssd_scan.cu kPT)
 _SSD_MAX_CHUNK = 128
-_SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory, bytes
 
 
 def ssd_smem_bytes(chunk: int, n: int) -> int:

@@ -22,11 +22,17 @@ def problem(m, n, p, seed=0, scale_b=0.05):
 
 # (m, n, p, num_rounds, nact, want_kkt, lam0, lam_vector, kernel):
 # m not a multiple of 8 and n not a multiple of 16 (the JAX wrapper pads
-# both), held rounds, nact = 0, lambda vectors and lam0 > 0.
+# both), held rounds, nact = 0, lambda vectors and lam0 > 0.  The last two
+# give the stream instance of the CUDA round kernel block ranges that cross
+# node boundaries at its own grid (6 blocks of 30 rows over 45-row nodes;
+# 5 over 50-row nodes), one with rows a multiple of 16 bytes (p = 24), one
+# ragged (p = 13).
 ROUND_CASES = [
     (5, 13, 37, 3, 3, False, 0.0, False, "epanechnikov"),
     (5, 13, 37, 4, 2, True, 0.1, True, "epanechnikov"),
     (3, 20, 9, 4, 0, False, 0.0, True, "gaussian"),
     (3, 20, 9, 3, 0, True, 0.2, False, "laplacian"),
     (6, 17, 130, 5, 5, True, 0.0, True, "logistic"),
+    (4, 45, 24, 3, 3, True, 0.05, True, "epanechnikov"),
+    (3, 50, 13, 4, 3, False, 0.0, True, "uniform"),
 ]

@@ -114,6 +114,111 @@ def test_round_block_is_deterministic(cuda):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("instance,grid", [("stream", None), ("stream", 1),
+                                           ("stream", 7), ("direct", None)])
+@pytest.mark.parametrize("case", ROUND_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_round_block_instances_match_plain(cuda, case, dtype, instance,
+                                           grid):
+    """Each instance of the round kernel against the plain version: the
+    stream instance at its own grid (node-crossing ranges in the last two
+    cases), at one block and at 7 blocks (ranges crossing nodes in every
+    case with m*n > 7); held rounds and nact = 0 leave B and P bit-equal."""
+    m, n, p, R, nact, kkt, lam0, _, kernel = case
+    t = _on(problem(m, n, p, seed=m + n + p), cuda)
+    args = (t["X"].to(dtype), t["y"], t["B"], t["P"], t["W"], t["deg"],
+            t["rho"], t["omega"], t["lam"])
+    kw = dict(tau=1.0, lam0=lam0, h=0.35, kernel=kernel, num_rounds=R,
+              want_kkt=kkt)
+    before = dict(ops.round_block_launches)
+    got = ops._round_block_launch(
+        *args, torch.tensor(nact, dtype=torch.int32, device=cuda), instance,
+        grid=grid, **kw)
+    ran = {k: v - before[k] for k, v in ops.round_block_launches.items()}
+    assert ran == {k: int(k == instance) for k in ops.ROUND_INSTANCES}
+    want = cu.csvm_round_block_plain(*args, nact, **kw)
+    for g, w in zip(got, want):
+        _close(g, w, ATOL if dtype == torch.float32 else ATOL_BF16_KERNEL)
+    if nact == 0:
+        assert torch.equal(got[0], t["B"]) and torch.equal(got[1], t["P"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_instance_is_deterministic(cuda, dtype):
+    """Two launches of the stream instance give the same bits: B, P and
+    the statistic (ragged p, ranges crossing nodes, the KKT pass)."""
+    t = _on(problem(6, 50, 301, seed=9), cuda)
+    args = (t["X"].to(dtype), t["y"], t["B"], t["P"], t["W"], t["deg"],
+            t["rho"], t["omega"], t["lam"],
+            torch.tensor(7, dtype=torch.int32, device=cuda))
+    kw = dict(tau=1.0, lam0=0.05, h=0.3, num_rounds=7, want_kkt=True)
+    assert ops.round_block_instance(6, 50, 301, dtype) == "stream"
+    a = ops.csvm_round_block(*args, **kw)
+    b = ops._round_block_launch(*args, "stream", grid=5, **kw)
+    c = ops._round_block_launch(*args, "stream", grid=5, **kw)
+    for x, y in zip(b, c):
+        assert torch.equal(x, y)
+    for x, y in zip(a, ops.csvm_round_block(*args, **kw)):
+        assert torch.equal(x, y)
+
+
+def test_p_above_the_stream_limit_takes_the_direct_instance(cuda):
+    """p = 8200 > 8192: the wrapper launches the direct instance, which
+    matches the plain version; the stream instance refuses it."""
+    m, n, p = 2, 5, ops.STREAM_MAX_P + 8
+    t = _on(problem(m, n, p, seed=2), cuda)
+    args = (t["X"], t["y"], t["B"], t["P"], t["W"], t["deg"], t["rho"],
+            t["omega"], t["lam"])
+    kw = dict(tau=1.0, lam0=0.0, h=0.3, num_rounds=3, want_kkt=True)
+    nact = torch.tensor(3, dtype=torch.int32, device=cuda)
+    assert ops.round_block_instance(m, n, p) == "direct"
+    assert ops.megakernel_supported(m, n, p, torch.float32, device=cuda)
+    ops.reset_launches()
+    got = ops.csvm_round_block(*args, nact, **kw)
+    assert ops.round_block_launches == {"stream": 0, "direct": 1}
+    for g, w in zip(got, cu.csvm_round_block_plain(*args, 3, **kw)):
+        _close(g, w, ATOL)
+    with pytest.raises(ValueError, match="p <= 8192"):
+        ops._round_block_launch(*args, nact, "stream", **kw)
+    assert ops.round_block_launches == {"stream": 0, "direct": 1}
+
+
+def test_stream_instance_raises_on_a_misaligned_x(cuda):
+    """X's base off a 16-byte boundary raises before any launch (the bulk
+    copies need it), and is not rerouted to the direct instance."""
+    t = _on(problem(3, 20, 9, seed=1), cuda)
+    flat = torch.zeros(1 + t["X"].numel(), device=cuda)
+    X = flat[1:].view(t["X"].shape)
+    X.copy_(t["X"])
+    before = dict(ops.launches), dict(ops.round_block_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.csvm_round_block(X, t["y"], t["B"], t["P"], t["W"], t["deg"],
+                             t["rho"], t["omega"], t["lam"],
+                             torch.tensor(2, dtype=torch.int32, device=cuda),
+                             tau=1.0, lam0=0.0, h=0.3, num_rounds=2)
+    assert (dict(ops.launches), dict(ops.round_block_launches)) == before
+
+
+@pytest.mark.parametrize("backend", ["megakernel", "megakernel_bf16"])
+def test_megakernel_fits_take_the_stream_instance(cuda, backend):
+    """Every csvm_round_block launch of the two megakernel fits (one for
+    decsvm_fit, one per check block for the KKT fit) is on the stream
+    instance."""
+    sim = tc.SimConfig(p=20, s=4, m=4, n=60)
+    X, y, _ = tc.generate(sim, seed=1)
+    W = ring(sim.m)
+    cfg = tc.ADMMConfig(lam=0.05, max_iter=60, backend=backend)
+    ops.reset_launches()
+    tc.decsvm_fit(X, y, W, cfg)
+    assert ops.round_block_launches == {"stream": 1, "direct": 0}
+    ops.reset_launches()
+    _, t = tc.decsvm_fit_tol(X, y, W, cfg, tol=-1.0, stop_rule="kkt",
+                             check_every=7)
+    assert ops.launches["csvm_round_block"] == -(-60 // 7)
+    assert ops.round_block_launches == {
+        "stream": ops.launches["csvm_round_block"], "direct": 0}
+
+
 def test_wrappers_raise_on_bad_operands(cuda):
     t = _on(problem(2, 5, 4), cuda)
     args = [t["X"], t["y"], t["B"], t["P"], t["neigh"], t["rho"], t["omega"],
