@@ -11,8 +11,11 @@ result lines):
    per source, all at once; ptxas's registers and spills per kernel (and
    shared memory of the round kernel's stream instance), the wgmma (HGMMA)
    and TMA-load (UTMALDG) instructions ``cuobjdump -sass`` finds in the
-   tensor-core flash instance and the bulk copies (UBLKCP) in the stream
-   instance of ``csvm_round_block`` (none fails the run);
+   tensor-core flash instance, the bulk copies (UBLKCP) in the stream
+   instance of ``csvm_round_block``, and the wgmma, its waits and the
+   copies (UTMALDG, UBLKCP, LDGSTS) of the tensor-core passes of
+   ``ssd_scan`` (a count of 0 where the design needs the instruction, or a
+   wait after every wgmma of an SSD pass, fails the run);
 3. the CSVM kernels: each against its plain torch version on the card,
    at the paper's design size and at the full size below, in fp32 and
    bf16, with held rounds, ``nact = 0``, lambda vectors and
@@ -51,19 +54,28 @@ result lines):
    logits of a 1023-token prompt at full width in bf16, with 2 layers in
    fp32, and in the reduced config (D = 64, group 2) in bf16;
 8. ``ssd_scan`` against its plain version (``ref.ssd_scan``) at the
-   shapes of ``tests/test_kernels.py`` and at mamba2-370m's (x (1, S, 32,
+   shapes of ``tests/test_kernels.py``, at mamba2-370m's (x (1, S, 32,
    64), B and C (1, S, 128), S = 1023, 1999 and 2048, fed as the model's
-   strided slices of one conv output), fp32 and bf16, y and the final
-   state; then its times beside the plain version's and the bound (no
-   single torch call computes the scan: no library time);
+   strided slices of one conv output) and at the edges of the tensor-core
+   instance (b = 2 at a ragged S with heads not a multiple of its group,
+   chunk 128 at p = n = 16, one chunk), fp32 and bf16, y and the final
+   state, each case on every instance that takes it (``ops.ssd_instance``'s
+   choice first: bf16 at chunk 64/128 with p, n multiples of 16 on the
+   tensor cores; the fp32-FMA chunk walk wherever its shared memory
+   fits); then its times beside the plain version's and the bound (no
+   single torch call computes the scan: no library time), the two
+   instances in turns, as back-to-back calls and as replays of a CUDA
+   graph of one call (the tensor-core one must take at most 0.35x the
+   fp32-FMA one's device time);
 9. the serving path at full width — mamba2-370m (48 layers, d_model 1024,
    bf16, random weights from seed 0) in the same engine and with the same
    8 requests, with the launch counters read around the run (48
-   ``ssd_scan`` launches per prefilled request, no ``flash_attention``);
+   ``ssd_scan`` launches per prefilled request, every one on the
+   tensor-core instance, no ``flash_attention``);
 10. the kernel against the plain scan inside the model: block-prefill
    logits and the seeded SSM state of a 1999-token prompt (prime, so the
-   last chunk is ragged), with all 48 layers in bf16 and with 2 layers in
-   fp32.
+   last chunk is ragged), with all 48 layers in bf16 (on the tensor-core
+   instance) and with 2 layers in fp32.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -154,12 +166,16 @@ MODEL_TOL = {"float32": 1e-4, "bfloat16": 1.0}
 # relative to the state's size.
 SSD_TOL_F32 = 5e-5
 # (b, s, h, p, n, chunk): tests/test_kernels.py:105-108, then mamba2-370m's
-# scan at prompt lengths of the serving run (1999 is prime: ragged tail)
+# scan at prompt lengths of the serving run (1999 is prime: ragged tail),
+# then the edges of the tensor-core instance: b = 2 at a ragged s with 3
+# heads (not a multiple of its group of 4), chunk 128 at p = n = 16, and
+# a single chunk
 SSD_CASES = [
     (1, 64, 2, 8, 16, 32), (2, 128, 3, 16, 32, 64), (1, 96, 4, 32, 128, 32),
     (1, 128, 1, 8, 16, 128),
     (1, 1023, 32, 64, 128, 64), (1, 1999, 32, 64, 128, 64),
     (1, 2048, 32, 64, 128, 64),
+    (2, 200, 3, 32, 64, 64), (1, 300, 4, 16, 16, 128), (1, 64, 1, 64, 128, 64),
 ]
 # Block-prefill logits and the seeded SSM state with the kernel against
 # the plain scan inside mamba2-370m, one 1999-token prompt (random weights,
@@ -177,6 +193,10 @@ MAMBA_TOL = {"float32": 1e-4, "bfloat16": 0.5}
 # direct one (two reads) in the same call, at both main-path shapes: at
 # most this share of its time.
 STREAM_RATIO = 0.6
+# ssd_scan's tensor-core instance against the fp32-FMA one on the same
+# bf16 inputs in the same call, at mamba2-370m's S = 2048 and 1023: at most
+# this share of its device time.
+SSD_RATIO = 0.35
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -207,18 +227,19 @@ def check(ok: bool, msg: str):
 
 def _ptxas_entries(log_text: str):
     """(kernel<[type, ][int]>, its "Used ..." line, spills) per entry
-    function of nvcc's ``-Xptxas -v`` output."""
+    function (``*_kernel`` or ``*_pass``; no <> without template
+    arguments) of nvcc's ``-Xptxas -v`` output."""
     out, name, spills = [], None, ""
     for line in log_text.splitlines():
-        entry = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)I"
-                          r"(f|13__nv_bfloat16)?(?:Li(\d+)E)?E", line)
+        entry = re.search(r"Compiling entry function '.*?\d+([a-z_]+_"
+                          r"(?:kernel|pass))(?:I(f|13__nv_bfloat16)?"
+                          r"((?:Li\d+E)*)E)?", line)
         if entry:
             args = []
             if entry.group(2):
                 args.append("float" if entry.group(2) == "f" else "bf16")
-            if entry.group(3):
-                args.append(entry.group(3))
-            name = f"{entry.group(1)}<{', '.join(args)}>"
+            args += re.findall(r"Li(\d+)E", entry.group(3) or "")
+            name = entry.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif "spill" in line:
             spills = line.strip()
         elif re.search(r"Used \d+ registers", line) and name:
@@ -305,6 +326,39 @@ def bulk_copy_sass(build):
     check(set(found) == {"float32", "bfloat16"} and all(
         b + u > 0 for b, u in found.values()),
         f"the stream round kernel issues no bulk copy: {found}")
+    return found
+
+
+SSD_OPCODES = ("HGMMA", "WARPGROUP.DEPBAR", "UTMALDG", "UBLKCP", "LDGSTS")
+
+
+def ssd_tensor_core_sass(build):
+    """Disassemble the SSD library and check that the tensor-core passes
+    (``ssd_chunk_pass<Q>`` and ``ssd_output_pass<Q, NP>`` at chunk Q 64
+    and 128, NP 64-row panels of n) issue wgmma, and that their wgmmas are
+    pipelined: fewer waits (WARPGROUP.DEPBAR) than wgmmas, where ptxas,
+    when it serializes them, puts a wait after each.  Log their copies
+    too: TMA (UTMALDG, UBLKCP) and cp.async (LDGSTS, the one they use).
+    Returns {pass<args>: {opcode: count}}."""
+    found = {}
+    for fn, counts in sass_counts(disassemble(build, "ssd_scan"),
+                                  SSD_OPCODES).items():
+        inst = re.search(r"(ssd_(?:chunk|output)_pass)I((?:Li\d+E)+)E", fn)
+        if inst:
+            args = ", ".join(re.findall(r"Li(\d+)E", inst.group(2)))
+            name = f"{inst.group(1)}<{args}>"
+            found[name] = dict(zip(SSD_OPCODES, counts))
+            log(f"sass {name}: " + ", ".join(
+                f"{n} {op}" for op, n in found[name].items()))
+    want = {f"ssd_chunk_pass<{Q}>" for Q in (64, 128)} | {
+        f"ssd_output_pass<{Q}, {NP}>" for Q in (64, 128)
+        for NP in (1, 2, 3, 4)}
+    check(set(found) == want and all(
+        c["HGMMA"] > 0 for c in found.values()),
+        f"the tensor-core ssd_scan passes issue no wgmma: {found}")
+    check(all(c["WARPGROUP.DEPBAR"] < c["HGMMA"] for c in found.values()),
+          f"ptxas serialized the wgmmas of a tensor-core ssd_scan pass (a "
+          f"wait after each): {found}")
     return found
 
 
@@ -843,6 +897,7 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     instances = dict(ops.flash_launches)
+    ssd_instances_run = dict(ops.ssd_launches)
     check(sorted(done) == list(range(len(prompts))),
           f"serving: completed {sorted(done)} of {len(prompts)} requests")
     for rid, req in sorted(done.items()):
@@ -865,7 +920,8 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
         f"{json.dumps(launches)}; first tokens "
         f"{[done[r].generated[:4] for r in sorted(done)]}")
     return dict(launches=launches, flash_instances=instances,
-                prefill_ms=prefills, decode_ms=decodes, wall_s=wall)
+                ssd_instances=ssd_instances_run, prefill_ms=prefills,
+                decode_ms=decodes, wall_s=wall)
 
 
 def plain_self_attend(q, k, v, *, causal, window):
@@ -952,33 +1008,69 @@ def ssd_deviation(torch, got, want, dtype):
             (float(ds.max()), float((ds / slimit).max())))
 
 
+def ssd_instances(torch, ops, case, dtype):
+    """The instances of ``ssd_scan`` that take a case, the wrapper's
+    choice first: the tensor-core one where ``ops.ssd_instance`` names it,
+    the fp32-FMA one wherever its shared memory fits."""
+    b, s, h, p, n, chunk = case
+    chosen = ops.ssd_instance(getattr(torch, dtype), p, n, chunk)
+    takes = [chosen]
+    if chosen != "fma" and ops.ssd_smem_bytes(chunk, n) <= ops._SMEM_LIMIT:
+        takes.append("fma")
+    return takes
+
+
 def ssd_checks(torch, ops, ref, device, devs: dict):
     """``ssd_scan`` against ``ref.ssd_scan`` on the same inputs: y and the
-    final state."""
+    final state; on the card each case runs on every instance that takes
+    it (``ssd_instances``), each launch counted on its instance."""
+    on_card = torch.device(device).type == "cuda"
     for i, case in enumerate(SSD_CASES):
         b, s, h, p, n, chunk = case
         for dtype in ("float32", "bfloat16"):
             args = ssd_inputs(torch, case, dtype, device, seed=i)
-            got = ops.ssd_scan(*args, chunk=chunk)
             want = ref.ssd_scan(*args, chunk=chunk)
-            what = f"ssd_scan b={b} s={s} h={h} p={p} n={n} chunk={chunk} {dtype}"
-            check(tuple(got[0].shape) == (b, s, h, p)
-                  and got[0].dtype == args[0].dtype
-                  and tuple(got[1].shape) == (b, h, p, n)
-                  and got[1].dtype == torch.float32,
-                  f"{what}: outputs {tuple(got[0].shape)} {got[0].dtype}, "
-                  f"{tuple(got[1].shape)} {got[1].dtype}")
-            check(bool(torch.isfinite(got[0]).all()
-                       and torch.isfinite(got[1]).all()),
-                  f"{what}: non-finite output")
-            (dy, sy), (dst, sst) = ssd_deviation(torch, got, want, dtype)
-            record(devs, "ssd_scan", dtype, max(dy, dst))
-            check(sy <= 1.0, f"{what}: y max|dev| {dy:.3e} is {sy:.2f}x the "
-                  "limit")
-            check(sst <= 1.0, f"{what}: state max|dev| {dst:.3e} is "
-                  f"{sst:.2f}x the limit")
-            log(f"check {what}: y max|dev| {dy:.3e} ({sy:.3f} of the limit),"
-                f" state max|dev| {dst:.3e} ({sst:.3f} of the limit)")
+            for instance in (ssd_instances(torch, ops, case, dtype)
+                             if on_card else ["plain"]):
+                ssd_check_one(torch, ops, case, dtype, args, want, instance,
+                              devs)
+
+
+def ssd_check_one(torch, ops, case, dtype, args, want, instance, devs):
+    """One case of ``ssd_checks`` on one instance (``"plain"``: the CPU's
+    wrapper)."""
+    b, s, h, p, n, chunk = case
+    before = dict(ops.ssd_launches)
+    if instance in ("plain", ops.ssd_instance(
+            args[0].dtype, p, n, chunk)):
+        got = ops.ssd_scan(*args, chunk=chunk)
+    else:
+        got = ops._ssd_launch(*args, chunk, instance)
+    if instance != "plain":
+        ran = {k: v - before[k] for k, v in ops.ssd_launches.items()}
+        check(ran == {k: int(k == instance)
+                      for k in ops.SSD_INSTANCES},
+              f"ssd_scan {case} {dtype}: launched {ran}, expected "
+              f"one {instance} launch")
+    what = (f"ssd_scan b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
+            f"{dtype} [{instance}]")
+    check(tuple(got[0].shape) == (b, s, h, p)
+          and got[0].dtype == args[0].dtype
+          and tuple(got[1].shape) == (b, h, p, n)
+          and got[1].dtype == torch.float32,
+          f"{what}: outputs {tuple(got[0].shape)} {got[0].dtype}, "
+          f"{tuple(got[1].shape)} {got[1].dtype}")
+    check(bool(torch.isfinite(got[0]).all()
+               and torch.isfinite(got[1]).all()),
+          f"{what}: non-finite output")
+    (dy, sy), (dst, sst) = ssd_deviation(torch, got, want, dtype)
+    record(devs, "ssd_scan", dtype, max(dy, dst))
+    check(sy <= 1.0, f"{what}: y max|dev| {dy:.3e} is {sy:.2f}x the "
+          "limit")
+    check(sst <= 1.0, f"{what}: state max|dev| {dst:.3e} is "
+          f"{sst:.2f}x the limit")
+    log(f"check {what}: y max|dev| {dy:.3e} ({sy:.3f} of the limit),"
+        f" state max|dev| {dst:.3e} ({sst:.3f} of the limit)")
 
 
 def ssd_bound(b, s, h, p, n, chunk, itemsize):
@@ -994,24 +1086,60 @@ def ssd_bound(b, s, h, p, n, chunk, itemsize):
 
 
 def ssd_timings(torch, ops, ref, device):
-    """The kernel beside its plain version (in turns) and its bound at
-    mamba2-370m's bf16 shapes; the first row is S = 2048.  No single torch
-    call computes the scan, so there is no library time."""
+    """The kernel beside its plain version and its bound at mamba2-370m's
+    bf16 shapes; the first row is S = 2048.  The tensor-core instance
+    runs, as on the main path; the fp32-FMA instance, the earlier design,
+    is timed on the same inputs in turns: back-to-back calls (wgmma, fma,
+    plain, plain, fma, wgmma: ``call_ms``, ``fma_call_ms``, host time
+    included) and replays of a CUDA graph of one call (wgmma, fma, fma,
+    wgmma: ``ms``, ``fma_ms``, the device's time; ``profile_ssd.graph_ms``).
+    The tensor-core instance must take at most SSD_RATIO of the fp32-FMA
+    one's device time.  No single torch call computes the scan, so there is
+    no library time."""
+    from repro_torch.launch.profile_ssd import graph_ms
     rows = []
     for S in (2048, 1023):
         case = (1, S, 32, 64, 128, 64)
         args = ssd_inputs(torch, case, "bfloat16", device, seed=S)
-        times = paired_ms(torch, lambda: ops.ssd_scan(*args, chunk=64),
-                          lambda: ref.ssd_scan(*args, chunk=64), 20, 3)
+        check(ops.ssd_instance(torch.bfloat16, 64, 128, 64) == "wgmma",
+              "mamba2-370m's scan does not take the tensor-core instance")
+        kernel = lambda: ops.ssd_scan(*args, chunk=64)
+        fma = lambda: ops._ssd_launch(*args, 64, "fma")
+        plain = lambda: ref.ssd_scan(*args, chunk=64)
+        k1, f1 = cuda_ms(torch, kernel, 20), cuda_ms(torch, fma, 20)
+        p1, p2 = cuda_ms(torch, plain, 3), cuda_ms(torch, plain, 3)
+        f2, k2 = cuda_ms(torch, fma, 20), cuda_ms(torch, kernel, 20)
+        g1, h1 = graph_ms(kernel, 50), graph_ms(fma, 20)
+        h2, g2 = graph_ms(fma, 20), graph_ms(kernel, 50)
         bms, by = ssd_bound(*case, 2)
-        rows.append(dict(times, bound_ms=bms, bound_by=by, library_ms=None,
-                         shape=f"x (1, {S}, 32, 64), B/C (1, {S}, 128) "
-                               "bf16 strided, chunk 64"))
+        row = dict(ms=(g1 + g2) / 2, ms_samples=[g1, g2],
+                   plain_ms=(p1 + p2) / 2, plain_ms_samples=[p1, p2],
+                   fma_ms=(h1 + h2) / 2, fma_ms_samples=[h1, h2],
+                   call_ms=(k1 + k2) / 2, call_ms_samples=[k1, k2],
+                   fma_call_ms=(f1 + f2) / 2, fma_call_ms_samples=[f1, f2],
+                   bound_ms=bms, bound_by=by, library_ms=None,
+                   shape=f"x (1, {S}, 32, 64), B/C (1, {S}, 128) bf16 "
+                         "strided, chunk 64")
+        row["ratio"] = row["ms"] / row["fma_ms"]
+        row["call_ratio"] = row["call_ms"] / row["fma_call_ms"]
+        rows.append(row)
     for v in rows:
-        log(f"time ssd_scan [{v['shape']}]: {v['ms']:.4f} ms (samples "
-            f"{v['ms_samples'][0]:.4f}, {v['ms_samples'][1]:.4f}), plain "
-            f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-            f"({v['bound_by']}), library: none")
+        log(f"time ssd_scan [{v['shape']}]: {v['ms']:.4f} ms on the device "
+            f"(graph samples {v['ms_samples'][0]:.4f}, "
+            f"{v['ms_samples'][1]:.4f}), {v['call_ms']:.4f} ms a call "
+            f"(samples {v['call_ms_samples'][0]:.4f}, "
+            f"{v['call_ms_samples'][1]:.4f}), plain {v['plain_ms']:.4f} ms, "
+            f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), library: none")
+        log(f"time ssd_scan instances [{v['shape']}]: device wgmma "
+            f"{v['ms']:.4f} ms, fma {v['fma_ms']:.4f} ms (samples "
+            f"{v['fma_ms_samples'][0]:.4f}, {v['fma_ms_samples'][1]:.4f}), "
+            f"wgmma/fma {v['ratio']:.3f}; a call: wgmma {v['call_ms']:.4f} "
+            f"ms, fma {v['fma_call_ms']:.4f} ms, wgmma/fma "
+            f"{v['call_ratio']:.3f}")
+        check(v["ratio"] <= SSD_RATIO,
+              f"ssd_scan [{v['shape']}]: the tensor-core instance takes "
+              f"{v['ratio']:.3f}x the fp32-FMA one's device time, over "
+              f"{SSD_RATIO}")
     return dict(rows[0], variants=rows[1:])
 
 
@@ -1105,6 +1233,7 @@ def main() -> int:
                          "at p = 4096")
             log(f"ptxas {kernel}: {regs} registers, {spills}{extra}")
     sass = tensor_core_sass(build)
+    ssd_sass = ssd_tensor_core_sass(build)
     bulk = bulk_copy_sass(build)
     for bf16 in (False, True):
         per_sm, sms = ops.round_block_occupancy(0, bf16)
@@ -1211,6 +1340,11 @@ def main() -> int:
     m_served = serving_path(torch, ops, engine, mcfg, params,
                             kernel="ssd_scan")
     launches["ssd_scan"] = m_served["launches"]["ssd_scan"]
+    check(m_served["ssd_instances"] == {"wgmma": launches["ssd_scan"],
+                                        "fma": 0},
+          f"serving: ssd_scan launches by instance "
+          f"{m_served['ssd_instances']}, expected every one on the "
+          "tensor-core instance")
     m_steps = [ms for _, ms in m_served["decode_ms"]]
     conv_ch = mcfg.ssm_dinner + 2 * mcfg.ssm_groups * mcfg.ssm_state
     m_state_bytes = mcfg.num_layers * SERVE_BATCH * (
@@ -1224,9 +1358,15 @@ def main() -> int:
         "once, at 3.35 TB/s)")
 
     # phase 10: the kernel against the plain scan inside the model
+    before = dict(ops.ssd_launches)
     mamba_devs = {"bfloat16": ssd_vs_plain_in_model(
         torch, ops, mcfg, params, label=f"{mcfg.name} bf16 48 layers",
         tol=MAMBA_TOL["bfloat16"])}
+    model_instances = {k: v - before[k] for k, v in ops.ssd_launches.items()}
+    check(model_instances == {"wgmma": mcfg.num_layers, "fma": 0},
+          f"{mcfg.name} bf16 prefill: ssd_scan launches by instance "
+          f"{model_instances}, expected {mcfg.num_layers} on the "
+          "tensor-core instance")
     del params
     torch.cuda.empty_cache()
     mcfg2 = dataclasses.replace(mcfg, num_layers=2, param_dtype="float32")
@@ -1268,7 +1408,9 @@ def main() -> int:
                 model_kernel_vs_plain={
                     dt: dict(max_abs_dev=d, max_abs_logit=m,
                              max_abs_state_dev=sd, tol=MAMBA_TOL[dt])
-                    for dt, (d, m, sd) in mamba_devs.items()})
+                    for dt, (d, m, sd) in mamba_devs.items()},
+                serve_instances=m_served["ssd_instances"],
+                model_instances_bf16=model_instances, sass=ssd_sass)
         else:
             tol = {dt: TOL[dt] for dt in devs[name]}
             row["library_ms"] = None

@@ -172,13 +172,18 @@ def make_problem(X: Tensor, y: Tensor, W: Tensor, cfg,
     rho/omega are always computed in the incoming (fp32) precision; X is
     cast to the backend's compute dtype *afterwards*, so the bf16 mode
     changes only the per-round matmul operands, never the step sizes.
+    An X whose base is not 16-byte aligned (an offset view) is copied to a
+    fresh buffer, as the round kernel's bulk copies need; a cast copies
+    already.
     """
     deg = torch.sum(W, dim=1)
     if rho is None:
         rho = compute_rho(X, cfg.h, cfg.kernel, cfg.rho_safety, mask=mask)
     omega = 1.0 / (2.0 * cfg.tau * deg + rho + cfg.lam0)
-    return Problem(X.to(problem_dtype(cfg)).contiguous(), y, deg, rho,
-                   omega, mask)
+    Xc = X.to(problem_dtype(cfg)).contiguous()
+    if Xc.data_ptr() % 16:
+        Xc = Xc.clone()
+    return Problem(Xc, y, deg, rho, omega, mask)
 
 
 def from_numpy(X, y, deg, rho, omega, B, P, t, *, device=None):

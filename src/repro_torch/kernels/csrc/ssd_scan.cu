@@ -23,17 +23,59 @@
 // n 128, Q 64, bf16 x/B/C) one layer does ~1.8e6 flops per row against
 // ~9 kB moved per row (x and y, dt, B, C, the final state once): a bound
 // set by the bytes (5.7 us at s = 2048), with the flops at 3.8 us on the
-// bf16 tensor cores.  This first kernel does every product as fp32 FMAs on
-// the CUDA cores (67 TFLOP/s peak): right and simple first; the tensor
-// cores (wgmma on C B^T and the two (p, n) products) are a later kernel PR.
+// bf16 tensor cores.
 //
-// Design: one block of 256 threads per (b*h, 16 columns of p) walks the
-// chunks in order (the loop takes the place of the Pallas grid's
-// sequential chunk axis); its (n, 16) slice of the state lives in shared
-// memory, so the Q x Q tile (C B^T) * L is recomputed by each of the p/16
-// blocks of a head — at p = 64 that gives 4 * b * h blocks (128 at b = 1)
-// for the card's 132 SMs, where one block per (b, h) would fill 32.  Per
-// chunk, with barriers between the phases:
+// Two instances; the wrapper picks one by dtype and shape alone
+// (ops.ssd_instance):
+//
+// * ssd_scan_tc ("wgmma": bf16, chunk 64 or 128, p and n multiples of 16
+//   up to 256 — every model the port serves at full width) is
+//   chunk-parallel SSD on the tensor cores, in three kernels launched one
+//   after another on the stream:
+//   (a) ssd_chunk_pass, one block per (b, chunk, group of 4 heads): each
+//       head's chunk-local state (n, p) = (B * dt * exp(cum[-1] - cum))^T
+//       @ x on bf16 wgmma (m64n64k16, the decayed B as the A operand in
+//       registers, x from shared memory MN-major), written with the
+//       chunk's last cum to an fp32 scratch the wrapper allocates
+//       ((b, nc, h, n, p): 33.5 MB at s = 2048);
+//   (b) ssd_state_pass, elementwise per (b*h, 4 elements of n*p): walks
+//       the chunks in order, state_in[c] = state, state = state *
+//       exp(cum_last[c]) + local[c], in place over the scratch, and
+//       writes the final state;
+//   (c) ssd_output_pass, one block per (b, chunk, group of heads): G =
+//       C B^T once for the group (K-major bf16 wgmma from shared memory,
+//       kept in registers across the heads — 32 times per (b, chunk) at
+//       h 32 instead of 128), then per head y = ((G * L) * dt_j) @ x (the
+//       scores built in registers from G as the A operand) + exp(cum) *
+//       (C @ state_in^T) (state_in MN-major in shared memory) + D * x,
+//       rounded once to bf16.
+//   The chunks no longer run serially inside a block, so the grid has
+//   b * nc * h / 4 blocks (256 at s = 2048) of 128 threads (256 at chunk
+//   128: one warpgroup per 64 rows) with no barrier per chunk row.  x, B
+//   and C reach shared memory by 16-byte cp.async copies (zero-filled past
+//   s and past p or n) into 128-byte-swizzled panels of 64 columns, the
+//   layout the wgmma descriptors read; the views' strides are honoured, so
+//   the model's column slices of its conv output go in without a copy
+//   (bases and row strides must be 16-byte aligned).  x, B and C are bf16
+//   and go to the tensor cores exactly; the three fp32 operands (the
+//   masked scores, the decayed B, state_in) are each cut into three bf16
+//   terms, hi + mid + lo, which hold their 24 bits, and each term is its
+//   own wgmma into one fp32 accumulator (lo first): one term misses the
+//   port's one-bf16-ulp check of y by ~10^3x, two terms by up to ~20x on
+//   standard-normal inputs (tests/test_torch_ssd_split.py emulates it).
+//   cum is summed in index order by one thread per head in both passes
+//   (the same bits), every sum has a fixed order and no atomics, so two
+//   calls give the same bits.
+//
+// * ssd_scan ("fma": fp32, and bf16 at other shapes) is the port's first
+//   kernel: every product as fp32 FMAs on the CUDA cores (67 TFLOP/s
+//   peak).  One block of 256 threads per (b*h, 16 columns of p) walks the
+//   chunks in order (the loop takes the place of the Pallas grid's
+//   sequential chunk axis); its (n, 16) slice of the state lives in shared
+//   memory, so the Q x Q tile (C B^T) * L is recomputed by each of the p/16
+//   blocks of a head — at p = 64 that gives 4 * b * h blocks (128 at b = 1)
+//   for the card's 132 SMs, where one block per (b, h) would fill 32.  Per
+//   chunk, with barriers between the phases:
 //   (a) dt, x (the block's 16 columns) and B, C (transposed, n-major) are
 //       loaded into shared memory, bf16 widened exactly;
 //   (b) one thread sums cum in index order (the plain version's order, with
@@ -44,9 +86,8 @@
 //       4 rows x 1 column of y started from the carry-in and the D skip;
 //   (d) y += ((C B^T) * L) @ (x*dt) and stored; the state slice decays and
 //       takes this chunk's input (4 x 2 register tiles over the rows).
-// x, B and C are read through their strides (the model hands in column
-// slices of one conv output); p and n have unit stride; y and the final
-// state are written dense.
+//   x, B and C are read through their strides; p and n have unit stride;
+//   y and the final state are written dense.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,6 +100,24 @@ constexpr int kPT = 16;          // columns of p per block
 constexpr int kMaxQ = 128;       // chunk rows: a multiple of 8, at most 128
 constexpr int kMaxYTiles = (kMaxQ / 4) * kPT / kThreads;
 constexpr int kSmemLimit = 232448;
+constexpr int kMaxDevices = 64;
+
+// Raises a kernel's dynamic shared memory limit to a block's maximum, once
+// per device (the attribute is per device; a launch uses only its own
+// bytes), so that a launch sets no attribute and can be captured in a CUDA
+// graph.  Concurrent first calls set the same value twice, harmlessly.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemLimit);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -315,10 +374,8 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
                    void* final_state, int batch, int S, int H, int P, int N,
                    int Q, Strides st, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(Q, N);
-  // on every launch: the attribute is per device, and the call is cheap
-  const cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static bool done[kMaxDevices];
+  const cudaError_t err = allow_smem(ssd_kernel<T>, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * H, (P + kPT - 1) / kPT);
   ssd_kernel<T><<<grid, kThreads, smem, stream>>>(
@@ -331,6 +388,619 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
 }
 
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// The tensor-core instance: bf16, chunk 64 or 128, p and n multiples of 16 up
+// to 256
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kMaxGroup = 4;         // heads per block of passes (a), (c)
+constexpr int kRow = 128;            // bytes of one swizzled row: 64 bf16
+constexpr int kStageRows = 128;      // rows of state_in pass (c) prefetches
+constexpr int kStateThreads = 256;   // threads per block of pass (b)
+constexpr int kAhead = 8;            // chunks pass (b) loads ahead
+
+__host__ __device__ constexpr int panels(int cols) { return (cols + 63) / 64; }
+
+// Shared memory of pass (a), in bytes: the B tile (n/64 panels of Q rows of
+// 128 bytes), two 64-column panels of x (the next head's loads while this
+// one's are used), and dt, cum and dt * exp(cum[-1] - cum) of the group's
+// heads.  Every panel starts on a 1024-byte boundary (the swizzle atom);
+// the base is aligned at run time.
+struct ChunkLayout {
+  int B, X, dt, cum, f, bytes;
+  __host__ __device__ ChunkLayout(int Q, int N) {
+    B = 0;
+    X = B + panels(N) * Q * kRow;
+    dt = X + 2 * Q * kRow;
+    cum = dt + 4 * kMaxGroup * Q;
+    f = cum + 4 * kMaxGroup * Q;
+    bytes = f + 4 * kMaxGroup * Q + 1024;
+  }
+};
+
+// Shared memory of pass (c): the C tile; a region that holds the B tile
+// until G is formed and then the three bf16 terms of one head's state_in
+// (n rows, padded with zeros to whole panels, of one 64-column panel of p
+// each); one panel of x; the fp32 rows of the next state_in panel,
+// prefetched (at most kStageRows rows; the rest are read directly); dt and
+// cum of the group's heads.
+struct OutLayout {
+  int C, R, X, SF, dt, cum, bytes;
+  __host__ __device__ OutLayout(int Q, int N) {
+    C = 0;
+    const int tile = panels(N) * Q * kRow;
+    const int terms = 3 * 64 * panels(N) * kRow;
+    R = C + tile;
+    X = R + (tile > terms ? tile : terms);
+    SF = X + Q * kRow;
+    dt = SF + (N < kStageRows ? N : kStageRows) * 256;
+    cum = dt + 4 * kMaxGroup * Q;
+    bytes = cum + 4 * kMaxGroup * Q + 1024;
+  }
+};
+
+struct Args {
+  const __nv_bfloat16 *x, *B, *C;
+  const float *dt, *A, *D;
+  __nv_bfloat16* y;
+  float *states, *cum_last, *final_state;
+  long long xb, xs, xh, db, ds, dh, Bb, Bs, Cb, Cs;   // elements
+  int H, S, P, N, NC, group, groups;   // heads per block, blocks per chunk
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without registers; bytes = 0 zero-fills.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+// Makes this thread's shared-memory writes (stores and cp.async) visible
+// to the tensor cores' reads (the async proxy); a barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Byte offset of (row r, column col) in a 128-byte-swizzled panel of 64
+// bf16 columns: the 16-byte chunk of the row is XORed with r mod 8.
+__device__ __forceinline__ int swz(int r, int col) {
+  return r * kRow + ((((col & 63) >> 3) ^ (r & 7)) << 4) + ((col & 7) << 1);
+}
+
+// Rows [0, Q) and columns [0, 64 * npanels) of a bf16 matrix (row stride
+// ld elements, unit column stride) into npanels swizzled panels of Q rows
+// at dst; rows >= rows_ok and columns >= cols_ok are zero-filled.
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long ld, int Q, int npanels,
+                                          int rows_ok, int cols_ok, int tid,
+                                          int nthreads) {
+  const int per_panel = Q * 8;
+  for (int idx = tid; idx < npanels * per_panel; idx += nthreads) {
+    const int panel = idx / per_panel, rem = idx % per_panel;
+    const int r = rem / 8, ch = rem % 8;
+    const int col = 64 * panel + 8 * ch;
+    const bool ok = r < rows_ok && col < cols_ok;
+    cp_async16(dst + panel * Q * kRow + r * kRow + ((ch ^ (r & 7)) << 4),
+               ok ? src + r * ld + col : src, ok ? 16 : 0);
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: rows of the M (or N) dimension, K across the panel.
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+// MN-major operand: rows of the K dimension, 64 columns of N per panel.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
+  return sw128_desc(addr, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define SSD_ACC32                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define SSD_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64, fp32) += A (64 x 16) . B; A K-major in shared memory, B
+// K-major (tnsp_b = 0) or MN-major (tnsp_b = 1) in shared memory.
+template <int kTnspB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %35, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SSD_D32
+      ", %32, %33, p, 1, 1, 0, %34;\n\t}"
+      : SSD_ACC32
+      : "l"(da), "l"(db), "n"(kTnspB), "n"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 in registers) . B, B MN-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SSD_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : SSD_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 t) {
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// Two fp32 values as three bf16x2 terms, hi + mid + lo, each the rounding
+// of what the earlier ones leave (the subtractions are exact).
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(v0, v1);
+  hi = bits(t);
+  v0 -= __low2float(t);
+  v1 -= __high2float(t);
+  t = __floats2bfloat162_rn(v0, v1);
+  mid = bits(t);
+  v0 -= __low2float(t);
+  v1 -= __high2float(t);
+  lo = bits(__floats2bfloat162_rn(v0, v1));
+}
+
+__device__ __forceinline__ float bf_at(const unsigned char* p) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+// The thread's warpgroup, broadcast from lane 0 so that the compiler knows
+// it is the same across the warp: a branch on threadIdx.x / 128 itself
+// counts as divergent, and a wgmma under a divergent branch makes ptxas
+// serialize every wgmma of the kernel (C7520).
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// dt of the block's heads (rows past s and heads past H as 0) into dts
+// (group x Q), then their cumulative sums in index order, one thread per
+// head, with no contraction into an FMA: the plain version's order and the
+// same bits in passes (a) and (c).
+__device__ void group_cumsum(const Args& a, int b, int s0, int h0, int Q,
+                             float* dts, float* cum, int tid, int nthreads) {
+  const int nv = min(Q, a.S - s0);
+  for (int idx = tid; idx < a.group * Q; idx += nthreads) {
+    const int i = idx / a.group, g = idx % a.group;
+    const int h = h0 + g;
+    dts[g * Q + i] = (i < nv && h < a.H)
+                         ? a.dt[b * a.db + (s0 + i) * a.ds + h * a.dh]
+                         : 0.0f;
+  }
+  __syncthreads();
+  if (tid < a.group && h0 + tid < a.H) {
+    const float A = a.A[h0 + tid];
+    float run = 0.0f;
+    for (int i = 0; i < Q; ++i) {
+      run = __fadd_rn(run, __fmul_rn(dts[tid * Q + i], A));
+      cum[tid * Q + i] = run;
+    }
+  }
+  __syncthreads();
+}
+
+// (a) The chunk pass: per head of the block's group, local[n][p] =
+// sum_j B[j][n] * dt_j * exp(cum[-1] - cum_j) * x[j][p] into the scratch,
+// and the chunk's last cum.  Warpgroup wg takes the 64-row tiles of n
+// numbered wg, wg + Q/64, ...; the decayed B is built in registers as the
+// A operand (rows n, columns j) straight from the swizzled B tile.  The
+// units (head, 64-column panel of p) run in order, each one's x panel
+// copied in while the previous unit computes.
+template <int Q>
+__global__ void __launch_bounds__(128 * (Q / 64))
+ssd_chunk_pass(const Args a) {
+  constexpr int kWG = Q / 64, kT = 128 * kWG;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sb = align1024(smem_raw);
+  const uint32_t base = smem_u32(sb);
+  const ChunkLayout L(Q, a.N);
+  float* dts = reinterpret_cast<float*>(sb + L.dt);
+  float* cum = reinterpret_cast<float*>(sb + L.cum);
+  float* f = reinterpret_cast<float*>(sb + L.f);
+
+  const int grp = blockIdx.x % a.groups, bc = blockIdx.x / a.groups;
+  const int c = bc % a.NC, b = bc / a.NC;
+  const int s0 = c * Q, nv = min(Q, a.S - s0), h0 = grp * a.group;
+  const int hg = min(a.group, a.H - h0);
+  const int tid = threadIdx.x, wg = warpgroup();
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const int np = panels(a.N), pp = panels(a.P), units = hg * pp;
+  const __nv_bfloat16* xc = a.x + b * a.xb + s0 * a.xs;
+
+  load_tile(base + L.B, a.B + b * a.Bb + s0 * a.Bs, a.Bs, Q, np, nv, a.N,
+            tid, kT);
+  load_tile(base + L.X, xc + h0 * a.xh, a.xs, Q, 1, nv, a.P, tid, kT);
+  group_cumsum(a, b, s0, h0, Q, dts, cum, tid, kT);
+  for (int idx = tid; idx < hg * Q; idx += kT) {
+    const int g = idx / Q;
+    f[idx] = __fmul_rn(dts[idx], expf(cum[g * Q + Q - 1] - cum[idx]));
+  }
+  if (tid < hg)
+    a.cum_last[(static_cast<long long>(b) * a.NC + c) * a.H + h0 + tid] =
+        cum[tid * Q + Q - 1];
+
+  for (int u = 0; u < units; ++u) {
+    const int g = u / pp, pt = u % pp, h = h0 + g;
+    const uint32_t xs = base + L.X + (u & 1) * Q * kRow;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();   // x of this unit, f (and, first, the B tile) ready
+    if (u + 1 < units) {
+      const int g1 = (u + 1) / pp, p1 = (u + 1) % pp;
+      load_tile(base + L.X + ((u + 1) & 1) * Q * kRow,
+                xc + (h0 + g1) * a.xh + 64 * p1, a.xs, Q, 1, nv,
+                a.P - 64 * p1, tid, kT);
+    }
+    const float* fg = f + g * Q;
+    float* out = a.states +
+                 ((static_cast<long long>(b) * a.NC + c) * a.H + h) * a.N * a.P;
+    for (int nt = wg; nt < np; nt += kWG) {
+      const unsigned char* bpanel = sb + L.B + nt * Q * kRow;
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+      for (int kb = 0; kb < Q / 64; ++kb) {
+        uint32_t ah[4][4], am[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int j = 64 * kb + 16 * kk + 8 * (r / 2) + c0;
+            const int n = r0 + 8 * (r % 2);     // within the n tile
+            split3(__fmul_rn(bf_at(bpanel + swz(j, n)), fg[j]),
+                   __fmul_rn(bf_at(bpanel + swz(j + 1, n)), fg[j + 1]),
+                   ah[kk][r], am[kk][r], al[kk][r]);
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc, al[kk], mnmajor(xs + (64 * kb + 16 * kk) * kRow));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc, am[kk], mnmajor(xs + (64 * kb + 16 * kk) * kRow));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc, ah[kk], mnmajor(xs + (64 * kb + 16 * kk) * kRow));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+#pragma unroll
+      for (int x = 0; x < 32; x += 2) {
+        const int n = 64 * nt + r0 + 8 * ((x / 2) % 2);
+        const int p = 64 * pt + 8 * (x / 4) + c0;
+        if (n < a.N && p < a.P)
+          *reinterpret_cast<float2*>(out + n * a.P + p) =
+              make_float2(acc[x], acc[x + 1]);
+      }
+    }
+  }
+}
+
+// (b) The state pass: per (b*h, 4 consecutive elements of the (n, p)
+// state), state_in[c] = state and state = state * exp(cum_last[c]) +
+// local[c] over the chunks in order, in place; then the final state,
+// written (p, n).
+__global__ void __launch_bounds__(kStateThreads)
+ssd_state_pass(float* states, const float* cum_last, float* final_state,
+               int H, int NC, int P, int N) {
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int e = 4 * (blockIdx.y * kStateThreads + threadIdx.x);
+  const int NP = N * P;
+  if (e >= NP) return;
+  const long long step = static_cast<long long>(H) * NP;
+  float* ptr = states + (static_cast<long long>(b) * NC * H + h) * NP + e;
+  const float* cl = cum_last + static_cast<long long>(b) * NC * H + h;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int c0 = 0; c0 < NC; c0 += kAhead) {
+    float4 loc[kAhead];
+    float dec[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+      if (c0 + k < NC) {
+        loc[k] = *reinterpret_cast<const float4*>(ptr + (c0 + k) * step);
+        dec[k] = expf(cl[(c0 + k) * H]);
+      }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+      if (c0 + k < NC) {
+        *reinterpret_cast<float4*>(ptr + (c0 + k) * step) = s;
+        s.x = __fadd_rn(__fmul_rn(s.x, dec[k]), loc[k].x);
+        s.y = __fadd_rn(__fmul_rn(s.y, dec[k]), loc[k].y);
+        s.z = __fadd_rn(__fmul_rn(s.z, dec[k]), loc[k].z);
+        s.w = __fadd_rn(__fmul_rn(s.w, dec[k]), loc[k].w);
+      }
+  }
+  const int n = e / P, p = e % P;   // P % 16 == 0: the 4 share n
+  float* fb = final_state + (static_cast<long long>(b) * H + h) * P * N + n;
+  fb[(p + 0) * N] = s.x;
+  fb[(p + 1) * N] = s.y;
+  fb[(p + 2) * N] = s.z;
+  fb[(p + 3) * N] = s.w;
+}
+
+// (c) The output pass: G = C B^T for the block's rows (warpgroup wg owns
+// rows 64 wg .. 64 wg + 63 and the key blocks at or left of the
+// diagonal), then per unit (head, 64-column panel of p):
+//   y = ((G * exp(cum_i - cum_j) [j <= i]) * dt_j) @ x
+//       + exp(cum_i) * (C @ state_in^T) + D * x,
+// summed in that order in fp32 and rounded once to bf16.  The fp32 rows of
+// the next unit's state_in are copied in while this unit's products run.
+// NP, the 64-row panels of n, is a template argument so that every wgmma
+// loop has a fixed trip count: with a loop-carried accumulator in a
+// run-time loop ptxas waits for each wgmma before the next; n is
+// zero-padded to 64 NP.
+template <int Q, int NP>
+__global__ void __launch_bounds__(128 * (Q / 64))
+ssd_output_pass(const Args a) {
+  constexpr int kWG = Q / 64, kT = 128 * kWG, kSteps = 4 * NP;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sb = align1024(smem_raw);
+  const uint32_t base = smem_u32(sb);
+  const OutLayout L(Q, a.N);
+  float* dts = reinterpret_cast<float*>(sb + L.dt);
+  float* cum = reinterpret_cast<float*>(sb + L.cum);
+
+  const int grp = blockIdx.x % a.groups, bc = blockIdx.x / a.groups;
+  const int c = bc % a.NC, b = bc / a.NC;
+  const int s0 = c * Q, nv = min(Q, a.S - s0), h0 = grp * a.group;
+  const int hg = min(a.group, a.H - h0);
+  const int tid = threadIdx.x, wg = warpgroup();
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const int pp = panels(a.P);
+  const int units = hg * pp, staged = min(a.N, kStageRows);
+  const __nv_bfloat16* xc = a.x + b * a.xb + s0 * a.xs;
+  const float* st0 = a.states +
+      ((static_cast<long long>(b) * a.NC + c) * a.H + h0) * a.N * a.P;
+  // the first `staged` rows of unit u's state_in panel into SF
+  auto stage = [&](int u) {
+    const float* src = st0 + static_cast<long long>(u / pp) * a.N * a.P +
+                       64 * (u % pp);
+    const int cols = a.P - 64 * (u % pp);
+    for (int idx = tid; idx < staged * 16; idx += kT) {
+      const int r = idx / 16, q = idx % 16;
+      const bool ok = 4 * q < cols;
+      cp_async16(base + L.SF + r * 256 + q * 16,
+                 ok ? src + r * a.P + 4 * q : src, ok ? 16 : 0);
+    }
+  };
+
+  load_tile(base + L.C, a.C + b * a.Cb + s0 * a.Cs, a.Cs, Q, NP, nv, a.N,
+            tid, kT);
+  load_tile(base + L.R, a.B + b * a.Bb + s0 * a.Bs, a.Bs, Q, NP, nv, a.N,
+            tid, kT);
+  stage(0);
+  group_cumsum(a, b, s0, h0, Q, dts, cum, tid, kT);
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+
+  // G, once for the group: both operands K-major (rows i of C, rows j of B)
+  float g[kWG][32];
+#pragma unroll
+  for (int jt = 0; jt < kWG; ++jt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) g[jt][i] = 0.0f;
+  wgmma_fence();
+#pragma unroll
+  for (int jt = 0; jt < kWG; ++jt) {
+    if (jt > wg) continue;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint32_t off = (kk / 4) * Q * kRow + 32 * (kk % 4);
+      wgmma_ss<0>(g[jt], kmajor(base + L.C + off + 64 * wg * kRow),
+                  kmajor(base + L.R + off + 64 * jt * kRow));
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int jt = 0; jt < kWG; ++jt) fence_regs(g[jt]);
+  __syncthreads();   // the B tile is consumed: R takes the state terms
+
+  const int ia = 64 * wg + r0;         // this thread's rows: ia, ia + 8
+  for (int u = 0; u < units; ++u) {
+    const int gh = u / pp, pt = u % pp, h = h0 + gh;
+    const float* cg = cum + gh * Q;
+    const float* dg = dts + gh * Q;
+    load_tile(base + L.X, xc + h * a.xh + 64 * pt, a.xs, Q, 1, nv,
+              a.P - 64 * pt, tid, kT);
+    cp_async_wait_all();
+    __syncthreads();   // this unit's staged rows are visible to all
+    // state_in (rows n, 64 columns of p) as three MN-major bf16 terms;
+    // rows n .. 64 NP are zeros
+    const float* st = st0 + static_cast<long long>(gh) * a.N * a.P;
+#pragma unroll 4
+    for (int idx = tid; idx < 64 * NP * 16; idx += kT) {
+      const int r = idx / 16, q4 = idx % 16, p = 64 * pt + 4 * q4;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < staged)
+        v = *reinterpret_cast<const float4*>(sb + L.SF + r * 256 + q4 * 16);
+      else if (r < a.N && p < a.P)
+        v = *reinterpret_cast<const float4*>(st + r * a.P + p);
+      uint32_t hi0, mid0, lo0, hi1, mid1, lo1;
+      split3(v.x, v.y, hi0, mid0, lo0);
+      split3(v.z, v.w, hi1, mid1, lo1);
+      const int off = r * kRow + (((q4 / 2) ^ (r & 7)) << 4) + 8 * (q4 % 2);
+      *reinterpret_cast<uint2*>(sb + L.R + off) = make_uint2(hi0, hi1);
+      *reinterpret_cast<uint2*>(sb + L.R + 64 * NP * kRow + off) =
+          make_uint2(mid0, mid1);
+      *reinterpret_cast<uint2*>(sb + L.R + 128 * NP * kRow + off) =
+          make_uint2(lo0, lo1);
+    }
+    fence_proxy_async();
+    __syncthreads();   // x and the terms ready for the tensor cores; SF free
+    if (u + 1 < units) stage(u + 1);
+
+    const float ecum[2] = {expf(cg[ia]), expf(cg[ia + 8])};
+    float cacc[32], yacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      cacc[i] = 0.0f;
+      yacc[i] = 0.0f;
+    }
+    // One pipeline stage per 64-column key block: its masked scores are
+    // built in registers first, then the carry-in C @ state_in^T (with the
+    // first block) and the intra-chunk product go to the tensor cores
+    // together, terms lo, mid, hi, and are waited for before any other
+    // instruction touches their accumulators (an instruction in between
+    // makes ptxas serialize every wgmma of the kernel, C7514).
+#pragma unroll
+    for (int jt = 0; jt < kWG; ++jt) {
+      if (jt > wg) continue;
+      uint32_t ah[4][4], am[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = ia + 8 * (r % 2);
+          const int j = 64 * jt + 16 * kk + 8 * (r / 2) + c0;
+          const int xi = 8 * kk + 2 * r;
+          // branch-free: the exponent of a masked pair is 0, its score 0
+          const bool in0 = j <= i, in1 = j + 1 <= i;
+          const float e0 = expf(in0 ? cg[i] - cg[j] : 0.0f);
+          const float e1 = expf(in1 ? cg[i] - cg[j + 1] : 0.0f);
+          const float v0 = __fmul_rn(__fmul_rn(g[jt][xi], e0), dg[j]);
+          const float v1 = __fmul_rn(__fmul_rn(g[jt][xi + 1], e1), dg[j + 1]);
+          split3(in0 ? v0 : 0.0f, in1 ? v1 : 0.0f, ah[kk][r], am[kk][r],
+                 al[kk][r]);
+        }
+      wgmma_fence();
+      if (jt == 0) {
+#pragma unroll
+        for (int t = 2; t >= 0; --t)
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk)
+            wgmma_ss<1>(cacc,
+                        kmajor(base + L.C + (kk / 4) * Q * kRow +
+                               64 * wg * kRow + 32 * (kk % 4)),
+                        mnmajor(base + L.R + t * 64 * NP * kRow +
+                                16 * kk * kRow));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(yacc, al[kk], mnmajor(base + L.X + (64 * jt + 16 * kk) * kRow));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(yacc, am[kk], mnmajor(base + L.X + (64 * jt + 16 * kk) * kRow));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(yacc, ah[kk], mnmajor(base + L.X + (64 * jt + 16 * kk) * kRow));
+      wgmma_commit();
+      wgmma_wait_all();   // the A registers are rebuilt for the next block
+    }
+    fence_regs(cacc);
+    fence_regs(yacc);
+
+    // y = intra + exp(cum) * carry + D * x, rounded once; rows past s and
+    // columns past p are not stored
+    const float dskip = a.D[h];
+    __nv_bfloat16* yb = a.y + (static_cast<long long>(b) * a.S + s0) * a.H * a.P +
+                        static_cast<long long>(h) * a.P;
+#pragma unroll
+    for (int x = 0; x < 32; x += 2) {
+      const int half = (x / 2) % 2;
+      const int i = ia + 8 * half;
+      const int p = 64 * pt + 8 * (x / 4) + c0;
+      if (i < nv && p < a.P) {
+        const __nv_bfloat162 xv =
+            *reinterpret_cast<const __nv_bfloat162*>(sb + L.X + swz(i, p));
+        const float v0 = __fadd_rn(
+            __fadd_rn(yacc[x], __fmul_rn(cacc[x], ecum[half])),
+            __fmul_rn(dskip, __low2float(xv)));
+        const float v1 = __fadd_rn(
+            __fadd_rn(yacc[x + 1], __fmul_rn(cacc[x + 1], ecum[half])),
+            __fmul_rn(dskip, __high2float(xv)));
+        *reinterpret_cast<__nv_bfloat162*>(
+            yb + static_cast<long long>(i) * a.H * a.P + p) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    __syncthreads();   // x and the state terms are consumed
+  }
+}
+
+template <int Q, int NP>
+cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
+  const ChunkLayout lc(Q, a.N);
+  const OutLayout lo(Q, a.N);
+  static bool chunk_done[kMaxDevices], out_done[kMaxDevices];
+  cudaError_t err = allow_smem(ssd_chunk_pass<Q>, chunk_done);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(ssd_output_pass<Q, NP>, out_done);
+  if (err != cudaSuccess) return err;
+  const int blocks = batch * a.NC * a.groups;
+  ssd_chunk_pass<Q><<<blocks, 128 * (Q / 64), lc.bytes, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 sgrid(batch * a.H,
+                   (a.N * a.P / 4 + kStateThreads - 1) / kStateThreads);
+  ssd_state_pass<<<sgrid, kStateThreads, 0, stream>>>(
+      a.states, a.cum_last, a.final_state, a.H, a.NC, a.P, a.N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_output_pass<Q, NP><<<blocks, 128 * (Q / 64), lo.bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int Q>
+cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
+  switch (panels(a.N)) {
+    case 1: return launch<Q, 1>(a, batch, stream);
+    case 2: return launch<Q, 2>(a, batch, stream);
+    case 3: return launch<Q, 3>(a, batch, stream);
+    default: return launch<Q, 4>(a, batch, stream);
+  }
+}
+
+}  // namespace tc
 
 extern "C" {
 
@@ -367,6 +1037,61 @@ int ssd_scan(const void* x, const void* dt, const void* A, const void* B,
                                    S, H, P, N, Q, st, s)
            : launch<float>(x, dt, A, B, C, D, y, final_state, batch, S, H, P,
                            N, Q, st, s);
+  return static_cast<int>(err);
+}
+
+// The tensor-core instance: x, B, C bf16 and y bf16, dt, A, D and
+// final_state fp32, as ssd_scan, with chunk Q 64 or 128, P and N multiples
+// of 16 in [16, 256], `group` heads (1 to 4) per block of passes (a) and
+// (c), 16-byte-aligned x, B and C and element strides that are multiples
+// of 8 (16 bytes) over every axis of size above 1.  states
+// (batch, ceil(S/Q), H, N, P) and cum_last (batch, ceil(S/Q), H) are fp32
+// scratch the caller allocates.  Same return convention as ssd_scan; the
+// three passes are launched in order on `stream`.
+int ssd_scan_tc(const void* x, const void* dt, const void* A, const void* B,
+                const void* C, const void* D, void* y, void* final_state,
+                void* states, void* cum_last, int batch, int S, int H, int P,
+                int N, int Q, int group, long long x_sb, long long x_ss,
+                long long x_sh,
+                long long dt_sb, long long dt_ss, long long dt_sh,
+                long long B_sb, long long B_ss, long long C_sb,
+                long long C_ss, void* stream) {
+  bool ok = batch >= 1 && S >= 1 && H >= 1 && (Q == 64 || Q == 128) &&
+            P >= 16 && P <= 256 && P % 16 == 0 && N >= 16 && N <= 256 &&
+            N % 16 == 0;
+  const long long nc = (static_cast<long long>(S) + Q - 1) / Q;
+  ok = ok && group >= 1 && group <= tc::kMaxGroup &&
+       batch * nc * ((H + group - 1) / group) <= 2147483647LL &&
+       static_cast<long long>(batch) * H <= 2147483647LL;
+  const long long strides[7][2] = {{x_sb, batch}, {x_ss, S}, {x_sh, H},
+                                   {B_sb, batch}, {B_ss, S}, {C_sb, batch},
+                                   {C_ss, S}};
+  for (const auto& st : strides) ok = ok && (st[1] == 1 || st[0] % 8 == 0);
+  const void* const bases[3] = {x, B, C};
+  for (const void* p : bases)
+    ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  tc::Args a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.B = static_cast<const __nv_bfloat16*>(B);
+  a.C = static_cast<const __nv_bfloat16*>(C);
+  a.dt = static_cast<const float*>(dt);
+  a.A = static_cast<const float*>(A);
+  a.D = static_cast<const float*>(D);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.states = static_cast<float*>(states);
+  a.cum_last = static_cast<float*>(cum_last);
+  a.final_state = static_cast<float*>(final_state);
+  a.xb = x_sb; a.xs = x_ss; a.xh = x_sh;
+  a.db = dt_sb; a.ds = dt_ss; a.dh = dt_sh;
+  a.Bb = B_sb; a.Bs = B_ss; a.Cb = C_sb; a.Cs = C_ss;
+  a.H = H; a.S = S; a.P = P; a.N = N;
+  a.NC = static_cast<int>(nc);
+  a.group = group;
+  a.groups = (H + group - 1) / group;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = Q == 64 ? tc::launch<64>(a, batch, s)
+                                  : tc::launch<128>(a, batch, s);
   return static_cast<int>(err);
 }
 

@@ -13,10 +13,11 @@ last axis; anything else raises before launch.
 
 ``launches[name]`` counts the kernel launches of each wrapper (one per
 call that reached the kernel, none for the plain version), so a run can
-show that its path went through the kernels; ``flash_launches`` and
-``round_block_launches`` split ``launches["flash_attention"]`` and
-``launches["csvm_round_block"]`` by the instance that ran
-(``flash_instance``, ``round_block_instance``).
+show that its path went through the kernels; ``flash_launches``,
+``round_block_launches`` and ``ssd_launches`` split
+``launches["flash_attention"]``, ``launches["csvm_round_block"]`` and
+``launches["ssd_scan"]`` by the instance that ran (``flash_instance``,
+``round_block_instance``, ``ssd_instance``).
 """
 from __future__ import annotations
 
@@ -43,6 +44,10 @@ flash_launches: Dict[str, int] = {name: 0 for name in FLASH_INSTANCES}
 # round (TMA bulk copies) and X read twice a round with plain loads
 ROUND_INSTANCES = ("stream", "direct")
 round_block_launches: Dict[str, int] = {name: 0 for name in ROUND_INSTANCES}
+# ssd_scan's two instances: chunk-parallel on the bf16 tensor cores (three
+# passes) and the chunk walk in fp32 FMAs on the CUDA cores
+SSD_INSTANCES = ("wgmma", "fma")
+ssd_launches: Dict[str, int] = {name: 0 for name in SSD_INSTANCES}
 
 _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
@@ -67,6 +72,8 @@ def reset_launches() -> None:
         flash_launches[name] = 0
     for name in ROUND_INSTANCES:
         round_block_launches[name] = 0
+    for name in SSD_INSTANCES:
+        ssd_launches[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,6 +107,8 @@ def _ssd_lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     lib.ssd_scan.argtypes = [_P] * 8 + [_I] * 7 + [_LL] * 10 + [_P]
     lib.ssd_scan.restype = ctypes.c_int
+    lib.ssd_scan_tc.argtypes = [_P] * 10 + [_I] * 7 + [_LL] * 10 + [_P]
+    lib.ssd_scan_tc.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -655,19 +664,56 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 
 _SSD_PT = 16           # columns of p per block (csrc/ssd_scan.cu kPT)
 _SSD_MAX_CHUNK = 128
+_SSD_TC_CHUNKS = (64, 128)   # csrc/ssd_scan.cu ssd_scan_tc
+_SSD_TC_MAX_GROUP = 4        # heads per block of its passes (a) and (c)
+
+
+def ssd_instance(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The instance of the SSD kernel that a CUDA call runs, by dtype and
+    shape alone: ``"wgmma"`` (chunk-parallel, bf16 tensor cores) for bf16
+    at chunk 64 or 128 with p and n multiples of 16 in [16, 256], ``"fma"``
+    (the chunk walk in fp32 FMAs) otherwise."""
+    if (dtype == torch.bfloat16 and chunk in _SSD_TC_CHUNKS
+            and p % 16 == 0 and 16 <= p <= 256
+            and n % 16 == 0 and 16 <= n <= 256):
+        return "wgmma"
+    return "fma"
+
+
+def ssd_head_group(b: int, s: int, h: int, chunk: int) -> int:
+    """Heads per block of the tensor-core instance's chunk and output
+    passes (each block forms C B^T once for its group): the largest of 4,
+    2, 1 that still gives every SM of an H100 (132) a block, so that short
+    prompts fill the card too (``python3 -m repro_torch.launch.profile_ssd``
+    times each group at mamba2-370m's shapes)."""
+    blocks = b * -(-s // chunk)
+    group = _SSD_TC_MAX_GROUP
+    while group > 1 and blocks * -(-h // group) < 132:
+        group //= 2
+    return group
+
+
+def ssd_scratch_floats(b: int, s: int, h: int, p: int, n: int,
+                       chunk: int) -> int:
+    """fp32 scratch of one tensor-core ``ssd_scan`` launch: each chunk's
+    local state, then its carried-in state (b, nc, h, n, p), and each
+    chunk's last cumulative decay (b, nc, h)."""
+    nc = -(-s // chunk)
+    return b * nc * h * (n * p + 1)
 
 
 def ssd_smem_bytes(chunk: int, n: int) -> int:
-    """Shared memory of one ``ssd_scan`` block (``smem_floats`` of
-    ``csrc/ssd_scan.cu``): cum, dt and two decays (Q each), x and x*dt
-    (Q x 16), B^T and C^T (n x (Q+8)), the decayed B (Q x (n+4)), the
-    masked scores (Q x (Q+8)) and the state slice (n x 16), fp32."""
+    """Shared memory of one ``ssd_scan`` block of the fp32-FMA instance
+    (``smem_floats`` of ``csrc/ssd_scan.cu``): cum, dt and two decays (Q
+    each), x and x*dt (Q x 16), B^T and C^T (n x (Q+8)), the decayed B
+    (Q x (n+4)), the masked scores (Q x (Q+8)) and the state slice
+    (n x 16), fp32."""
     Q = chunk
     return 4 * (4 * Q + 2 * Q * _SSD_PT + 2 * n * (Q + 8) + Q * (n + 4)
                 + Q * (Q + 8) + n * _SSD_PT)
 
 
-def _check_ssd(x, dt, A, B, C, D, chunk):
+def _check_ssd(x, dt, A, B, C, D, chunk, instance="fma"):
     name = "ssd_scan"
     for what, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C),
                     ("D", D)):
@@ -709,12 +755,71 @@ def _check_ssd(x, dt, A, B, C, D, chunk):
     if chunk % 8 or not 8 <= chunk <= _SSD_MAX_CHUNK:
         raise ValueError(f"{name}: chunk={chunk} must be a multiple of 8 in "
                          f"[8, {_SSD_MAX_CHUNK}]")
+    if instance == "wgmma":
+        if ssd_instance(x.dtype, p, n, chunk) != "wgmma":
+            raise ValueError(f"{name}: the tensor-core instance takes bf16 "
+                             f"at chunk 64 or 128 with p and n multiples of "
+                             f"16 in [16, 256], got {x.dtype}, p={p}, n={n},"
+                             f" chunk={chunk}")
+        # the 16-byte copies: aligned bases, strides of 16 bytes
+        for what, t in (("x", x), ("B", B), ("C", C)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: {what}'s base is not 16-byte "
+                                 "aligned, as the bf16 kernel's copies need")
+            if any(size > 1 and st % 8 for size, st in zip(t.shape[:-1],
+                                                          t.stride()[:-1])):
+                raise ValueError(f"{name}: {what}'s strides {t.stride()} "
+                                 "are not multiples of 16 bytes, as the bf16"
+                                 " kernel's copies need")
+        if b * -(-s // chunk) * h > 2 ** 31 - 1:
+            raise ValueError(f"{name}: x {tuple(x.shape)} exceeds the grid")
+        return
     if ssd_smem_bytes(chunk, n) > _SMEM_LIMIT:
         raise ValueError(f"{name}: chunk={chunk}, n={n} need "
                          f"{ssd_smem_bytes(chunk, n)} bytes of shared "
                          f"memory, over {_SMEM_LIMIT}")
     if b * h > 2 ** 31 - 1 or -(-p // _SSD_PT) > 65535:
         raise ValueError(f"{name}: x {tuple(x.shape)} exceeds the grid")
+
+
+def _ssd_launch(x, dt, A, B, C, D, chunk: int, instance: str,
+                group=None):
+    """One launch of SSD instance ``instance`` on CUDA operands (checked
+    here); returns (y, final_state).  ``ssd_scan`` calls it with
+    ``ssd_instance``'s choice; the fp32-FMA instance also takes bf16.
+    ``group`` overrides ``ssd_head_group`` for the tensor-core one."""
+    if instance not in SSD_INSTANCES:
+        raise ValueError(f"ssd_scan: unknown instance {instance!r}")
+    chunk = int(chunk)
+    _check_ssd(x, dt, A, B, C, D, chunk, instance)
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    lib = _ssd_lib()
+    strides = (x.stride(0), x.stride(1), x.stride(2), *dt.stride(),
+               B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+               _stream(x.device))
+    with torch.cuda.device(x.device):
+        if instance == "wgmma":
+            scratch = torch.empty(ssd_scratch_floats(b, s, h, p, n, chunk),
+                                  dtype=torch.float32, device=x.device)
+            states = scratch[:b * -(-s // chunk) * h * n * p]
+            cum_last = scratch[states.numel():]
+            err = lib.ssd_scan_tc(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), D.data_ptr(), y.data_ptr(), final.data_ptr(),
+                states.data_ptr(), cum_last.data_ptr(), b, s, h, p, n, chunk,
+                int(group or ssd_head_group(b, s, h, chunk)), *strides)
+        else:
+            err = lib.ssd_scan(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), D.data_ptr(), y.data_ptr(), final.data_ptr(),
+                int(x.dtype == torch.bfloat16), b, s, h, p, n, chunk,
+                *strides)
+    _check_call("ssd_scan", err, lib.ssd_scan_error_string)
+    ssd_launches[instance] += 1
+    return y, final
 
 
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):
@@ -726,25 +831,16 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):
 
     On the card x, B and C may be strided views with a unit stride over
     their last axis — the model's column slices of one conv output go in
-    without a copy; dt may be strided too.  The chunk is a multiple of 8
-    up to 128 and n a multiple of 4 within the shared memory of a block.
+    without a copy; dt may be strided too.  ``ssd_instance`` picks the
+    kernel: bf16 at chunk 64 or 128 with p and n multiples of 16 up to 256
+    runs chunk-parallel on the tensor cores and needs 16-byte-aligned
+    bases and strides of x, B and C (it raises otherwise); the rest runs
+    the fp32-FMA chunk walk, at a chunk that is a multiple of 8 up to 128
+    and n a multiple of 4 within the shared memory of a block.
     """
     if not _is_cuda(x, "ssd_scan"):
         return ref.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
-    chunk = int(chunk)
-    _check_ssd(x, dt, A, B, C, D, chunk)
-    b, s, h, p = x.shape
-    n = B.shape[2]
-    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
-    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    lib = _ssd_lib()
-    with torch.cuda.device(x.device):
-        err = lib.ssd_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), D.data_ptr(), y.data_ptr(), final.data_ptr(),
-            int(x.dtype == torch.bfloat16), b, s, h, p, n, chunk,
-            x.stride(0), x.stride(1), x.stride(2), *dt.stride(),
-            B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-            _stream(x.device))
-    _check_call("ssd_scan", err, lib.ssd_scan_error_string)
-    return y, final
+    p = x.shape[-1] if x.dim() == 4 else 0
+    n = B.shape[-1] if isinstance(B, torch.Tensor) and B.dim() == 3 else 0
+    instance = ssd_instance(x.dtype, p, n, int(chunk))
+    return _ssd_launch(x, dt, A, B, C, D, chunk, instance)

@@ -253,6 +253,29 @@ def test_fit_through_the_kernels_matches_the_plain_fit(cuda, backend):
     _close(Bt, want, tol)
 
 
+def test_megakernel_fit_on_a_misaligned_view_of_x(cuda):
+    """X as an offset view on the card (its base 4 bytes past a 16-byte
+    boundary, n*p not a multiple of 4): the megakernel fit copies it to an
+    aligned buffer, runs the stream instance once and matches the plain
+    fit, where the kernel alone refuses such a base."""
+    sim = tc.SimConfig(p=20, s=4, m=4, n=61)
+    X, y, _ = tc.generate(sim, seed=1)
+    m, n, p = X.shape
+    assert (n * p) % 4
+    big = torch.zeros(1 + X.size, device=cuda)
+    Xv = big[1:].view(m, n, p)
+    Xv.copy_(torch.from_numpy(np.asarray(X, np.float32)))
+    assert Xv.data_ptr() % 16
+    W = ring(sim.m)
+    cfg = lambda b: tc.ADMMConfig(lam=0.05, max_iter=60, backend=b)
+    ops.reset_launches()
+    got = tc.decsvm_fit(Xv, y, W, cfg("megakernel"))
+    assert ops.round_block_launches == {"stream": 1, "direct": 0}
+    want = tc.decsvm_fit(Xv, y, W, cfg("jnp"))
+    _close(got, want, ATOL)
+    _close(got, tc.decsvm_fit(X, y, W, cfg("megakernel")), ATOL)
+
+
 def test_refused_round_block_loops_the_block_update_kernel(cuda,
                                                            monkeypatch):
     """When the residency rule refuses the round kernel, the megakernel fit
@@ -415,6 +438,108 @@ def test_ssd_scan_matches_plain(cuda, case, dtype):
     (_, y_share), (_, s_share) = chip_smoke.ssd_deviation(torch, got, want,
                                                           dtype)
     assert y_share <= 1.0 and s_share <= 1.0
+
+
+WGMMA_SSD_CASES = [c for c in chip_smoke.SSD_CASES
+                   if ops.ssd_instance(torch.bfloat16, *c[3:]) == "wgmma"]
+
+
+@pytest.mark.parametrize("instance", ["wgmma", "fma"])
+@pytest.mark.parametrize("case", WGMMA_SSD_CASES)
+def test_ssd_instances_match_plain_on_the_tensor_core_cases(cuda, case,
+                                                            instance):
+    """Every bf16 case the tensor-core instance takes, on it (the wrapper's
+    choice) and on the fp32-FMA instance, at chip_smoke.py's limits: y
+    within one bf16 ulp of the plain y, the state within 5e-5 (1 + |s|);
+    each call is one launch of its instance."""
+    b, s, h, p, n, chunk = case
+    args = chip_smoke.ssd_inputs(torch, case, "bfloat16", cuda, seed=2)
+    ops.reset_launches()
+    if instance == "wgmma":
+        got = ops.ssd_scan(*args, chunk=chunk)
+    else:
+        got = ops._ssd_launch(*args, chunk, "fma")
+    assert ops.ssd_launches == {k: int(k == instance)
+                                for k in ops.SSD_INSTANCES}
+    assert ops.launches["ssd_scan"] == 1
+    want = ref.ssd_scan(*args, chunk=chunk)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == want[0].shape
+    assert got[1].dtype == torch.float32 and got[1].shape == want[1].shape
+    (_, y_share), (_, s_share) = chip_smoke.ssd_deviation(torch, got, want,
+                                                          "bfloat16")
+    assert y_share <= 1.0 and s_share <= 1.0
+
+
+@pytest.mark.parametrize("case", [(1, 190, 4, 64, 256, 64),
+                                  (1, 300, 2, 64, 192, 128)])
+def test_ssd_tensor_core_instance_past_the_prefetched_rows(cuda, case):
+    """n above the 128 rows of state_in the output pass prefetches (the
+    rest are read directly; n = 192 pads to three 64-row panels, chunk
+    128 runs two warpgroups), on inputs drawn as mamba2-370m forms them,
+    at chip_smoke.py's limits."""
+    b, s, h, p, n, chunk = case
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    f32 = dict(generator=gen, device=cuda, dtype=torch.float32)
+    buf = torch.nn.functional.silu(0.5 * torch.randn(
+        (b, s, h * p + 2 * n), **f32)).to(torch.bfloat16)
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    B, C = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), **f32))
+    args = (x, dt, -torch.linspace(1.0, 16.0, h, device=cuda), B, C,
+            torch.ones(h, device=cuda))
+    assert ops.ssd_instance(torch.bfloat16, p, n, chunk) == "wgmma"
+    got = ops.ssd_scan(*args, chunk=chunk)
+    want = ref.ssd_scan(*args, chunk=chunk)
+    (_, y_share), (_, s_share) = chip_smoke.ssd_deviation(torch, got, want,
+                                                          "bfloat16")
+    assert y_share <= 1.0 and s_share <= 1.0
+
+
+def test_ssd_tensor_core_instance_is_deterministic(cuda):
+    """Fixed sum orders, no atomics: two calls give the same bits of y
+    and of the final state (mamba2-370m's shapes, a ragged last chunk)."""
+    args = chip_smoke.ssd_inputs(torch, (1, 1999, 32, 64, 128, 64),
+                                 "bfloat16", cuda, seed=3)
+    y1, f1 = ops.ssd_scan(*args, chunk=64)
+    y2, f2 = ops.ssd_scan(*args, chunk=64)
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
+
+
+def test_ssd_tensor_core_instance_raises_on_a_misaligned_base(cuda):
+    """x, B or C off a 16-byte boundary, or with a stride that is not a
+    multiple of 16 bytes, raises before any launch; it is not rerouted to
+    the fp32-FMA instance."""
+    case = (1, 130, 2, 32, 64, 64)
+    x, dt, A, B, C, D = chip_smoke.ssd_inputs(torch, case, "bfloat16", cuda,
+                                              seed=4)
+    flat = torch.zeros(1 + x.numel(), dtype=x.dtype, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    wide = torch.zeros(1, 130, 76, dtype=B.dtype, device=cuda)
+    odd = wide[..., 8:72]             # an aligned base, a 152-byte stride
+    odd.copy_(B)
+    before = dict(ops.launches), dict(ops.ssd_launches)
+    for bad in ((shifted, dt, A, B, C, D), (x, dt, A, odd, C, D)):
+        with pytest.raises(ValueError, match="16"):
+            ops.ssd_scan(*bad, chunk=64)
+    assert (dict(ops.launches), dict(ops.ssd_launches)) == before
+
+
+def test_mamba2_prefill_runs_on_the_tensor_core_instance(cuda):
+    """Full-width mamba2-370m in bf16: every one of the 48 ssd_scan
+    launches of a block prefill is on the tensor-core instance."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.models.prefill import prefill
+    cfg = configs.get("mamba2_370m")
+    params = model.init_params(cfg, seed=0, device=cuda)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 333))
+    ops.reset_launches()
+    logits, _, _ = prefill(params, {"tokens": toks}, cfg, 334)
+    assert bool(torch.isfinite(logits).all())
+    assert ops.ssd_launches == {"wgmma": cfg.num_layers, "fma": 0}
+    assert ops.launches["flash_attention"] == 0
 
 
 def test_ssd_scan_raises_on_bad_operands_and_without_its_library(

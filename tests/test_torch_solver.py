@@ -355,6 +355,30 @@ def test_admm_step_objective_and_threshold_match_jax(fixture, dense):
         np.asarray(hard_threshold_final(jnp.asarray(dense[0]), 0.03)))
 
 
+def test_make_problem_copies_an_x_off_a_16_byte_boundary():
+    """An offset view of X (its base 4 bytes past a 16-byte boundary, n*p
+    not a multiple of 4, so no node starts aligned either) comes out of
+    make_problem 16-byte aligned and bit-equal, as the round kernel's bulk
+    copies need; an aligned contiguous X is kept without a copy."""
+    rng = np.random.default_rng(4)
+    m, n, p = 3, 5, 7
+    big = torch.from_numpy(rng.standard_normal(1 + m * n * p)
+                           .astype(np.float32))
+    X = big[1:].view(m, n, p)
+    assert X.data_ptr() % 16 and (n * p) % 4
+    y = torch.from_numpy(np.sign(rng.standard_normal((m, n)))
+                         .astype(np.float32))
+    W = torch.from_numpy(np.asarray(ring(m), np.float32))
+    for backend in ("megakernel", "jnp"):
+        prob = ts.make_problem(X, y, W, _cfg(backend=backend))
+        assert prob.X.data_ptr() % 16 == 0
+        assert torch.equal(prob.X, X)
+    aligned = X.clone()
+    assert aligned.data_ptr() % 16 == 0
+    prob = ts.make_problem(aligned, y, W, _cfg(backend="megakernel"))
+    assert prob.X.data_ptr() == aligned.data_ptr()
+
+
 def test_unported_options_raise(fixture):
     _, X, y, W, rho = fixture
     with pytest.raises(NotImplementedError, match="later slice"):
