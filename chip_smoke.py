@@ -12,27 +12,30 @@ result lines):
    shared memory of the round kernel's stream instance), the wgmma (HGMMA)
    and TMA-load (UTMALDG) instructions ``cuobjdump -sass`` finds in the
    tensor-core flash instance, the bulk copies (UBLKCP) in the stream
-   instance of ``csvm_round_block``, and the wgmma, its waits and the
+   instances of ``csvm_round_block`` and of the two-pass update
+   (``update_stream_kernel``), and the wgmma, its waits and the
    copies (UTMALDG, UBLKCP, LDGSTS) of the tensor-core passes of
    ``ssd_scan`` (a count of 0 where the design needs the instruction, or a
    wait after every wgmma of an SSD pass, fails the run);
 3. the CSVM kernels: each against its plain torch version on the card,
    at the paper's design size and at the full size below, in fp32 and
    bf16, with held rounds, ``nact = 0``, lambda vectors and
-   ``lam0 > 0`` — ``csvm_round_block`` on both its instances (``stream``,
-   one read of X a round, and ``direct``, the earlier design); then their
-   times (CUDA events) beside the plain versions' and the bound, the round
-   kernel's two instances in turns with their effective TB/s and the
-   floor of one read of X a round (the stream instance must take at most
-   0.6x the direct one's time);
+   ``lam0 > 0`` — ``csvm_round_block``, ``csvm_block_update`` and
+   ``csvm_local_update`` each on both its instances (``stream``, one read
+   of X a round or update, and ``direct``, the earlier design); then their
+   times (CUDA events) beside the plain versions' and the bound, the two
+   instances and the plain version in turns with their effective TB/s and
+   the floor of one read of X a pass (each stream instance must take at
+   most 0.6x the direct one's time);
 4. the fit path at full size — ``SimConfig(p=4095, s=10, m=16, n=1024,
    rho=0.5)`` on ``erdos_renyi(16, 0.5, seed=0)``, X (16, 1024, 4096):
    ``decsvm_fit`` under ``megakernel`` (with and without
    ``track_history``) and ``pallas``, ``decsvm_fit_tol`` (KKT stop) under
    ``megakernel_bf16``, each against the plain ``jnp`` backend on the
    card, with the launch counters read around the fits (every
-   ``csvm_round_block`` launch on the stream instance); the KKT fits
-   must stop before ``max_iter`` and within one check block of each
+   ``csvm_round_block`` launch, and every two-pass launch of the
+   ``track_history`` and ``pallas`` fits, on the stream instance); the KKT
+   fits must stop before ``max_iter`` and within one check block of each
    other;
 5. ``flash_attention`` against its plain version (``ref.mha``) at the
    shapes of ``tests/test_kernels.py`` (every mask, MQA, D = 32/64/128,
@@ -189,9 +192,10 @@ SSD_CASES = [
 MAMBA_PROMPT = 1999
 MAMBA_TOL = {"float32": 1e-4, "bfloat16": 0.5}
 
-# csvm_round_block's stream instance (one read of X a round) against the
-# direct one (two reads) in the same call, at both main-path shapes: at
-# most this share of its time.
+# The stream instances (one read of X a pass) against the direct ones (two
+# reads) in the same call, at the main path's shapes — csvm_round_block in
+# fp32 and bf16, csvm_block_update and csvm_local_update in fp32 and
+# csvm_block_update in bf16: at most this share of its time.
 STREAM_RATIO = 0.6
 # ssd_scan's tensor-core instance against the fp32-FMA one on the same
 # bf16 inputs in the same call, at mamba2-370m's S = 2048 and 1023: at most
@@ -309,23 +313,35 @@ def tensor_core_sass(build):
     return found
 
 
-def bulk_copy_sass(build):
-    """Disassemble the CSVM library and check that the stream instance of
-    the round kernel (``round_stream_kernel`` for fp32 and bf16 X) issues
-    TMA bulk copies (UBLKCP; UTMALDG with a tensor map); returns
-    {dtype: (UBLKCP, UTMALDG)}."""
+STREAM_KERNELS = ("round_stream_kernel", "update_stream_kernel")
+
+
+def bulk_copy_counts(sass_text: str):
+    """{kernel<dtype>: (UBLKCP, UTMALDG)} of ``cuobjdump -sass`` output for
+    the kernels that stream X through the TMA ring: the round kernel's
+    stream instance and the two-pass update's, for fp32 and bf16 X."""
     found = {}
-    for fn, (blk, tma) in sass_counts(disassemble(build, "csvm_update"),
-                                      ("UBLKCP", "UTMALDG")).items():
-        inst = re.search(r"round_stream_kernelI(f|13__nv_bfloat16)E", fn)
+    for fn, counts in sass_counts(sass_text, ("UBLKCP", "UTMALDG")).items():
+        inst = re.search(r"(%s)I(f|13__nv_bfloat16)E" % "|".join(
+            STREAM_KERNELS), fn)
         if inst:
-            dtype = "float32" if inst.group(1) == "f" else "bfloat16"
-            found[dtype] = (blk, tma)
-            log(f"sass round_stream_kernel<{dtype}>: {blk} UBLKCP, {tma} "
-                "UTMALDG")
-    check(set(found) == {"float32", "bfloat16"} and all(
-        b + u > 0 for b, u in found.values()),
-        f"the stream round kernel issues no bulk copy: {found}")
+            dtype = "float32" if inst.group(2) == "f" else "bfloat16"
+            found[f"{inst.group(1)}<{dtype}>"] = counts
+    return found
+
+
+def bulk_copy_sass(build):
+    """Disassemble the CSVM library and check that the stream instances
+    (``round_stream_kernel`` and ``update_stream_kernel``, for fp32 and
+    bf16 X) issue TMA bulk copies (UBLKCP; UTMALDG with a tensor map);
+    returns {kernel<dtype>: (UBLKCP, UTMALDG)}."""
+    found = bulk_copy_counts(disassemble(build, "csvm_update"))
+    for name, (blk, tma) in found.items():
+        log(f"sass {name}: {blk} UBLKCP, {tma} UTMALDG")
+    want = {f"{k}<{dt}>" for k in STREAM_KERNELS
+            for dt in ("float32", "bfloat16")}
+    check(set(found) == want and all(b + u > 0 for b, u in found.values()),
+          f"a stream kernel issues no bulk copy: {found}")
     return found
 
 
@@ -457,33 +473,63 @@ def record(devs, name, dtype, dev):
     devs[name][dtype] = max(devs[name].get(dtype, 0.0), dev)
 
 
+def two_pass_runs(ops, name, X, rest, kw, label):
+    """``name``'s wrapper on X, then on the card its other instance by
+    name (``ops._two_pass_launch``), each run checked to have launched
+    once on the instance it names; returns [(instance, B+)] (on the CPU
+    one run of the plain version)."""
+    fn = getattr(ops, name)
+    if X.device.type != "cuda":
+        return [("plain", fn(X, *rest, **kw))]
+    chosen = ops.two_pass_instance(*X.shape, X.dtype, X.data_ptr())
+    runs = []
+    for instance in [chosen] + [i for i in ops.TWO_PASS_INSTANCES
+                                if i != chosen]:
+        before = dict(ops.two_pass_launches)
+        got = (fn(X, *rest, **kw) if instance == chosen else
+               ops._two_pass_launch(name, X, *rest, instance, **kw))
+        ran = {k: v - before[k] for k, v in ops.two_pass_launches.items()}
+        check(ran == {k: int(k == instance) for k in ops.TWO_PASS_INSTANCES},
+              f"{name} {label}: launched {ran}, expected one {instance} "
+              "launch")
+        runs.append((instance, got))
+    return runs
+
+
 def kernel_checks(torch, ops, cu, d: Data, label: str, devs: dict):
-    """Each kernel's wrapper on the card against its plain version."""
+    """Each kernel's wrapper on the card against its plain version (the
+    two-pass updates and the round kernel on both their instances)."""
     nact_t = lambda k: torch.tensor(k, dtype=torch.int32, device=d.device)
+    rest = (d.y, d.B, d.P, d.neigh, d.rho, d.omega, d.lam_vec)
     for dtype in ("float32", "bfloat16"):
-        args = (d.x(dtype), d.y, d.B, d.P, d.neigh, d.rho, d.omega,
-                d.lam_vec)
-        got = (ops.csvm_block_update(*args, h=d.h),)
-        want = (cu.csvm_block_update_plain(*args, h=d.h),)
-        dev = compare(torch, got, want, dtype,
-                      f"csvm_block_update {label} {dtype}")
-        record(devs, "csvm_block_update", dtype, dev)
-        log(f"check csvm_block_update {label} {dtype}: max|dev| {dev:.3e}")
+        X = d.x(dtype)
+        want = (cu.csvm_block_update_plain(X, *rest, h=d.h),)
+        for instance, got in two_pass_runs(ops, "csvm_block_update", X, rest,
+                                           dict(h=d.h), label):
+            what = f"csvm_block_update [{instance}] {label} {dtype}"
+            dev = compare(torch, (got,), want, dtype, what)
+            if instance == "stream":
+                check(torch.equal(got, ops.csvm_block_update(X, *rest,
+                                                             h=d.h)),
+                      f"{what}: two launches gave different bits")
+            record(devs, "csvm_block_update", dtype, dev)
+            log(f"check {what}: max|dev| {dev:.3e}")
     for kernel in ("epanechnikov", "laplacian"):
-        args = (d.X, d.y, d.B, d.P, d.neigh, d.rho, d.omega, d.lam_vec)
-        got = (ops.csvm_local_update(*args, h=d.h, kernel=kernel),
-               ops.csvm_local_update(d.X[0], d.y[0], d.B[0], d.P[0],
-                                     d.neigh[0], d.rho[0], d.omega[0],
-                                     d.lam, h=d.h, kernel=kernel))
-        plain = cu.csvm_local_update_plain(*args[:7], d.lam_flat, h=d.h,
-                                           kernel=kernel)
-        want = (cu.csvm_local_update_plain(*args, h=d.h, kernel=kernel),
-                plain[0])
-        dev = compare(torch, got, want, "float32",
-                      f"csvm_local_update {label} {kernel}")
-        record(devs, "csvm_local_update", "float32", dev)
-        log(f"check csvm_local_update {label} {kernel} (stacked and one "
-            f"node): max|dev| {dev:.3e}")
+        want = cu.csvm_local_update_plain(d.X, *rest, h=d.h, kernel=kernel)
+        one = ops.csvm_local_update(d.X[0], d.y[0], d.B[0], d.P[0],
+                                    d.neigh[0], d.rho[0], d.omega[0], d.lam,
+                                    h=d.h, kernel=kernel)
+        plain_one = cu.csvm_local_update_plain(d.X, *rest[:-1], d.lam_flat,
+                                               h=d.h, kernel=kernel)[0]
+        for instance, got in two_pass_runs(ops, "csvm_local_update", d.X,
+                                           rest, dict(h=d.h, kernel=kernel),
+                                           label):
+            what = f"csvm_local_update [{instance}] {label} {kernel}"
+            dev = compare(torch, (got, one), (want, plain_one), "float32",
+                          what)
+            record(devs, "csvm_local_update", "float32", dev)
+            log(f"check {what} (stacked, and one node with a scalar lambda "
+                f"on the wrapper's instance): max|dev| {dev:.3e}")
     # (dtype, num_rounds, nact, want_kkt, lam0, lambda vector)
     cases = [("float32", 5, 5, False, 0.0, False),
              ("float32", 5, 3, True, d.lam0, True),
@@ -534,27 +580,79 @@ def kernel_checks(torch, ops, cu, d: Data, label: str, devs: dict):
                 f" (plain {float(want[2]):.6g})")
 
 
-def kernel_timings(torch, ops, cu, d: Data, max_iter: int):
-    """Times at the shapes the main path gives each kernel."""
+def in_turns(torch, kernel, earlier, plain, reps: int, plain_reps: int,
+             timer=None):
+    """A kernel's instance, its earlier instance (None: none to time) and
+    its plain version timed in turns — kernel, earlier, plain, plain,
+    earlier, kernel — so that drift on the card hits all alike, by
+    ``timer(fn, reps)`` (default: CUDA events around back-to-back calls).
+    Returns the means and the two samples of each, and kernel / earlier."""
+    timer = timer or (lambda fn, r: cuda_ms(torch, fn, r))
+    k1 = timer(kernel, reps)
+    e1 = timer(earlier, reps) if earlier else None
+    p1 = timer(plain, plain_reps)
+    p2 = timer(plain, plain_reps)
+    e2 = timer(earlier, reps) if earlier else None
+    k2 = timer(kernel, reps)
+    row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+               ms_samples=[k1, k2], plain_ms_samples=[p1, p2])
+    if earlier:
+        row.update(earlier_ms=(e1 + e2) / 2, earlier_ms_samples=[e1, e2])
+        row["ratio"] = row["ms"] / row["earlier_ms"]
+    return row
+
+
+def kernel_timings(torch, ops, cu, d: Data, max_iter: int, graph_ms=None):
+    """Times at the shapes the main path gives each kernel: the two-pass
+    updates (fp32, and csvm_block_update in bf16) and the round kernel
+    on both their instances, in turns with the plain versions.  A two-pass
+    update's ``ms`` is the device's time, by ``graph_ms`` (replays of a
+    CUDA graph of one call), and ``call_ms`` that of back-to-back calls
+    (host time included, as a fit's loop pays it)."""
     m, n, p = d.X.shape
     f = 4
-    rows = {}
-    args2 = (d.X, d.y, d.B, d.P, d.neigh, d.rho, d.omega, d.lam_vec)
-    two_pass_bytes = (m * n * p * f + m * n * f + 3 * m * p * f + 2 * m * f
-                      + p * f + m * p * f)
-    for name, fn, plain in (
-        ("csvm_block_update", ops.csvm_block_update,
-         cu.csvm_block_update_plain),
-        ("csvm_local_update", ops.csvm_local_update,
-         cu.csvm_local_update_plain),
-    ):
-        times = paired_ms(torch, lambda: fn(*args2, h=d.h),
-                          lambda: plain(*args2, h=d.h), 20, 20)
-        bms, by = bound(4 * m * n * p, two_pass_bytes, PEAK_FP32)
-        rows[name] = dict(times, bound_ms=bms, bound_by=by,
-                          shape=f"X ({m}, {n}, {p}) fp32, one round")
-    variants = []
     on_card = d.device.type == "cuda"
+    two_pass = {}
+    rest = (d.y, d.B, d.P, d.neigh, d.rho, d.omega, d.lam_vec)
+    for name, plain_fn, dtype in (
+        ("csvm_block_update", cu.csvm_block_update_plain, "float32"),
+        ("csvm_local_update", cu.csvm_local_update_plain, "float32"),
+        ("csvm_block_update", cu.csvm_block_update_plain, "bfloat16"),
+    ):
+        X = d.x(dtype)
+        fn = getattr(ops, name)
+        if on_card:
+            instance = ops.two_pass_instance(m, n, p, X.dtype, X.data_ptr())
+            check(instance == "stream", f"{name} at X ({m}, {n}, {p}) "
+                  f"{dtype} takes the {instance} instance, not the stream "
+                  "one")
+        earlier = (lambda: ops._two_pass_launch(name, X, *rest, "direct",
+                                                h=d.h)) if on_card else None
+        fns = (lambda: fn(X, *rest, h=d.h), earlier,
+               lambda: plain_fn(X, *rest, h=d.h))
+        row = in_turns(torch, *fns, 20, 20, timer=graph_ms)
+        calls = in_turns(torch, *fns, 20, 20)
+        row.update({f"call_{k}": v for k, v in calls.items()})
+        # each input read once, B+ written once; 4 flops per element of X
+        # (the margin dot and X^T w)
+        isz = X.element_size()
+        x_bytes = m * n * p * isz
+        nbytes = (x_bytes + m * n * f + 3 * m * p * f + 2 * m * f + p * f
+                  + m * p * f)
+        bms, by = bound(4 * m * n * p, nbytes,
+                        PEAK_FP32 if dtype == "float32" else PEAK_BF16)
+        row.update(bound_ms=bms, bound_by=by,
+                   floor_ms=1e3 * x_bytes / PEAK_BYTES,
+                   stream_tbs=x_bytes / row["ms"] / 1e9,
+                   shape=f"X ({m}, {n}, {p}) {dtype}, one update")
+        if earlier:
+            row["earlier_tbs"] = 2 * x_bytes / row["earlier_ms"] / 1e9
+        row["faster_than_plain"] = (
+            max(row["ms_samples"]) < min(row["plain_ms_samples"])
+            and max(calls["ms_samples"]) < min(calls["plain_ms_samples"]))
+        two_pass.setdefault(name, []).append(row)
+    rows = {name: dict(v[0], variants=v[1:]) for name, v in two_pass.items()}
+    variants = []
     for dtype, R, kkt in (("float32", max_iter, False),
                           ("bfloat16", 4, True)):
         args = (d.x(dtype), d.y, d.B, d.P, d.W, d.deg, d.rho, d.omega,
@@ -565,19 +663,13 @@ def kernel_timings(torch, ops, cu, d: Data, max_iter: int):
         instance = ops.round_block_instance(m, n, p, args[0].dtype)
         check(instance == "stream", f"csvm_round_block at X ({m}, {n}, {p})"
               f" {dtype} takes the {instance} instance, not the stream one")
-        kernel = lambda: ops.csvm_round_block(*args, nact, **kw)
-        plain = lambda: cu.csvm_round_block_plain(*args, R, **kw)
         # in turns: stream, direct, plain, plain, direct, stream
-        k1 = cuda_ms(torch, kernel, reps)
         earlier = (lambda: ops._round_block_launch(*args, nact, "direct",
                                                    **kw)) if on_card else None
-        e1 = cuda_ms(torch, earlier, reps) if earlier else None
-        p1 = cuda_ms(torch, plain, max(1, reps // 3))
-        p2 = cuda_ms(torch, plain, max(1, reps // 3))
-        e2 = cuda_ms(torch, earlier, reps) if earlier else None
-        k2 = cuda_ms(torch, kernel, reps)
-        times = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                     ms_samples=[k1, k2], plain_ms_samples=[p1, p2])
+        times = in_turns(torch, lambda: ops.csvm_round_block(*args, nact, **kw),
+                         earlier,
+                         lambda: cu.csvm_round_block_plain(*args, R, **kw),
+                         reps, max(1, reps // 3))
         isz = 4 if dtype == "float32" else 2
         nbytes = (ops.round_block_bytes(m, n, p, isz, R)
                   - 4 * ops.round_block_scratch_floats(m, n, p, R))
@@ -596,41 +688,58 @@ def kernel_timings(torch, ops, cu, d: Data, max_iter: int):
                    shape=f"X ({m}, {n}, {p}) {dtype}, {R} rounds, "
                          f"want_kkt={kkt}")
         if earlier:
-            row.update(earlier_ms=(e1 + e2) / 2, earlier_ms_samples=[e1, e2],
-                       earlier_tbs=2 * passes * x_bytes / ((e1 + e2) / 2)
-                       / 1e9)
-            row["ratio"] = row["ms"] / row["earlier_ms"]
+            row["earlier_tbs"] = (2 * passes * x_bytes / row["earlier_ms"]
+                                  / 1e9)
         variants.append(row)
     rows["csvm_round_block"] = dict(variants[0], variants=variants[1:])
     for name, row in rows.items():
-        for v in [row] + row.get("variants", []):
+        for v in [row] + row["variants"]:
             log(f"time {name} [{v['shape']}]: {v['ms']:.4f} ms "
                 f"(samples {v['ms_samples'][0]:.4f}, "
                 f"{v['ms_samples'][1]:.4f}), plain {v['plain_ms']:.4f} ms "
                 f"(samples {v['plain_ms_samples'][0]:.4f}, "
                 f"{v['plain_ms_samples'][1]:.4f}), bound "
-                f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
-    for v in [rows["csvm_round_block"]] + rows["csvm_round_block"]["variants"]:
-        if "earlier_ms" not in v:
-            continue
-        log(f"time csvm_round_block instances [{v['shape']}]: stream "
-            f"{v['ms']:.4f} ms ({v['stream_tbs']:.3f} TB/s, X once a pass),"
-            f" direct {v['earlier_ms']:.4f} ms (samples "
-            f"{v['earlier_ms_samples'][0]:.4f}, "
-            f"{v['earlier_ms_samples'][1]:.4f}; {v['earlier_tbs']:.3f} TB/s,"
-            f" X twice a pass), stream/direct {v['ratio']:.3f}; floor of one"
-            f" read of X a pass {v['floor_ms']:.4f} ms, the guide's bound "
-            f"{v['bound_ms']:.4f} ms")
-        check(v["ratio"] <= STREAM_RATIO,
-              f"csvm_round_block [{v['shape']}]: the stream instance takes "
-              f"{v['ratio']:.3f}x the direct one's time, over {STREAM_RATIO}")
+                f"{v['bound_ms']:.4f} ms ({v['bound_by']})"
+                + (f", faster than plain in every sample: "
+                   f"{v['faster_than_plain']}"
+                   if "faster_than_plain" in v else ""))
+    for name, row in rows.items():
+        for v in [row] + row["variants"]:
+            if "earlier_ms" not in v:
+                continue
+            log(f"time {name} instances [{v['shape']}]: stream "
+                f"{v['ms']:.4f} ms ({v['stream_tbs']:.3f} TB/s, X once a "
+                f"pass), direct {v['earlier_ms']:.4f} ms (samples "
+                f"{v['earlier_ms_samples'][0]:.4f}, "
+                f"{v['earlier_ms_samples'][1]:.4f}; {v['earlier_tbs']:.3f} "
+                f"TB/s, X twice a pass), stream/direct {v['ratio']:.3f}; "
+                f"floor of one read of X a pass {v['floor_ms']:.4f} ms, the "
+                f"roofline bound {v['bound_ms']:.4f} ms")
+            if "call_ms" in v:
+                log(f"time {name} calls [{v['shape']}]: stream "
+                    f"{v['call_ms']:.4f} ms (samples "
+                    f"{v['call_ms_samples'][0]:.4f}, "
+                    f"{v['call_ms_samples'][1]:.4f}), direct "
+                    f"{v['call_earlier_ms']:.4f} ms (samples "
+                    f"{v['call_earlier_ms_samples'][0]:.4f}, "
+                    f"{v['call_earlier_ms_samples'][1]:.4f}), plain "
+                    f"{v['call_plain_ms']:.4f} ms (samples "
+                    f"{v['call_plain_ms_samples'][0]:.4f}, "
+                    f"{v['call_plain_ms_samples'][1]:.4f}), stream/direct "
+                    f"{v['call_ratio']:.3f} (host time included)")
+            check(v["ratio"] <= STREAM_RATIO,
+                  f"{name} [{v['shape']}]: the stream instance takes "
+                  f"{v['ratio']:.3f}x the direct one's time, over "
+                  f"{STREAM_RATIO}")
     return rows
 
 
 def main_path(torch, core, ops, d: Data, max_iter: int = 300,
-              kkt_tol: float = KKT_TOL):
+              kkt_tol: float = KKT_TOL, two_pass=None):
     """The four fits at full size through the port's entry points, each
-    held against the plain backend on the card; returns the launches."""
+    held against the plain backend on the card; returns the launches.  On
+    the card ``two_pass`` (a dict), where given, receives each two-pass
+    update's launches by instance."""
     import numpy as np
     sim = d.sim
     X, y, W = d.Xn, d.yn, d.Wn
@@ -684,21 +793,29 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
               f"megakernel fit: round kernel instances {ran}, expected one "
               "stream launch")
 
-    c0 = counts()
+    two_pass = {} if two_pass is None else two_pass
+
+    def on_stream(name, what, c0, j0):
+        check(ops.launches[name] - c0[name] == max_iter,
+              f"{what} fit: expected one {name} launch per round")
+        if on_card:
+            ran = {k: v - j0[k] for k, v in ops.two_pass_launches.items()}
+            check(ran == {"stream": max_iter, "direct": 0},
+                  f"{what} fit: {name} instances {ran}, expected all "
+                  f"{max_iter} on the stream instance")
+            two_pass[name] = ran
+
+    c0, j0 = counts(), dict(ops.two_pass_launches)
     (B, H), s = timed(lambda: core.decsvm_fit(X, y, W, cfg("megakernel"),
                                               track_history=True, **on))
     report("megakernel track_history", B, s, ref, FIT_TOL["float32"])
     check(tuple(H.shape) == (max_iter, sim.m, sim.p + 1), "history shape")
-    check(ops.launches["csvm_block_update"] - c0["csvm_block_update"]
-          == max_iter, "track_history fit: expected one csvm_block_update "
-          "launch per round")
+    on_stream("csvm_block_update", "track_history", c0, j0)
 
-    c0 = counts()
+    c0, j0 = counts(), dict(ops.two_pass_launches)
     B, s = timed(lambda: core.decsvm_fit(X, y, W, cfg("pallas"), **on))
     report("pallas", B, s, ref, FIT_TOL["float32"])
-    check(ops.launches["csvm_local_update"] - c0["csvm_local_update"]
-          == max_iter, "pallas fit: expected one csvm_local_update launch "
-          "per round")
+    on_stream("csvm_local_update", "pallas", c0, j0)
 
     tol_kw = dict(tol=kkt_tol, stop_rule="kkt", check_every=CHECK_EVERY)
     (Bt, tt), s = timed(lambda: core.decsvm_fit_tol(X, y, W, cfg("jnp"),
@@ -734,7 +851,8 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
     for name in FIT_KERNELS:
         check(launches[name] >= 1, f"fit path never launched {name}")
     log(f"fit path launches: {json.dumps(launches)}; csvm_round_block by "
-        f"instance: {json.dumps(instances())}")
+        f"instance: {json.dumps(instances())}; the two-pass updates by "
+        f"instance: {json.dumps(two_pass)}")
     return launches
 
 
@@ -1226,7 +1344,7 @@ def main() -> int:
         smem = ptxas_smem(build.build_log(name))
         for kernel, regs, spills in ptxas_report(build.build_log(name)):
             extra = ""
-            if kernel.startswith("round_stream_kernel"):
+            if kernel.startswith(STREAM_KERNELS):
                 isz = 4 if "float" in kernel else 2
                 extra = (f", {smem[kernel]} bytes static shared memory + "
                          f"{ops.round_stream_smem_bytes(4096, isz)} dynamic "
@@ -1243,6 +1361,12 @@ def main() -> int:
         log(f"round kernel ({'bf16' if bf16 else 'fp32'} X): direct {per_sm} "
             f"co-resident blocks per SM x {sms} SMs; stream {st_sm} per SM at"
             f" p = 4096, grid {grid} at X (16, 1024, 4096)")
+        tp_sm, _ = ops.two_pass_occupancy(0, bf16, 4096)
+        tp_grid = ops.two_pass_grid(
+            0, 16, 1024, 4096, torch.bfloat16 if bf16 else torch.float32)
+        log(f"two-pass update ({'bf16' if bf16 else 'fp32'} X): stream "
+            f"kernel {tp_sm} resident blocks per SM at p = 4096, grid "
+            f"{tp_grid} at X (16, 1024, 4096)")
 
     # phases 3-4: the CSVM kernels and the fit path
     devs = {}
@@ -1255,8 +1379,11 @@ def main() -> int:
     kernel_checks(torch, ops, cu, design, "design (10, 200, 101)", devs)
     kernel_checks(torch, ops, cu, full, "full (16, 1024, 4096)", devs)
     torch.cuda.synchronize()
-    rows = kernel_timings(torch, ops, cu, full, 300)
-    launches = main_path(torch, core, ops, full)
+    from repro_torch.launch.profile_ssd import graph_ms
+    rows = kernel_timings(torch, ops, cu, full, 300, graph_ms=graph_ms)
+    two_pass_instances = {}
+    launches = main_path(torch, core, ops, full,
+                         two_pass=two_pass_instances)
     round_instances = dict(ops.round_block_launches)
     del design, full
 
@@ -1414,12 +1541,16 @@ def main() -> int:
         else:
             tol = {dt: TOL[dt] for dt in devs[name]}
             row["library_ms"] = None
-            if name == "csvm_round_block":
-                extra = dict(
-                    instance_launches=round_instances,
-                    sass={f"round_stream_kernel<{dt}>": dict(UBLKCP=b,
-                                                             UTMALDG=u)
-                          for dt, (b, u) in bulk.items()})
+            stream_kernel = ("round_stream_kernel"
+                             if name == "csvm_round_block"
+                             else "update_stream_kernel")
+            extra = dict(
+                instance_launches=(round_instances
+                                   if name == "csvm_round_block"
+                                   else two_pass_instances[name]),
+                sass={k: dict(UBLKCP=b, UTMALDG=u)
+                      for k, (b, u) in bulk.items()
+                      if k.startswith(stream_kernel)})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],

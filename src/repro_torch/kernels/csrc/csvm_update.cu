@@ -22,11 +22,31 @@
 // least once: that floor, not the guide's one read per launch, is the one
 // a round kernel can reach.
 //
-// Design of the two-launch kernels: one thread block = 256 threads (8
-// warps).  Margins are one warp per row of X (a warp reduction over p);
-// X^T w and the prox are one thread per (node, column), looping over the
-// node's rows (coalesced across the warp's neighbouring columns).  The
-// ragged edges of n, p and m are masked, never padded.  bf16 mode (X
+// The two-launch update (csvm_block_update, csvm_local_update) is one
+// round of that chain with the neighbour term as an operand: its floor is
+// one read of X an update (at X (16, 1024, 4096) fp32, 256 MiB: 0.080 ms
+// at 3.35 TB/s).  ops.two_pass_instance picks one of two instances from
+// the shapes and X's base:
+//
+//   update_stream_kernel + update_reduce_kernel ("stream", p <= 8192 and
+//     X's base 16-byte aligned): one read of X.  Launch 1 is one X pass of
+//     the round kernel's stream instance (below) on an ordinary grid, one
+//     block per SM (512 threads, ~195 KB of ring): whole-row tiles through
+//     the TMA ring, the margins, w and acc += w x from the same tile, one
+//     partial X^T w row per node segment of the block's range into scratch
+//     (at most grid + m - 1 rows, which stay in L2).  Launch 2, one thread
+//     per (node, column), sums the node's partial rows in block order and
+//     applies z and the prox.  No grid barrier, so no co-resident grid is
+//     needed; no atomics.
+//   margins_kernel + update_kernel ("direct", any p and base): one thread
+//     block = 256 threads (8 warps).  Margins are one warp per row of X (a
+//     warp reduction over p); X^T w and the prox are one thread per (node,
+//     column), looping over the node's rows (coalesced across the warp's
+//     neighbouring columns), so X is read twice, the second time as a
+//     chain of n strided loads a thread (bound by latency as well as
+//     bytes).
+//
+// The ragged edges of n, p and m are masked, never padded.  bf16 mode (X
 // stored bf16): B (or beta_bar) and w are rounded to bf16 before each dot,
 // exactly where the JAX kernels cast with .astype(cd); every product and
 // sum is fp32.
@@ -291,7 +311,7 @@ __device__ __forceinline__ float neighbour_sum4(const float* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
-// Two-launch update (csvm_block_update, csvm_local_update)
+// Two-launch update (csvm_block_update, csvm_local_update), direct instance
 // ---------------------------------------------------------------------------
 
 // Grid (ceil(n / 8), m): one warp per row of node blockIdx.y.
@@ -774,22 +794,50 @@ __device__ __forceinline__ void stream_consume(const Args<T>& a,
   }
 }
 
+// The stream instances' dynamic shared memory: the ring from the first
+// 128-byte boundary, then its mbarriers, the row sums and the row weights.
+__device__ __forceinline__ StreamSmem stream_layout(unsigned char* base,
+                                                    int stage_bytes) {
+  StreamSmem sm;
+  const uint32_t raw = smem_u32(base);
+  const uint32_t pad = (128u - (raw & 127u)) & 127u;
+  const uint32_t ring_bytes = kStages * (uint32_t)stage_bytes;
+  sm.ring = base + pad;
+  sm.ring_addr = raw + pad;
+  sm.full = sm.ring_addr + ring_bytes;
+  sm.red = reinterpret_cast<float*>(sm.ring + ring_bytes + kBarBytes);
+  sm.wrow = sm.red + kMaxTileRows * kConsumerWarps;
+  return sm;
+}
+
+// The issuer thread's start of a launch: the ring's mbarriers, the count of
+// the block's tiles over `passes` X passes (returned), and the first
+// kStages of them issued.
+template <typename T>
+__device__ __forceinline__ uint32_t stream_start(const Args<T>& a,
+                                                 const StreamSmem& sm,
+                                                 int row_begin, int row_end,
+                                                 uint32_t passes,
+                                                 uint32_t& issued,
+                                                 int& cursor) {
+  for (int st = 0; st < kStages; ++st) mbar_init(sm.full + 8 * st, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  uint32_t total = 0;
+  for (int row = row_begin; row < row_end;
+       row = tile_end(row, row_end, a.n, a.tile_rows))
+    ++total;
+  total *= passes;
+  stream_issue<T>(a, sm, row_begin, row_end, min((uint32_t)kStages, total),
+                  issued, cursor);
+  return total;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kStreamThreads, 1)
     round_stream_kernel(Args<T> a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char stream_smem[];
-  StreamSmem sm;
-  {
-    const uint32_t raw = smem_u32(stream_smem);
-    const uint32_t pad = (128u - (raw & 127u)) & 127u;
-    const uint32_t ring_bytes = kStages * (uint32_t)a.stage_bytes;
-    sm.ring = stream_smem + pad;
-    sm.ring_addr = raw + pad;
-    sm.full = sm.ring_addr + ring_bytes;
-    sm.red = reinterpret_cast<float*>(sm.ring + ring_bytes + kBarBytes);
-    sm.wrow = sm.red + kMaxTileRows * kConsumerWarps;
-  }
+  const StreamSmem sm = stream_layout(stream_smem, a.stage_bytes);
   const long tid = (long)blockIdx.x * kStreamThreads + threadIdx.x;
   const long nthreads = (long)gridDim.x * kStreamThreads;
   const long mp = (long)a.m * a.p;
@@ -803,16 +851,9 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
   const uint32_t passes = nact + (a.want_kkt ? 1 : 0);
   uint32_t total = 0, issued = 0, consumed = 0;
   int cursor = row_begin;
-  if (threadIdx.x == kIssuer) {
-    for (int st = 0; st < kStages; ++st) mbar_init(sm.full + 8 * st, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int row = row_begin; row < row_end;
-         row = tile_end(row, row_end, a.n, a.tile_rows))
-      ++total;
-    total *= passes;
-    stream_issue<T>(a, sm, row_begin, row_end, min((uint32_t)kStages, total),
-                    issued, cursor);
-  }
+  if (threadIdx.x == kIssuer)
+    total = stream_start<T>(a, sm, row_begin, row_end, passes, issued,
+                            cursor);
   __syncthreads();
 
   for (long e = tid; e < mp; e += nthreads) {
@@ -943,16 +984,23 @@ cudaError_t stream_occupancy(int smem_bytes, int* blocks_per_sm,
 
 // The wrapper's plan and layout are checked against the kernel's limits;
 // the grid must be co-resident.
+// The wrapper's plan and ring layout against a stream kernel's limits.
+template <typename T>
+bool stream_layout_ok(const Args<T>& a, int grid, int smem_bytes) {
+  const size_t row_bytes = (size_t)a.p * sizeof(T);
+  return a.m >= 1 && a.n >= 1 && a.p >= 1 && grid >= 1 &&
+         (long)a.m * a.n <= INT_MAX && grid <= (long)a.m * a.n &&
+         a.p <= kStreamConsumers * kMaxCols && a.tile_rows >= 1 &&
+         a.tile_rows <= kMaxTileRows && a.stage_bytes % 128 == 0 &&
+         (size_t)a.stage_bytes >= a.tile_rows * row_bytes + 32 &&
+         smem_bytes >= kStages * a.stage_bytes + kStreamFixedBytes &&
+         reinterpret_cast<uintptr_t>(a.X) % 16 == 0;
+}
+
 template <typename T>
 cudaError_t launch_round_stream(const Args<T>& a, int grid, int smem_bytes,
                                 cudaStream_t stream) {
-  const size_t row_bytes = (size_t)a.p * sizeof(T);
-  if (a.m < 1 || a.n < 1 || a.p < 1 || a.num_rounds < 1 || grid < 1 ||
-      (long)a.m * a.n > INT_MAX || a.p > kStreamConsumers * kMaxCols ||
-      a.tile_rows < 1 || a.tile_rows > kMaxTileRows || a.stage_bytes % 128 ||
-      (size_t)a.stage_bytes < a.tile_rows * row_bytes + 32 ||
-      smem_bytes < kStages * a.stage_bytes + kStreamFixedBytes ||
-      reinterpret_cast<uintptr_t>(a.X) % 16)
+  if (a.num_rounds < 1 || !stream_layout_ok(a, grid, smem_bytes))
     return cudaErrorInvalidValue;
   int per_sm = 0, sms = 0;
   cudaError_t err = stream_occupancy<T>(smem_bytes, &per_sm, &sms);
@@ -964,6 +1012,109 @@ cudaError_t launch_round_stream(const Args<T>& a, int grid, int smem_bytes,
   return cudaLaunchCooperativeKernel((const void*)round_stream_kernel<T>,
                                      dim3(grid), dim3(kStreamThreads), params,
                                      smem_bytes, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Two-launch update, stream instance: one read of X an update
+// ---------------------------------------------------------------------------
+
+// Launch 1: one X pass over the block's rows of the wrapper's plan at
+// b_l = round(B[l]) and scale 1/n, as a round of round_stream_kernel runs
+// it; each node segment of the range leaves its partial X^T w row in
+// a.part.  Not cooperative: there is no grid barrier.
+template <typename T>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+    update_stream_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char stream_smem[];
+  const StreamSmem sm = stream_layout(stream_smem, a.stage_bytes);
+  const int* rows = a.plan;
+  const int* seg0 = rows + gridDim.x + 1;
+  const int row_begin = rows[blockIdx.x], row_end = rows[blockIdx.x + 1];
+  uint32_t total = 0, issued = 0, consumed = 0;
+  int cursor = row_begin;
+  if (threadIdx.x == kIssuer)
+    total = stream_start<T>(a, sm, row_begin, row_end, 1, issued, cursor);
+  __syncthreads();
+  stream_consume<T>(a, sm, row_begin, row_end, seg0[blockIdx.x], a.B0, a.p,
+                    a.inv_n, consumed, total, issued, cursor);
+}
+
+// Launch 2, one thread per (node, column): the node's partial rows summed
+// in block order (as round_stream_kernel's phase B sums them), then z and
+// the prox of prox_update with the caller's P and neighbour term.
+__global__ void __launch_bounds__(kThreads)
+    update_reduce_kernel(const float* __restrict__ part,
+                         const int* __restrict__ node_seg,
+                         const float* __restrict__ B,
+                         const float* __restrict__ P,
+                         const float* __restrict__ neigh,
+                         const float* __restrict__ rho,
+                         const float* __restrict__ omega,
+                         const float* __restrict__ lam,
+                         float* __restrict__ out, int m, int p) {
+  const long e = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (long)m * p) return;
+  const int l = (int)(e / p), j = (int)(e % p);
+  float g = 0.0f;
+#pragma unroll 4
+  for (int sg = node_seg[l]; sg < node_seg[l + 1]; ++sg)
+    g += part[(size_t)sg * p + j];
+  const float z = rho[l] * B[e] - g - P[e] + neigh[e];
+  out[e] = soft_threshold(omega[l] * z, lam[j] * omega[l]);
+}
+
+// update_stream_kernel<T>'s dynamic shared memory limit, raised to the
+// largest a stream block may ask for once per device (the attribute is per
+// device), so that a launch sets no attribute.
+constexpr int kStreamSmemMax = 232448 - 1024;
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+cudaError_t allow_update_smem() {
+  static bool done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute((const void*)update_stream_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kStreamSmemMax);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <typename T>
+cudaError_t update_stream_occupancy(int smem_bytes, int* blocks_per_sm,
+                                    int* num_sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(num_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = allow_update_smem<T>();
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, update_stream_kernel<T>, kStreamThreads, smem_bytes);
+}
+
+// a.part holds node_seg[m] rows of p floats; the plan is int32 rows
+// (grid + 1), seg0 (grid), node_seg (m + 1).
+template <typename T>
+cudaError_t launch_two_pass_stream(const Args<T>& a, int grid, int smem_bytes,
+                                   cudaStream_t stream) {
+  if (!stream_layout_ok(a, grid, smem_bytes) || smem_bytes > kStreamSmemMax)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_update_smem<T>();
+  if (err != cudaSuccess) return err;
+  update_stream_kernel<T><<<grid, kStreamThreads, smem_bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long mp = (long)a.m * a.p;
+  update_reduce_kernel<<<(unsigned)((mp + kThreads - 1) / kThreads), kThreads,
+                         0, stream>>>(a.part, a.plan + 2 * grid + 1, a.B0,
+                                      a.P0, a.neigh, a.rho, a.omega, a.lam,
+                                      a.Bout, a.m, a.p);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1028,6 +1179,52 @@ int csvm_local_update(const void* X, const void* y, const void* B,
                       void* stream) {
   return two_pass<float>(X, y, B, P, neigh, rho, omega, lam, w, out, m, n, p,
                          h, kernel, inv_n, stream);
+}
+
+// The stream instance of both two-pass updates (one read of X): the same
+// operands, plus part (node_seg[m] * p floats of scratch, the partial X^T w
+// rows), the wrapper's plan (as for csvm_round_stream), the grid, the tile
+// rows, the stage size and the dynamic shared memory.  Two launches, no
+// cooperative grid.
+int csvm_two_pass_stream(const void* X, int x_bf16, const void* y,
+                         const void* B, const void* P, const void* neigh,
+                         const void* rho, const void* omega, const void* lam,
+                         void* part, const void* plan, void* out, int m,
+                         int n, int p, int grid, int tile_rows,
+                         int stage_bytes, int smem_bytes, float h, int kernel,
+                         float inv_n, void* stream) {
+#define CSVM_FILL_UPDATE(a)                           \
+  (a).neigh = static_cast<const float*>(neigh);       \
+  (a).rho = static_cast<const float*>(rho);           \
+  (a).omega = static_cast<const float*>(omega);       \
+  (a).lam = static_cast<const float*>(lam);           \
+  (a).Bout = static_cast<float*>(out);                \
+  (a).part = static_cast<float*>(part);               \
+  (a).plan = static_cast<const int*>(plan);           \
+  (a).tile_rows = tile_rows;                          \
+  (a).stage_bytes = stage_bytes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    Args<__nv_bfloat16> a =
+        make_args<__nv_bfloat16>(X, y, B, P, m, n, p, h, kernel, inv_n);
+    CSVM_FILL_UPDATE(a)
+    return (int)launch_two_pass_stream(a, grid, smem_bytes, st);
+  }
+  Args<float> a = make_args<float>(X, y, B, P, m, n, p, h, kernel, inv_n);
+  CSVM_FILL_UPDATE(a)
+#undef CSVM_FILL_UPDATE
+  return (int)launch_two_pass_stream(a, grid, smem_bytes, st);
+}
+
+// Resident blocks per SM of the two-pass stream kernel at `smem_bytes` of
+// dynamic shared memory (an ordinary launch), and the SM count.
+int csvm_two_pass_stream_occupancy(int x_bf16, int smem_bytes,
+                                   int* blocks_per_sm, int* num_sms) {
+  if (x_bf16)
+    return (int)update_stream_occupancy<__nv_bfloat16>(smem_bytes,
+                                                       blocks_per_sm, num_sms);
+  return (int)update_stream_occupancy<float>(smem_bytes, blocks_per_sm,
+                                             num_sms);
 }
 
 // num_rounds rounds of the whole network in one cooperative launch.

@@ -12,7 +12,11 @@ it (wrappers, launch counters and the residency rule in ``ops.py``):
   a kernel, so the node is a grid axis.
 - ``csvm_block_update``  replaces ``csvm_block_update``
   (``_block_update_kernel``): the same two launches over the stacked
-  (m, n, p) block, X in fp32 or bf16.
+  (m, n, p) block, X in fp32 or bf16.  Both two-pass updates have a
+  second instance (``ops.two_pass_instance``): ``stream`` reads X once
+  (one X pass of the round kernel's stream ring, then a launch that sums
+  each node's partial X^T w rows and applies the prox; p up to 8192, X
+  16-byte aligned), ``direct`` (the two launches above) twice.
 - ``csvm_round_block``  replaces ``csvm_round_block``
   (``_round_megakernel``): ``num_rounds`` full ADMM rounds, and the
   optional KKT epilogue, in ONE cooperative launch with grid-wide

@@ -17,7 +17,9 @@ show that its path went through the kernels; ``flash_launches``,
 ``round_block_launches`` and ``ssd_launches`` split
 ``launches["flash_attention"]``, ``launches["csvm_round_block"]`` and
 ``launches["ssd_scan"]`` by the instance that ran (``flash_instance``,
-``round_block_instance``, ``ssd_instance``).
+``round_block_instance``, ``ssd_instance``), and ``two_pass_launches``
+splits ``launches["csvm_block_update"]`` plus
+``launches["csvm_local_update"]`` (``two_pass_instance``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,11 @@ round_block_launches: Dict[str, int] = {name: 0 for name in ROUND_INSTANCES}
 # passes) and the chunk walk in fp32 FMAs on the CUDA cores
 SSD_INSTANCES = ("wgmma", "fma")
 ssd_launches: Dict[str, int] = {name: 0 for name in SSD_INSTANCES}
+# the two-pass update's two instances (csvm_block_update and
+# csvm_local_update): X read once through the round kernel's stream ring,
+# then a reduction launch; and X read twice with plain loads
+TWO_PASS_INSTANCES = ("stream", "direct")
+two_pass_launches: Dict[str, int] = {name: 0 for name in TWO_PASS_INSTANCES}
 
 _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
@@ -62,6 +69,10 @@ _SIGNATURES = {
                           + [_F, _F, _F, _I, _F, _F, _F, _P]),
     "csvm_round_stream_occupancy": [_I, _I, ctypes.POINTER(_I),
                                     ctypes.POINTER(_I)],
+    "csvm_two_pass_stream": ([_P, _I] + [_P] * 10 + [_I] * 7
+                             + [_F, _I, _F, _P]),
+    "csvm_two_pass_stream_occupancy": [_I, _I, ctypes.POINTER(_I),
+                                       ctypes.POINTER(_I)],
 }
 
 
@@ -74,6 +85,8 @@ def reset_launches() -> None:
         round_block_launches[name] = 0
     for name in SSD_INSTANCES:
         ssd_launches[name] = 0
+    for name in TWO_PASS_INSTANCES:
+        two_pass_launches[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,67 +191,6 @@ def _check_two_pass(name, X, y, B, P, neigh, rho, omega, lam_vec,
     _expect(name, "lam", lam_vec, (p,), _F32, dev)
 
 
-def csvm_block_update(X, y, B, P, neigh, rho, omega, lam_vec, *, h,
-                      kernel="epanechnikov"):
-    """Fused (7a') primal update for a stacked (m, n, p) node block; X fp32
-    or bf16, everything else fp32; the neighbour term is an operand.
-    Returns B_new (m, p) fp32."""
-    if not _is_cuda(X, "csvm_block_update"):
-        return csvm_block_update_plain(X, y, B, P, neigh, rho, omega,
-                                       lam_vec, h=h, kernel=kernel)
-    _check_two_pass("csvm_block_update", X, y, B, P, neigh, rho, omega,
-                    lam_vec, _X_DTYPES)
-    m, n, p = X.shape
-    w = torch.empty((m, n), dtype=torch.float32, device=X.device)
-    out = torch.empty((m, p), dtype=torch.float32, device=X.device)
-    with torch.cuda.device(X.device):
-        err = _lib().csvm_block_update(
-            X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
-            B.data_ptr(), P.data_ptr(), neigh.data_ptr(), rho.data_ptr(),
-            omega.data_ptr(), lam_vec.data_ptr(), w.data_ptr(),
-            out.data_ptr(), m, n, p, float(h), _kernel_id(kernel), 1.0 / n,
-            _stream(X.device))
-    _check_call("csvm_block_update", err)
-    return out
-
-
-def csvm_local_update(X, y, beta, p_dual, neigh, rho, omega, lam, *, h,
-                      kernel="epanechnikov"):
-    """Fused deCSVM local update (the "pallas" backend).  One node (X
-    (n, p), (p,) vectors, scalar rho/omega) or a node stack (X (m, n, p),
-    (m, p) rows, (m,) rho/omega); lam a scalar or a (p,) vector.  On the
-    card X must be fp32 (the Pallas wrapper casts it to fp32 too) and the
-    rows fp32."""
-    if X.dim() == 2:
-        return csvm_local_update(
-            X[None], y[None], beta[None], p_dual[None], neigh[None],
-            torch.as_tensor(rho, dtype=torch.float32,
-                            device=X.device).reshape(1),
-            torch.as_tensor(omega, dtype=torch.float32,
-                            device=X.device).reshape(1),
-            lam, h=h, kernel=kernel)[0]
-    if not _is_cuda(X, "csvm_local_update"):
-        return csvm_local_update_plain(X, y, beta, p_dual, neigh, rho, omega,
-                                       lam, h=h, kernel=kernel)
-    p = X.shape[-1]
-    lam_vec = torch.broadcast_to(torch.as_tensor(
-        lam, dtype=torch.float32, device=X.device).reshape(-1), (p,))
-    lam_vec = lam_vec.contiguous()
-    _check_two_pass("csvm_local_update", X, y, beta, p_dual, neigh, rho,
-                    omega, lam_vec, _F32)
-    m, n, p = X.shape
-    w = torch.empty((m, n), dtype=torch.float32, device=X.device)
-    out = torch.empty((m, p), dtype=torch.float32, device=X.device)
-    with torch.cuda.device(X.device):
-        err = _lib().csvm_local_update(
-            X.data_ptr(), y.data_ptr(), beta.data_ptr(), p_dual.data_ptr(),
-            neigh.data_ptr(), rho.data_ptr(), omega.data_ptr(),
-            lam_vec.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, p,
-            float(h), _kernel_id(kernel), 1.0 / n, _stream(X.device))
-    _check_call("csvm_local_update", err)
-    return out
-
-
 # --------------------------------------------------------------------------
 # Round kernel: residency rule, buffers, wrapper
 # --------------------------------------------------------------------------
@@ -314,6 +266,13 @@ def round_stream_plan(m: int, n: int, grid: int):
     return rows, seg0, node_seg
 
 
+@functools.lru_cache(maxsize=256)
+def _num_segments(m: int, n: int, grid: int) -> int:
+    """Node segments of the ``grid``-block plan (cached: a loop of
+    launches sizes its scratch without walking the plan each time)."""
+    return round_stream_plan(m, n, grid)[2][-1]
+
+
 def round_stream_grid(m: int, n: int, p: int, itemsize: int,
                       blocks_per_sm: int, num_sms: int) -> int:
     """Blocks of a stream launch: every co-resident block (one per SM on an
@@ -334,8 +293,7 @@ def round_block_scratch_floats(m: int, n: int, p: int, num_rounds: int,
     1)."""
     if instance == "direct":
         return m * n + m * p + p + num_rounds + 2
-    nseg = round_stream_plan(m, n, grid)[2][-1]
-    return m * p + p + num_rounds + 2 + nseg * p
+    return m * p + p + num_rounds + 2 + _num_segments(m, n, grid) * p
 
 
 def round_block_bytes(m: int, n: int, p: int, itemsize: int = 4,
@@ -541,6 +499,167 @@ def csvm_round_block(X, y, B, P, W, deg, rho, omega, lam_vec, nact, *,
         X, y, B, P, W, deg, rho, omega, lam_vec, nact,
         round_block_instance(*X.shape, X.dtype), tau=tau, lam0=lam0, h=h,
         kernel=kernel, num_rounds=num_rounds, want_kkt=want_kkt)
+
+
+# --------------------------------------------------------------------------
+# Two-pass update: instances, buffers, wrappers
+# --------------------------------------------------------------------------
+
+def csvm_block_update(X, y, B, P, neigh, rho, omega, lam_vec, *, h,
+                      kernel="epanechnikov"):
+    """Fused (7a') primal update for a stacked (m, n, p) node block; X fp32
+    or bf16, everything else fp32; the neighbour term is an operand.
+    Returns B_new (m, p) fp32.  On the card ``two_pass_instance`` picks the
+    kernel: X read once (p <= 8192, X's base 16-byte aligned) or twice."""
+    if not _is_cuda(X, "csvm_block_update"):
+        return csvm_block_update_plain(X, y, B, P, neigh, rho, omega,
+                                       lam_vec, h=h, kernel=kernel)
+    return _two_pass_launch("csvm_block_update", X, y, B, P, neigh, rho,
+                            omega, lam_vec, None, h=h, kernel=kernel)
+
+
+def csvm_local_update(X, y, beta, p_dual, neigh, rho, omega, lam, *, h,
+                      kernel="epanechnikov"):
+    """Fused deCSVM local update (the "pallas" backend).  One node (X
+    (n, p), (p,) vectors, scalar rho/omega) or a node stack (X (m, n, p),
+    (m, p) rows, (m,) rho/omega); lam a scalar or a (p,) vector.  On the
+    card X must be fp32 (the Pallas wrapper casts it to fp32 too) and the
+    rows fp32; the kernel instance is ``csvm_block_update``'s."""
+    if X.dim() == 2:
+        return csvm_local_update(
+            X[None], y[None], beta[None], p_dual[None], neigh[None],
+            torch.as_tensor(rho, dtype=torch.float32,
+                            device=X.device).reshape(1),
+            torch.as_tensor(omega, dtype=torch.float32,
+                            device=X.device).reshape(1),
+            lam, h=h, kernel=kernel)[0]
+    if not _is_cuda(X, "csvm_local_update"):
+        return csvm_local_update_plain(X, y, beta, p_dual, neigh, rho, omega,
+                                       lam, h=h, kernel=kernel)
+    p = X.shape[-1]
+    lam_vec = torch.broadcast_to(torch.as_tensor(
+        lam, dtype=torch.float32, device=X.device).reshape(-1), (p,))
+    return _two_pass_launch("csvm_local_update", X, y, beta, p_dual, neigh,
+                            rho, omega, lam_vec.contiguous(), None, h=h,
+                            kernel=kernel)
+
+
+def two_pass_instance(m: int, n: int, p: int, dtype=torch.float32,
+                      x_ptr: int = 0) -> str:
+    """The instance of the two-pass update a CUDA call runs:
+    ``"stream"`` (X read once, through the round kernel's stream ring)
+    where that instance takes the shape (``round_block_instance``: p <=
+    8192, the ring fits a block's shared memory), the m*n rows fit int32
+    and X's base ``x_ptr`` is 16-byte aligned, as its bulk copies need;
+    ``"direct"`` (X read twice) otherwise."""
+    if (round_block_instance(m, n, p, dtype) == "stream"
+            and m * n <= 2 ** 31 - 1 and x_ptr % 16 == 0):
+        return "stream"
+    return "direct"
+
+
+def two_pass_scratch_floats(m: int, n: int, p: int, grid: int = 1,
+                            instance: str = "stream") -> int:
+    """fp32 scratch of one two-pass update.  ``"stream"``: one partial
+    X^T w row (p,) per node segment of the ``grid``-block plan (at most
+    grid + m - 1); ``"direct"``: the margin weights w (m, n)."""
+    if instance == "direct":
+        return m * n
+    return _num_segments(m, n, grid) * p
+
+
+@functools.lru_cache(maxsize=None)
+def two_pass_occupancy(device_index: int, bf16: bool, p: int):
+    """(resident blocks per SM, SM count) of the two-pass stream kernel on
+    a card, at the ring of p columns (an ordinary launch)."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _lib().csvm_two_pass_stream_occupancy(
+            int(bf16), round_stream_smem_bytes(p, 2 if bf16 else 4),
+            ctypes.byref(per_sm), ctypes.byref(sms))
+    if err != 0:
+        msg = _lib().csvm_error_string(err).decode()
+        raise RuntimeError(f"csvm_two_pass_stream_occupancy: CUDA error "
+                           f"{err} ({msg})")
+    return per_sm.value, sms.value
+
+
+def two_pass_grid(device, m: int, n: int, p: int, dtype) -> int:
+    """The grid of a two-pass stream launch on a card: ``round_stream_grid``
+    at the card's ordinary occupancy (one block per SM on an H100)."""
+    bf16 = dtype == torch.bfloat16
+    per_sm, sms = two_pass_occupancy(_device_index(torch.device(device)),
+                                     bf16, p)
+    if per_sm < 1:
+        raise RuntimeError(f"csvm two-pass stream kernel: no block of "
+                           f"{round_stream_smem_bytes(p, 2 if bf16 else 4)}"
+                           " bytes of shared memory fits an SM")
+    return round_stream_grid(m, n, p, 2 if bf16 else 4, per_sm, sms)
+
+
+def _two_pass_buffers(X, instance: str, grid: int = 1):
+    """The two-pass update's output B+ (m, p) and fp32 scratch on X's
+    device, and for the stream instance its int32 plan for ``grid``
+    blocks as a third buffer."""
+    m, n, p = X.shape
+    out = torch.empty((m, p), dtype=torch.float32, device=X.device)
+    scratch = torch.empty(two_pass_scratch_floats(m, n, p, grid, instance),
+                          dtype=torch.float32, device=X.device)
+    if instance == "direct":
+        return out, scratch
+    return out, scratch, _plan_tensor(m, n, grid, X.device)
+
+
+def _two_pass_launch(name, X, y, B, P, neigh, rho, omega, lam_vec, instance,
+                     *, h, kernel="epanechnikov", grid=None):
+    """One two-pass update of ``instance`` on CUDA operands for wrapper
+    ``name`` (``"csvm_block_update"``, X fp32 or bf16, or
+    ``"csvm_local_update"``, X fp32); returns B+ (m, p).  The wrappers pass
+    ``instance=None``, ``two_pass_instance``'s choice, and the stream
+    instance's grid from ``two_pass_grid``; ``grid`` may name another."""
+    _check_two_pass(name, X, y, B, P, neigh, rho, omega, lam_vec,
+                    _F32 if name == "csvm_local_update" else _X_DTYPES)
+    m, n, p = X.shape
+    if instance is None:
+        instance = two_pass_instance(m, n, p, X.dtype, X.data_ptr())
+    elif instance not in TWO_PASS_INSTANCES:
+        raise ValueError(f"{name}: unknown instance {instance!r}")
+    if instance == "stream":
+        if two_pass_instance(m, n, p, X.dtype) != "stream":
+            raise ValueError(f"{name}: the stream instance takes p <= "
+                             f"{STREAM_MAX_P} and m*n < 2^31, got X "
+                             f"{tuple(X.shape)}")
+        if X.data_ptr() % 16:
+            raise ValueError(f"{name}: X's base is not 16-byte aligned, as "
+                             "the stream instance's bulk copies need")
+        if grid is None:
+            grid = two_pass_grid(X.device, m, n, p, X.dtype)
+    bufs = _two_pass_buffers(X, instance, grid or 1)
+    out, scratch = bufs[:2]
+    bf16 = int(X.dtype == torch.bfloat16)
+    operands = (y.data_ptr(), B.data_ptr(), P.data_ptr(), neigh.data_ptr(),
+                rho.data_ptr(), omega.data_ptr(), lam_vec.data_ptr())
+    tail = (float(h), _kernel_id(kernel), 1.0 / n, _stream(X.device))
+    with torch.cuda.device(X.device):
+        if instance == "stream":
+            isz = X.element_size()
+            err = _lib().csvm_two_pass_stream(
+                X.data_ptr(), bf16, *operands, scratch.data_ptr(),
+                bufs[2].data_ptr(), out.data_ptr(), m, n, p, int(grid),
+                round_stream_tile_rows(p, isz),
+                round_stream_stage_bytes(p, isz),
+                round_stream_smem_bytes(p, isz), *tail)
+        elif name == "csvm_local_update":
+            err = _lib().csvm_local_update(
+                X.data_ptr(), *operands, scratch.data_ptr(), out.data_ptr(),
+                m, n, p, *tail)
+        else:
+            err = _lib().csvm_block_update(
+                X.data_ptr(), bf16, *operands, scratch.data_ptr(),
+                out.data_ptr(), m, n, p, *tail)
+    _check_call(name, err)
+    two_pass_launches[instance] += 1
+    return out
 
 
 # --------------------------------------------------------------------------

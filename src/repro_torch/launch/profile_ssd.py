@@ -70,7 +70,8 @@ def graph_ms(fn, reps: int) -> float:
 
 
 def _passes_us(fn, reps: int):
-    """{kernel: device microseconds a call} under the profiler."""
+    """{kernel: device microseconds a call} under the profiler (named
+    without the return type, anonymous namespace and parameter list)."""
     cuda = torch.autograd.DeviceType.CUDA
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -80,7 +81,9 @@ def _passes_us(fn, reps: int):
     out = collections.Counter()
     for e in prof.events():
         if e.device_type == cuda:
-            out[e.name.split("(")[0]] += e.time_range.elapsed_us() / reps
+            name = e.name.replace("(anonymous namespace)::", "")
+            out[name.split("(")[0].removeprefix("void ")] += (
+                e.time_range.elapsed_us() / reps)
     return dict(out)
 
 

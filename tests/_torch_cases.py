@@ -1,6 +1,8 @@
-"""Seeded inputs shared by the torch port's kernel tests (CPU and CUDA);
-numpy only, so that the CUDA tests run where jax is not installed."""
+"""Seeded inputs shared by the torch port's kernel tests (CPU and CUDA),
+and the plain model of the stream instances' order of arithmetic; no jax,
+so that the CUDA tests run where jax is not installed."""
 import numpy as np
+import torch
 
 
 def problem(m, n, p, seed=0, scale_b=0.05):
@@ -36,3 +38,70 @@ ROUND_CASES = [
     (4, 45, 24, 3, 3, True, 0.05, True, "epanechnikov"),
     (3, 50, 13, 4, 3, False, 0.0, True, "uniform"),
 ]
+
+
+# (m, n, p, kernel, lam_vector, pad_rows) of the two-pass update: ragged p
+# (37, 301, 13, 130), a p whose rows are a multiple of 16 bytes (24), m*n
+# rows that cross node boundaries at the stream instance's grids (an H100's
+# for (4, 45, 24): 6 blocks of 30 rows), the last pad_rows rows of each node
+# padded with y = 0, every smoothing kernel.
+TWO_PASS_CASES = [
+    (5, 13, 37, "epanechnikov", True, 0),
+    (3, 20, 301, "laplacian", False, 0),
+    (4, 45, 24, "gaussian", True, 0),
+    (3, 50, 13, "uniform", False, 4),
+    (6, 17, 130, "logistic", True, 0),
+]
+
+
+def two_pass_problem(case, seed=None):
+    """The seeded operands of a TWO_PASS_CASES entry (numpy): lam a (p,)
+    vector, or one level repeated when the case takes a scalar lambda."""
+    m, n, p, _, lam_vector, pad = case
+    d = problem(m, n, p, seed=m + n + p if seed is None else seed)
+    if pad:
+        d["y"][:, n - pad:] = 0.0
+    if not lam_vector:
+        d["lam"] = np.full(p, 0.01, np.float32)
+    return d
+
+
+def segments(rows, n):
+    """(node, first row, end row) of each node segment of a stream plan's
+    row ranges, in segment order."""
+    segs = []
+    for a, b in zip(rows, rows[1:]):
+        r = a
+        while r < b:
+            e = min(b, (r // n + 1) * n)
+            segs.append((r // n, r, e))
+            r = e
+    return segs
+
+
+def stream_x_pass(X, y, bsrc, scale, segs, kernel, h):
+    """One X pass of the stream instances in plain torch: per node segment,
+    the margins at round(b_l), w = round(L_h'(y m) y scale) and the
+    segment's partial X^T w row (fp32 sums, bf16 X's dot operands rounded
+    to bf16).  Returns the partial rows in segment order."""
+    from repro_torch.core import losses
+    from repro_torch.kernels import csvm_update as cu
+    kern = losses.get_kernel(kernel)
+    rnd = cu._rounder(X.dtype)
+    m, n, p = X.shape
+    Xf = X.to(torch.float32).reshape(m * n, p)
+    yf = y.reshape(-1)
+    parts = []
+    for l, r0, r1 in segs:
+        xs, ys = Xf[r0:r1], yf[r0:r1]
+        w = rnd(kern.dloss(ys * (xs @ rnd(bsrc[l])), h) * ys * scale)
+        parts.append(xs.T @ w)
+    return parts
+
+
+def sum_in_order(parts, p):
+    """The partial rows summed one after another from zero."""
+    g = torch.zeros(p)
+    for part in parts:
+        g = g + part
+    return g

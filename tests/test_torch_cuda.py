@@ -18,7 +18,8 @@ from repro_torch.core.graph import ring
 from repro_torch.kernels import csvm_update as cu
 from repro_torch.kernels import ops, ref
 
-from _torch_cases import ROUND_CASES, problem
+from _torch_cases import (ROUND_CASES, TWO_PASS_CASES, problem,
+                          two_pass_problem)
 
 pytestmark = pytest.mark.cuda
 
@@ -217,6 +218,150 @@ def test_megakernel_fits_take_the_stream_instance(cuda, backend):
     assert ops.launches["csvm_round_block"] == -(-60 // 7)
     assert ops.round_block_launches == {
         "stream": ops.launches["csvm_round_block"], "direct": 0}
+
+
+# the two-pass update's instances: the stream one at the wrapper's grid, at
+# one block and at 7 (ranges crossing nodes in every case), and the direct
+# one
+TWO_PASS_RUNS = [("stream", None), ("stream", 1), ("stream", 7),
+                 ("direct", None)]
+
+
+def _two_pass_ran(before):
+    return {k: v - before[k] for k, v in ops.two_pass_launches.items()}
+
+
+@pytest.mark.parametrize("instance,grid", TWO_PASS_RUNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TWO_PASS_CASES)
+def test_block_update_instances_match_plain(cuda, case, dtype, instance,
+                                            grid):
+    """Each instance of csvm_block_update against the plain version: fp32
+    within 1e-5, bf16 within the kernel tier with sign-exact support;
+    ragged p, padded rows (y = 0), every smoothing kernel."""
+    kernel = case[3]
+    t = _on(two_pass_problem(case), cuda)
+    args = (t["X"].to(dtype), t["y"], t["B"], t["P"], t["neigh"], t["rho"],
+            t["omega"], t["lam"])
+    before = dict(ops.two_pass_launches)
+    got = ops._two_pass_launch("csvm_block_update", *args, instance, h=0.3,
+                               kernel=kernel, grid=grid)
+    assert _two_pass_ran(before) == {k: int(k == instance)
+                                     for k in ops.TWO_PASS_INSTANCES}
+    want = cu.csvm_block_update_plain(*args, h=0.3, kernel=kernel)
+    _close(got, want, ATOL if dtype == torch.float32 else ATOL_BF16_KERNEL)
+    if dtype == torch.bfloat16:
+        supp = want.abs() > ATOL_BF16
+        assert torch.equal(torch.sign(got)[supp], torch.sign(want)[supp])
+
+
+@pytest.mark.parametrize("instance,grid", TWO_PASS_RUNS)
+@pytest.mark.parametrize("scalar_lam", [True, False])
+@pytest.mark.parametrize("case", TWO_PASS_CASES)
+def test_local_update_instances_match_plain(cuda, case, scalar_lam,
+                                            instance, grid):
+    """Each instance of csvm_local_update (fp32 X) against the plain
+    version within 1e-5, lambda a scalar or a (p,) vector; the wrapper's
+    one-node form too."""
+    m, n, p, kernel = case[:4]
+    t = _on(two_pass_problem(case), cuda)
+    args = (t["X"], t["y"], t["B"], t["P"], t["neigh"], t["rho"], t["omega"])
+    lam = float(t["lam"][0]) if scalar_lam else t["lam"]
+    lam_vec = torch.full((p,), lam, device=cuda) if scalar_lam else lam
+    before = dict(ops.two_pass_launches)
+    got = ops._two_pass_launch("csvm_local_update", *args, lam_vec,
+                               instance, h=0.3, kernel=kernel, grid=grid)
+    assert _two_pass_ran(before) == {k: int(k == instance)
+                                     for k in ops.TWO_PASS_INSTANCES}
+    want = cu.csvm_local_update_plain(*args, lam, h=0.3, kernel=kernel)
+    _close(got, want, ATOL)
+    one = ops.csvm_local_update(*(a[m - 1] for a in args), lam, h=0.3,
+                                kernel=kernel)
+    _close(one, want[m - 1], ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_stream_instance_is_deterministic(cuda, dtype):
+    """Two launches of the two-pass stream instance give the same bits, at
+    the wrapper's grid and at 5 blocks (ragged p, ranges crossing
+    nodes)."""
+    t = _on(problem(6, 50, 301, seed=9), cuda)
+    args = (t["X"].to(dtype), t["y"], t["B"], t["P"], t["neigh"], t["rho"],
+            t["omega"], t["lam"])
+    assert ops.two_pass_instance(6, 50, 301, dtype,
+                                 args[0].data_ptr()) == "stream"
+    ops.reset_launches()
+    a = ops.csvm_block_update(*args, h=0.3)
+    assert torch.equal(a, ops.csvm_block_update(*args, h=0.3))
+    b = ops._two_pass_launch("csvm_block_update", *args, "stream", h=0.3,
+                             grid=5)
+    assert torch.equal(b, ops._two_pass_launch(
+        "csvm_block_update", *args, "stream", h=0.3, grid=5))
+    assert ops.two_pass_launches == {"stream": 4, "direct": 0}
+
+
+def test_two_pass_misaligned_x_takes_the_direct_instance(cuda):
+    """X's base off a 16-byte boundary — an offset view, and node 1 of a
+    stack whose n*p is not a multiple of 4 through the one-node form —
+    runs the direct instance (no raise) and matches the plain version."""
+    m, n, p = 3, 13, 37
+    assert (n * p) % 4
+    t = _on(problem(m, n, p, seed=5), cuda)
+    flat = torch.zeros(1 + t["X"].numel(), device=cuda)
+    X = flat[1:].view(m, n, p)
+    X.copy_(t["X"])
+    assert X.data_ptr() % 16 and t["X"][1].data_ptr() % 16
+    rest = (t["y"], t["B"], t["P"], t["neigh"], t["rho"], t["omega"],
+            t["lam"])
+    ops.reset_launches()
+    got = ops.csvm_block_update(X, *rest, h=0.3)
+    assert ops.two_pass_launches == {"stream": 0, "direct": 1}
+    _close(got, cu.csvm_block_update_plain(t["X"], *rest, h=0.3), ATOL)
+    one = ops.csvm_local_update(*(a[1] for a in (t["X"],) + rest[:-1]),
+                                t["lam"], h=0.3)
+    assert ops.two_pass_launches == {"stream": 0, "direct": 2}
+    _close(one, cu.csvm_local_update_plain(t["X"], *rest, h=0.3)[1], ATOL)
+
+
+def test_two_pass_p_above_the_stream_limit_takes_the_direct_instance(cuda):
+    """p = 8200 > 8192: both wrappers launch the direct instance, which
+    matches the plain version; the stream instance refuses it."""
+    m, n, p = 2, 5, ops.STREAM_MAX_P + 8
+    t = _on(problem(m, n, p, seed=2), cuda)
+    args = (t["X"], t["y"], t["B"], t["P"], t["neigh"], t["rho"], t["omega"],
+            t["lam"])
+    assert ops.two_pass_instance(m, n, p, x_ptr=t["X"].data_ptr()) == \
+        "direct"
+    ops.reset_launches()
+    _close(ops.csvm_block_update(*args, h=0.3),
+           cu.csvm_block_update_plain(*args, h=0.3), ATOL)
+    _close(ops.csvm_local_update(*args, h=0.3),
+           cu.csvm_local_update_plain(*args, h=0.3), ATOL)
+    assert ops.two_pass_launches == {"stream": 0, "direct": 2}
+    with pytest.raises(ValueError, match="p <= 8192"):
+        ops._two_pass_launch("csvm_block_update", *args, "stream", h=0.3)
+    assert ops.two_pass_launches == {"stream": 0, "direct": 2}
+
+
+def test_pallas_and_track_history_fits_take_the_stream_instance(cuda):
+    """Every two-pass launch of the pallas fit (csvm_local_update) and of
+    the track_history fit (csvm_block_update) is on the stream instance,
+    and both fits match the plain fit."""
+    sim = tc.SimConfig(p=20, s=4, m=4, n=60)
+    X, y, _ = tc.generate(sim, seed=1)
+    W = ring(sim.m)
+    cfg = lambda b: tc.ADMMConfig(lam=0.05, max_iter=60, backend=b)
+    want = tc.decsvm_fit(X, y, W, cfg("jnp"))
+    ops.reset_launches()
+    got = tc.decsvm_fit(X, y, W, cfg("pallas"))
+    assert ops.launches["csvm_local_update"] == 60
+    assert ops.two_pass_launches == {"stream": 60, "direct": 0}
+    _close(got, want, ATOL)
+    ops.reset_launches()
+    got, _ = tc.decsvm_fit(X, y, W, cfg("megakernel"), track_history=True)
+    assert ops.launches["csvm_block_update"] == 60
+    assert ops.two_pass_launches == {"stream": 60, "direct": 0}
+    _close(got, want, ATOL)
 
 
 def test_wrappers_raise_on_bad_operands(cuda):

@@ -12,10 +12,11 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import csvm_update as cu
-from repro_torch.core import losses
 from repro_torch.kernels import ops, ref
 
-from _torch_cases import ROUND_CASES, problem as _problem
+from _torch_cases import (ROUND_CASES, problem as _problem,
+                          segments as _segments, stream_x_pass,
+                          sum_in_order)
 
 # fp32: the same chain of fp32 dots in another summation order (XLA on
 # the CPU vs torch) — the repo's fp32 tier.
@@ -272,18 +273,6 @@ def test_round_stream_plan_splits_rows_into_node_segments(m, n, grid):
         ops.round_stream_plan(m, n, m * n + 1)
 
 
-def _segments(rows, n):
-    """(node, first row, end row) of each node segment, in segment order."""
-    segs = []
-    for a, b in zip(rows, rows[1:]):
-        r = a
-        while r < b:
-            e = min(b, (r // n + 1) * n)
-            segs.append((r // n, r, e))
-            r = e
-    return segs
-
-
 def _stream_model(X, y, B, P, W, deg, rho, omega, lam_vec, nact, *, tau,
                   lam0, h, kernel, num_rounds, want_kkt, grid):
     """The stream instance's arithmetic order in plain torch: per node
@@ -293,27 +282,12 @@ def _stream_model(X, y, B, P, W, deg, rho, omega, lam_vec, nact, *, tau,
     update folded into the next round and the last one applied after the
     loop; the KKT pass at beta_bar with the partial rows summed in
     segment order."""
-    kern = losses.get_kernel(kernel)
-    rnd = cu._rounder(X.dtype)
     m, n, p = X.shape
-    Xf = X.to(torch.float32).reshape(m * n, p)
-    yf = y.reshape(-1)
     rows, _, node_seg = ops.round_stream_plan(m, n, grid)
     segs = _segments(rows, n)
-
-    def x_pass(bsrc, scale):
-        parts = []
-        for l, r0, r1 in segs:
-            xs, ys = Xf[r0:r1], yf[r0:r1]
-            w = rnd(kern.dloss(ys * (xs @ rnd(bsrc[l])), h) * ys * scale)
-            parts.append(xs.T @ w)
-        return parts
-
-    def in_order(parts):
-        g = torch.zeros(p)
-        for part in parts:
-            g = g + part
-        return g
+    x_pass = lambda bsrc, scale: stream_x_pass(X, y, bsrc, scale, segs,
+                                               kernel, h)
+    in_order = lambda parts: sum_in_order(parts, p)
 
     nact = min(max(int(nact), 0), num_rounds)
     delta = torch.tensor(float("inf"))
