@@ -37,6 +37,19 @@ result lines):
    ``track_history`` and ``pallas`` fits, on the stream instance); the KKT
    fits must stop before ``max_iter`` and within one check block of each
    other;
+   then the lambda path on the same data: ``tuning.select_lambda_path`` on
+   a 12-point ``lambda_grid`` (300 rounds) in batched mode (one
+   ``csvm_round_block`` launch per point) and in warm mode with the KKT
+   stop at 1e-3 (one fused 4-round + KKT launch per check block) under
+   ``megakernel``, the warm path under ``megakernel_bf16``, and
+   ``penalties.decsvm_fit_lla`` on the batched pilot (stage 2: one launch
+   with a per-coordinate ``lam_vec``), each against the same call under
+   ``jnp`` on the card, with the counters set to 0 around each run and
+   the round kernel's device time from CUDA events around its launches;
+   then, at the quickstart's design, the CV path (reference rounds only:
+   no kernel) and ``select_lambda_path_many`` (wall times), and the torch
+   quickstart (``repro_torch.launch.quickstart``: deCSVM and Tuned F1 >=
+   0.9);
 5. ``flash_attention`` against its plain version (``ref.mha``) at the
    shapes of ``tests/test_kernels.py`` (every mask, MQA, D = 32/64/128,
    ragged S), at qwen3-14b's (q (1, 40, S, 128), kv (1, 8, S, 128),
@@ -121,6 +134,10 @@ FIT_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the card.
 KKT_TOL = 3e-2
 CHECK_EVERY = 4         # decsvm_fit_tol's default check interval
+# The lambda path at full size: a 12-point lambda_grid (the quickstart's),
+# and the warm path's KKT stop level (the quickstart's).
+PATH_NUM = 12
+PATH_TOL = 1e-3
 
 # flash_attention against its plain version.  fp32: the repo's kernel
 # tier (tests/test_kernels.py:86).  bf16: both sides read the same bf16
@@ -856,6 +873,254 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
     return launches
 
 
+class LaunchTimer:
+    """While active, CUDA events around every call of ``ops.<name>`` (the
+    wrapper enqueues nothing but its kernel), so that ``ms()`` is the
+    device time of that kernel's launches in a run.  Off the card it only
+    passes the calls through."""
+
+    def __init__(self, torch, ops, name):
+        self.torch, self.ops, self.name = torch, ops, name
+        self.events = []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.ops, self.name)
+        torch = self.torch
+
+        def timed(*args, **kw):
+            if not args[0].is_cuda:
+                return fn(*args, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        setattr(self.ops, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.orig)
+
+    def ms(self):
+        if not self.events:
+            return None
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def lambda_path_phase(torch, core, ops, d: Data, small: Data,
+                      max_iter: int = 300, num: int = PATH_NUM,
+                      tol: float = PATH_TOL):
+    """The lambda path at full size through the port's entry points
+    (``tuning.select_lambda_path``, ``penalties.decsvm_fit_lla``), each
+    kernel run held against the same call under the plain ``jnp`` backend
+    on the card; then the CV path and ``decsvm_path_select_many`` at the
+    quickstart design (``small``; wall times only: CV runs no kernel) and
+    the torch quickstart.  The counters are set to 0 just before each
+    kernel run and read just after.  Returns the phase's launches (by
+    kernel and, for the round kernel, by instance), the warm paths' iters
+    and the times."""
+    import numpy as np
+    from repro_torch.launch import quickstart
+    X, y, W = d.Xn, d.yn, d.Wn
+    on = dict(device=d.device)
+    on_card = d.device.type == "cuda"
+    grid = core.tuning.lambda_grid(X, y, num=num)
+    total = {name: 0 for name in FIT_KERNELS}
+    instances = {name: 0 for name in ops.ROUND_INSTANCES}
+    out = dict(launches=total, round_instances=instances, times={})
+
+    def cfg(backend):
+        return core.ADMMConfig(lam=d.lam, h=d.h, max_iter=max_iter,
+                               backend=backend)
+
+    def timed(fn):
+        synchronize(torch, d.device)
+        t0 = time.perf_counter()
+        res = fn()
+        synchronize(torch, d.device)
+        return res, time.perf_counter() - t0
+
+    def kernel_run(label, fn):
+        """``fn`` with the counters at 0 and the round kernel's launches
+        timed; returns (result, launches by kernel, by instance)."""
+        ops.reset_launches()
+        with LaunchTimer(torch, ops, "csvm_round_block") as timer:
+            res, secs = timed(fn)
+        ran = {name: ops.launches[name] for name in FIT_KERNELS}
+        inst = dict(ops.round_block_launches)
+        for name in FIT_KERNELS:
+            total[name] += ran[name]
+        for name in instances:
+            instances[name] += inst[name]
+        if on_card:
+            check(inst == {"stream": ran["csvm_round_block"], "direct": 0},
+                  f"{label}: round kernel instances {inst}, expected every "
+                  "launch on the stream instance")
+        dev_ms = timer.ms()
+        n = ran["csvm_round_block"]
+        out["times"][label] = dict(wall_s=secs, kernel_ms=dev_ms,
+                                   launches=n)
+        log(f"path {label}: {secs:.3f} s wall, {n} csvm_round_block "
+            f"launches" + (f", {dev_ms:.3f} ms of round-kernel device time "
+                           f"({dev_ms / max(n, 1):.4f} ms a launch)"
+                           if dev_ms is not None else "")
+            + f"; launches {json.dumps(ran)}")
+        return res, ran
+
+    def plain_run(label, fn):
+        res, secs = timed(fn)
+        out["times"][label] = dict(wall_s=secs)
+        log(f"path {label} (plain, reference): {secs:.3f} s wall")
+        return res
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    def blocks(iters):
+        """Round-kernel launches of a warm path: one per check block."""
+        return sum(math.ceil(int(t) / CHECK_EVERY)
+                   for t in np.asarray(iters).reshape(-1))
+
+    def deviation(label, got, want, tol_):
+        dev = float(np.max(np.abs(host(got) - host(want))))
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite path")
+        check(dev <= tol_, f"{label}: max|dev| {dev:.3e} vs plain > {tol_}")
+        return dev
+
+    def select(backend, mode):
+        return core.tuning.select_lambda_path(
+            X, y, W, cfg(backend), lams=grid, mode=mode, tol=tol, **on)
+
+    # batched: one round-kernel launch of max_iter rounds per grid point
+    ref_b = plain_run("batched jnp", lambda: select("jnp", "batched"))
+    got_b, ran = kernel_run("batched megakernel",
+                            lambda: select("megakernel", "batched"))
+    check(ran["csvm_round_block"] == num,
+          f"batched path: {ran['csvm_round_block']} csvm_round_block "
+          f"launches, expected one per grid point ({num})")
+    dev = deviation("batched path", got_b[3].path, ref_b[3].path,
+                    FIT_TOL["float32"])
+    check(got_b[0] == ref_b[0], f"batched path: best lambda {got_b[0]} vs "
+          f"plain {ref_b[0]}")
+    dev_ms = out["times"]["batched megakernel"]["kernel_ms"]
+    log(f"path batched: {num} points, best lambda {got_b[0]:.6f}, max|dev| "
+        f"vs plain {dev:.3e}" + (f", {dev_ms / num:.3f} ms of device time "
+                                 f"a point ({max_iter} rounds)"
+                                 if dev_ms is not None else ""))
+
+    # warm: one fused 4-round + KKT launch per check block
+    ref_w = plain_run("warm jnp", lambda: select("jnp", "warm"))
+    it_ref = host(ref_w[3].iters)
+    got_w, ran = kernel_run("warm megakernel",
+                            lambda: select("megakernel", "warm"))
+    it_got = host(got_w[3].iters)
+    out["warm_iters"] = it_got.tolist()
+    log(f"path warm tol {tol:g}: iters {it_got.tolist()} (plain "
+        f"{it_ref.tolist()}), best lambda {got_w[0]:.6f} (plain "
+        f"{ref_w[0]:.6f})")
+    check(ran["csvm_round_block"] == blocks(it_got),
+          f"warm path: {ran['csvm_round_block']} csvm_round_block launches "
+          f"for iters {it_got.tolist()} in blocks of {CHECK_EVERY}")
+    check(bool(np.all(np.abs(it_got - it_ref) <= CHECK_EVERY)),
+          f"warm path: iters {it_got.tolist()} vs plain {it_ref.tolist()}: "
+          "more than one check block apart")
+    first = int(np.argmax(it_got != it_ref)) if np.any(
+        it_got != it_ref) else num
+    if first < num:
+        prob = core.solver.make_problem(d.X, d.y, d.W, cfg("jnp"))
+        for i in np.nonzero(it_got != it_ref)[0]:
+            lam = float(got_w[3].lams[i])
+            kkt = [float(core.kkt_residual(prob, cfg("jnp"), r[3].path[i],
+                                           lam)) for r in (got_w, ref_w)]
+            log(f"path warm point {i}: the KKT residual at its stop is "
+                f"{kkt[0]:.6e} (kernel, t={it_got[i]}) and {kkt[1]:.6e} "
+                f"(plain, t={it_ref[i]}) against tol {tol:g}")
+    dev = deviation("warm path (points up to the first differing stop)",
+                    got_w[3].path[:first], ref_w[3].path[:first],
+                    FIT_TOL["float32"]) if first else 0.0
+    check(got_w[0] == ref_w[0], f"warm path: best lambda {got_w[0]} vs "
+          f"plain {ref_w[0]}")
+    log(f"path warm: max|dev| vs plain {dev:.3e} over the {first} points "
+        "that stopped on the same round")
+
+    # the same warm path with bf16 X, held to the bf16 tier
+    got_16, ran = kernel_run("warm megakernel_bf16",
+                             lambda: select("megakernel_bf16", "warm"))
+    it_16 = host(got_16[3].iters)
+    out["warm_bf16_iters"] = it_16.tolist()
+    check(ran["csvm_round_block"] == blocks(it_16),
+          f"bf16 warm path: {ran['csvm_round_block']} launches for iters "
+          f"{it_16.tolist()}")
+    check(bool(np.all(np.abs(it_16 - it_ref) <= CHECK_EVERY)),
+          f"bf16 warm path: iters {it_16.tolist()} vs plain fp32 "
+          f"{it_ref.tolist()}: more than one check block apart")
+    dev = deviation("bf16 warm path", got_16[3].path, ref_w[3].path,
+                    FIT_TOL["bfloat16"])
+    ref_np = host(ref_w[3].path)
+    supp = np.abs(ref_np) > FIT_TOL["bfloat16"]
+    check(np.array_equal(np.sign(host(got_16[3].path))[supp],
+                         np.sign(ref_np)[supp]),
+          "bf16 warm path: support signs differ from the fp32 path")
+    log(f"path warm bf16: iters {it_16.tolist()}, best lambda "
+        f"{got_16[0]:.6f}, max|dev| vs plain fp32 {dev:.3e}")
+
+    # LLA: the batched path's pilot, then stage 2 with a (p,) lambda vector
+    def lla(backend):
+        return core.penalties.decsvm_fit_lla(X, y, W, cfg(backend),
+                                             penalty="scad", lams=grid,
+                                             path_mode="batched", **on)
+    (B_ref, w_ref) = plain_run("lla jnp", lambda: lla("jnp"))
+    (B_lla, w_lla), ran = kernel_run("lla megakernel",
+                                     lambda: lla("megakernel"))
+    out["lla_launches"] = ran["csvm_round_block"]
+    check(ran["csvm_round_block"] == num + 1,
+          f"LLA: {ran['csvm_round_block']} csvm_round_block launches, "
+          f"expected {num} (pilot path) + 1 (stage 2)")
+    dev = deviation("LLA stage 2", B_lla, B_ref, FIT_TOL["float32"])
+    wd = deviation("LLA weights", w_lla, w_ref, FIT_TOL["float32"])
+    log(f"path lla scad: stage 2 one launch with a per-coordinate lam_vec "
+        f"(weights in [{float(w_lla.min()):.3f}, {float(w_lla.max()):.3f}],"
+        f" {int((w_lla < 1).sum())} of {w_lla.numel()} below 1), max|dev| "
+        f"vs plain {dev:.3e}, weights {wd:.3e}")
+
+    # CV and the problem stack at the quickstart design: wall times only
+    s = small
+    _, secs = timed(lambda: core.tuning.select_lambda_path(
+        s.Xn, s.yn, s.Wn, core.ADMMConfig(lam=s.lam, h=s.h, max_iter=max_iter,
+                                          backend="megakernel"),
+        num=num, mode="batched", criterion="cv", **on))
+    out["times"]["cv design"] = dict(wall_s=secs)
+    log(f"path cv (5 folds x {num} points, design size, the masked fits "
+        f"take the reference rounds: no kernel): {secs:.3f} s wall")
+    X2, y2, _ = core.generate(s.sim, seed=1)
+    many, ran = kernel_run("select_many design", lambda: (
+        core.tuning.select_lambda_path_many(
+            np.stack([s.Xn, X2]), np.stack([s.yn, y2]),
+            np.stack([s.Wn, s.Wn]),
+            core.ADMMConfig(lam=s.lam, h=s.h, max_iter=max_iter,
+                            backend="megakernel"),
+            num=num, mode="warm", tol=tol, **on)))
+    it_many = host(many[3].iters)
+    check(ran["csvm_round_block"] == blocks(it_many),
+          f"select_many: {ran['csvm_round_block']} launches for iters "
+          f"{it_many.tolist()}")
+    log(f"path select_many (2 problems, design size): best lambdas "
+        f"{many[0].tolist()}")
+
+    rows, ran = kernel_run("quickstart", lambda: quickstart.run(
+        d.device, log=lambda *a: log("quickstart:", *a)))
+    for name in ("deCSVM", "Tuned"):
+        check(rows[name]["f1"] >= 0.9,
+              f"quickstart: {name} F1 {rows[name]['f1']:.3f} < 0.9")
+    out["quickstart"] = rows
+    log(f"path phase launches: {json.dumps(total)}; csvm_round_block by "
+        f"instance: {json.dumps(instances)}")
+    return out
+
+
 def synchronize(torch, device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -1385,6 +1650,13 @@ def main() -> int:
     launches = main_path(torch, core, ops, full,
                          two_pass=two_pass_instances)
     round_instances = dict(ops.round_block_launches)
+
+    # phase 4b: the lambda path at full size, on phase 4's data
+    lpath = lambda_path_phase(torch, core, ops, full, design)
+    for name in FIT_KERNELS:
+        launches[name] += lpath["launches"][name]
+    for name in round_instances:
+        round_instances[name] += lpath["round_instances"][name]
     del design, full
 
     # phase 5: flash_attention against its plain version, and its times
@@ -1551,6 +1823,10 @@ def main() -> int:
                 sass={k: dict(UBLKCP=b, UTMALDG=u)
                       for k, (b, u) in bulk.items()
                       if k.startswith(stream_kernel)})
+            if name == "csvm_round_block":
+                extra["lambda_path"] = {
+                    k: lpath[k] for k in ("times", "warm_iters",
+                                          "warm_bf16_iters", "lla_launches")}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],

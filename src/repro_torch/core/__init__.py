@@ -1,12 +1,15 @@
-"""deCSVM core in torch: the paper's contribution, Algorithm 1.
+"""deCSVM core in torch: the paper's contribution, Algorithm 1, with the
+lambda path, tuning, the baselines and the folded-concave penalties.
 
 ``repro_torch.core.solver`` is the single home of the Algorithm-1 update;
-every fitting surface exported here is a thin driver over it.  This is
-the first slice of the port of ``repro.core``: the lambda path, tuning,
-baselines, penalties, gossip, sanitize and the sharded engines are not
-here yet.
+every fitting surface exported here is a thin driver over it.  Not here
+yet: gossip, the E1-E7 sanitizer checks (only its config gate,
+``sanitize.reject_unsupported``, is ported), and the sharded engines
+(``decentral``), with the sharded route of ``penalties`` and the mesh
+engines of ``tuning``.
 """
-from repro_torch.core import graph, losses, metrics, simulate, solver
+from repro_torch.core import (baselines, graph, losses, metrics, path,
+                              penalties, sanitize, simulate, solver, tuning)
 from repro_torch.core.solver import Problem, SolverState, kkt_residual
 from repro_torch.core.admm import (ADMMConfig, decsvm_fit, soft_threshold,
                                    compute_rho, objective,
@@ -16,6 +19,9 @@ from repro_torch.core.losses import (smoothed_hinge_loss, smoothed_hinge_grad,
                                      default_bandwidth)
 from repro_torch.core.simulate import SimConfig, generate, true_beta
 from repro_torch.core.admm_adaptive import decsvm_fit_tol, decsvm_fit_uneven
+from repro_torch.core.path import (PathResult, decsvm_path_batched,
+                                   decsvm_path_select, decsvm_path_warm)
+from repro_torch.core.penalties import decsvm_fit_lla
 
 __all__ = [
     "solver", "Problem", "SolverState", "kkt_residual",
@@ -23,5 +29,7 @@ __all__ = [
     "hard_threshold_final", "smoothed_hinge_loss", "smoothed_hinge_grad",
     "get_kernel", "hinge", "KERNELS", "default_bandwidth", "SimConfig",
     "generate", "true_beta", "graph", "losses", "metrics", "simulate",
-    "decsvm_fit_tol", "decsvm_fit_uneven",
+    "path", "tuning", "baselines", "penalties", "sanitize",
+    "decsvm_fit_tol", "decsvm_fit_uneven", "decsvm_fit_lla", "PathResult",
+    "decsvm_path_batched", "decsvm_path_warm", "decsvm_path_select",
 ]

@@ -35,6 +35,11 @@ def hinge(v: Tensor) -> Tensor:
     return torch.clamp(1.0 - v, min=0.0)
 
 
+def hinge_subgrad(v: Tensor) -> Tensor:
+    """A subgradient of the hinge loss (used by the D-subGD baseline)."""
+    return -(v < 1.0).to(v.dtype)
+
+
 def _z(v: Tensor, h: float) -> Tensor:
     return (1.0 - v) / h
 

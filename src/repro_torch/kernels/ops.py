@@ -670,16 +670,34 @@ _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 _TC_HEAD_DIMS = (64, 128)   # csrc/flash_attention.cu flash_attention_tc
 
 
-def flash_instance(dtype: torch.dtype, head_dim: int) -> str:
-    """The instance of the flash kernel that a CUDA call runs, by dtype and
-    head dim alone: ``"wgmma"`` (bf16 tensor cores, TMA) for bf16 at
-    D = 64 or 128, ``"fma"`` (fp32 FMAs on the CUDA cores) otherwise."""
-    if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS:
+def _copies_aligned(*operands) -> bool:
+    """Every operand is a tensor whose base lies on a 16-byte boundary and
+    whose strides over its leading axes (those of size > 1) are multiples
+    of 16 bytes, as the tensor-core instances' TMA loads and 16-byte
+    copies need."""
+    return all(
+        isinstance(t, torch.Tensor) and t.data_ptr() % 16 == 0
+        and all(n == 1 or st * t.element_size() % 16 == 0
+                for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+        for t in operands)
+
+
+def flash_instance(dtype: torch.dtype, head_dim: int, *operands) -> str:
+    """The instance of the flash kernel that a CUDA call runs:
+    ``"wgmma"`` (bf16 tensor cores, TMA) for bf16 at D = 64 or 128,
+    ``"fma"`` (fp32 FMAs on the CUDA cores, any dtype) otherwise.  Given
+    the operands (q, k, v), a bf16 call whose bases or strides the tensor
+    maps cannot take (``_copies_aligned``) goes to ``"fma"`` too."""
+    if (dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS
+            and _copies_aligned(*operands)):
         return "wgmma"
     return "fma"
 
 
-def _check_attention(q, k, v, window):
+def _check_attention(q, k, v, window, instance=None):
+    """Check the operands for ``instance`` (default: the one
+    ``flash_instance`` names by dtype and head dim alone); raises
+    ValueError or TypeError before any launch."""
     name = "flash_attention"
     for what, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
@@ -705,7 +723,12 @@ def _check_attention(q, k, v, window):
         raise ValueError(f"{name}: S={S} exceeds the grid's 65535 q tiles")
     if window is not None and int(window) < 1:
         raise ValueError(f"{name}: window={window} would mask every key")
-    if flash_instance(q.dtype, D) == "wgmma":
+    if instance not in (None,) + FLASH_INSTANCES:
+        raise ValueError(f"{name}: unknown instance {instance!r}")
+    if (instance or flash_instance(q.dtype, D)) == "wgmma":
+        if flash_instance(q.dtype, D) != "wgmma":
+            raise ValueError(f"{name}: the tensor-core instance takes bf16 "
+                             f"at D = 64 or 128, got {q.dtype}, D={D}")
         # the tensor maps: 16-byte-aligned bases, strides of 16 bytes
         for what, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
@@ -729,8 +752,10 @@ def _tma_strides(t):
 
 
 def _flash_launch(q, k, v, instance, *, causal, window, sm_scale):
-    """One launch of ``instance`` on checked operands; returns the output.
-    ``flash_attention`` calls it with ``flash_instance``'s choice."""
+    """One launch of ``instance`` on CUDA operands (checked here); returns
+    the output.  ``flash_attention`` calls it with ``flash_instance``'s
+    choice; the fp32-FMA instance also takes bf16."""
+    _check_attention(q, k, v, window, instance)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
     scale = float(sm_scale) if sm_scale is not None else D ** -0.5
@@ -765,16 +790,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     the model's (B, S, H, D) projections go in as ``.transpose(1, 2)``
     without a copy; the output takes q's strides when q is dense (a
     transposed (B, S, H, D) buffer), so it transposes back for free.
-    ``flash_instance`` picks the kernel: bf16 at D = 64 or 128 runs on the
-    tensor cores and needs 16-byte-aligned bases and strides of 16 bytes
-    (it raises otherwise); the rest runs the fp32-FMA kernel.
+    ``flash_instance`` picks the kernel from the operands: bf16 at D = 64
+    or 128 with 16-byte-aligned bases and strides of 16 bytes runs on the
+    tensor cores; the rest, a misaligned bf16 view included, runs the
+    fp32-FMA kernel.
     """
     if not _is_cuda(q, "flash_attention"):
         return ref.mha(q, k, v, causal=causal, window=window,
                        sm_scale=sm_scale)
-    _check_attention(q, k, v, window)
-    return _flash_launch(q, k, v, flash_instance(q.dtype, q.shape[-1]),
-                         causal=causal, window=window, sm_scale=sm_scale)
+    instance = flash_instance(q.dtype, q.shape[-1], q, k, v)
+    return _flash_launch(q, k, v, instance, causal=causal, window=window,
+                         sm_scale=sm_scale)
 
 
 # --------------------------------------------------------------------------
@@ -787,14 +813,18 @@ _SSD_TC_CHUNKS = (64, 128)   # csrc/ssd_scan.cu ssd_scan_tc
 _SSD_TC_MAX_GROUP = 4        # heads per block of its passes (a) and (c)
 
 
-def ssd_instance(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
-    """The instance of the SSD kernel that a CUDA call runs, by dtype and
-    shape alone: ``"wgmma"`` (chunk-parallel, bf16 tensor cores) for bf16
-    at chunk 64 or 128 with p and n multiples of 16 in [16, 256], ``"fma"``
-    (the chunk walk in fp32 FMAs) otherwise."""
+def ssd_instance(dtype: torch.dtype, p: int, n: int, chunk: int,
+                 *operands) -> str:
+    """The instance of the SSD kernel that a CUDA call runs:
+    ``"wgmma"`` (chunk-parallel, bf16 tensor cores) for bf16 at chunk 64
+    or 128 with p and n multiples of 16 in [16, 256], ``"fma"`` (the chunk
+    walk in fp32 FMAs, any dtype) otherwise.  Given the operands (x, B,
+    C), a bf16 call whose bases or strides the 16-byte copies cannot take
+    (``_copies_aligned``) goes to ``"fma"`` too."""
     if (dtype == torch.bfloat16 and chunk in _SSD_TC_CHUNKS
             and p % 16 == 0 and 16 <= p <= 256
-            and n % 16 == 0 and 16 <= n <= 256):
+            and n % 16 == 0 and 16 <= n <= 256
+            and _copies_aligned(*operands)):
         return "wgmma"
     return "fma"
 
@@ -951,15 +981,16 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):
     On the card x, B and C may be strided views with a unit stride over
     their last axis — the model's column slices of one conv output go in
     without a copy; dt may be strided too.  ``ssd_instance`` picks the
-    kernel: bf16 at chunk 64 or 128 with p and n multiples of 16 up to 256
-    runs chunk-parallel on the tensor cores and needs 16-byte-aligned
-    bases and strides of x, B and C (it raises otherwise); the rest runs
-    the fp32-FMA chunk walk, at a chunk that is a multiple of 8 up to 128
-    and n a multiple of 4 within the shared memory of a block.
+    kernel from the operands: bf16 at chunk 64 or 128 with p and n
+    multiples of 16 up to 256 and 16-byte-aligned bases and strides of x,
+    B and C runs chunk-parallel on the tensor cores; the rest, a
+    misaligned bf16 view included, runs the fp32-FMA chunk walk, at a
+    chunk that is a multiple of 8 up to 128 and n a multiple of 4 within
+    the shared memory of a block.
     """
     if not _is_cuda(x, "ssd_scan"):
         return ref.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
     p = x.shape[-1] if x.dim() == 4 else 0
     n = B.shape[-1] if isinstance(B, torch.Tensor) and B.dim() == 3 else 0
-    instance = ssd_instance(x.dtype, p, n, int(chunk))
+    instance = ssd_instance(x.dtype, p, n, int(chunk), x, B, C)
     return _ssd_launch(x, dt, A, B, C, D, chunk, instance)

@@ -469,15 +469,40 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
 
 
 def test_tensor_core_flash_raises_on_a_misaligned_base(cuda):
-    """bf16 at D = 128 takes the tensor-core instance; a base off a 16-byte
-    boundary raises before any launch, and is not rerouted."""
+    """bf16 at D = 128 with a q base off a 16-byte boundary: a request for
+    the tensor-core instance by name raises before any launch (the
+    wrapper itself takes the fp32-FMA instance, below)."""
     flat = torch.zeros(1 + 4 * 64 * 128, dtype=torch.bfloat16, device=cuda)
     q = flat[1:].view(1, 4, 64, 128)
     k = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device=cuda)
     before = dict(ops.launches), dict(ops.flash_launches)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        ops.flash_attention(q, k, k)
+        ops._flash_launch(q, k, k, "wgmma", causal=True, window=None,
+                          sm_scale=None)
     assert (dict(ops.launches), dict(ops.flash_launches)) == before
+
+
+@pytest.mark.parametrize("fault", ["base", "stride"])
+def test_misaligned_bf16_attention_takes_the_fma_instance(cuda, fault):
+    """A bf16 q whose base is 2 bytes off 16, or whose row pitch is 132
+    elements, goes to the fp32-FMA instance: one launch there, within one
+    bf16 ulp of the plain version, where the tensor-core instance could not
+    take it."""
+    q, k, v = chip_smoke.attention_inputs(torch, (1, 8, 2, 300, 128),
+                                          "bfloat16", cuda, seed=5)
+    if fault == "base":
+        bad = torch.zeros(1 + q.numel(), dtype=q.dtype,
+                          device=cuda)[1:].view(q.shape)
+    else:
+        bad = torch.zeros(*q.shape[:3], 132, dtype=q.dtype,
+                          device=cuda)[..., :128]
+    bad.copy_(q)
+    ops.reset_launches()
+    got = ops.flash_attention(bad, k, v, causal=True)
+    assert ops.flash_launches == {"wgmma": 0, "fma": 1}
+    want = ref.mha(bad, k, v, causal=True)
+    _, share = chip_smoke.flash_deviation(torch, got, want, "bfloat16")
+    assert share <= 1.0
 
 
 def test_reduced_bf16_prefill_takes_the_tensor_core_instance(cuda):
@@ -653,8 +678,9 @@ def test_ssd_tensor_core_instance_is_deterministic(cuda):
 
 def test_ssd_tensor_core_instance_raises_on_a_misaligned_base(cuda):
     """x, B or C off a 16-byte boundary, or with a stride that is not a
-    multiple of 16 bytes, raises before any launch; it is not rerouted to
-    the fp32-FMA instance."""
+    multiple of 16 bytes: a request for the tensor-core instance by name
+    raises before any launch; the wrapper runs the fp32-FMA instance, one
+    launch, within the plain version's bf16 limits."""
     case = (1, 130, 2, 32, 64, 64)
     x, dt, A, B, C, D = chip_smoke.ssd_inputs(torch, case, "bfloat16", cuda,
                                               seed=4)
@@ -664,11 +690,18 @@ def test_ssd_tensor_core_instance_raises_on_a_misaligned_base(cuda):
     wide = torch.zeros(1, 130, 76, dtype=B.dtype, device=cuda)
     odd = wide[..., 8:72]             # an aligned base, a 152-byte stride
     odd.copy_(B)
-    before = dict(ops.launches), dict(ops.ssd_launches)
     for bad in ((shifted, dt, A, B, C, D), (x, dt, A, odd, C, D)):
+        before = dict(ops.launches), dict(ops.ssd_launches)
         with pytest.raises(ValueError, match="16"):
-            ops.ssd_scan(*bad, chunk=64)
-    assert (dict(ops.launches), dict(ops.ssd_launches)) == before
+            ops._ssd_launch(*bad, 64, "wgmma")
+        assert (dict(ops.launches), dict(ops.ssd_launches)) == before
+        ops.reset_launches()
+        got = ops.ssd_scan(*bad, chunk=64)
+        assert ops.ssd_launches == {"wgmma": 0, "fma": 1}
+        want = ref.ssd_scan(*bad, chunk=64)
+        (_, y_share), (_, s_share) = chip_smoke.ssd_deviation(
+            torch, got, want, "bfloat16")
+        assert y_share <= 1.0 and s_share <= 1.0
 
 
 def test_mamba2_prefill_runs_on_the_tensor_core_instance(cuda):
@@ -753,3 +786,60 @@ def test_mamba2_serve_engine_on_the_card_matches_the_cpu(cuda):
             eng.submit(Request(rid=rid, prompt=prompt, max_new=6))
         out[str(device)] = {r: q.generated for r, q in eng.run().items()}
     assert out["cpu"] == out[str(cuda)]
+
+
+# --------------------------------------------------------------------------
+# the lambda path
+# --------------------------------------------------------------------------
+
+def _path_problem():
+    sim = tc.SimConfig(p=40, s=5, m=6, n=150, rho=0.5)
+    X, y, _ = tc.generate(sim, seed=11)
+    W = tc.graph.erdos_renyi(sim.m, 0.6, seed=2)
+    return X, y, W, tc.tuning.lambda_grid(X, y, num=6)
+
+
+@pytest.mark.parametrize("backend", ["megakernel", "megakernel_bf16"])
+def test_lambda_path_launches_and_instances(cuda, backend):
+    """The batched path is one stream-instance round launch per grid point,
+    the warm path one fused 4-round + KKT launch per check block, LLA
+    stage 2 one launch with a per-coordinate lam_vec; each matches the
+    plain path on the card (fp32 1e-5; bf16 1e-2)."""
+    X, y, W, lams = _path_problem()
+    tol = ATOL_BF16 if backend == "megakernel_bf16" else ATOL
+    cfg = lambda b: tc.ADMMConfig(lam=0.0, max_iter=120, backend=b)
+    ops.reset_launches()
+    got = tc.path.decsvm_path_batched(X, y, W, lams, cfg(backend))
+    assert ops.round_block_launches == {"stream": len(lams), "direct": 0}
+    want = tc.path.decsvm_path_batched(X, y, W, lams, cfg("jnp"))
+    _close(got, want, tol)
+    ops.reset_launches()
+    path, iters = tc.path.decsvm_path_warm(X, y, W, lams, cfg(backend),
+                                           tol=1e-3)
+    blocks = sum(-(-int(t) // 4) for t in iters)
+    assert ops.round_block_launches == {"stream": blocks, "direct": 0}
+    wpath, witers = tc.path.decsvm_path_warm(X, y, W, lams, cfg("jnp"),
+                                             tol=1e-3)
+    if backend == "megakernel":
+        assert torch.equal(iters, witers)
+        _close(path, wpath, ATOL)
+    ops.reset_launches()
+    B, w = tc.penalties.decsvm_fit_lla(X, y, W, cfg(backend), lams=lams,
+                                       path_mode="batched")
+    assert ops.round_block_launches == {"stream": len(lams) + 1,
+                                        "direct": 0}
+    assert bool((w < 1).any()) and w.is_cuda
+    B_ref, _ = tc.penalties.decsvm_fit_lla(X, y, W, cfg("jnp"), lams=lams,
+                                           path_mode="batched")
+    _close(B, B_ref, tol)
+
+
+def test_cv_path_runs_no_kernel(cuda):
+    """The masked fold fits take the reference rounds on the card."""
+    X, y, W, lams = _path_problem()
+    cfg = tc.ADMMConfig(lam=0.0, max_iter=40, backend="megakernel")
+    ops.reset_launches()
+    res = tc.path.decsvm_path_select(X, y, W, lams, cfg, mode="batched",
+                                     criterion="cv", cv_folds=3)
+    assert ops.launches["csvm_round_block"] == len(lams)   # the full path
+    assert res.criteria.is_cuda and bool(torch.isfinite(res.criteria).all())

@@ -260,6 +260,35 @@ def test_tensor_core_instance_takes_the_models_transposed_views():
     assert ops._tma_strides(odd) == [320, 960, 64]   # the span, 3 x 320
 
 
+@pytest.mark.parametrize("what", ["q", "k", "v"])
+@pytest.mark.parametrize("fault", ["base", "stride"])
+def test_misaligned_bf16_operands_choose_the_fma_instance(what, fault):
+    """Given the operands, ``flash_instance`` sends a bf16 call at D = 128
+    whose base is 2 bytes off a 16-byte boundary, or whose row pitch is not
+    a multiple of 16 bytes, to the fp32-FMA instance, whose checks pass;
+    the tensor-core instance still refuses the operands when asked for by
+    name, and takes the aligned ones."""
+    ops_in = {"q": _bf16_zeros(1, 4, 8, 128), "k": _bf16_zeros(1, 2, 8, 128),
+              "v": _bf16_zeros(1, 2, 8, 128)}
+    assert ops.flash_instance(torch.bfloat16, 128,
+                              *ops_in.values()) == "wgmma"
+    ops._check_attention(*ops_in.values(), None, "wgmma")
+    shape = tuple(ops_in[what].shape)
+    if fault == "base":
+        ops_in[what] = _bf16_zeros(1 + ops_in[what].numel())[1:].view(shape)
+    else:
+        ops_in[what] = _bf16_zeros(*shape[:3], 132)[..., :128]
+    assert ops.flash_instance(torch.bfloat16, 128, *ops_in.values()) == "fma"
+    ops._check_attention(*ops_in.values(), None, "fma")
+    with pytest.raises(ValueError, match="16"):
+        ops._check_attention(*ops_in.values(), None, "wgmma")
+    fp32 = [t.float() for t in ops_in.values()]
+    with pytest.raises(ValueError, match="takes bf16"):
+        ops._check_attention(*fp32, None, "wgmma")
+    with pytest.raises(ValueError, match="unknown instance"):
+        ops._check_attention(*fp32, None, "tc")
+
+
 def test_chip_smoke_reads_the_tensor_core_build():
     """chip_smoke.py's readers of the tensor-core instance: the ptxas line
     of flash_tc_kernel<128> and cuobjdump's HGMMA / UTMALDG counts."""

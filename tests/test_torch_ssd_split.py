@@ -220,6 +220,29 @@ def test_wgmma_checks_alignment_and_strides_on_cpu_tensors():
         ops._check_ssd(*ok, 32, "wgmma")
 
 
+def test_misaligned_bf16_operands_choose_the_fma_instance():
+    """Given x, B and C, ``ssd_instance`` sends a bf16 call the tensor-core
+    instance would take, but with a base off 16 bytes or a pitch that is
+    not a multiple of 16 bytes, to the fp32-FMA chunk walk, whose checks
+    pass; the model's aligned column slices stay on the tensor cores."""
+    h, p, n = 4, 16, 32
+    buf = torch.zeros(1, 70, h * p + 2 * n, dtype=torch.bfloat16)
+    x = buf[..., :h * p].reshape(1, 70, h, p)
+    B, C = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    dt, A = torch.zeros(1, 70, h), torch.zeros(h)
+    assert ops.ssd_instance(torch.bfloat16, p, n, 64, x, B, C) == "wgmma"
+    flat = torch.zeros(1 + x.numel(), dtype=torch.bfloat16)
+    shifted = flat[1:].view(x.shape)
+    wide = torch.zeros(1, 70, h * p + 2 * n + 4, dtype=torch.bfloat16)
+    odd_B = wide[..., h * p:h * p + n]
+    for bad in ((shifted, B, C), (x, odd_B, C), (x, B, odd_B)):
+        assert ops.ssd_instance(torch.bfloat16, p, n, 64, *bad) == "fma"
+        ops._check_ssd(bad[0], dt, A, bad[1], bad[2], A, 64, "fma")
+        with pytest.raises(ValueError, match="16"):
+            ops._check_ssd(bad[0], dt, A, bad[1], bad[2], A, 64, "wgmma")
+    assert ops.ssd_instance(torch.bfloat16, p, n, 64, x, B, None) == "fma"
+
+
 # --------------------------------------------------------------------------
 # the emulated arithmetic against the plain version and the Pallas kernel
 # --------------------------------------------------------------------------
