@@ -46,10 +46,25 @@ result lines):
    with a per-coordinate ``lam_vec``), each against the same call under
    ``jnp`` on the card, with the counters set to 0 around each run and
    the round kernel's device time from CUDA events around its launches;
-   then, at the quickstart's design, the CV path (reference rounds only:
-   no kernel) and ``select_lambda_path_many`` (wall times), and the torch
+   then, at the quickstart's design, the CV path (3 folds x 4 points,
+   reference rounds only: no kernel) and ``select_lambda_path_many`` (wall times), and the torch
    quickstart (``repro_torch.launch.quickstart``: deCSVM and Tuned F1 >=
    0.9);
+   then fit serving (``repro_torch.serving.DecsvmFitServer``): a dense
+   bucket of four full-size problems (seed 0 the fits' data, seeds 1-3
+   drawn on the card; a shared 12-point grid, batched, SCAD LLA,
+   thresholded; one bucket tagged "dense", 4 x 12 + 4
+   ``csvm_round_block`` launches), a chunked request on problem 0
+   (``engine="auto"``: 12 x 300 ``csvm_block_update`` launches, no round
+   kernel; its path within 1e-5 of the dense bucket's), each against the
+   same requests under ``jnp`` on the card; at the design size a chunked
+   warm request (the plain run's stops), a chunked CV request (3 folds x
+   4 points, reference rounds only) and the async worker; the sanitizer
+   at full size (300
+   two-pass launches, equal to the unchecked fit; a NaN label raises E1
+   and a NaN adjacency entry E3, at round 0) and the gossip BIC (300
+   rounds, every node within 1e-3 of the exact value) — the
+   ``fitserve ...`` lines;
 5. ``flash_attention`` against its plain version (``ref.mha``) at the
    shapes of ``tests/test_kernels.py`` (every mask, MQA, D = 32/64/128,
    ragged S), at qwen3-14b's (q (1, 40, S, 128), kv (1, 8, S, 128),
@@ -138,6 +153,10 @@ CHECK_EVERY = 4         # decsvm_fit_tol's default check interval
 # and the warm path's KKT stop level (the quickstart's).
 PATH_NUM = 12
 PATH_TOL = 1e-3
+# The CV paths at the design size run no kernel (the masked fits take the
+# reference rounds), so they are timed on a short grid and few folds.
+CV_NUM = 4
+CV_FOLDS = 3
 
 # flash_attention against its plain version.  fp32: the repo's kernel
 # tier (tests/test_kernels.py:86).  bf16: both sides read the same bf16
@@ -1091,10 +1110,12 @@ def lambda_path_phase(torch, core, ops, d: Data, small: Data,
     _, secs = timed(lambda: core.tuning.select_lambda_path(
         s.Xn, s.yn, s.Wn, core.ADMMConfig(lam=s.lam, h=s.h, max_iter=max_iter,
                                           backend="megakernel"),
-        num=num, mode="batched", criterion="cv", **on))
+        num=CV_NUM, mode="batched", criterion="cv", cv_folds=CV_FOLDS,
+        **on))
     out["times"]["cv design"] = dict(wall_s=secs)
-    log(f"path cv (5 folds x {num} points, design size, the masked fits "
-        f"take the reference rounds: no kernel): {secs:.3f} s wall")
+    log(f"path cv ({CV_FOLDS} folds x {CV_NUM} points, design size, the "
+        f"masked fits take the reference rounds: no kernel): {secs:.3f} s "
+        "wall")
     X2, y2, _ = core.generate(s.sim, seed=1)
     many, ran = kernel_run("select_many design", lambda: (
         core.tuning.select_lambda_path_many(
@@ -1118,6 +1139,380 @@ def lambda_path_phase(torch, core, ops, d: Data, small: Data,
     out["quickstart"] = rows
     log(f"path phase launches: {json.dumps(total)}; csvm_round_block by "
         f"instance: {json.dumps(instances)}")
+    return out
+
+
+class Capture:
+    """While active, every call of ``module.<name>`` is passed through and
+    its result kept in ``results``, so that a check can read what the fit
+    server's own engine call returned (the server keeps only its
+    ``FitResult``s)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.results = module, name, []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.module, self.name)
+
+        def kept(*args, **kw):
+            out = fn(*args, **kw)
+            self.results.append(out)
+            return out
+        setattr(self.module, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def device_problem(torch, core, sim, seed: int, device):
+    """A problem drawn by torch on ``device`` from ``seed``, under the
+    law of ``core.generate`` (the same model, not the same numbers): AR
+    blocks by Cholesky factors in fp64, the mean shift on the first
+    ``s`` coordinates, label flips, an intercept column.  On the card it
+    takes milliseconds where numpy takes seconds at full size.  Returns
+    (X (m, n, p + 1), y (m, n)) as fp32 tensors on ``device`` and the
+    network ``erdos_renyi(m, p_connect, seed)``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=device)
+    p, s, m, n = sim.p, sim.s, sim.m, sim.n
+    N = m * n
+    y = 1.0 - 2.0 * (torch.rand(N, generator=g, **f64) < 0.5).double()
+    Z = torch.randn(N, p, generator=g, **f64)
+    X = torch.empty(N, p + 1, **f64)
+    X[:, 0] = 1.0
+    for lo, hi in ((0, s), (s, p)):
+        if hi > lo:
+            cov = torch.tensor(core.simulate.ar_cov(hi - lo, sim.rho), **f64)
+            X[:, 1 + lo:1 + hi] = Z[:, lo:hi] @ torch.linalg.cholesky(cov).T
+    X[:, 1:1 + s] += y[:, None] * sim.mu
+    flip = torch.rand(N, generator=g, **f64) < sim.p_flip
+    y = torch.where(flip, -y, y)
+    return (X.reshape(m, n, p + 1).float(), y.reshape(m, n).float(),
+            core.graph.erdos_renyi(m, sim.p_connect, seed=seed))
+
+
+def fit_serving_phase(torch, core, ops, d: Data, small: Data,
+                      max_iter: int = 300, num: int = PATH_NUM,
+                      tol: float = PATH_TOL, n_bucket: int = 4,
+                      cv_num: int = CV_NUM, cv_folds: int = CV_FOLDS):
+    """Fit serving through the port's ``DecsvmFitServer`` on the card: a
+    dense bucket of ``n_bucket`` full-size problems (seed 0 is ``d``'s
+    data, seeds 1, ... are drawn on the device by ``device_problem``,
+    each on ``erdos_renyi(m, p_connect, seed)``; SCAD LLA and the
+    Theorem-4 threshold), a chunked request (``engine="auto"``: m > 1
+    rank), then at the design size (``small``) a chunked warm request, a
+    chunked CV request (``cv_folds`` folds of a ``cv_num``-point grid:
+    its cells take the reference rounds, so it is kept small) and the
+    async worker; the sanitizer at full size; the gossip
+    BIC on the dense bucket's first result.  Each kernel run is held
+    against the same requests under the plain ``jnp`` backend on the card,
+    with the counters set to 0 just before it and read just after, and the
+    kernels' device time from CUDA events around their launches.  Returns
+    the phase's launches by kernel and instance, and its times."""
+    import numpy as np
+    from repro_torch.serving import fit as fitmod
+    on = dict(device=d.device)
+    on_card = d.device.type == "cuda"
+    total = {name: 0 for name in FIT_KERNELS}
+    rounds = {name: 0 for name in ops.ROUND_INSTANCES}
+    two_pass = {name: 0 for name in ops.TWO_PASS_INSTANCES}
+    out = dict(launches=total, round_instances=rounds,
+               two_pass_instances=two_pass, times={})
+
+    def cfg(data, backend, **kw):
+        return core.ADMMConfig(lam=0.0, h=data.h, max_iter=max_iter,
+                               backend=backend, **kw)
+
+    def timed(fn):
+        synchronize(torch, d.device)
+        t0 = time.perf_counter()
+        res = fn()
+        synchronize(torch, d.device)
+        return res, time.perf_counter() - t0
+
+    def kernel_run(label, fn):
+        """``fn`` with the counters at 0, both CSVM kernels' launches
+        timed; returns (result, launches by kernel)."""
+        ops.reset_launches()
+        with LaunchTimer(torch, ops, "csvm_round_block") as rt, \
+                LaunchTimer(torch, ops, "csvm_block_update") as bt:
+            res, secs = timed(fn)
+        ran = {name: ops.launches[name] for name in FIT_KERNELS}
+        inst_r = dict(ops.round_block_launches)
+        inst_t = dict(ops.two_pass_launches)
+        for name in FIT_KERNELS:
+            total[name] += ran[name]
+        for name in rounds:
+            rounds[name] += inst_r[name]
+        for name in two_pass:
+            two_pass[name] += inst_t[name]
+        if on_card:
+            check(inst_r == {"stream": ran["csvm_round_block"], "direct": 0},
+                  f"fitserve {label}: round kernel instances {inst_r}, "
+                  "expected every launch on the stream instance")
+            n2 = ran["csvm_block_update"] + ran["csvm_local_update"]
+            check(inst_t == {"stream": n2, "direct": 0},
+                  f"fitserve {label}: two-pass instances {inst_t}, expected "
+                  "every launch on the stream instance")
+        ms = {"csvm_round_block": rt.ms(), "csvm_block_update": bt.ms()}
+        out["times"][label] = dict(wall_s=secs, launches=ran,
+                                   round_instances=inst_r,
+                                   two_pass_instances=inst_t, kernel_ms=ms)
+        dev = ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()
+                        if v is not None)
+        log(f"fitserve {label}: {secs:.3f} s wall, launches {json.dumps(ran)}"
+            f", round instances {json.dumps(inst_r)}, two-pass instances "
+            f"{json.dumps(inst_t)}" + (f"; device time {dev}" if dev else ""))
+        return res, ran
+
+    def plain_run(label, fn):
+        res, secs = timed(fn)
+        out["times"][label] = dict(wall_s=secs)
+        log(f"fitserve {label} (plain, reference): {secs:.3f} s wall")
+        return res
+
+    def serve(reqs, max_batch=16):
+        srv = fitmod.DecsvmFitServer(max_batch=max_batch, device=d.device)
+        for r in reqs:
+            srv.submit(r)
+        return srv.run(), srv
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    def same(label, got, want, paths, N, p, tol_=FIT_TOL["float32"]):
+        """FitResults against the plain run's: the same best lambda, B,
+        beta and the LLA weights within ``tol_``, the table's lambdas
+        equal.  Its support column counts |b| > 1e-8, so a coefficient
+        that sits within the fp32 tier of that cut may count in one run
+        and not the other: every such flip must lie at |b| <= ``tol_`` in
+        both paths (``paths``: the two runs' (B, L, m, p) paths in rid
+        order), and the criterion less its support term (the BIC's
+        sqrt(log N) log p supp / N) within ``tol_``.  Returns the largest
+        deviation, the number of flipped coefficients and the largest gap
+        of the support terms."""
+        dev, flips, sgap = 0.0, 0, 0.0
+        pen = math.sqrt(math.log(N)) * math.log(p) / N
+        for b, (rid, w) in enumerate(sorted(want.items())):
+            g = got[rid]
+            check(bool(np.isfinite(g.B).all()), f"{label}: non-finite B")
+            check(g.best_lam == w.best_lam, f"{label} rid {rid}: best lambda "
+                  f"{g.best_lam} vs plain {w.best_lam}")
+            tg, tw = np.array(g.table), np.array(w.table)
+            check(np.array_equal(tg[:, 0], tw[:, 0]),
+                  f"{label} rid {rid}: the table's lambdas differ")
+            bic = g.criterion == "bic"
+            hinge = [t[:, 1] - (pen * t[:, 2] if bic else 0.0)
+                     for t in (tg, tw)]
+            if bic:
+                sgap = max(sgap, float(pen * np.abs(tg[:, 2] - tw[:, 2])
+                                       .max()))
+            parts = [np.abs(g.B - w.B).max(), np.abs(g.beta - w.beta).max(),
+                     np.abs(hinge[0] - hinge[1]).max()]
+            if w.lam_weights is not None:
+                parts.append(np.abs(g.lam_weights - w.lam_weights).max())
+            dev = max(dev, float(max(parts)))
+            pg, pw = (host(x[b]) for x in paths)
+            flip = (np.abs(pg) > 1e-8) != (np.abs(pw) > 1e-8)
+            flips += int(flip.sum())
+            near = np.maximum(np.abs(pg), np.abs(pw))[flip]
+            near = float(near.max()) if near.size else 0.0
+            check(near <= tol_, f"{label} rid {rid}: a support flip at "
+                  f"|b| = {near:.3e} > {tol_}")
+            support = np.mean((np.abs(pg) > 1e-8).sum(axis=-1), axis=-1)
+            check(np.array_equal(support, tg[:, 2]),
+                  f"{label} rid {rid}: the table's support is not its path's")
+        check(dev <= tol_, f"{label}: max|dev| {dev:.3e} vs plain > {tol_}")
+        return dev, flips, sgap
+
+    def blocks(iters):
+        """Two-pass launches of a warm path: a check block's rounds each."""
+        return sum(CHECK_EVERY * math.ceil(int(t) / CHECK_EVERY)
+                   for t in np.asarray(iters).reshape(-1))
+
+    # the dense bucket: n_bucket full-size problems, one shared grid
+    t0 = time.perf_counter()
+    probs = [(d.X, d.y, d.Wn)] + [
+        device_problem(torch, core, d.sim, seed, d.device)
+        for seed in range(1, n_bucket)]
+    grid = core.tuning.shared_lambda_grid(
+        np.stack([host(p[0]) for p in probs]),
+        np.stack([host(p[1]) for p in probs]), num=num)
+    synchronize(torch, d.device)
+    log(f"fitserve data: {n_bucket - 1} more problems X "
+        f"{tuple(probs[-1][0].shape)} drawn on the device and the shared "
+        f"grid in {time.perf_counter() - t0:.1f} s (seeds 1-{n_bucket - 1}; "
+        f"seed 0 is the fits' data)")
+
+    def dense_reqs(backend):
+        return [fitmod.FitRequest(
+            rid=i, X=X, y=y, W=W, cfg=cfg(d, backend), lams=grid,
+            mode="batched", penalty="scad", threshold=True, engine="dense")
+            for i, (X, y, W) in enumerate(probs)]
+
+    with Capture(core.tuning, "select_lambda_path_many") as many:
+        (done, srv), ran = kernel_run("dense", lambda: serve(
+            dense_reqs("megakernel")))
+        ref, _ = plain_run("dense jnp", lambda: serve(dense_reqs("jnp")))
+    log_tags = [(key[-1], size) for key, size in srv.bucket_log]
+    check(log_tags == [("dense", n_bucket)],
+          f"fitserve dense: bucket log {log_tags}, expected one dense "
+          f"bucket of {n_bucket}")
+    want_r = n_bucket * num + n_bucket
+    out["dense_round_launches"] = ran["csvm_round_block"]
+    check(ran["csvm_round_block"] == want_r,
+          f"fitserve dense: {ran['csvm_round_block']} csvm_round_block "
+          f"launches, expected {n_bucket} x {num} (path) + {n_bucket} (LLA)")
+    m, n, p = d.X.shape
+    dense_path = many.results[0][3].path                   # (B, L, m, p)
+    dev, flips, sgap = same("fitserve dense", done, ref,
+                            (dense_path, many.results[1][3].path), m * n, p)
+    out["dense_support_gap"] = sgap
+    log(f"fitserve dense: {n_bucket} requests in one bucket, best lambdas "
+        f"{[done[i].best_lam for i in range(n_bucket)]}, max|dev| vs plain "
+        f"{dev:.3e} (B, beta, LLA weights, criterion less its support "
+        f"term), {flips} of {dense_path.numel()} path coefficients on the "
+        f"other side of the 1e-8 support cut, largest gap of the "
+        f"criterion's support terms {sgap:.3e}, train accuracy "
+        f"{[round(done[i].train_accuracy, 4) for i in range(n_bucket)]}")
+
+    # one chunked request: problem 0, engine "auto" (m > 1 rank)
+    X0, y0, W0 = probs[0]
+
+    def chunked_req(backend, rid=100):
+        return [fitmod.FitRequest(rid=rid, X=X0, y=y0, W=W0,
+                                  cfg=cfg(d, backend), lams=grid,
+                                  mode="batched")]
+
+    with Capture(core.tuning, "select_lambda_path") as one:
+        (cdone, csrv), ran = kernel_run("chunked", lambda: serve(
+            chunked_req("megakernel")))
+        cref, _ = plain_run("chunked jnp", lambda: serve(chunked_req("jnp")))
+    tag = csrv.bucket_log[0][0][-1]
+    check(tag == "chunked", f"fitserve chunked: bucket tagged {tag!r}")
+    out["chunked_launches"] = ran["csvm_block_update"]
+    check(ran["csvm_block_update"] == num * max_iter
+          and ran["csvm_round_block"] == 0,
+          f"fitserve chunked: launches {ran}, expected {num} x {max_iter} "
+          "csvm_block_update and no round kernel")
+    cpath = one.results[0][3].path
+    dev, flips, sgap = same("fitserve chunked", cdone, cref,
+                            (cpath[None], one.results[1][3].path[None]),
+                            m * n, p)
+    pdev = float((cpath - dense_path[0]).abs().max())
+    check(pdev <= FIT_TOL["float32"], f"fitserve chunked: path max|dev| "
+          f"{pdev:.3e} vs the dense path > {FIT_TOL['float32']}")
+    log(f"fitserve chunked: best lambda {cdone[100].best_lam}, max|dev| vs "
+        f"plain {dev:.3e} ({flips} support flips, support terms "
+        f"{sgap:.3e} apart), path vs the dense bucket's path {pdev:.3e}")
+    del many, one, dense_path, cpath
+
+    # the design size: a chunked warm request, a chunked CV request
+    s = small
+
+    def warm_req(backend, rid=200):
+        return [fitmod.FitRequest(rid=rid, X=s.Xn, y=s.yn, W=s.Wn,
+                                  cfg=cfg(s, backend), num=num, mode="warm",
+                                  tol=tol)]
+
+    with Capture(core.tuning, "select_lambda_path") as wcap:
+        (wdone, _), ran = kernel_run("warm", lambda: serve(
+            warm_req("megakernel")))
+    with Capture(core.tuning, "select_lambda_path") as wref_cap:
+        wref, _ = plain_run("warm jnp", lambda: serve(warm_req("jnp")))
+    it = host(wcap.results[0][3].iters)
+    it_ref = host(wref_cap.results[0][3].iters)
+    out["warm_iters"] = it.tolist()
+    out["warm_launches"] = ran["csvm_block_update"]
+    check(np.array_equal(it, it_ref), f"fitserve warm: stops {it.tolist()}"
+          f" vs plain {it_ref.tolist()}")
+    check(ran["csvm_block_update"] == blocks(it),
+          f"fitserve warm: {ran['csvm_block_update']} csvm_block_update "
+          f"launches for stops {it.tolist()}")
+    sm, sn, sp = s.X.shape
+    dev, flips, _ = same("fitserve warm", wdone, wref,
+                         (wcap.results[0][3].path[None],
+                          wref_cap.results[0][3].path[None]), sm * sn, sp)
+    log(f"fitserve warm (design size, KKT {tol:g}): stops {it.tolist()}, "
+        f"best lambda {wdone[200].best_lam}, max|dev| vs plain {dev:.3e} "
+        f"({flips} support flips)")
+
+    cv_req = [fitmod.FitRequest(rid=300, X=s.Xn, y=s.yn, W=s.Wn,
+                                cfg=cfg(s, "megakernel"), num=cv_num,
+                                mode="batched", criterion="cv",
+                                cv_folds=cv_folds)]
+    (cvdone, _), ran = kernel_run("cv", lambda: serve(cv_req))
+    check(sum(ran.values()) == 0, f"fitserve cv: launches {ran}: the masked "
+          "cells take the reference rounds")
+    check(bool(np.isfinite(cvdone[300].B).all())
+          and len(cvdone[300].table) == cv_num, "fitserve cv: bad result")
+    log(f"fitserve cv (design size, {cv_folds} folds x {cv_num} points + "
+        f"{cv_num} full-data cells, reference rounds only): "
+        f"{out['times']['cv']['wall_s']:.3f} s wall, best lambda "
+        f"{cvdone[300].best_lam}")
+
+    def async_run():
+        srv = fitmod.DecsvmFitServer(device=d.device)
+        srv.start()
+        try:
+            h = srv.submit(warm_req("megakernel", rid=400)[0])
+            return h.result(timeout=600), srv.utilization
+        finally:
+            srv.stop()
+    (ares, util), ran = kernel_run("async", async_run)
+    dev = float(np.abs(ares.B - wdone[200].B).max())
+    check(dev <= FIT_TOL["float32"] and ares.best_lam == wdone[200].best_lam,
+          f"fitserve async: max|dev| {dev:.3e} vs the synchronous run")
+    log(f"fitserve async: start/submit/result/stop, max|dev| vs the "
+        f"synchronous run {dev:.3e}, utilization after stop {util}")
+
+    # the sanitizer at full size: the same fit, with and without the checks
+    fcfg = core.ADMMConfig(lam=d.lam, h=d.h, max_iter=max_iter,
+                           backend="megakernel")
+    B, ran = kernel_run("sanitize off", lambda: core.decsvm_fit(
+        d.X, d.y, d.W, fcfg, **on))
+    check(ran["csvm_round_block"] == 1 and ran["csvm_block_update"] == 0,
+          f"fitserve sanitize off: launches {ran}, expected one round launch")
+    Bs, ran = kernel_run("sanitize", lambda: core.decsvm_fit(
+        d.X, d.y, d.W, dataclasses.replace(fcfg, sanitize=True), **on))
+    out["sanitize_launches"] = ran["csvm_block_update"]
+    check(ran["csvm_block_update"] == max_iter
+          and ran["csvm_round_block"] == 0,
+          f"fitserve sanitize: launches {ran}, expected {max_iter} "
+          "csvm_block_update and no round kernel")
+    dev = float((Bs - B).abs().max())
+    check(dev <= FIT_TOL["float32"], f"fitserve sanitize: max|dev| {dev:.3e}"
+          " vs the unchecked fit")
+    errors = []
+    for code, name, at in (("E1", "y", (1, 3)), ("E3", "W", (0, 1))):
+        y_, W_ = d.y.clone(), d.W.clone()
+        (y_ if name == "y" else W_)[at] = float("nan")
+        try:
+            core.decsvm_fit(d.X, y_, W_, dataclasses.replace(
+                fcfg, sanitize=True), **on)
+            err = None
+        except core.sanitize.SanitizerError as e:
+            err = e
+        check(err is not None and err.code == code and err.round == 0,
+              f"fitserve sanitize: a NaN at {name}{list(at)} raised {err!r},"
+              f" expected {code} at round 0")
+        errors.append(str(err))
+    log(f"fitserve sanitize: max|dev| vs the unchecked fit {dev:.3e}; "
+        f"poisoned: {errors}")
+
+    # the gossip BIC on the dense bucket's first result
+    (per_node, exact), secs = timed(lambda: core.gossip.decentralized_bic(
+        d.X, d.y, done[0].B, d.Wn, rounds=300))
+    gap = float((per_node - exact).abs().max())
+    check(gap < 1e-3 * max(abs(exact), 1.0),
+          f"fitserve gossip: per-node BIC {gap:.3e} from the exact {exact}")
+    out["times"]["gossip"] = dict(wall_s=secs)
+    log(f"fitserve gossip: decentralized BIC, 300 rounds, {secs:.3f} s wall;"
+        f" exact {exact:.6f}, max per-node gap {gap:.3e}")
+    log(f"fitserve phase launches: {json.dumps(total)}; round instances "
+        f"{json.dumps(rounds)}; two-pass instances {json.dumps(two_pass)}")
     return out
 
 
@@ -1657,6 +2052,16 @@ def main() -> int:
         launches[name] += lpath["launches"][name]
     for name in round_instances:
         round_instances[name] += lpath["round_instances"][name]
+
+    # phase 4c: fit serving, on phase 4's data and at the design size
+    fitserve = fit_serving_phase(torch, core, ops, full, design)
+    for name in FIT_KERNELS:
+        launches[name] += fitserve["launches"][name]
+    for name in round_instances:
+        round_instances[name] += fitserve["round_instances"][name]
+    for name in two_pass_instances["csvm_block_update"]:
+        two_pass_instances["csvm_block_update"][name] += \
+            fitserve["two_pass_instances"][name]
     del design, full
 
     # phase 5: flash_attention against its plain version, and its times
@@ -1827,6 +2232,8 @@ def main() -> int:
                 extra["lambda_path"] = {
                     k: lpath[k] for k in ("times", "warm_iters",
                                           "warm_bf16_iters", "lla_launches")}
+            if name != "csvm_local_update":
+                extra["fit_serving"] = fitserve["times"]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],

@@ -1,15 +1,16 @@
 """deCSVM core in torch: the paper's contribution, Algorithm 1, with the
-lambda path, tuning, the baselines and the folded-concave penalties.
+lambda path, tuning, the baselines, the folded-concave penalties, the
+E1-E7 sanitizer, gossip, and the decentralized engines at one rank.
 
 ``repro_torch.core.solver`` is the single home of the Algorithm-1 update;
-every fitting surface exported here is a thin driver over it.  Not here
-yet: gossip, the E1-E7 sanitizer checks (only its config gate,
-``sanitize.reject_unsupported``, is ported), and the sharded engines
-(``decentral``), with the sharded route of ``penalties`` and the mesh
-engines of ``tuning``.
+every fitting surface exported here is a thin driver over it.
+``decentral`` runs JAX's sharded, chunked and (node, lam) mesh engines at
+one rank; their collectives across ranks wait for ROADMAP Queue 1 item
+12.
 """
-from repro_torch.core import (baselines, graph, losses, metrics, path,
-                              penalties, sanitize, simulate, solver, tuning)
+from repro_torch.core import (baselines, decentral, gossip, graph, losses,
+                              metrics, path, penalties, sanitize, simulate,
+                              solver, tuning)
 from repro_torch.core.solver import Problem, SolverState, kkt_residual
 from repro_torch.core.admm import (ADMMConfig, decsvm_fit, soft_threshold,
                                    compute_rho, objective,
@@ -29,7 +30,8 @@ __all__ = [
     "hard_threshold_final", "smoothed_hinge_loss", "smoothed_hinge_grad",
     "get_kernel", "hinge", "KERNELS", "default_bandwidth", "SimConfig",
     "generate", "true_beta", "graph", "losses", "metrics", "simulate",
-    "path", "tuning", "baselines", "penalties", "sanitize",
+    "path", "tuning", "baselines", "penalties", "sanitize", "gossip",
+    "decentral",
     "decsvm_fit_tol", "decsvm_fit_uneven", "decsvm_fit_lla", "PathResult",
     "decsvm_path_batched", "decsvm_path_warm", "decsvm_path_select",
 ]

@@ -35,8 +35,9 @@ class ADMMConfig:
     use_pallas: bool = False   # route the local update through the kernel
     backend: str = "auto"      # "auto" (use_pallas decides) | "jnp" |
     #                            "pallas" | "megakernel" | "megakernel_bf16"
-    sanitize: bool = False     # E1-E7 term checks: a later slice of the
-    #                            port; True raises NotImplementedError
+    sanitize: bool = False     # E1-E7 term checks around every round, the
+    #                            first non-finite term and round raised
+    #                            (dense drivers only; see core.sanitize)
 
 
 class ADMMState(NamedTuple):

@@ -9,9 +9,10 @@ soft-threshold level of the unified step (``repro_torch.core.solver``), so
 under a megakernel backend stage 2 is one round-kernel launch with a
 per-coordinate (p,) ``lam_vec``.
 
-Counterpart of ``repro.core.penalties``, dense route only: the sharded
-route belongs to the sharded engines (ROADMAP Queue 1 item 12) and
-raises.
+Counterpart of ``repro.core.penalties``: ``engine="sharded"`` routes both
+stages through ``repro_torch.core.decentral`` (the pilot path on the
+(node, lam) mesh engine, the fits on the sharded one), where every round
+is one two-pass kernel launch.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ import torch
 from repro_torch.core import solver
 from repro_torch.core.admm import (ADMMConfig, as_f32, decsvm_fit,
                                    resolve_device)
-from repro_torch.core.tuning import unported_engine
 
 Tensor = torch.Tensor
 
@@ -68,29 +68,47 @@ def decsvm_fit_lla(X, y, W, cfg: ADMMConfig, penalty: str = "scad",
     is a single l1 fit at ``cfg.lam``.  Weights are computed from the
     network-average pilot.  ``rho`` (m,) optionally fixes the step sizes
     of both stages (by default ``compute_rho`` runs once for both);
-    ``device`` as in ``admm.decsvm_fit``.  ``engine="sharded"`` (and
-    ``"mesh"``) raise, with ``mesh`` and ``schedule``.
+    ``device`` as in ``admm.decsvm_fit``.
+
+    engine: "dense" (single process) or "sharded" (both stages through
+    ``repro_torch.core.decentral`` on ``mesh`` with ``schedule``: the
+    pilot path on the (node, lam) mesh engine, the fits on the sharded
+    engine).
 
     Returns (B_stage2, weights).
     """
     if penalty not in PENALTIES:
         raise ValueError(f"penalty {penalty!r} not in {sorted(PENALTIES)}")
-    if engine in ("sharded", "mesh"):
-        raise unported_engine("decsvm_fit_lla", engine)
-    if engine != "dense":
+    if engine not in ("dense", "sharded"):
         raise ValueError(f"engine {engine!r} not in ('dense', 'sharded')")
     dev = resolve_device(X, device)
     X, y, W = as_f32(X, dev), as_f32(y, dev), as_f32(W, dev)
     rho = (solver.compute_rho(X, cfg.h, cfg.kernel, cfg.rho_safety)
            if rho is None else as_f32(rho, dev))
+    if engine == "sharded":
+        from repro_torch.core import decentral  # local import: avoid cycle
+
+        def fit(cfg, lam_weights=None):
+            return decentral.decsvm_fit_sharded(
+                X, y, W, cfg, mesh=mesh, schedule=schedule,
+                lam_weights=lam_weights, rho=rho)
+    else:
+        def fit(cfg, lam_weights=None):
+            return decsvm_fit(X, y, W, cfg, lam_weights=lam_weights, rho=rho)
     if lams is not None:
-        from repro_torch.core import path as path_mod  # local: avoid cycle
-        res = path_mod.decsvm_path_select(X, y, W, lams, cfg, mode=path_mode,
-                                          rho=rho)
+        if engine == "sharded":
+            from repro_torch.core import decentral  # local: avoid cycle
+            res = decentral.decsvm_path_mesh(X, y, W, lams, cfg, mesh=mesh,
+                                             schedule=schedule,
+                                             mode=path_mode, rho=rho)
+        else:
+            from repro_torch.core import path as path_mod  # local: avoid cycle
+            res = path_mod.decsvm_path_select(X, y, W, lams, cfg,
+                                              mode=path_mode, rho=rho)
         cfg = dataclasses.replace(cfg, lam=float(res.best_lam))
         B1 = res.best_B
     else:
-        B1 = decsvm_fit(X, y, W, cfg, rho=rho)
+        B1 = fit(cfg)
     pilot = torch.mean(B1, dim=0)
     w = PENALTIES[penalty](pilot, cfg.lam, **pen_kwargs)
-    return decsvm_fit(X, y, W, cfg, lam_weights=w, rho=rho), w
+    return fit(cfg, w), w

@@ -18,9 +18,10 @@ Update (per node l, with deg_l = |N(l)|):
     b+_l   = S_{lam * w_l}( w_l * z_l ),   w_l = 1/(2 tau deg_l + rho_l + lam0)
     p+_l   = p_l + tau * (deg_l * b+_l - (W B+)_l)
 
-Not in this module yet (they belong to the sharded engines):
-``run_fixed_cached``, ``make_step(...).cached_round`` and the
-``axis_name`` / ``node_mask`` arguments, which raise when passed.
+The collective points of the sharded engines (``run_tol``'s agreed stop
+flag, the node means and maxes of ``kkt_residual``) go through
+``repro_torch.launch.mesh.collective``: the identity at one rank, raising
+on an axis of more than one rank until ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -31,11 +32,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import losses
+from repro_torch.launch.mesh import collective
 
 Tensor = torch.Tensor
-
-_SHARDED = ("belongs to the sharded engines, which the torch port does not "
-            "have yet")
 
 
 # declint: disable=R1 the port's one home of the prox; its plain kernel versions call it
@@ -157,11 +156,14 @@ def problem_dtype(cfg):
     return torch.float32
 
 
-def _reject_sanitize(cfg):
-    if getattr(cfg, "sanitize", False):
-        raise NotImplementedError(
-            "cfg.sanitize=True: the E1-E7 term checks (repro.core.sanitize) "
-            "are a later slice of the torch port")
+def kernel_x(X: Tensor, cfg) -> Tensor:
+    """X in the backend's compute dtype, contiguous, with a 16-byte
+    aligned base: the stream instances' bulk copies need it, so an offset
+    view is copied to a fresh buffer (a cast copies already)."""
+    Xc = X.to(problem_dtype(cfg)).contiguous()
+    if Xc.data_ptr() % 16:
+        Xc = Xc.clone()
+    return Xc
 
 
 def make_problem(X: Tensor, y: Tensor, W: Tensor, cfg,
@@ -171,19 +173,14 @@ def make_problem(X: Tensor, y: Tensor, W: Tensor, cfg,
 
     rho/omega are always computed in the incoming (fp32) precision; X is
     cast to the backend's compute dtype *afterwards*, so the bf16 mode
-    changes only the per-round matmul operands, never the step sizes.
-    An X whose base is not 16-byte aligned (an offset view) is copied to a
-    fresh buffer, as the round kernel's bulk copies need; a cast copies
-    already.
+    changes only the per-round matmul operands, never the step sizes
+    (``kernel_x`` makes the copy of X).
     """
     deg = torch.sum(W, dim=1)
     if rho is None:
         rho = compute_rho(X, cfg.h, cfg.kernel, cfg.rho_safety, mask=mask)
     omega = 1.0 / (2.0 * cfg.tau * deg + rho + cfg.lam0)
-    Xc = X.to(problem_dtype(cfg)).contiguous()
-    if Xc.data_ptr() % 16:
-        Xc = Xc.clone()
-    return Problem(Xc, y, deg, rho, omega, mask)
+    return Problem(kernel_x(X, cfg), y, deg, rho, omega, mask)
 
 
 def from_numpy(X, y, deg, rho, omega, B, P, t, *, device=None):
@@ -276,11 +273,16 @@ def make_step(cfg, neighbor_sum: Callable[[Tensor], Tensor], *,
     ``round_block(prob, state, lam, lam_weights, num_rounds=,
     rounds_active=, want_kkt=)`` runs k rounds (and the KKT stop
     statistic) in ONE kernel launch, which ``run_fixed``/``run_tol`` use as
-    their fast path.
+    their fast path.  Sharded engines (no W) get one two-pass kernel
+    launch per round; ``step.cached_round`` and ``step.neighbor_sum`` serve
+    ``run_fixed_cached``.
+
+    With ``cfg.sanitize`` the step comes back wrapped with the E1-E6 term
+    checks (``sanitize.checked_step``) and without ``round_block``: the
+    round kernel hides the per-term dataflow the checks localize.
 
     Returns ``step(prob, state, lam, lam_weights=None) -> SolverState``.
     """
-    _reject_sanitize(cfg)
     tau, h, kernel = cfg.tau, cfg.h, cfg.kernel
     backend = resolve_backend(cfg, use_pallas)
 
@@ -313,6 +315,28 @@ def make_step(cfg, neighbor_sum: Callable[[Tensor], Tensor], *,
         P_new = P + tau * (prob.deg[:, None] * B_new - neighbor_sum(B_new))
         return SolverState(B_new, P_new, state.t + 1,
                            torch.max(torch.abs(B_new - B)))
+
+    def cached_round(prob: Problem, state: SolverState, S, lam,
+                     lam_weights: Optional[Tensor] = None):
+        """One round with ``S = neighbor_sum(state.B)`` supplied by the
+        caller: the dual update's neighbour sum of B_new is the next
+        round's primal one, so ``run_fixed_cached`` carries it across
+        rounds — one exchange a round instead of two, the same bits."""
+        B, P = state.B, state.P
+        neigh_term = tau * (prob.deg[:, None] * B + S)
+        lam_vec = _lam_vec(lam, lam_weights, B.shape[-1], B.device)
+        B_new = _primal(prob, B, P, neigh_term, lam_vec)
+        S_new = neighbor_sum(B_new)
+        P_new = P + tau * (prob.deg[:, None] * B_new - S_new)
+        return SolverState(B_new, P_new, state.t + 1,
+                           torch.max(torch.abs(B_new - B))), S_new
+
+    step.cached_round = cached_round
+    step.neighbor_sum = neighbor_sum
+
+    if getattr(cfg, "sanitize", False):
+        from repro_torch.core import sanitize
+        return sanitize.checked_step(step, cfg, neighbor_sum)
 
     if backend in MEGAKERNEL_BACKENDS and W is not None:
 
@@ -395,6 +419,25 @@ def run_fixed(step, prob: Problem, lam, lam_weights=None, *,
     return state
 
 
+def run_fixed_cached(step, prob: Problem, lam, lam_weights=None, *,
+                     num_iters: int,
+                     state: Optional[SolverState] = None) -> SolverState:
+    """``run_fixed`` through ``step.cached_round``: the neighbour sum of
+    the current iterate is carried from round to round, so every round
+    pays one neighbour exchange instead of two, bit for bit the same as
+    ``run_fixed``.  Falls back to ``run_fixed`` for a step without
+    ``cached_round`` (the sanitizer-wrapped step)."""
+    cached = getattr(step, "cached_round", None)
+    if cached is None:
+        return run_fixed(step, prob, lam, lam_weights, num_iters=num_iters,
+                         state=state)
+    state = init_state(prob) if state is None else state
+    S = step.neighbor_sum(state.B)
+    for _ in range(num_iters):
+        state, S = cached(prob, state, S, lam, lam_weights)
+    return state
+
+
 def run_tol(step, prob: Problem, lam, lam_weights=None, *, max_iter: int,
             tol: float, state: Optional[SolverState] = None,
             residual_fn=None, axis_name: Optional[str] = None,
@@ -407,19 +450,23 @@ def run_tol(step, prob: Problem, lam, lam_weights=None, *, max_iter: int,
     statistic only after every k-th round; rounds past ``max_iter`` inside
     a block are held, so the iterate never overshoots and stopping happens
     only on a measured value, at rounds k, 2k, ....  The host reads the
-    continue flag once per check.
+    continue flag once per check.  ``axis_name`` (one mesh axis or a
+    tuple) agrees the flag and the statistic across the ranks of those
+    axes with a ``pmax``, as JAX does inside ``shard_map``; a rank past
+    ``max_iter`` then holds its rounds.
 
     When ``step`` carries the round kernel's ``round_block`` and the
     statistic is the KKT residual (or plain progress), each k-round block
     plus its statistic is ONE kernel launch, with the active-round count
     ``min(k, max_iter - t)`` computed on the device.
     """
-    if axis_name is not None:
-        raise NotImplementedError(f"run_tol(axis_name=...) {_SHARDED}")
     state = init_state(prob) if state is None else state
 
     def _flag(s) -> bool:
-        return bool((s.t < max_iter) & (s.progress > tol))
+        f = (s.t < max_iter) & (s.progress > tol)
+        if axis_name is not None:
+            f = collective("pmax", f.to(torch.int32), axis_name) > 0
+        return bool(f)
 
     def stat(new):
         if residual_fn is not None:
@@ -427,7 +474,8 @@ def run_tol(step, prob: Problem, lam, lam_weights=None, *, max_iter: int,
         return new.progress
 
     round_block = getattr(step, "round_block", None)
-    use_fused = (round_block is not None and prob.mask is None
+    use_fused = (round_block is not None and axis_name is None
+                 and prob.mask is None
                  and (residual_fn is None
                       or getattr(residual_fn, "kind", None) == "kkt"))
 
@@ -443,31 +491,36 @@ def run_tol(step, prob: Problem, lam, lam_weights=None, *, max_iter: int,
                 state = _hold(state.t < max_iter,
                               step(prob, state, lam, lam_weights), state)
         else:
-            state = step(prob, state, lam, lam_weights)
+            stepped = step(prob, state, lam, lam_weights)
+            state = (stepped if axis_name is None
+                     else _hold(state.t < max_iter, stepped, state))
         state = state._replace(progress=stat(state))
+        if axis_name is not None:
+            state = state._replace(progress=collective(
+                "pmax", state.progress, axis_name))
     return state
 
 
-def kkt_residual_fn(cfg, axis_name: Optional[str] = None,
-                    node_mask: Optional[Tensor] = None):
+def kkt_residual_fn(cfg, axis_name=None, node_mask: Optional[Tensor] = None):
     """Adapter factory: the ``residual_fn`` shape ``run_tol`` expects,
-    closing over cfg.  ``fn.kind`` tags the statistic so ``run_tol`` knows
-    the round kernel's KKT epilogue computes the same quantity and may
-    fuse it."""
-    if axis_name is not None or node_mask is not None:
-        raise NotImplementedError(
-            f"kkt_residual_fn(axis_name=/node_mask=) {_SHARDED}")
-    _reject_sanitize(cfg)
-
+    closing over cfg (and the mesh axis and the node mask of the sharded
+    engines).  ``fn.kind`` tags the statistic so ``run_tol`` knows the
+    round kernel's KKT epilogue computes the same quantity and may fuse
+    it.  With ``cfg.sanitize`` the statistic is checked (E7,
+    ``sanitize.checked_residual``)."""
     def fn(prob, state, lam, lam_weights):
-        return kkt_residual(prob, cfg, state.B, lam, lam_weights)
+        return kkt_residual(prob, cfg, state.B, lam, lam_weights,
+                            axis_name=axis_name, node_mask=node_mask)
     fn.kind = "kkt"
+    if getattr(cfg, "sanitize", False):
+        from repro_torch.core import sanitize
+        return sanitize.checked_residual(fn, cfg)
     return fn
 
 
 def kkt_residual(prob: Problem, cfg, B: Tensor, lam,
                  lam_weights: Optional[Tensor] = None, *,
-                 axis_name: Optional[str] = None,
+                 axis_name=None,
                  node_mask: Optional[Tensor] = None) -> Tensor:
     """KKT/duality-gap stop statistic for the network problem (eq. 3/4).
 
@@ -478,12 +531,24 @@ def kkt_residual(prob: Problem, cfg, B: Tensor, lam,
         lam0 * beta_bar (zero exactly at a KKT point of eq. (3)/(4));
       consensus:  max_l |b_l - beta_bar|.
 
-    Returns max(stationarity, consensus).
+    Returns max(stationarity, consensus).  ``axis_name`` reduces the node
+    means and maxes over a mesh axis (``launch.mesh.collective``);
+    ``node_mask`` (0/1 per row of B) restricts every node mean and max to
+    the real nodes — the chunked engine's zero-padded ghost rows carry
+    zero gradients and zero B but must not dilute the network means.
     """
-    if axis_name is not None or node_mask is not None:
-        raise NotImplementedError(
-            f"kkt_residual(axis_name=/node_mask=) {_SHARDED}")
-    beta_bar = torch.mean(B, dim=0)
+    if node_mask is not None:
+        nm = node_mask.to(B.dtype)
+        b_sum = torch.sum(B * nm[:, None], dim=0)
+        n_real = torch.sum(nm)
+        if axis_name is not None:
+            b_sum = collective("psum", b_sum, axis_name)
+            n_real = collective("psum", n_real, axis_name)
+        beta_bar = b_sum / n_real
+    else:
+        beta_bar = torch.mean(B, dim=0)
+        if axis_name is not None:
+            beta_bar = collective("pmean", beta_bar, axis_name)
     m = prob.X.shape[0]
     kern = losses.get_kernel(cfg.kernel)
     Xc = prob.X.to(torch.promote_types(prob.X.dtype, B.dtype))
@@ -494,7 +559,16 @@ def kkt_residual(prob: Problem, cfg, B: Tensor, lam,
     else:
         grads = _rmatvec(Xc, w * prob.mask) / torch.clamp(
             torch.sum(prob.mask, dim=1, keepdim=True), min=1.0)
-    g = torch.mean(grads, dim=0) + cfg.lam0 * beta_bar
+    if node_mask is not None:
+        g_sum = torch.sum(grads * nm[:, None], dim=0)
+        if axis_name is not None:
+            g_sum = collective("psum", g_sum, axis_name)
+        g = g_sum / n_real
+    else:
+        g = torch.mean(grads, dim=0)
+        if axis_name is not None:
+            g = collective("pmean", g, axis_name)
+    g = g + cfg.lam0 * beta_bar
     p_dim = beta_bar.shape[-1]
     if lam_weights is None:
         lam_vec = torch.full((p_dim,), float(lam), dtype=beta_bar.dtype,
@@ -502,5 +576,10 @@ def kkt_residual(prob: Problem, cfg, B: Tensor, lam,
     else:
         lam_vec = lam * lam_weights
     stat = torch.abs(beta_bar - soft_threshold(beta_bar - g, lam_vec))
-    cons = torch.max(torch.abs(B - beta_bar[None, :]))
+    dev = torch.abs(B - beta_bar[None, :])
+    if node_mask is not None:
+        dev = dev * nm[:, None]
+    cons = torch.max(dev)
+    if axis_name is not None:
+        cons = collective("pmax", cons, axis_name)
     return torch.maximum(torch.max(stat), cons)

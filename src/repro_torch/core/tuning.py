@@ -12,9 +12,10 @@ the folds are bit for bit the same on both sides; ``modified_bic_jnp``
 keeps its JAX name, as the solver keeps the backend name ``"jnp"``.
 
 ``select_lambda_path`` and ``select_lambda_path_many`` keep the JAX
-convention ``(best_lam, best_B, table, res)``.  Only ``engine="dense"`` is
-ported: the mesh and chunked engines belong to the sharded engines
-(ROADMAP Queue 1 item 12) and raise.
+convention ``(best_lam, best_B, table, res)``.  ``engine="mesh"`` and
+``"chunked"`` route the traversal through the (node, lam) mesh engine of
+``repro_torch.core.decentral`` (the chunked one in its block schedule),
+at one rank.
 """
 from __future__ import annotations
 
@@ -25,7 +26,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import metrics
-from repro_torch.core.solver import _SHARDED
 
 Tensor = torch.Tensor
 
@@ -129,12 +129,6 @@ def select_lambda(fit_fn: Callable[[float], np.ndarray], X: np.ndarray,
     return best[0], best[1], table
 
 
-def unported_engine(where: str, engine: str) -> NotImplementedError:
-    """The error of an engine that belongs to the sharded engines."""
-    return NotImplementedError(
-        f"{where}(engine={engine!r}) {_SHARDED} (ROADMAP Queue 1 item 12)")
-
-
 def select_lambda_path(X, y, W, cfg, lams: Optional[Sequence[float]] = None,
                        num: int = 12, mode: str = "warm", tol: float = 1e-6,
                        lam_weights=None, criterion: str = "bic",
@@ -153,23 +147,37 @@ def select_lambda_path(X, y, W, cfg, lams: Optional[Sequence[float]] = None,
     plus the ``PathResult`` (tensors on the device) as a fourth element.
     ``rho`` (m,) and, under ``"cv"``, ``cv_rho`` (k, m) optionally fix the
     per-node step sizes of the full-data and of the fold fits; ``device``
-    as in ``admm.decsvm_fit``.  ``engine="mesh"`` / ``"chunked"`` raise
-    (``mesh`` and ``schedule`` belong to them).
+    as in ``admm.decsvm_fit``.  ``engine="mesh"`` routes the traversal
+    through the (node, lam) mesh engine (``decentral.decsvm_path_mesh``,
+    on ``mesh`` with ``schedule``); ``engine="chunked"`` runs the same
+    engine in its block schedule (any m, and ``W`` may be a
+    ``graph.BlockTopology``).  The mesh engine checks its stop every 4
+    rounds whatever ``check_every`` says, as JAX's does.
     """
     from repro_torch.core import path as path_mod  # local import: avoid cycle
 
-    if engine in ("mesh", "chunked"):
-        raise unported_engine("select_lambda_path", engine)
-    if engine != "dense":
-        raise ValueError(
-            f"engine {engine!r} not in ('dense', 'mesh', 'chunked')")
     if lams is None:
         lams = lambda_grid(_host(X), _host(y), num=num)
-    res = path_mod.decsvm_path_select(
-        X, y, W, lams, cfg, mode=mode, tol=tol, lam_weights=lam_weights,
-        stop_rule=stop_rule, criterion=criterion, cv_folds=cv_folds,
-        cv_seed=cv_seed, check_every=check_every, rho=rho, cv_rho=cv_rho,
-        device=device)
+    if engine in ("mesh", "chunked"):
+        from repro_torch.core import decentral  # local import: avoid cycle
+        if engine == "chunked":
+            schedule = "block"
+        else:
+            W = _host(W)
+        res = decentral.decsvm_path_mesh(
+            X, y, W, lams, cfg, mesh=mesh, schedule=schedule, mode=mode,
+            tol=tol, lam_weights=lam_weights, stop_rule=stop_rule,
+            criterion=criterion, cv_folds=cv_folds, cv_seed=cv_seed,
+            rho=rho, cv_rho=cv_rho, device=device)
+    elif engine == "dense":
+        res = path_mod.decsvm_path_select(
+            X, y, W, lams, cfg, mode=mode, tol=tol, lam_weights=lam_weights,
+            stop_rule=stop_rule, criterion=criterion, cv_folds=cv_folds,
+            cv_seed=cv_seed, check_every=check_every, rho=rho,
+            cv_rho=cv_rho, device=device)
+    else:
+        raise ValueError(
+            f"engine {engine!r} not in ('dense', 'mesh', 'chunked')")
     table = [(float(l), float(c), metrics.mean_support_size(B))
              for l, c, B in zip(_host(res.lams), _host(res.criteria),
                                 _host(res.path))]

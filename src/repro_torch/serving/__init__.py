@@ -1,6 +1,8 @@
-"""Serving in torch: the continuous-batching token engine.  Counterpart
-of ``repro.serving``; the fit server (``serving/fit.py``) waits for ROADMAP
-Queue 1 item 11."""
+"""Serving in torch: the continuous-batching token engine and the
+batched, async deCSVM fit server.  Counterpart of ``repro.serving``."""
 from repro_torch.serving.engine import FifoEngine, Request, ServeEngine
+from repro_torch.serving.fit import (DecsvmFitServer, FitHandle, FitRequest,
+                                     FitResult)
 
-__all__ = ["FifoEngine", "Request", "ServeEngine"]
+__all__ = ["FifoEngine", "Request", "ServeEngine", "DecsvmFitServer",
+           "FitHandle", "FitRequest", "FitResult"]

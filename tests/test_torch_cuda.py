@@ -843,3 +843,75 @@ def test_cv_path_runs_no_kernel(cuda):
                                      criterion="cv", cv_folds=3)
     assert ops.launches["csvm_round_block"] == len(lams)   # the full path
     assert res.criteria.is_cuda and bool(torch.isfinite(res.criteria).all())
+
+
+def test_chunked_path_launches_are_two_pass_on_stream(cuda):
+    """The chunked engine carries no round kernel: each round of each grid
+    point is one ``csvm_block_update`` launch on the stream instance, and
+    the path matches the plain one on the card and the dense path."""
+    X, y, W, lams = _path_problem()
+    cfg = lambda b: tc.ADMMConfig(lam=0.0, max_iter=60, backend=b)
+    ops.reset_launches()
+    got = tc.decentral.decsvm_path_chunked(X, y, W, lams, cfg("megakernel"))
+    assert ops.launches["csvm_round_block"] == 0
+    assert ops.launches["csvm_block_update"] == 60 * len(lams)
+    assert ops.two_pass_launches == {"stream": 60 * len(lams), "direct": 0}
+    assert got.is_cuda
+    want = tc.decentral.decsvm_path_chunked(X, y, W, lams, cfg("jnp"))
+    _close(got, want, ATOL)
+    dense = tc.path.decsvm_path_batched(X, y, W, lams, cfg("megakernel"))
+    _close(got, dense, ATOL)
+
+
+def test_sanitized_megakernel_fit_has_no_round_launch_and_raises(cuda):
+    """Under ``sanitize=True`` a megakernel fit is one two-pass launch a
+    round (no round kernel), equal to the one-launch fit; a NaN label
+    raises E1 at round 0 on the card."""
+    X, y, W, _ = _path_problem()
+    cfg = tc.ADMMConfig(lam=0.05, max_iter=40, backend="megakernel")
+    ops.reset_launches()
+    B = tc.decsvm_fit(X, y, W, cfg)
+    assert ops.round_block_launches == {"stream": 1, "direct": 0}
+    ops.reset_launches()
+    on = tc.ADMMConfig(lam=0.05, max_iter=40, backend="megakernel",
+                       sanitize=True)
+    Bs = tc.decsvm_fit(X, y, W, on)
+    assert ops.launches["csvm_round_block"] == 0
+    assert ops.two_pass_launches == {"stream": 40, "direct": 0}
+    _close(Bs, B, ATOL)
+    y_bad = y.copy()
+    y_bad[1, 3] = np.nan
+    with pytest.raises(tc.sanitize.SanitizerError,
+                       match=r"E1:.*margin weight.*round 0"):
+        tc.decsvm_fit(X, y_bad, W, on)
+
+
+def test_dense_bucket_round_launches_equal_bucket_times_grid(cuda):
+    """A dense fit-serving bucket of B problems on an L-point grid is B x L
+    round launches on the stream instance, each result within 1e-5 of the
+    same bucket under the plain backend."""
+    from repro_torch.serving import DecsvmFitServer, FitRequest
+    X, y, W, lams = _path_problem()
+    probs = [(X, y, W)] + [
+        (tc.generate(tc.SimConfig(p=40, s=5, m=6, n=150, rho=0.5),
+                     seed=s)[:2] + (tc.graph.erdos_renyi(6, 0.6, seed=s),))
+        for s in (12, 13)]
+
+    def run(backend):
+        srv = DecsvmFitServer()
+        for i, (Xb, yb, Wb) in enumerate(probs):
+            srv.submit(FitRequest(
+                rid=i, X=Xb, y=yb, W=Wb, lams=lams, mode="batched",
+                engine="dense",
+                cfg=tc.ADMMConfig(lam=0.0, max_iter=60, backend=backend)))
+        return srv.run(), srv
+
+    ops.reset_launches()
+    got, srv = run("megakernel")
+    assert [(k[-1], n) for k, n in srv.bucket_log] == [("dense", 3)]
+    assert ops.round_block_launches == {"stream": 3 * len(lams),
+                                        "direct": 0}
+    want, _ = run("jnp")
+    for i in range(3):
+        assert got[i].best_lam == want[i].best_lam
+        np.testing.assert_allclose(got[i].B, want[i].B, atol=ATOL)

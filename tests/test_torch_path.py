@@ -336,11 +336,14 @@ def test_unported_options_and_bad_arguments_raise(sim):
             fn(*args, bad, **kw)
     with pytest.raises(NotImplementedError, match="sanitize"):
         tpath.decsvm_path_cv(*args, bad, sim["masks"], device="cpu")
-    for engine in ("mesh", "chunked"):
+    from repro_torch.launch.mesh import Mesh
+    for engine, axis in (("mesh", "node"), ("chunked", "node_chunk")):
         with pytest.raises(NotImplementedError, match="item 12"):
             ttuning.select_lambda_path(sim["X"], sim["y"], sim["W"],
                                        _cfg("jnp"), lams=sim["lams"],
-                                       engine=engine, **kw)
+                                       engine=engine,
+                                       mesh=Mesh(((axis, 2), ("lam", 1))),
+                                       **kw)
     with pytest.raises(ValueError, match="engine"):
         ttuning.select_lambda_path(sim["X"], sim["y"], sim["W"], _cfg("jnp"),
                                    lams=sim["lams"], engine="ring", **kw)

@@ -262,9 +262,13 @@ def test_kkt_residual_parity(fixture, dense):
                 tprob, acfg, torch.tensor(B), LAM,
                 None if lw is None else torch.tensor(lw)))
             assert got == pytest.approx(want, abs=1e-6)
-    with pytest.raises(NotImplementedError):
-        ts.kkt_residual(tprob, acfg, torch.tensor(dense[0]), LAM,
-                        node_mask=torch.ones(4))
+    # node_mask: node 2 counts as a padded ghost row of the chunked engine
+    nm = np.array([1.0, 1.0, 0.0, 1.0], np.float32)
+    want = float(solver.kkt_residual(jprob, acfg, jnp.asarray(dense[0]), LAM,
+                                     node_mask=jnp.asarray(nm)))
+    got = float(ts.kkt_residual(tprob, acfg, torch.tensor(dense[0]), LAM,
+                                node_mask=torch.tensor(nm)))
+    assert got == pytest.approx(want, abs=1e-6)
 
 
 def test_from_numpy_carries_state_across(fixture, dense):
@@ -380,19 +384,24 @@ def test_make_problem_copies_an_x_off_a_16_byte_boundary():
 
 
 def test_unported_options_raise(fixture):
+    """What still raises: a collective over an axis of more than one rank
+    (ROADMAP Queue 1 item 12), an axis name no mesh binds, an unknown
+    backend.  ``sanitize=True`` and ``axis_name`` over one rank run
+    (``tests/test_torch_sanitize.py``, ``tests/test_torch_decentral.py``)."""
+    from repro_torch.launch import mesh
     _, X, y, W, rho = fixture
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tc.decsvm_fit(X, y, W, _cfg(sanitize=True), rho=rho, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tc.decsvm_fit_tol(X, y, W, _cfg(sanitize=True), rho=rho,
-                          device="cpu")
     prob = ts.make_problem(torch.tensor(X), torch.tensor(y), torch.tensor(W),
                            _cfg(), rho=torch.tensor(rho))
     step = ts.make_step(_cfg(), lambda B: B)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    two = mesh.Mesh((("node", 2),))
+    with mesh.bound(two), pytest.raises(NotImplementedError, match="item 12"):
         ts.run_tol(step, prob, LAM, max_iter=2, tol=0.0, axis_name="node")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ts.kkt_residual_fn(_cfg(), axis_name="node")
+    fn = ts.kkt_residual_fn(_cfg(), axis_name="node")
+    state = ts.init_state(prob)
+    with mesh.bound(two), pytest.raises(NotImplementedError, match="item 12"):
+        fn(prob, state, LAM, None)
+    with pytest.raises(ValueError, match="no mesh is bound"):
+        fn(prob, state, LAM, None)
     with pytest.raises(ValueError, match="backend"):
         ts.resolve_backend(_cfg(backend="triton"))
 

@@ -214,11 +214,13 @@ def test_sanitize_gate_and_unported_engines_raise(sim):
     assert str(got.value) == str(want.value)
     tsan.reject_unsupported(tc.ADMMConfig(), "decsvm_path_select")
     cfg = tc.ADMMConfig(lam=0.06, max_iter=5)
-    for engine in ("sharded", "mesh"):
-        with pytest.raises(NotImplementedError, match="item 12"):
+    from repro_torch.launch.mesh import Mesh
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tpen.decsvm_fit_lla(X, y, W, cfg, engine="sharded",
+                            mesh=Mesh((("node", 2),)), device="cpu")
+    for engine in ("mesh", "ring"):
+        with pytest.raises(ValueError, match="engine"):
             tpen.decsvm_fit_lla(X, y, W, cfg, engine=engine, device="cpu")
-    with pytest.raises(ValueError, match="engine"):
-        tpen.decsvm_fit_lla(X, y, W, cfg, engine="ring", device="cpu")
     with pytest.raises(ValueError, match="penalty"):
         tpen.decsvm_fit_lla(X, y, W, cfg, penalty="l0", device="cpu")
     if not torch.cuda.is_available():
