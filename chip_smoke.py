@@ -65,6 +65,26 @@ result lines):
    and a NaN adjacency entry E3, at round 0) and the gossip BIC (300
    rounds, every node within 1e-3 of the exact value) — the
    ``fitserve ...`` lines;
+   then the decentralized engines across four ranks of one
+   ``torch.distributed`` group on card 0 (gloo, host-staged exchange;
+   ``repro_torch.launch.ranks.run_cases``): first both two-pass
+   kernels against their plain versions at the node blocks the ranks
+   give them ((4 | 8, 1024, 4096), (3 | 5, 200, 101)); then each rank
+   draws the full-size problem on the card and runs the sharded gather
+   fit under ``megakernel`` and ``pallas`` and the ring fit (node 4: 300
+   two-pass launches a rank), the chunked fit with the KKT stop at 2e-2
+   (node_chunk 4; it stops before round 300), the batched BIC (node,
+   lam) path on the 12-point grid (node 2 x lam 2: 1,800 launches a
+   rank), and at the design size the warm path (KKT 1e-3) with and
+   without the lam-axis hand-off and the block schedule's raw padded
+   state (2 ghost rows); each case against the same call at one rank in
+   this process with the same kernels and with the plain ``jnp`` update
+   (1e-5 each; the same stops and best lambda, support flips at |b| <=
+   1e-5; ghost rows exactly 0); each warm path against the plain
+   one-rank traversal of its lam shards (``ranks.lam_shard_warm``: 1e-5,
+   the same stops), the hand-off's best lambda equal to the dense warm
+   path's and its gap to that path below the gap without it; every
+   launch on the stream instance — the ``ranks ...`` lines;
 5. ``flash_attention`` against its plain version (``ref.mha``) at the
    shapes of ``tests/test_kernels.py`` (every mask, MQA, D = 32/64/128,
    ragged S), at qwen3-14b's (q (1, 40, S, 128), kv (1, 8, S, 128),
@@ -892,43 +912,6 @@ def main_path(torch, core, ops, d: Data, max_iter: int = 300,
     return launches
 
 
-class LaunchTimer:
-    """While active, CUDA events around every call of ``ops.<name>`` (the
-    wrapper enqueues nothing but its kernel), so that ``ms()`` is the
-    device time of that kernel's launches in a run.  Off the card it only
-    passes the calls through."""
-
-    def __init__(self, torch, ops, name):
-        self.torch, self.ops, self.name = torch, ops, name
-        self.events = []
-
-    def __enter__(self):
-        self.orig = fn = getattr(self.ops, self.name)
-        torch = self.torch
-
-        def timed(*args, **kw):
-            if not args[0].is_cuda:
-                return fn(*args, **kw)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            self.events.append((start, end))
-            return out
-        setattr(self.ops, self.name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.ops, self.name, self.orig)
-
-    def ms(self):
-        if not self.events:
-            return None
-        self.torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self.events)
-
-
 def lambda_path_phase(torch, core, ops, d: Data, small: Data,
                       max_iter: int = 300, num: int = PATH_NUM,
                       tol: float = PATH_TOL):
@@ -943,6 +926,7 @@ def lambda_path_phase(torch, core, ops, d: Data, small: Data,
     and the times."""
     import numpy as np
     from repro_torch.launch import quickstart
+    from repro_torch.launch.ranks import LaunchTimer
     X, y, W = d.Xn, d.yn, d.Wn
     on = dict(device=d.device)
     on_card = d.device.type == "cuda"
@@ -966,7 +950,7 @@ def lambda_path_phase(torch, core, ops, d: Data, small: Data,
         """``fn`` with the counters at 0 and the round kernel's launches
         timed; returns (result, launches by kernel, by instance)."""
         ops.reset_launches()
-        with LaunchTimer(torch, ops, "csvm_round_block") as timer:
+        with LaunchTimer(ops, "csvm_round_block") as timer:
             res, secs = timed(fn)
         ran = {name: ops.launches[name] for name in FIT_KERNELS}
         inst = dict(ops.round_block_launches)
@@ -1166,31 +1150,15 @@ class Capture:
 
 
 def device_problem(torch, core, sim, seed: int, device):
-    """A problem drawn by torch on ``device`` from ``seed``, under the
-    law of ``core.generate`` (the same model, not the same numbers): AR
-    blocks by Cholesky factors in fp64, the mean shift on the first
-    ``s`` coordinates, label flips, an intercept column.  On the card it
-    takes milliseconds where numpy takes seconds at full size.  Returns
-    (X (m, n, p + 1), y (m, n)) as fp32 tensors on ``device`` and the
-    network ``erdos_renyi(m, p_connect, seed)``."""
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    f64 = dict(dtype=torch.float64, device=device)
-    p, s, m, n = sim.p, sim.s, sim.m, sim.n
-    N = m * n
-    y = 1.0 - 2.0 * (torch.rand(N, generator=g, **f64) < 0.5).double()
-    Z = torch.randn(N, p, generator=g, **f64)
-    X = torch.empty(N, p + 1, **f64)
-    X[:, 0] = 1.0
-    for lo, hi in ((0, s), (s, p)):
-        if hi > lo:
-            cov = torch.tensor(core.simulate.ar_cov(hi - lo, sim.rho), **f64)
-            X[:, 1 + lo:1 + hi] = Z[:, lo:hi] @ torch.linalg.cholesky(cov).T
-    X[:, 1:1 + s] += y[:, None] * sim.mu
-    flip = torch.rand(N, generator=g, **f64) < sim.p_flip
-    y = torch.where(flip, -y, y)
-    return (X.reshape(m, n, p + 1).float(), y.reshape(m, n).float(),
-            core.graph.erdos_renyi(m, sim.p_connect, seed=seed))
+    """A problem drawn by torch on ``device`` from ``seed``
+    (``repro_torch.launch.ranks.device_problem``: the law of
+    ``core.generate``, not its numbers; milliseconds on the card where
+    numpy takes seconds at full size).  Returns (X (m, n, p + 1), y (m, n))
+    as fp32 tensors on ``device`` and the network ``erdos_renyi(m,
+    p_connect, seed)``."""
+    from repro_torch.launch import ranks
+    X, y = ranks.device_problem(sim, seed, device)
+    return X, y, core.graph.erdos_renyi(sim.m, sim.p_connect, seed=seed)
 
 
 def fit_serving_phase(torch, core, ops, d: Data, small: Data,
@@ -1212,6 +1180,7 @@ def fit_serving_phase(torch, core, ops, d: Data, small: Data,
     kernels' device time from CUDA events around their launches.  Returns
     the phase's launches by kernel and instance, and its times."""
     import numpy as np
+    from repro_torch.launch.ranks import LaunchTimer
     from repro_torch.serving import fit as fitmod
     on = dict(device=d.device)
     on_card = d.device.type == "cuda"
@@ -1236,8 +1205,8 @@ def fit_serving_phase(torch, core, ops, d: Data, small: Data,
         """``fn`` with the counters at 0, both CSVM kernels' launches
         timed; returns (result, launches by kernel)."""
         ops.reset_launches()
-        with LaunchTimer(torch, ops, "csvm_round_block") as rt, \
-                LaunchTimer(torch, ops, "csvm_block_update") as bt:
+        with LaunchTimer(ops, "csvm_round_block") as rt, \
+                LaunchTimer(ops, "csvm_block_update") as bt:
             res, secs = timed(fn)
         ran = {name: ops.launches[name] for name in FIT_KERNELS}
         inst_r = dict(ops.round_block_launches)
@@ -1293,8 +1262,10 @@ def fit_serving_phase(torch, core, ops, d: Data, small: Data,
         sqrt(log N) log p supp / N) within ``tol_``.  Returns the largest
         deviation, the number of flipped coefficients and the largest gap
         of the support terms."""
+        from repro_torch.launch.ranks import bic_support_weight, \
+            support_flips
         dev, flips, sgap = 0.0, 0, 0.0
-        pen = math.sqrt(math.log(N)) * math.log(p) / N
+        pen = bic_support_weight(N, p)
         for b, (rid, w) in enumerate(sorted(want.items())):
             g = got[rid]
             check(bool(np.isfinite(g.B).all()), f"{label}: non-finite B")
@@ -1315,10 +1286,8 @@ def fit_serving_phase(torch, core, ops, d: Data, small: Data,
                 parts.append(np.abs(g.lam_weights - w.lam_weights).max())
             dev = max(dev, float(max(parts)))
             pg, pw = (host(x[b]) for x in paths)
-            flip = (np.abs(pg) > 1e-8) != (np.abs(pw) > 1e-8)
-            flips += int(flip.sum())
-            near = np.maximum(np.abs(pg), np.abs(pw))[flip]
-            near = float(near.max()) if near.size else 0.0
+            n_flips, near = support_flips(pg, pw)
+            flips += n_flips
             check(near <= tol_, f"{label} rid {rid}: a support flip at "
                   f"|b| = {near:.3e} > {tol_}")
             support = np.mean((np.abs(pg) > 1e-8).sum(axis=-1), axis=-1)
@@ -1514,6 +1483,46 @@ def fit_serving_phase(torch, core, ops, d: Data, small: Data,
     log(f"fitserve phase launches: {json.dumps(total)}; round instances "
         f"{json.dumps(rounds)}; two-pass instances {json.dumps(two_pass)}")
     return out
+
+
+def block_checks(torch, ops, cu, d: Data, nodes: int, label: str,
+                 devs: dict):
+    """Both two-pass wrappers against their plain versions on the first
+    ``nodes`` nodes of ``d``: the shape of a node block that a rank of
+    phase 4d gives them (each instance on the card)."""
+    X = d.X[:nodes]
+    rest = (d.y[:nodes], d.B[:nodes], d.P[:nodes], d.neigh[:nodes],
+            d.rho[:nodes], d.omega[:nodes], d.lam_vec)
+    for name, kw in (("csvm_block_update", dict(h=d.h)),
+                     ("csvm_local_update", dict(h=d.h,
+                                                kernel="epanechnikov"))):
+        want = getattr(cu, f"{name}_plain")(X, *rest, **kw)
+        for instance, got in two_pass_runs(ops, name, X, rest, kw, label):
+            what = f"{name} [{instance}] {label}"
+            dev = compare(torch, (got,), (want,), "float32", what)
+            record(devs, name, "float32", dev)
+            log(f"check {what}: max|dev| {dev:.3e}")
+
+
+def ranks_phase():
+    """The decentralized engines across four ranks on the card(s)
+    (``repro_torch.launch.ranks.run_cases``: gloo on one card, NCCL with a
+    card a rank), each case held to the same entry point at one rank in
+    this process on the same draw, with the same kernels and plain.
+    Returns the ranks' two-pass launches by kernel and instance (summed
+    over the ranks) and each case's numbers."""
+    from repro_torch.launch import ranks
+    try:
+        rec = ranks.run_cases(4, log=log)
+    except ranks.RankFailure as err:
+        check(False, f"ranks: {err}")
+    log(f"ranks phase: {rec['ranks']} ranks, backend {rec['backend']}, "
+        f"{rec['spawn_s']:.1f} s in the ranks, {rec['reference_s']:.1f} s "
+        f"in the one-rank and plain references; launches "
+        f"{json.dumps(rec['launches'])}, by instance "
+        f"{json.dumps(rec['instances'])}; the hand-off's gaps to the dense "
+        f"warm path {json.dumps(rec['warm_gap'])}")
+    return rec
 
 
 def synchronize(torch, device):
@@ -2062,7 +2071,22 @@ def main() -> int:
     for name in two_pass_instances["csvm_block_update"]:
         two_pass_instances["csvm_block_update"][name] += \
             fitserve["two_pass_instances"][name]
+    # phase 4d: the decentralized engines across four ranks on card 0,
+    # after the two-pass kernels at the node blocks the ranks give them
+    for d_, nodes, what in ((full, 4, "node 4 / node_chunk 4"),
+                            (full, 8, "node 2 x lam 2"),
+                            (design, 3, "node_chunk 4 (m_pad 12)"),
+                            (design, 5, "node 2 x lam 2")):
+        m_, n_, p_ = d_.X.shape
+        block_checks(torch, ops, cu, d_, nodes,
+                     f"rank block ({nodes}, {n_}, {p_}) of ({m_}, {n_}, "
+                     f"{p_}), {what}", devs)
     del design, full
+    ranks = ranks_phase()
+    for name in ranks["launches"]:
+        launches[name] += ranks["launches"][name]
+        for inst, n in ranks["instances"][name].items():
+            two_pass_instances[name][inst] += n
 
     # phase 5: flash_attention against its plain version, and its times
     flash_checks(torch, ops, ref, "cuda", devs)
@@ -2234,6 +2258,9 @@ def main() -> int:
                                           "warm_bf16_iters", "lla_launches")}
             if name != "csvm_local_update":
                 extra["fit_serving"] = fitserve["times"]
+            if name != "csvm_round_block":
+                extra["ranks"] = {k: v for k, v in ranks["cases"].items()
+                                  if v["kernel"] == name}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],

@@ -1,12 +1,12 @@
 """deCSVM core in torch: the paper's contribution, Algorithm 1, with the
 lambda path, tuning, the baselines, the folded-concave penalties, the
-E1-E7 sanitizer, gossip, and the decentralized engines at one rank.
+E1-E7 sanitizer, gossip, and the decentralized engines across ranks.
 
 ``repro_torch.core.solver`` is the single home of the Algorithm-1 update;
 every fitting surface exported here is a thin driver over it.
-``decentral`` runs JAX's sharded, chunked and (node, lam) mesh engines at
-one rank; their collectives across ranks wait for ROADMAP Queue 1 item
-12.
+``decentral`` runs JAX's sharded, chunked and (node, lam) mesh engines
+over the ranks of a ``torch.distributed`` group (``launch.ranks``), and
+at one rank outside a group.
 """
 from repro_torch.core import (baselines, decentral, gossip, graph, losses,
                               metrics, path, penalties, sanitize, simulate,

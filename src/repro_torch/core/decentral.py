@@ -1,24 +1,27 @@
-"""Decentralized ADMM engines at one rank, in torch: the drivers of
+"""Decentralized ADMM engines across ranks, in torch: the drivers of
 ``repro.core.decentral`` over the unified Algorithm-1 step of
 ``repro_torch.core.solver``, with every collective routed through
 ``repro_torch.launch.mesh.collective``.
 
-JAX runs these engines under ``shard_map`` over a device mesh.  Here they
-run at one rank — one card, or the CPU — where every mesh axis has size 1
-and each collective is the identity; a mesh with an axis larger than 1
-raises ``NotImplementedError`` naming ROADMAP Queue 1 item 12, the
-multi-rank half (``torch.distributed``).  What the one rank runs is JAX's
-program with the mesh axes at size 1, so the layouts, the padding and the
-scores are JAX's, and item 12 inherits them:
+JAX runs these engines under ``shard_map`` over a device mesh from one
+controller.  The port runs them SPMD over the ranks of a
+``torch.distributed`` group (``repro_torch.launch.ranks`` starts one):
+every rank calls the same entry point with the same global arrays, takes
+its block of each operand as JAX's ``in_specs`` say (``_shard``), runs
+JAX's program on it with the collectives over its mesh lines, and returns
+the same global result, assembled as JAX's ``out_specs`` say.  Outside a
+group every mesh has one rank, each collective is the identity and each
+block the whole array.  The layouts, the padding and the scores are
+JAX's:
 
   - "gather" (any graph): ``all_gather`` of the primal block, then the
-    local adjacency rows (at one rank: ``W @ B``).
+    local adjacency rows.
   - "ring" (ring graphs): the two rolls, the shard-boundary rows fixed by
-    ``ppermute``s (at one rank: the rolls alone).
+    ``ppermute``s.
   - "block" (any graph, any m): the chunked node-megabatch layout —
     ``BlockTopology.chunk_operands`` gives the diagonal block and the kept
-    off-diagonal block diagonals (at one rank: one chunk, W itself, no
-    offsets, no ghost rows).
+    off-diagonal block diagonals, each rotated in by ``ppermute``; m pads
+    to ``ceil(m / ranks) * ranks`` with ghost rows that stay exactly 0.
 
 Engines:
 
@@ -28,15 +31,17 @@ Engines:
     masked to the real nodes) / ``decsvm_path_chunked``.
   - ``decsvm_path_mesh``: the grid as cells of a (node, lam) mesh, with
     the modified-BIC or k-fold-CV scores computed in the same program; in
-    CV the fold fits join the grid as L·k more cells.
+    CV the fold fits join the grid as L·k more cells.  In warm mode a
+    "lam" axis larger than 1 hands each shard's boundary solution to the
+    next shard and sweeps again (``handoff``).
 
 The builders are cached closures (``functools.lru_cache``), as JAX caches
 its jitted programs.  The steps are built without ``W``, so they carry no
 ``round_block``: under ``megakernel`` / ``megakernel_bf16`` every round
-is one ``csvm_block_update`` launch, under ``pallas`` one
-``csvm_local_update`` launch, and a masked cell (CV) takes the plain
-rounds.  Every entry point takes ``rho=`` (m,) to fix the step sizes (and
-``cv_rho=`` (k, m) for the CV folds), and ``device=`` as
+is one ``csvm_block_update`` launch on the rank's block of nodes, under
+``pallas`` one ``csvm_local_update`` launch, and a masked cell (CV) takes
+the plain rounds.  Every entry point takes ``rho=`` (m,) to fix the step
+sizes (and ``cv_rho=`` (k, m) for the CV folds), and ``device=`` as
 ``admm.decsvm_fit`` does.
 """
 from __future__ import annotations
@@ -53,7 +58,7 @@ from repro_torch.core.admm import ADMMConfig, as_f32, resolve_device
 from repro_torch.core.path import PathResult, _grid, _opt
 from repro_torch.core.tuning import _host, kfold_masks
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch.mesh import Mesh, collective
+from repro_torch.launch.mesh import Mesh, P, collective
 
 Tensor = torch.Tensor
 
@@ -72,14 +77,17 @@ def make_node_lam_mesh(n_node: int, n_lam: Optional[int] = None) -> Mesh:
     return mesh_mod.make_node_lam_mesh(n_node, n_lam)
 
 
-def _shard(fn, mesh: Mesh, where: str):
-    """``fn`` run with ``mesh`` bound — the counterpart of ``shard_map``
-    at one rank, where each rank's block is the whole array."""
-    mesh_mod.require_one_rank(mesh, where)
+def _shard(fn, mesh: Mesh, in_specs, out_specs):
+    """``fn`` run on this rank's block of each operand with ``mesh``
+    bound, its outputs gathered to the global tensors — the counterpart of
+    ``shard_map(fn, mesh, in_specs, out_specs)``.  Specs past the last
+    operand given (the mesh program's optional masks) go unused."""
 
     def run(*args):
         with mesh_mod.bound(mesh):
-            return fn(*args)
+            local = [mesh_mod.block(a, spec)
+                     for a, spec in zip(args, in_specs)]
+            return mesh_mod.assemble(fn(*local), out_specs)
 
     return run
 
@@ -198,7 +206,7 @@ def build_sharded_admm(m: int, p: int, cfg: ADMMConfig, mesh: Mesh,
         return solver.run_fixed(step, prob, cfg.lam, lamw,
                                 num_iters=cfg.max_iter, state=state).B
 
-    return _shard(sharded_loop, mesh, "build_sharded_admm")
+    return _shard(sharded_loop, mesh, (P("node"),) * 5 + (P(),), P("node"))
 
 
 @functools.lru_cache(maxsize=64)
@@ -221,7 +229,8 @@ def build_sharded_path(m: int, p: int, L: int, cfg: ADMMConfig, mesh: Mesh,
                              (Xl.shape[0], p), Xl.dtype, Xl.device)
         return path
 
-    return _shard(sharded_loop, mesh, "build_sharded_path")
+    return _shard(sharded_loop, mesh, (P("node"),) * 5 + (P(), P()),
+                  P(None, "node"))
 
 
 def _prep(X, W, cfg, schedule, rho):
@@ -384,7 +393,10 @@ def build_chunked_admm(m_pad: int, p: int, cfg: ADMMConfig, mesh: Mesh,
                                    check_every=check_every)
         return final.B, final.t
 
-    return _shard(chunk_loop, mesh, "build_chunked_admm")
+    nc = "node_chunk"
+    return _shard(chunk_loop, mesh,
+                  (P(nc), P(nc), P(nc), P(None, nc), P(nc), P(nc), P(),
+                   P(nc)), (P(nc), P()))
 
 
 @functools.lru_cache(maxsize=64)
@@ -408,7 +420,10 @@ def build_chunked_path(m_pad: int, p: int, L: int, cfg: ADMMConfig,
                              (Xl.shape[0], p), Xl.dtype, Xl.device)
         return path
 
-    return _shard(chunk_loop, mesh, "build_chunked_path")
+    nc = "node_chunk"
+    return _shard(chunk_loop, mesh,
+                  (P(nc), P(nc), P(nc), P(None, nc), P(nc), P(nc), P(),
+                   P()), P(None, nc))
 
 
 def decsvm_fit_chunked(X, y, W, cfg: ADMMConfig, mesh: Optional[Mesh] = None,
@@ -467,7 +482,8 @@ def build_mesh_path(m: int, p: int, C: int, cfg: ADMMConfig, mesh: Mesh,
                     schedule: str = "gather", mode: str = "batched",
                     tol: float = 1e-6, stop_rule: str = "kkt",
                     with_masks: bool = False, check_every: int = 4,
-                    offsets=(), m_real: Optional[int] = None):
+                    handoff: bool = True, offsets=(),
+                    m_real: Optional[int] = None):
     """The (node, lam) mesh program, cached on all arguments.
 
     Grid *cells* — (lambda, sample-mask) pairs when ``with_masks``, so CV
@@ -488,8 +504,17 @@ def build_mesh_path(m: int, p: int, C: int, cfg: ADMMConfig, mesh: Mesh,
     stopped by ``stop_rule`` every ``check_every`` rounds, the stop agreed
     over the node axis (and "lam" under the block and ring schedules);
     wherever lambda goes back up (a fold-block boundary under CV) the fit
-    restarts from zero.  The cross-shard warm start along a "lam" axis
-    larger than 1 (JAX's ``handoff``) waits for item 12.
+    restarts from zero.
+
+    ``handoff`` (warm mode, "lam" axis larger than 1): after the first
+    sweep each lam shard ``ppermute``s its last solution and its lambda
+    one shard along "lam" (shard 0 receives zeros, lambda 0) and sweeps
+    its cells again, each warm-started from the cell before it — the
+    first from the neighbouring shard's — wherever lambda still
+    decreases, so continuation crosses shard boundaries as on the dense
+    warm path.  Where it does not apply (shard 0, a fold-block boundary)
+    the cell resumes its first-sweep iterate and round count.  ``iters``
+    reports the second sweep's rounds, as JAX's does.
     ``m_real`` (< m when padded) corrects every scoring mean for the ghost
     rows.
     """
@@ -536,6 +561,18 @@ def build_mesh_path(m: int, p: int, C: int, cfg: ADMMConfig, mesh: Mesh,
             # the block and ring schedules agree the stop over both axes
             # (their exchanges rendezvous mesh-wide), gather per lam column
             stop_axes = (nax, "lam") if schedule in ("block", "ring") else nax
+
+            def fit_from(B_init, lam, rhoc, maskc, t0=0):
+                state = _zero_state(shape, Xl.dtype, dev)._replace(
+                    B=B_init, t=torch.tensor(t0, dtype=torch.int32,
+                                             device=dev))
+                return solver.run_tol(step, cell_problem(rhoc, maskc),
+                                      float(lam), lamw,
+                                      max_iter=cfg.max_iter, tol=tol,
+                                      state=state, residual_fn=residual_fn,
+                                      axis_name=stop_axes,
+                                      check_every=check_every)
+
             B_prev, lam_prev = _zero_state(shape, Xl.dtype, dev).B, math.inf
             path, iters = [], []
             for lam, (rhoc, maskc) in zip(lams, cells):
@@ -543,16 +580,22 @@ def build_mesh_path(m: int, p: int, C: int, cfg: ADMMConfig, mesh: Mesh,
                 # boundary lambda jumps back up: restart cold there
                 B_init = (B_prev if lam <= lam_prev
                           else torch.zeros_like(B_prev))
-                state = _zero_state(shape, Xl.dtype, dev)._replace(B=B_init)
-                final = solver.run_tol(step, cell_problem(rhoc, maskc),
-                                       float(lam), lamw,
-                                       max_iter=cfg.max_iter, tol=tol,
-                                       state=state, residual_fn=residual_fn,
-                                       axis_name=stop_axes,
-                                       check_every=check_every)
+                final = fit_from(B_init, lam, rhoc, maskc)
                 B_prev, lam_prev = final.B, lam
                 path.append(final.B)
                 iters.append(final.t)
+            if handoff and nl > 1:
+                perm = [(j, j + 1) for j in range(nl - 1)]
+                B_prev = collective("ppermute", B_prev, "lam", perm)
+                lam_prev = float(collective(
+                    "ppermute", torch.tensor([float(lam_prev)], device=dev),
+                    "lam", perm)[0])
+                for c, (lam, (rhoc, maskc)) in enumerate(zip(lams, cells)):
+                    cont = lam <= lam_prev
+                    final = fit_from(B_prev if cont else path[c], lam, rhoc,
+                                     maskc, 0 if cont else int(iters[c]))
+                    B_prev, lam_prev = final.B, lam
+                    path[c], iters[c] = final.B, final.t
             path, iters = torch.stack(path), torch.stack(iters)
 
         # -- fused scoring (modified BIC + held-out hinge), summed over the
@@ -590,7 +633,11 @@ def build_mesh_path(m: int, p: int, C: int, cfg: ADMMConfig, mesh: Mesh,
         scores = torch.stack([bic, val_hinge], dim=-1)         # (C, 2)
         return path, scores, iters
 
-    return _shard(prog, mesh, "build_mesh_path")
+    wspec = ((P(nax), P(None, nax), P(nax)) if schedule == "block"
+             else P(nax))
+    in_specs = (P(nax), P(nax), wspec, P(nax), P("lam"), P("lam", nax), P(),
+                P("lam", nax))
+    return _shard(prog, mesh, in_specs, (P("lam", nax), P("lam"), P("lam")))
 
 
 def decsvm_path_mesh(X, y, W, lams, cfg: ADMMConfig,
@@ -599,7 +646,7 @@ def decsvm_path_mesh(X, y, W, lams, cfg: ADMMConfig,
                      lam_weights=None, stop_rule: str = "kkt",
                      criterion: str = "bic", cv_folds: int = 5,
                      cv_seed: int = 0, check_every: int = 4,
-                     *, rho=None, cv_rho=None,
+                     handoff: bool = True, *, rho=None, cv_rho=None,
                      device=None):
     """Lambda path on a (node, lam) mesh, with selection.
 
@@ -611,8 +658,10 @@ def decsvm_path_mesh(X, y, W, lams, cfg: ADMMConfig,
     grid point.  ``schedule="block"`` runs the chunked layout on a
     ("node_chunk", "lam") mesh: any m, and ``W`` may be a
     ``graph.BlockTopology``.  ``rho`` (m,) and ``cv_rho`` (k, m) fix the
-    step sizes of the full-data and of the fold cells.  cfg.lam is
-    ignored (the grid supplies lambda).
+    step sizes of the full-data and of the fold cells.  Warm mode with
+    ``handoff`` (the default) carries continuation across the shards of a
+    "lam" axis larger than 1 (``build_mesh_path``).  cfg.lam is ignored
+    (the grid supplies lambda).
     """
     sanitize.reject_unsupported(cfg, "decsvm_path_mesh")
     dev = resolve_device(X, device)
@@ -691,7 +740,7 @@ def decsvm_path_mesh(X, y, W, lams, cfg: ADMMConfig,
 
     fitted = build_mesh_path(m_work, p, C, cfg, mesh, schedule, mode, tol,
                              stop_rule, with_masks=cell_masks is not None,
-                             check_every=check_every,
+                             check_every=check_every, handoff=handoff,
                              offsets=offsets, m_real=m)
     path_cells, scores, iters = fitted(*operands)
 
@@ -738,8 +787,9 @@ def _assert_ring(W: np.ndarray) -> None:
 def consensus_mix(grads: Tensor, Wmix: Tensor, axis: str = "node") -> Tensor:
     """One Metropolis mixing round of per-node tensors on the "node" axis.
 
-    grads: (m_local, ...) local block; Wmix: (m_local, m) local mixing
-    rows.  Call it with the mesh bound (``launch.mesh.bound``).
+    grads: (m_local, ...) this rank's block; Wmix: (m_local, m) its
+    mixing rows.  Call it with the mesh bound (``launch.mesh.bound``): the
+    blocks are gathered over the axis's ranks.
     """
     flat = grads.reshape(grads.shape[0], -1)
     all_flat = collective("all_gather", flat, axis)

@@ -20,8 +20,11 @@ Update (per node l, with deg_l = |N(l)|):
 
 The collective points of the sharded engines (``run_tol``'s agreed stop
 flag, the node means and maxes of ``kkt_residual``) go through
-``repro_torch.launch.mesh.collective``: the identity at one rank, raising
-on an axis of more than one rank until ROADMAP Queue 1 item 12.
+``repro_torch.launch.mesh.collective``: the identity at one rank, a
+``torch.distributed`` reduction over the mesh line's ranks otherwise.
+Every rank of a line runs the same collectives in the same order: the
+stop flag is agreed before the host reads it, and held rounds still run
+their neighbour exchanges.
 """
 from __future__ import annotations
 

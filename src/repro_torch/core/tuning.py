@@ -15,7 +15,7 @@ keeps its JAX name, as the solver keeps the backend name ``"jnp"``.
 convention ``(best_lam, best_B, table, res)``.  ``engine="mesh"`` and
 ``"chunked"`` route the traversal through the (node, lam) mesh engine of
 ``repro_torch.core.decentral`` (the chunked one in its block schedule),
-at one rank.
+on ``mesh`` or on the caller's group (one rank outside a group).
 """
 from __future__ import annotations
 

@@ -1,50 +1,105 @@
-"""Meshes of the deCSVM engines, and the one collective helper.
+"""Meshes of the deCSVM engines, and their collectives across ranks.
 
 Counterpart of the deCSVM half of ``repro.launch.mesh``.  A ``Mesh`` here
-is a description — named axes and their sizes — not a device handle: the
-engines of ``repro_torch.core.decentral`` run at one rank, so every axis
-a ``make_*`` function can build has size 1 (``device_count()`` is 1 on
-one card and on the CPU, as ``len(jax.devices())`` is 1 on a host with
-one device).  A mesh whose axis product exceeds ``device_count()``
-raises.
+is a description — named axes and their sizes — laid over the ranks of
+the ``torch.distributed`` group (``launch.ranks`` starts one): JAX's
+``shard_map`` runs one program per device from one controller, the port
+runs one process per rank, each calling the same entry point with the
+same global arrays (SPMD).  ``device_count()`` is the size of the
+initialised group, and 1 without one (one card, or the CPU).
+
+A mesh of ``k`` ranks runs ``device_count() / k`` copies of itself, each
+on ``k`` consecutive ranks (a mesh of one rank: every rank runs the whole
+program alone).  Inside a copy a rank's coordinates are row-major over
+the axes, as ``jax.make_mesh`` lays devices out.  A mesh larger than the
+group, or one whose size does not divide it, raises ``ValueError`` at
+construction, as JAX's ``assert n_node * n_lam <= n`` does.
 
 ``collective(op, x, axis_name)`` is the port's ``psum`` / ``pmax`` /
 ``pmean`` / ``all_gather`` / ``ppermute``: inside ``bound(mesh)`` (the
 counterpart of running under ``shard_map``) it resolves the axis names
-against the bound mesh, and over axes of size 1 it is the identity.  Any
-named axis larger than 1 raises ``NotImplementedError`` naming ROADMAP
-Queue 1 item 12, the multi-rank half of the engines (``torch.distributed``
-collectives), which fills this function in.
+against the bound mesh and runs over the ranks that share this rank's
+coordinates on every other axis; over axes of size 1 it is the identity.
+``bound`` creates the mesh's subgroups the first time the mesh is bound:
+one per line of every set of its axes, on every rank in one order
+(``dist.new_group`` is itself collective).  ``block`` and ``assemble``
+slice a rank's block of an operand and gather a global result by
+partition specs (``P``), as ``shard_map``'s ``in_specs`` and
+``out_specs`` do.
+
+The backend follows the placement of the ranks (``launch.ranks``): NCCL
+when each rank has its own card, gloo when ranks share a card or run on
+the CPU.  Under gloo a CUDA tensor is staged through host memory (copied
+to the CPU, reduced or exchanged there, copied back).  ``comm`` counts
+the calls over more than one rank and the host seconds spent in them.
 
 The LM stack's meshes (``make_production_mesh``, ``make_host_mesh``,
-``data_axes``, ``use_mesh``) belong to Queue 1 item 13.5 and are not here.
+``data_axes``, ``use_mesh``) belong to ROADMAP Queue 1 item 13.5 and are
+not here.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
 
 AxisName = Union[str, Sequence[str]]
 
-MULTI_RANK = "(ROADMAP Queue 1 item 12: collectives across ranks)"
-
 _bound = threading.local()
+# subgroups of the bound meshes: (axes, axis set) -> [(members, group)],
+# and this rank's line of each (axes, axis names) -> (members in axis-index
+# order, group, the device its backend reduces on); for the current world
+# group, cleared when it changes
+_groups: Dict[tuple, List[tuple]] = {}
+_lines: Dict[tuple, tuple] = {}
+_world = [None]
+
+# collectives over more than one rank since the last ``reset_comm``:
+# calls, and host seconds spent in them (staging included)
+comm: Dict[str, float] = {"calls": 0, "seconds": 0.0}
+
+
+def reset_comm() -> None:
+    comm["calls"] = 0
+    comm["seconds"] = 0.0
+
+
+def _in_group() -> bool:
+    return dist.is_available() and dist.is_initialized()
 
 
 def device_count() -> int:
-    """Ranks the engines can use: 1 — the engines run at one rank on one
-    card or on the CPU until item 12 brings ``torch.distributed``."""
-    return 1
+    """Ranks the engines can use: the size of the initialised
+    ``torch.distributed`` group, else 1."""
+    return dist.get_world_size() if _in_group() else 1
+
+
+def rank() -> int:
+    """This process's rank in the group (0 without one)."""
+    return dist.get_rank() if _in_group() else 0
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Named mesh axes and their sizes, in order (hashable: the engines'
-    builders are cached on it)."""
+    builders are cached on it).  Checked against the group at
+    construction."""
     axes: Tuple[Tuple[str, int], ...]
+
+    def __post_init__(self):
+        n, have = self.size, device_count()
+        if min(self.shape.values(), default=1) < 1:
+            raise ValueError(f"mesh {self.shape}: an axis of size < 1")
+        if n > have or have % n:
+            raise ValueError(f"mesh {self.shape} needs {n} ranks; the group "
+                             f"has {have} ranks (a mesh must divide it)")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -60,11 +115,7 @@ class Mesh:
 
 
 def _make(sizes, names) -> Mesh:
-    mesh = Mesh(tuple(zip(names, (int(s) for s in sizes))))
-    if min(mesh.shape.values()) < 1 or mesh.size > device_count():
-        raise ValueError(f"mesh {mesh.shape} needs {mesh.size} ranks; "
-                         f"{device_count()} available")
-    return mesh
+    return Mesh(tuple(zip(names, (int(s) for s in sizes))))
 
 
 def make_node_mesh(n_devices: Optional[int] = None) -> Mesh:
@@ -94,20 +145,63 @@ def make_chunk_lam_mesh(n_chunk: int, n_lam: Optional[int] = None) -> Mesh:
     return _make((n_chunk, n_lam), ("node_chunk", "lam"))
 
 
-def multi_rank_error(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} spans more than one rank {MULTI_RANK}")
+def _coords(mesh: Mesh, r: int) -> Dict[str, int]:
+    """Rank ``r``'s coordinates on ``mesh`` (row-major within its copy)."""
+    out, i = {}, r % mesh.size
+    for name, n in reversed(mesh.axes):
+        out[name], i = i % n, i // n
+    return out
 
 
-def require_one_rank(mesh: Mesh, where: str) -> None:
-    """Raise unless every axis of ``mesh`` has size 1."""
-    if mesh.size > 1:
-        raise multi_rank_error(f"{where}: mesh {mesh.shape}")
+def _names(axis_name: AxisName) -> Tuple[str, ...]:
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+
+
+def _index(mesh: Mesh, names, r: int) -> int:
+    """Rank ``r``'s index along the named axes, row-major in their order."""
+    c, shape, i = _coords(mesh, r), mesh.shape, 0
+    for a in names:
+        i = i * shape[a] + c[a]
+    return i
+
+
+def _make_groups(mesh: Mesh) -> None:
+    """Create ``mesh``'s subgroups unless they exist: for each set of its
+    axes (in mesh order), one group per line — the ranks of one copy that
+    share their coordinates on the other axes.  Every rank creates every
+    group, in the same order; lines of one rank need none."""
+    world = dist.group.WORLD
+    if _world[0] is not world:
+        _groups.clear()
+        _lines.clear()
+        _world[0] = world
+    names = mesh.axis_names
+    if (mesh.axes, frozenset(names)) in _groups:
+        return
+    W = dist.get_world_size()
+    for k in range(1, len(names) + 1):
+        for subset in itertools.combinations(names, k):
+            lines = {}
+            for r in range(W):
+                c = _coords(mesh, r)
+                key = (r // mesh.size,) + tuple(
+                    c[a] for a in names if a not in subset)
+                lines.setdefault(key, []).append(r)
+            made = []
+            for key in sorted(lines):
+                members = lines[key]
+                if len(members) > 1:
+                    made.append((members, dist.new_group(members)))
+            _groups[(mesh.axes, frozenset(subset))] = made
 
 
 @contextlib.contextmanager
 def bound(mesh: Mesh):
     """Bind ``mesh`` for the collectives of the calling thread (the
-    counterpart of the body of a ``shard_map``)."""
+    counterpart of the body of a ``shard_map``); a mesh of more than one
+    rank gets its subgroups here, the first time it is bound."""
+    if mesh.size > 1:
+        _make_groups(mesh)
     stack = getattr(_bound, "stack", None)
     if stack is None:
         stack = _bound.stack = []
@@ -118,31 +212,151 @@ def bound(mesh: Mesh):
         stack.pop()
 
 
+def _mesh() -> Mesh:
+    stack = getattr(_bound, "stack", None)
+    if not stack:
+        raise ValueError("no mesh is bound (run inside launch.mesh.bound(mesh))")
+    return stack[-1]
+
+
 def axis_size(axis_name: AxisName) -> int:
     """Product of the sizes of the named axes of the innermost bound mesh."""
-    stack = getattr(_bound, "stack", None)
-    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
-    if not stack:
+    names = _names(axis_name)
+    try:
+        shape = _mesh().shape
+    except ValueError:
         raise ValueError(f"axis {axis_name!r}: no mesh is bound "
-                         "(run inside launch.mesh.bound(mesh))")
-    shape = stack[-1].shape
+                         "(run inside launch.mesh.bound(mesh))") from None
     missing = [a for a in names if a not in shape]
     if missing:
         raise ValueError(f"axes {missing} not in the bound mesh {shape}")
     return math.prod(shape[a] for a in names)
 
 
+def axis_index(axis_name: AxisName) -> int:
+    """This rank's index along the named axes of the bound mesh."""
+    axis_size(axis_name)
+    return _index(_mesh(), _names(axis_name), rank())
+
+
+def _line(axis_name: AxisName):
+    """(members in axis-index order, group, the device its backend reduces
+    on: host memory under gloo, this rank's card under NCCL) of this
+    rank's line along the named axes."""
+    mesh, names = _mesh(), _names(axis_name)
+    key = (mesh.axes, names)
+    line = _lines.get(key)
+    if line is None:
+        r = rank()
+        members, group = next(
+            (ms, g) for ms, g in _groups[(mesh.axes, frozenset(names))]
+            if r in ms)
+        members = sorted(members, key=lambda q: _index(mesh, names, q))
+        dev = (torch.device("cpu") if dist.get_backend(group) == "gloo"
+               else torch.device("cuda", torch.cuda.current_device()))
+        line = _lines[key] = (members, group, dev)
+    return line
+
+
+def _to_comm(x, dev, copy: bool):
+    """``x`` contiguous on ``dev`` (a copy where ``copy``: the
+    reductions work in place)."""
+    t = x.detach()
+    if t.device != dev:
+        return t.to(dev).contiguous()
+    return t.clone(memory_format=torch.contiguous_format) if (
+        copy or not t.is_contiguous()) else t
+
+
 COLLECTIVES = ("psum", "pmax", "pmean", "all_gather", "ppermute")
 
 
 def collective(op: str, x, axis_name: AxisName, perm=None):
-    """``op`` of ``x`` over the named axes of the bound mesh: the identity
-    over axes of size 1 (one rank holds the whole axis; a ``ppermute``'s
-    permutation is then [(0, 0)]).  ``perm`` is the ``ppermute``'s
-    (source, destination) pairs, kept for item 12."""
+    """``op`` of ``x`` over the named axes of the bound mesh.
+
+    ``psum`` / ``pmax`` reduce over the line, ``pmean`` is its sum over
+    the axis size, ``all_gather`` concatenates the line's blocks along
+    dim 0 in axis-index order, and ``ppermute`` sends ``x`` along
+    ``perm`` ((source, destination) axis indices): a rank that no pair
+    addresses receives zeros, as in JAX.  Over axes of size 1 every op is
+    the identity.  The result is on ``x``'s device.
+    """
     if op not in COLLECTIVES:
         raise ValueError(f"collective {op!r} not in {COLLECTIVES}")
     n = axis_size(axis_name)
-    if n > 1:
-        raise multi_rank_error(f"{op} over axis {axis_name!r} of size {n}")
-    return x
+    if n == 1:
+        return x
+    t0 = time.perf_counter()
+    members, group, dev = _line(axis_name)
+    if op in ("psum", "pmax", "pmean"):
+        t = _to_comm(x, dev, copy=True)
+        dist.all_reduce(t, dist.ReduceOp.MAX if op == "pmax"
+                        else dist.ReduceOp.SUM, group=group)
+        out = t.to(x.device)
+        if op == "pmean":
+            out = out / n
+    elif op == "all_gather":
+        t = _to_comm(x, dev, copy=False)
+        parts = [torch.empty_like(t) for _ in members]
+        dist.all_gather(parts, t, group=group)
+        order = sorted(members)        # the group's ranks are sorted
+        out = torch.cat([parts[order.index(q)] for q in members]).to(x.device)
+    else:
+        me = members.index(rank())
+        t = _to_comm(x, dev, copy=False)
+        srcs = [s for s, d in perm if d == me]
+        buf = torch.zeros_like(t)
+        p2p = [dist.P2POp(dist.isend, t, members[d], group)
+               for s, d in perm if s == me and d != me]
+        if srcs and srcs[0] != me:
+            p2p.append(dist.P2POp(dist.irecv, buf, members[srcs[0]], group))
+        elif srcs:
+            buf = t.clone()
+        for work in (dist.batch_isend_irecv(p2p) if p2p else ()):
+            work.wait()
+        out = buf.to(x.device)
+    comm["calls"] += 1
+    comm["seconds"] += time.perf_counter() - t0
+    return out
+
+
+class P(tuple):
+    """A partition spec: for each leading dim of an operand, the mesh axis
+    that splits it, or None (``P()``: the whole operand on every rank)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+
+def block(a, spec):
+    """This rank's block of ``a`` (a tensor, a numpy array, or a tuple of
+    them under a tuple of specs) under the bound mesh.  A tensor block
+    that is not contiguous or not 16-byte aligned is copied (the kernels'
+    stream instances read aligned bases)."""
+    if not isinstance(spec, P):
+        return tuple(block(x, s) for x, s in zip(a, spec))
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        k = a.shape[d] // axis_size(ax)
+        lo = axis_index(ax) * k
+        if isinstance(a, torch.Tensor):
+            a = a.narrow(d, lo, k)
+        else:
+            a = a[(slice(None),) * d + (slice(lo, lo + k),)]
+    if isinstance(a, torch.Tensor) and (not a.is_contiguous()
+                                        or a.data_ptr() % 16):
+        a = a.clone(memory_format=torch.contiguous_format)
+    return a
+
+
+def assemble(out, spec):
+    """The global result from this rank's block ``out`` (or a tuple of
+    blocks under a tuple of specs): an ``all_gather`` along each split
+    dim, so every rank returns the same global tensors."""
+    if not isinstance(spec, P):
+        return tuple(assemble(x, s) for x, s in zip(out, spec))
+    for d, ax in enumerate(spec):
+        if ax is not None and axis_size(ax) > 1:
+            out = collective("all_gather", out.movedim(d, 0), ax).movedim(0, d)
+    return out

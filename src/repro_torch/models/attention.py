@@ -11,8 +11,8 @@ XLA that neither needs (the kernel streams the keys itself).  The one-token
 decode attention is plain torch, as the JAX package leaves it to XLA.
 
 ``repro.models.shardctx.constrain`` has no counterpart: it pins activation
-layouts on a mesh and is a no-op off one, and the port runs on one card
-until the mesh comes (ROADMAP Queue 1 item 12).  Cross-attention
+layouts on a mesh and is a no-op off one, and the port's LM stack runs
+on one card until its meshes come (ROADMAP Queue 1 item 13.5).  Cross-attention
 (``kv_x`` / ``cross_kv``) comes with the encoder-decoder slice (ROADMAP
 Queue 1 item 13) and raises until then.
 """

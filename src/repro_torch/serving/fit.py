@@ -21,6 +21,9 @@ resolves in one call:
   its stage 2 through ``decentral.decsvm_path_chunked``; every round
   there is one two-pass kernel launch.
 
+The server runs at one rank: inside a ``torch.distributed`` group every
+rank would have to drive it in lockstep (ROADMAP Queue 1 item 12).
+
 The server shares the ``FifoEngine`` surface with the token engine
 (submit / step / run / pending / utilization) and adds an async mode:
 ``start()`` spawns a worker thread that drains the queue as buckets (and

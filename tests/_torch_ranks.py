@@ -1,0 +1,214 @@
+"""Rank workers of ``tests/test_torch_ranks.py``: every case of that module
+on one rank of a gloo group on the CPU (``repro_torch.launch.ranks.
+spawn``), and on rank 0 the same calls at one rank.  Imports nothing of
+JAX: the inputs are drawn here with numpy from their seeds (the port's
+``simulate`` and ``graph`` give JAX's bits), and JAX's rho comes in as
+an argument."""
+import numpy as np
+import torch
+
+from repro_torch import core
+from repro_torch.core import decentral as dec
+from repro_torch.core import graph
+from repro_torch.launch import mesh
+
+# the JAX tests' sizes (tests/test_distributed.py, tests/test_chunked.py)
+SIM = core.SimConfig(p=30, s=5, m=8, n=50)
+HANDOFF = core.SimConfig(p=20, s=4, m=4, n=60)
+ON = dict(device="cpu")
+
+
+def _labels(X, rng):
+    b = np.zeros(X.shape[2], np.float32)
+    b[:2] = 1.0
+    return np.sign(X @ b + 0.1 * rng.normal(size=X.shape[:2])).astype(
+        np.float32)
+
+
+def _chunk_problem(seed, m, n, p):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(m, n, p)).astype(np.float32)
+    return X, _labels(X, rng)
+
+
+def inputs():
+    """Every case's numpy inputs, from their seeds."""
+    X, y, _ = core.generate(SIM, seed=2)
+    Xh, yh, _ = core.generate(HANDOFF, seed=1)
+    Xc, yc = _chunk_problem(0, 16, 10, 6)
+    Xu, yu = _chunk_problem(3, 13, 10, 6)
+    Xb, yb = _chunk_problem(5, 16, 12, 6)
+    return dict(
+        X=X, y=y, W=graph.erdos_renyi(8, 0.5, seed=3), Wr=graph.ring(8),
+        lams=core.tuning.lambda_grid(X, y, num=4).astype(np.float32),
+        w=np.random.default_rng(1).uniform(0.1, 1.0, 31).astype(np.float32),
+        w2=np.random.default_rng(0).uniform(0.2, 1.0, 31).astype(np.float32),
+        Xh=Xh, yh=yh, Wh=graph.erdos_renyi(4, 0.8, seed=0),
+        lams_h=np.geomspace(0.3, 0.02, 8).astype(np.float32),
+        Xc=Xc, yc=yc, Wc=graph.erdos_renyi(16, 0.4, seed=1),
+        lams_c=np.geomspace(0.5, 0.05, 4).astype(np.float32),
+        Xu=Xu, yu=yu, Wu=graph.ring(13),
+        Xb=Xb, yb=yb, Wb=graph.ring(16),
+        grads=np.random.default_rng(7).normal(size=(8, 3, 2)).astype(
+            np.float32),
+        Wmix=np.random.default_rng(8).uniform(size=(8, 8)).astype(
+            np.float32))
+
+
+def _cfg(**kw):
+    return core.ADMMConfig(**kw)
+
+
+def _fits(d, rho, k):
+    """The gather and ring fits (with and without lam_weights) and
+    sharded paths on the ("node",) mesh of ``k`` ranks."""
+    node, out = mesh.make_node_mesh(k), {}
+    cfg = _cfg(lam=0.05, max_iter=80)
+    for sched, W in (("gather", d["W"]), ("ring", d["Wr"])):
+        for tag, w in (("", None), (" lamw", d["w"])):
+            out[f"fit {sched}{tag}"] = dec.decsvm_fit_sharded(
+                d["X"], d["y"], W, cfg, mesh=node, schedule=sched,
+                lam_weights=w, rho=rho["X"], **ON)
+        out[f"path_sharded {sched}"] = dec.decsvm_path_sharded(
+            d["X"], d["y"], W, d["lams"], _cfg(lam=0.0, max_iter=80),
+            mesh=node, schedule=sched, rho=rho["X"], **ON)
+    with mesh.bound(node):
+        spec = mesh.P("node")
+        local = dec.consensus_mix(
+            mesh.block(torch.as_tensor(d["grads"]), spec),
+            mesh.block(torch.as_tensor(d["Wmix"]), spec))
+        out["consensus"] = mesh.assemble(local, spec)
+    return out
+
+
+def _mesh_paths(d, rho, k):
+    """The (node, lam) path on the mesh ``_choose_mesh_shape`` picks for
+    ``k`` ranks: batched BIC, warm, CV, lam_weights; and the mesh route of
+    ``select_lambda_path`` and the sharded LLA fit on the group's own
+    meshes."""
+    node_lam = mesh.make_node_lam_mesh(*dec._choose_mesh_shape(8, 4, k))
+    args = (d["X"], d["y"], d["W"], d["lams"], _cfg(lam=0.0, max_iter=80))
+    kw = dict(mesh=node_lam, rho=rho["X"], **ON)
+    # the routes through tuning and the LLA fit take the group's meshes
+    # by default; their one-rank reference is the dense route
+    route = dict(engine="dense") if k == 1 else dict(engine="mesh")
+    lla = dict(engine="dense") if k == 1 else dict(engine="sharded")
+    return {
+        "tuning": core.tuning.select_lambda_path(
+            *args[:3], args[4], lams=d["lams"], mode="batched",
+            rho=rho["X"], **route, **ON)[3]._asdict(),
+        "lla": core.penalties.decsvm_fit_lla(
+            *args[:3], _cfg(lam=0.05, max_iter=80), penalty="scad",
+            lams=d["lams"], path_mode="batched", rho=rho["X"], **lla, **ON),
+        "mesh bic": dec.decsvm_path_mesh(*args, **kw)._asdict(),
+        "mesh warm": dec.decsvm_path_mesh(*args, mode="warm", tol=1e-4,
+                                          **kw)._asdict(),
+        "mesh cv": dec.decsvm_path_mesh(*args, criterion="cv", cv_folds=3,
+                                        cv_rho=rho["X cv"], **kw)._asdict(),
+        "mesh lamw": dec.decsvm_path_mesh(*args, lam_weights=d["w2"],
+                                          **kw)._asdict()}
+
+
+def _handoff(d, rho, k):
+    """The warm path on ``k`` lam shards, with and without the hand-off."""
+    hmesh = mesh.make_node_lam_mesh(1, k)
+    return {f"handoff {on}": dec.decsvm_path_mesh(
+        d["Xh"], d["yh"], d["Wh"], d["lams_h"], _cfg(lam=0.05, max_iter=800),
+        mesh=hmesh, mode="warm", tol=1e-5, handoff=on, rho=rho["Xh"],
+        **ON)._asdict() for on in (True, False)}
+
+
+def _chunked(d, rho, k):
+    """The chunked fit (three backends, and ``tol=``), the chunked path,
+    and m = 13 with its raw padded state, on ``k`` node chunks."""
+    chunk, out = mesh.make_node_chunk_mesh(k), {}
+    for backend in ("jnp", "pallas", "megakernel"):
+        out[f"chunked {backend}"] = dec.decsvm_fit_chunked(
+            d["Xc"], d["yc"], d["Wc"],
+            _cfg(lam=0.1, max_iter=40, backend=backend), mesh=chunk,
+            rho=rho["Xc"], **ON)
+    ccfg = _cfg(lam=0.1, max_iter=200)
+    out["chunked tol"] = dec.decsvm_fit_chunked(
+        d["Xc"], d["yc"], d["Wc"], ccfg, mesh=chunk, tol=1e-6,
+        rho=rho["Xc"], **ON)
+    out["chunked path"] = dec.decsvm_path_chunked(
+        d["Xc"], d["yc"], d["Wc"], d["lams_c"], ccfg, mesh=chunk,
+        rho=rho["Xc"], **ON)
+    ucfg = _cfg(lam=0.1, max_iter=40)
+    top = graph.BlockTopology.from_dense(d["Wu"])
+    out["uneven"] = dec.decsvm_fit_chunked(d["Xu"], d["yu"], top, ucfg,
+                                           mesh=chunk, rho=rho["Xu"], **ON)
+    X, y = torch.as_tensor(d["Xu"]), torch.as_tensor(d["yu"])
+    ops, offsets, m_pad = dec._chunk_prep(X, y, top, ucfg, chunk,
+                                          torch.as_tensor(rho["Xu"]))
+    fitted = dec.build_chunked_admm(m_pad, X.shape[2], ucfg, chunk, offsets)
+    out["uneven raw"], _ = fitted(
+        ops["X"], ops["y"], ops["W_diag"], ops["W_off"], ops["deg"],
+        ops["rho"], torch.ones(X.shape[2]), ops["nmask"])
+    return out
+
+
+def _block_meshes(d, rho, k):
+    """The (node, lam) path under the gather and the block schedules,
+    BIC and CV, on the mesh ``_choose_mesh_shape`` picks for ``k``."""
+    shape, bcfg, out = dec._choose_mesh_shape(16, 4, k), _cfg(
+        lam=0.1, max_iter=40), {}
+    for sched, mk in (("gather", mesh.make_node_lam_mesh),
+                      ("block", mesh.make_chunk_lam_mesh)):
+        for crit in ("bic", "cv"):
+            out[f"block_mesh {sched} {crit}"] = dec.decsvm_path_mesh(
+                d["Xb"], d["yb"], d["Wb"], d["lams_c"], bcfg,
+                mesh=mk(*shape), schedule=sched, criterion=crit,
+                cv_folds=3, rho=rho["Xb"], cv_rho=rho["Xb cv"],
+                **ON)._asdict()
+    return out
+
+
+GROUPS = (_fits, _mesh_paths, _handoff, _chunked, _block_meshes)
+# the hand-off's reference is JAX's dense warm path (the one-rank engine
+# makes another traversal), so it has no one-rank run
+ONE_RANK = (_fits, _mesh_paths, _chunked, _block_meshes)
+
+
+def work(rank, rho, one_rank: bool):
+    """``spawn``'s ``fn``: every case across the group's ranks, then, with
+    ``one_rank``, this rank's share of the same calls at one rank (group i
+    of ``ONE_RANK`` on rank i mod the group's size).  ``rho`` holds JAX's
+    step sizes."""
+    d, k = inputs(), mesh.device_count()
+    got, one = {}, {}
+    for g in GROUPS:
+        got.update(g(d, rho, k))
+    for i, g in enumerate(ONE_RANK):
+        if one_rank and i % k == rank:
+            one.update(g(d, rho, 1))
+    return dict(ranks=got, one=one, world=k)
+
+
+def fail(rank):
+    """``spawn``'s ``fn`` for the failure check: rank 1 raises while the
+    others wait for it in a collective."""
+    import torch.distributed as dist
+    if rank == 1:
+        raise ValueError("rank 1 raises on purpose")
+    dist.barrier()
+
+
+def hang(rank):
+    """``spawn``'s ``fn`` for the deadline check: the rank never returns."""
+    import time
+    time.sleep(3600)
+
+
+def fit_on_card(rank, X, y, W, max_iter):
+    """``spawn``'s ``fn`` on the card: the sharded gather fit under
+    ``megakernel`` on the ("node",) mesh of the group, with its
+    ``csvm_block_update`` launches by instance and the group's backend."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    cfg = core.ADMMConfig(lam=0.05, max_iter=max_iter, backend="megakernel")
+    B = dec.decsvm_fit_sharded(X, y, W, cfg, device="cuda")
+    return dict(B=B.cpu(), launches=ops.launches["csvm_block_update"],
+                instances=dict(ops.two_pass_launches),
+                backend=dist.get_backend())

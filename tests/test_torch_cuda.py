@@ -915,3 +915,28 @@ def test_dense_bucket_round_launches_equal_bucket_times_grid(cuda):
     for i in range(3):
         assert got[i].best_lam == want[i].best_lam
         np.testing.assert_allclose(got[i].B, want[i].B, atol=ATOL)
+
+
+def test_two_ranks_on_the_card_match_one_rank(cuda):
+    """Two ranks of one group on the card (gloo when they share it, NCCL
+    with a card each): the sharded megakernel fit, one ``csvm_block_update``
+    launch a round on each rank's block of nodes, all on the stream
+    instance, equals the fit at one rank."""
+    from _torch_ranks import fit_on_card
+    from repro_torch.kernels import build
+    from repro_torch.launch import ranks
+    build.build_all()
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((8, 64, 1024)).astype(np.float32)
+    y = np.sign(rng.standard_normal((8, 64))).astype(np.float32)
+    W = np.asarray(ring(8), np.float32)
+    got = ranks.spawn(fit_on_card, 2, (X, y, W, 50), deadline_s=300.0)
+    cfg = tc.ADMMConfig(lam=0.05, max_iter=50, backend="megakernel")
+    one = tc.decentral.decsvm_fit_sharded(
+        X, y, W, cfg, mesh=tc.decentral.make_node_mesh(1), device=cuda)
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    for out in got:
+        assert out["backend"] == backend
+        assert out["launches"] == 50
+        assert out["instances"] == {"stream": 50, "direct": 0}
+        torch.testing.assert_close(out["B"], one.cpu(), atol=ATOL, rtol=0)

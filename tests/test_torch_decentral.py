@@ -413,40 +413,40 @@ def test_engine_launches(sim, monkeypatch):
 
 
 def test_meshes_and_the_collective_helper():
-    """One rank: every mesh axis has size 1 and every collective is the
-    identity; more ranks than ``device_count()`` raise at construction,
-    and a mesh axis of 2 raises in the helper and in every engine, naming
-    ROADMAP Queue 1 item 12."""
-    assert mesh.device_count() == 1
+    """Outside a ``torch.distributed`` group: one rank, every mesh axis of
+    size 1 and every collective the identity; a mesh of more ranks than
+    the group raises ``ValueError`` at construction, as JAX asserts, so no
+    engine can be handed one; the partition-spec helpers slice and gather
+    nothing.  Meshes across ranks: ``tests/test_torch_ranks.py``."""
+    assert mesh.device_count() == 1 and mesh.rank() == 0
     assert mesh.make_node_lam_mesh(1).shape == {"node": 1, "lam": 1}
     assert mesh.make_chunk_lam_mesh(1).shape == {"node_chunk": 1, "lam": 1}
     assert mesh.make_node_chunk_mesh().axis_names == ("node_chunk",)
     assert tdec.make_node_mesh().shape == {"node": 1}
     for bad in (lambda: mesh.make_node_chunk_mesh(2),
                 lambda: mesh.make_node_lam_mesh(1, 2),
-                lambda: mesh.make_chunk_lam_mesh(2, 1)):
+                lambda: mesh.make_chunk_lam_mesh(2, 1),
+                lambda: mesh.Mesh((("node", 2), ("lam", 1))),
+                lambda: tdec.make_node_mesh(2)):
         with pytest.raises(ValueError, match="ranks"):
             bad()
     x = torch.arange(6.0).reshape(3, 2)
     with mesh.bound(mesh.make_node_lam_mesh(1)):
         for op in mesh.COLLECTIVES:
             assert mesh.collective(op, x, ("node", "lam")) is x
+        assert mesh.axis_index(("node", "lam")) == 0
+        spec = mesh.P("lam", "node")
+        got = mesh.block(x, spec)
+        assert got.data_ptr() == x.data_ptr() and torch.equal(got, x)
+        assert mesh.assemble(got, spec) is got
         with pytest.raises(ValueError, match="not in the bound mesh"):
             mesh.collective("psum", x, "node_chunk")
     with pytest.raises(ValueError, match="no mesh is bound"):
         mesh.collective("psum", x, "node")
-    two = mesh.Mesh((("node", 2), ("lam", 1)))
-    with mesh.bound(two):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            mesh.collective("pmax", x, "node")
-        assert mesh.collective("pmax", x, "lam") is x
-        Wmix = torch.tensor(np.eye(3, dtype=np.float32)[::-1].copy())
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tdec.consensus_mix(x, Wmix)
+    Wmix = torch.tensor(np.eye(3, dtype=np.float32)[::-1].copy())
     with mesh.bound(mesh.make_node_mesh()):
         np.testing.assert_array_equal(_np(tdec.consensus_mix(x, Wmix)),
                                       _np(x)[::-1])
-    chunk2 = mesh.Mesh((("node_chunk", 2), ("lam", 1)))
     args = (torch.tensor(np.ones((4, 5, 3), np.float32)),
             torch.ones(4, 5), np.asarray(ring(4), np.float32))
     cfg = _cfg("jnp", max_iter=2)
@@ -457,10 +457,12 @@ def test_meshes_and_the_collective_helper():
                 *args, cfg, mesh=mesh.Mesh((("node_chunk", 2),))),
             lambda: tdec.decsvm_path_chunked(
                 *args, [0.1], cfg, mesh=mesh.Mesh((("node_chunk", 2),))),
-            lambda: tdec.decsvm_path_mesh(*args, [0.1], cfg, mesh=two),
-            lambda: tdec.decsvm_path_mesh(*args, [0.1], cfg, mesh=chunk2,
-                                          schedule="block")):
-        with pytest.raises(NotImplementedError, match="item 12"):
+            lambda: tdec.decsvm_path_mesh(
+                *args, [0.1], cfg, mesh=mesh.Mesh((("node", 2), ("lam", 1)))),
+            lambda: tdec.decsvm_path_mesh(
+                *args, [0.1], cfg, schedule="block",
+                mesh=mesh.Mesh((("node_chunk", 2), ("lam", 1))))):
+        with pytest.raises(ValueError, match="ranks"):
             call()
 
 

@@ -338,7 +338,7 @@ def test_unported_options_and_bad_arguments_raise(sim):
         tpath.decsvm_path_cv(*args, bad, sim["masks"], device="cpu")
     from repro_torch.launch.mesh import Mesh
     for engine, axis in (("mesh", "node"), ("chunked", "node_chunk")):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="ranks"):
             ttuning.select_lambda_path(sim["X"], sim["y"], sim["W"],
                                        _cfg("jnp"), lams=sim["lams"],
                                        engine=engine,

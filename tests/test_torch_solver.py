@@ -384,22 +384,29 @@ def test_make_problem_copies_an_x_off_a_16_byte_boundary():
 
 
 def test_unported_options_raise(fixture):
-    """What still raises: a collective over an axis of more than one rank
-    (ROADMAP Queue 1 item 12), an axis name no mesh binds, an unknown
-    backend.  ``sanitize=True`` and ``axis_name`` over one rank run
-    (``tests/test_torch_sanitize.py``, ``tests/test_torch_decentral.py``)."""
+    """What still raises: a mesh of more ranks than the group (outside a
+    group, any mesh larger than one rank; ``ValueError``, as JAX asserts),
+    an axis name no mesh binds, an unknown backend.  At one rank the
+    agreed stop and the reduced KKT statistic are the local ones;
+    ``sanitize=True`` runs (``tests/test_torch_sanitize.py``), and so do
+    the collectives across ranks (``tests/test_torch_ranks.py``)."""
     from repro_torch.launch import mesh
     _, X, y, W, rho = fixture
     prob = ts.make_problem(torch.tensor(X), torch.tensor(y), torch.tensor(W),
                            _cfg(), rho=torch.tensor(rho))
     step = ts.make_step(_cfg(), lambda B: B)
-    two = mesh.Mesh((("node", 2),))
-    with mesh.bound(two), pytest.raises(NotImplementedError, match="item 12"):
-        ts.run_tol(step, prob, LAM, max_iter=2, tol=0.0, axis_name="node")
+    with pytest.raises(ValueError, match="ranks"):
+        mesh.Mesh((("node", 2),))
+    one = mesh.make_node_mesh()
+    with mesh.bound(one):
+        final = ts.run_tol(step, prob, LAM, max_iter=2, tol=0.0,
+                           axis_name="node")
+    assert int(final.t) == 2
     fn = ts.kkt_residual_fn(_cfg(), axis_name="node")
     state = ts.init_state(prob)
-    with mesh.bound(two), pytest.raises(NotImplementedError, match="item 12"):
-        fn(prob, state, LAM, None)
+    with mesh.bound(one):
+        stat = fn(prob, state, LAM, None)
+    assert torch.equal(stat, ts.kkt_residual(prob, _cfg(), state.B, LAM))
     with pytest.raises(ValueError, match="no mesh is bound"):
         fn(prob, state, LAM, None)
     with pytest.raises(ValueError, match="backend"):

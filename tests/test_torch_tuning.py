@@ -215,7 +215,7 @@ def test_sanitize_gate_and_unported_engines_raise(sim):
     tsan.reject_unsupported(tc.ADMMConfig(), "decsvm_path_select")
     cfg = tc.ADMMConfig(lam=0.06, max_iter=5)
     from repro_torch.launch.mesh import Mesh
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="ranks"):
         tpen.decsvm_fit_lla(X, y, W, cfg, engine="sharded",
                             mesh=Mesh((("node", 2),)), device="cpu")
     for engine in ("mesh", "ring"):
