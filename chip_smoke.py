@@ -126,13 +126,47 @@ result lines):
 10. the kernel against the plain scan inside the model: block-prefill
    logits and the seeded SSM state of a 1999-token prompt (prime, so the
    last chunk is ragged), with all 48 layers in bf16 (on the tensor-core
-   instance) and with 2 layers in fp32.
+   instance) and with 2 layers in fp32;
+11. granite-moe-3b-a800m at full width (32 MoE layers, d_model 1536, 40
+   experts top 8, bf16, random weights from seed 0): 4 requests through
+   the engine with block prefill (32 flash launches each, every one on the
+   tensor-core instance at D = 64), the 2 shortest again on one slot with
+   block prefill and token by token, with the same tokens; the kernel
+   against the plain attention inside the model; the scatter route with
+   a capacity that drops nothing
+   against the dense route on one layer's output and on the logits, and
+   the scatter route at capacity factor 1.25 bit for bit in two runs; the
+   head on its features (4 x 32 sequences of 128 tokens);
+12. recurrentgemma-2b at full width (26 layers: 8 x (rec, rec, attn) and
+   2 tail rec layers, D = 256, window 2048, bf16): a 2,100-token prompt
+   (the attention layers' ring caches wrap) and two short ones through the
+   engine with block prefill (8 flash launches each, every one on the
+   fp32-FMA instance), the shortest again on one slot with block prefill
+   and token by token (the first generated token's logits within the
+   bf16 limit; then, in an fp32 copy of the model, the same greedy
+   tokens); the kernel against the plain attention inside the model; the
+   fp32-FMA flash at D = 256, S = 2048 beside plain, its bound and
+   ``scaled_dot_product_attention``; one RG-LRU layer's scan; the head on
+   its features.
+
+Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
+decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
+features of 8 nodes x 64 sequences of 256 tokens (d = 5120, p = 5121),
+held against the same extraction with the plain attention on the first
+128, then the fit of ``launch.decentralized_head`` (ring, lam 0.02, 400
+rounds) under ``megakernel`` (one ``csvm_round_block`` launch) and
+``pallas`` (400 ``csvm_local_update``), through ``decsvm_fit_sharded``
+(gather, one rank: 400 ``csvm_block_update``) and tuned (a 12-point
+batched BIC path: 12 round launches), each within 1e-5 of the same call
+under ``jnp`` on the card (the tuned one with the same lambda), every
+launch on the stream instance.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -257,6 +291,48 @@ STREAM_RATIO = 0.6
 # bf16 inputs in the same call, at mamba2-370m's S = 2048 and 1023: at most
 # this share of its device time.
 SSD_RATIO = 0.35
+
+# The decentralized CSVM head on frozen backbone features at full width:
+# the problem of repro_torch.launch.decentralized_head (a ring of m nodes,
+# ADMMConfig(lam=0.02, h=0.3, max_iter=400), labels from a sparse
+# hyperplane with 5% of the signs flipped) on qwen3-14b's mean-pooled
+# features of m x n sequences of S tokens (d_model 5120: p = 5121 <= 8192,
+# so the stream instances run), and on the two other new backbones at a
+# smaller size.  Tuned: a 12-point BIC path in batched mode.
+HEAD_SHAPE = (8, 64, 256)
+BACKBONE_HEAD_SHAPE = (4, 32, 128)
+HEAD_ADMM = dict(lam=0.02, h=0.3, max_iter=400)
+HEAD_TUNE_NUM = 12
+HEAD_FITS = ("megakernel", "pallas", "sharded", "tuned")
+# bf16 features (mean-pooled over S after 40 layers) with the kernel
+# against the plain attention swapped in, on the first HEAD_PLAIN_SEQS
+# sequences (two extraction batches): one-ulp differences of each layer's
+# attention output carried through the stack, as the logits check; held
+# relative to the features' size, max |dev| <= FEATURE_TOL max |feature|.
+FEATURE_TOL = 3e-2
+HEAD_PLAIN_SEQS = 128
+# granite-moe-3b-a800m: four requests through the engine with block
+# prefill, the two shortest also on one slot with block prefill and token
+# by token (the same greedy tokens, in bf16); the scatter route with
+# a capacity that drops nothing (capacity factor E / k: C = T + 1) against
+# the dense one on one layer's bf16 output, relative to its size, and on
+# the logits (MODEL_TOL).
+GRANITE_PROMPTS = (1000, 300, 77, 33)
+GRANITE_TOKENWISE = 2
+MOE_LAYER_TOL = 3e-2
+# recurrentgemma-2b: one prompt longer than the 2048-token window (its
+# attention layers' ring caches wrap) and two short ones; the shortest
+# also on one slot with block prefill and token by token.
+RG_PROMPTS = (2100, 300, 77)
+# Its block prefill against token-wise decode in bf16, on the first
+# generated token's logits: the sound readings were 8.30e-2 (max |logit|
+# ~5, where a bf16 ulp is 2^-5); the limit is three of them, eight ulps.
+# The control (the logits one position earlier) must lie above it.  The
+# fp32 copy of the model is held at MODEL_TOL["float32"] and to the
+# same tokens.
+RG_TOKENWISE_TOL = 0.25
+RG_LEN = 2176
+NEW_TOKENS = 8
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -1591,10 +1667,19 @@ def flash_checks(torch, ops, ref, device, devs: dict):
                 "limit)")
 
 
-def attention_bound(B, H, KV, S, D, itemsize):
-    """Causal attention: 4*B*H*D*S(S+1)/2 flops against the bf16 tensor
-    peak, or q, k, v read and o written once against the memory rate."""
-    flops = 4 * B * H * D * S * (S + 1) / 2
+def attention_pairs(S: int, window=None) -> int:
+    """(query, key) pairs a causal attention over S tokens computes: key j
+    for query i when 0 <= i - j < window (every j <= i without one)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_bound(B, H, KV, S, D, itemsize, window=None):
+    """Causal attention: 4*B*H*D flops a (query, key) pair inside the
+    window against the bf16 tensor peak, or q, k, v read and o written once
+    against the memory rate."""
+    flops = 4 * B * H * D * attention_pairs(S, window)
     nbytes = (2 * B * H + 2 * B * KV) * S * D * itemsize
     return bound(flops, nbytes, PEAK_BF16)
 
@@ -1649,8 +1734,9 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
     prefill, with the launch counters set to 0 just before the run and
     read just after; every request must finish with ``max_new`` tokens of
     the padded vocabulary, every prefill must launch ``kernel`` once per
-    layer, and no other kernel may launch.  Returns the launches and the
-    prefill / decode times."""
+    layer that runs it (``kernel_layers``), and no other kernel may
+    launch.  Returns the launches, the prefill / decode times and the
+    prompts."""
     import numpy as np
     device = params.device
     eng = engine.ServeEngine(cfg, params, max_batch=max_batch,
@@ -1674,9 +1760,9 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
                         lambda toks, pos: sum(s is not None
                                               for s in eng.slots))
     rng = np.random.default_rng(seed)
-    for rid, n in enumerate(prompts):
-        eng.submit(engine.Request(rid=rid, prompt=rng.integers(
-            0, cfg.vocab_size, n).tolist(), max_new=max_new))
+    asked = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompts]
+    for rid, prompt in enumerate(asked):
+        eng.submit(engine.Request(rid=rid, prompt=prompt, max_new=max_new))
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run()
@@ -1691,10 +1777,11 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
         check(len(req.generated) == max_new and all(
             0 <= t < cfg.padded_vocab for t in req.generated),
             f"serving: request {rid} generated {req.generated}")
-    want = cfg.num_layers * len(prompts)
+    per = kernel_layers(cfg, kernel)
+    want = per * len(prompts)
     check(launches[kernel] == want,
           f"serving: {launches[kernel]} {kernel} launches, expected {want} "
-          f"({cfg.num_layers} per prefilled request)")
+          f"({per} per prefilled request)")
     check(len(prefills) == len(prompts), "serving: a prompt skipped prefill")
     for name, count in launches.items():
         check(name == kernel or count == 0, f"serving launched {name}")
@@ -1708,7 +1795,16 @@ def serving_path(torch, ops, engine, cfg, params, *, prompts=SERVE_PROMPTS,
         f"{[done[r].generated[:4] for r in sorted(done)]}")
     return dict(launches=launches, flash_instances=instances,
                 ssd_instances=ssd_instances_run, prefill_ms=prefills,
-                decode_ms=decodes, wall_s=wall)
+                decode_ms=decodes, wall_s=wall, prompts=asked)
+
+
+def kernel_layers(cfg, kernel="flash_attention") -> int:
+    """The layers of ``cfg``'s stack whose prefill launches ``kernel``
+    once: the attention layers ("attn" and "moe" blocks) for
+    flash_attention, the Mamba-2 layers for ssd_scan."""
+    from repro_torch.models import blocks
+    kinds = {"flash_attention": ("attn", "moe"), "ssd_scan": ("ssm",)}
+    return sum(k in kinds[kernel] for k in blocks.block_kinds(cfg))
 
 
 def plain_self_attend(q, k, v, *, causal, window):
@@ -1723,7 +1819,8 @@ def plain_self_attend(q, k, v, *, causal, window):
 def kernel_vs_plain_in_model(torch, ops, cfg, params, *, label, tol,
                              prompt=MODEL_PROMPT, seed=1):
     """Block-prefill logits of one prompt with the kernel and with the
-    plain attention swapped in; returns (max |dev|, max |logit|)."""
+    plain attention swapped in (one launch per attention layer); returns
+    (max |dev|, max |logit|)."""
     import numpy as np
     from repro_torch.models import attention
     from repro_torch.models.prefill import prefill
@@ -1732,8 +1829,9 @@ def kernel_vs_plain_in_model(torch, ops, cfg, params, *, label, tol,
     batch = {"tokens": toks}
     before = ops.launches["flash_attention"]
     kern, _, _ = prefill(params, batch, cfg, prompt + 1)
-    check(ops.launches["flash_attention"] - before == cfg.num_layers,
-          f"{label}: the prefill did not launch the kernel once per layer")
+    check(ops.launches["flash_attention"] - before == kernel_layers(cfg),
+          f"{label}: the prefill did not launch the kernel once per "
+          "attention layer")
     kernel_attend = attention.self_attend
     attention.self_attend = plain_self_attend
     try:
@@ -1975,7 +2073,414 @@ def ssd_vs_plain_in_model(torch, ops, cfg, params, *, label, tol,
     return dev, scale, sdev
 
 
+def trunk_flops(cfg, params, seqs: int, S: int) -> float:
+    """Operations of ``extract_features``'s trunk on ``seqs`` sequences of
+    S tokens, counted from the weights: two a token for every weight of a
+    matrix of the block stack (every expert, as the dense MoE route runs
+    them all; no embedding lookup, no LM head), plus the attention's
+    4·H·D a (query, key) pair inside the trunk's window."""
+    from repro_torch.optim import decsvm_head as head
+    weights = sum(w.numel() for layer in params.layers
+                  for w in layer.parameters() if w.dim() >= 2)
+    pairs = attention_pairs(S, head.trunk_order(cfg)[1])
+    return seqs * (2 * weights * S + kernel_layers(cfg) * 4
+                   * cfg.num_heads * cfg.head_dim * pairs)
+
+
+def head_phase(torch, core, ops, cfg, params, *, shape=HEAD_SHAPE,
+               plain_seqs=HEAD_PLAIN_SEQS, fits=HEAD_FITS,
+               tune_num=HEAD_TUNE_NUM, admm=HEAD_ADMM, seed=0):
+    """The head on ``cfg``'s frozen features through the port's entry
+    points.  ``optim.decsvm_head.extract_features`` of m·n sequences of S
+    tokens (the counters set to 0 just before, read just after: one flash
+    launch per attention layer and batch of 64, no other kernel), held
+    against the same extraction with the plain attention on the first
+    ``plain_seqs``; then each fit of ``fits`` under its kernel backend and
+    the same call under ``jnp`` on the card, B within the fp32 fit tier
+    (1e-5): "megakernel" (``train_decsvm_head``: one round launch),
+    "pallas" (one ``csvm_local_update`` a round), "sharded"
+    (``decsvm_fit_sharded``, gather at one rank, megakernel: one
+    ``csvm_block_update`` a round), "tuned" (``tune=True``, batched: one
+    round launch a grid point, the same lambda as under jnp); every
+    launch on the stream instance.  Returns the launches by kernel and
+    instance, the times and the fits' records."""
+    import numpy as np
+    from repro_torch.core.decentral import decsvm_fit_sharded
+    from repro_torch.launch.decentralized_head import hyperplane_labels
+    from repro_torch.launch.mesh import make_node_mesh
+    from repro_torch.models import attention
+    from repro_torch.optim import decsvm_head as head
+    m, n, S = shape
+    device = params.device
+    on_card = device.type == "cuda"
+    label = f"head {cfg.name}"
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (m * n, S))
+
+    def timed(fn):
+        synchronize(torch, device)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(torch, device)
+        return out, time.perf_counter() - t0
+
+    ops.reset_launches()
+    feats, extract_s = timed(lambda: head.extract_features(params, cfg,
+                                                           toks))
+    launches = dict(ops.launches)
+    flash_instances = dict(ops.flash_launches)
+    want = kernel_layers(cfg) * math.ceil(m * n / 64)
+    check(launches["flash_attention"] == want,
+          f"{label}: {launches['flash_attention']} flash launches in the "
+          f"extraction, expected {want} (one per attention layer and "
+          "batch of 64)")
+    for name, count in launches.items():
+        check(name == "flash_attention" or count == 0,
+              f"{label}: the extraction launched {name}")
+    check(tuple(feats.shape) == (m * n, cfg.d_model)
+          and bool(torch.isfinite(feats).all()),
+          f"{label}: features {tuple(feats.shape)}, or non-finite")
+    flops = trunk_flops(cfg, params, m * n, S)
+    out = dict(extract_s=extract_s, shape=shape, trunk_flops=flops,
+               extract_tflops=flops / extract_s / 1e12,
+               flash_launches=launches["flash_attention"],
+               flash_instances=flash_instances, fits={})
+    if plain_seqs:
+        kernel_attend = attention.self_attend
+        attention.self_attend = plain_self_attend
+        try:
+            plain = head.extract_features(params, cfg, toks[:plain_seqs])
+        finally:
+            attention.self_attend = kernel_attend
+        dev = float((feats[:plain_seqs].float() - plain.float()).abs().max())
+        scale = float(plain.float().abs().max())
+        log(f"{label}: features of {plain_seqs} sequences, kernel vs plain "
+            f"attention max|dev| {dev:.4e}, max|feature| {scale:.4f} (limit "
+            f"{FEATURE_TOL:g} x max|feature|)")
+        check(dev <= FEATURE_TOL * scale,
+              f"{label}: features max|dev| {dev:.4e} > {FEATURE_TOL} x "
+              f"{scale:.4f}")
+        out["features_kernel_vs_plain"] = dict(
+            max_abs_dev=dev, max_abs_feature=scale, seqs=plain_seqs,
+            tol=f"{FEATURE_TOL:g} max|feature|")
+    F = feats.float().reshape(m, n, -1)
+    y = hyperplane_labels(F.cpu().numpy(), rng)
+    W = core.graph.ring(m)
+    X, _, _ = head.standardize(F)
+    yt = torch.as_tensor(y, device=device)
+
+    def acfg(backend):
+        return core.ADMMConfig(backend=backend, **admm)
+
+    def untuned(backend):
+        return head.train_decsvm_head(F, y, W, acfg(backend))
+
+    def sharded(backend):
+        return decsvm_fit_sharded(X, yt, W, acfg(backend),
+                                  mesh=make_node_mesh(),
+                                  schedule="gather"), None
+
+    def tuned(backend):
+        return head.train_decsvm_head(F, y, W, acfg(backend), tune=True,
+                                      num=tune_num, mode="batched")
+
+    it = admm["max_iter"]
+    table = {  # fit: (call, its plain reference, backend, kernel, launches)
+        "megakernel": (untuned, "untuned", "megakernel", "csvm_round_block",
+                       1),
+        "pallas": (untuned, "untuned", "pallas", "csvm_local_update", it),
+        "sharded": (sharded, "sharded", "megakernel", "csvm_block_update",
+                    it),
+        "tuned": (tuned, "tuned", "megakernel", "csvm_round_block",
+                  tune_num),
+    }
+    refs = {}
+    round_instances = {k: 0 for k in ops.round_block_launches}
+    two_pass = {name: {k: 0 for k in ops.two_pass_launches}
+                for name in FIT_KERNELS if name != "csvm_round_block"}
+    fit_launches = {name: 0 for name in FIT_KERNELS}
+    for what in fits:
+        fn, ref_key, backend, kernel, count = table[what]
+        if ref_key not in refs:
+            refs[ref_key] = timed(lambda: fn("jnp"))
+        (ref, ref_info), ref_s = refs[ref_key]
+        c0 = dict(ops.launches)
+        r0, t0_ = dict(ops.round_block_launches), dict(ops.two_pass_launches)
+        (B, info), secs = timed(lambda: fn(backend))
+        ran = {k: ops.launches[k] - c0[k] for k in FIT_KERNELS}
+        check(ran[kernel] == count and sum(ran.values()) == count,
+              f"{label} {what}: launches {ran}, expected {count} of "
+              f"{kernel}")
+        for k in FIT_KERNELS:
+            fit_launches[k] += ran[k]
+        inst = {}
+        if on_card:
+            src = (ops.round_block_launches if kernel == "csvm_round_block"
+                   else ops.two_pass_launches)
+            base = r0 if kernel == "csvm_round_block" else t0_
+            inst = {k: v - base[k] for k, v in src.items()}
+            check(inst == {"stream": count, "direct": 0},
+                  f"{label} {what}: {kernel} instances {inst}, expected all "
+                  f"{count} on the stream instance")
+            for k, v in inst.items():
+                if kernel == "csvm_round_block":
+                    round_instances[k] += v
+                else:
+                    two_pass[kernel][k] += v
+        dev = float((B - ref).abs().max())
+        Bn = B.cpu().numpy()
+        check(bool(np.isfinite(Bn).all()) and Bn.shape == (m, cfg.d_model
+                                                           + 1),
+              f"{label} {what}: B {Bn.shape}, or non-finite")
+        check(dev <= FIT_TOL["float32"],
+              f"{label} {what}: max|dev| {dev:.3e} vs jnp > "
+              f"{FIT_TOL['float32']}")
+        if info is None:
+            margins = torch.einsum("mnp,mp->mn", X, B).cpu().numpy()
+            info = dict(train_accuracy=core.metrics.margin_accuracy(
+                margins, y), mean_support=core.metrics.mean_support_size(
+                Bn, tol=1e-6), lam=admm["lam"])
+        else:
+            check(info["lam"] == ref_info["lam"],
+                  f"{label} {what}: lambda {info['lam']} where jnp picks "
+                  f"{ref_info['lam']}")
+        rec = dict(wall_s=secs, plain_wall_s=ref_s, max_abs_dev=dev,
+                   kernel=kernel, launches=ran[kernel], instances=inst,
+                   train_accuracy=info["train_accuracy"],
+                   support=info["mean_support"], lam=info["lam"],
+                   consensus_gap=core.metrics.consensus_gap(Bn))
+        out["fits"][what] = rec
+        log(f"{label} {what}: {secs:.3f} s wall (jnp on the card "
+            f"{ref_s:.3f} s), {ran[kernel]} {kernel} launches {inst}, "
+            f"max|dev| vs jnp {dev:.3e} (tol {FIT_TOL['float32']:g}), "
+            f"lambda {info['lam']:.5f}, train accuracy "
+            f"{rec['train_accuracy']:.3f}, support {rec['support']:.1f} of "
+            f"{cfg.d_model + 1}, consensus gap {rec['consensus_gap']:.2e}")
+    out.update(fit_launches=fit_launches, round_instances=round_instances,
+               two_pass_instances=two_pass)
+    log(f"{label}: {m} nodes x {n} sequences x {S} tokens, features "
+        f"{tuple(feats.shape)} in {1e3 * extract_s:.1f} ms "
+        f"({flops / 1e15:.4f} PFLOP of trunk, {out['extract_tflops']:.1f} "
+        f"TFLOP/s; {launches['flash_attention']} flash launches "
+        f"{json.dumps(flash_instances)}); fit launches "
+        f"{json.dumps(fit_launches)}")
+    return out
+
+
+def moe_route_checks(torch, cfg, params, *, tokens=MODEL_PROMPT, seed=2):
+    """The scatter route with a capacity that drops nothing against the
+    dense route on layer 0's MoE (bf16 input, relative limit) and on the
+    block-prefill logits of one prompt (MODEL_TOL); and two runs of the
+    scatter route at the configured capacity, bit for bit."""
+    import numpy as np
+    from repro_torch.models import moe
+    from repro_torch.models.prefill import prefill
+    device = params.device
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    ample = dataclasses.replace(cfg, moe_routing="scatter",
+                                moe_capacity_factor=E / k)
+    check(moe.capacity(ample, tokens) > tokens,
+          f"{cfg.name}: capacity {moe.capacity(ample, tokens)} drops tokens")
+    layer = params.layers[0].moe
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h = torch.randn((1, tokens, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.float32).to(params.embed.dtype)
+    dense, _ = moe.moe_forward_dense(layer, h, cfg)
+    scat, _ = moe.moe_forward_scatter(layer, h, ample)
+    dev = float((scat.float() - dense.float()).abs().max())
+    scale = float(dense.float().abs().max())
+    check(dev <= MOE_LAYER_TOL * scale,
+          f"{cfg.name} layer 0: scatter vs dense max|dev| {dev:.4e} > "
+          f"{MOE_LAYER_TOL} x {scale:.4f}")
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (1, tokens))
+    kl, _, _ = prefill(params, {"tokens": toks}, cfg, tokens + 1)
+    sl, _, _ = prefill(params, {"tokens": toks}, ample, tokens + 1)
+    ldev = float((kl.float() - sl.float()).abs().max())
+    check(ldev <= MODEL_TOL["bfloat16"],
+          f"{cfg.name}: logits scatter vs dense max|dev| {ldev:.4e} > "
+          f"{MODEL_TOL['bfloat16']}")
+    tight = dataclasses.replace(cfg, moe_routing="scatter")
+    a, _ = moe.moe_forward_scatter(layer, h, tight)
+    b, _ = moe.moe_forward_scatter(layer, h, tight)
+    check(torch.equal(a, b), f"{cfg.name}: two scatter runs differ")
+    _, idx, _ = moe._route(layer, h.reshape(tokens, -1), cfg)
+    per_expert = torch.bincount(idx.reshape(-1), minlength=E)
+    C = moe.capacity(tight, tokens)
+    dropped = int(torch.clamp(per_expert - C, min=0).sum())
+    log(f"{cfg.name} MoE routes: layer 0 scatter (capacity factor "
+        f"{E / k:g}, nothing dropped) vs dense max|dev| {dev:.4e} (limit "
+        f"{MOE_LAYER_TOL:g} x max|y| {scale:.4f}); prefill logits max|dev| "
+        f"{ldev:.4e} (limit {MODEL_TOL['bfloat16']:g}); scatter at capacity "
+        f"factor {cfg.moe_capacity_factor:g} (C = {C}, {dropped} of "
+        f"{tokens * k} assignments dropped) bit for bit in two runs")
+    return dict(layer_dev=dev, layer_scale=scale, logits_dev=ldev,
+                deterministic=True, dropped=dropped, capacity=C)
+
+
+def new_model(torch, model, configs, name):
+    """``name``'s full-width model drawn on the card from seed 0, with its
+    size logged; returns (cfg, params, weight bytes)."""
+    from repro_torch.models import blocks
+    cfg = configs.get(name)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"model {cfg.name}: {cfg.num_layers} layers "
+        f"{json.dumps(dict(collections.Counter(blocks.block_kinds(cfg))))}, "
+        f"d_model "
+        f"{cfg.d_model}, head_dim {cfg.head_dim}, vocab {cfg.padded_vocab} "
+        f"(padded), {sum(p.numel() for p in params.parameters()) / 1e9:.3f} "
+        f"B parameters, {nbytes / 1e9:.2f} GB {cfg.param_dtype}, drawn on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    return cfg, params, nbytes
+
+
+def backbone_serving(torch, ops, engine, cfg, params, *, prompts, max_len,
+                     instance):
+    """The engine with block prefill on ``prompts`` (``serving_path``),
+    every flash launch on ``instance``."""
+    served = serving_path(torch, ops, engine, cfg, params, prompts=prompts,
+                          max_new=NEW_TOKENS, max_len=max_len)
+    if params.device.type == "cuda":
+        n = served["launches"]["flash_attention"]
+        check(served["flash_instances"] == {
+            **{k: 0 for k in ops.flash_launches}, instance: n},
+            f"{cfg.name} serving: flash launches by instance "
+            f"{served['flash_instances']}, expected all {n} on {instance}")
+    return served
+
+
+def tokenwise_agreement(torch, engine, cfg, params, prompt, *, max_len,
+                        tol=None, tokens=True):
+    """One prompt through a one-slot engine with block prefill and token by
+    token.  Where ``tol`` is given, the first generated token's logits (the
+    same history on both paths) differ by at most ``tol``, and a control
+    differs by more: the token-wise logits one position earlier, what a
+    decode that dropped the prompt's last token would give.  With
+    ``tokens``, the two paths must give the same greedy tokens.  Returns
+    both paths' tokens, the deviation and the control's."""
+    def run(block):
+        eng = engine.ServeEngine(cfg, params, max_batch=1, max_len=max_len,
+                                 block_prefill=block, device=params.device)
+        logits = []
+        decode = eng._decode
+
+        def recorded(toks, pos):
+            out, cache = decode(toks, pos)
+            logits.append(out.float())
+            return out, cache
+        eng._decode = recorded
+        eng.submit(engine.Request(rid=0, prompt=prompt, max_new=NEW_TOKENS))
+        return eng.run()[0].generated, logits
+    fast, fast_logits = run(True)
+    slow, slow_logits = run(False)
+    first = slow_logits[len(prompt) - 1]
+    dev = float((fast_logits[0] - first).abs().max())
+    control = float((fast_logits[0] - slow_logits[len(prompt) - 2])
+                    .abs().max())
+    top = torch.topk(first[0], 2).values
+    label = (f"{cfg.name} {cfg.param_dtype}: a {len(prompt)}-token prompt "
+             "with block prefill and token by token")
+    log(f"{label}: first generated token's logits max|dev| {dev:.4e} "
+        f"(limit {tol}; control, one position earlier, {control:.4e}; "
+        f"max|logit| {float(first.abs().max()):.4f}, top-2 margin "
+        f"{float(top[0] - top[1]):.4e}); tokens {fast} and {slow}")
+    if tokens:
+        check(fast == slow, f"{label}: tokens {fast} and {slow} differ")
+    if tol is not None:
+        check(dev <= tol, f"{label}: logits max|dev| {dev:.4e} > {tol}")
+        check(control > tol, f"{label}: the control's logits max|dev| "
+              f"{control:.4e} is within the limit {tol}")
+    return dict(first_logits_dev=dev, control_dev=control, tol=tol,
+                block=fast, tokenwise=slow, equal=fast == slow,
+                dtype=cfg.param_dtype)
+
+
+def in_model_instances(torch, ops, cfg, params, *, label, instance,
+                       prompt=MODEL_PROMPT):
+    """``kernel_vs_plain_in_model`` at the bf16 limit, with every kernel
+    launch of it on ``instance``."""
+    before = dict(ops.flash_launches)
+    dev, scale = kernel_vs_plain_in_model(torch, ops, cfg, params,
+                                          label=label,
+                                          tol=MODEL_TOL["bfloat16"],
+                                          prompt=prompt)
+    if params.device.type == "cuda":
+        ran = {k: v - before[k] for k, v in ops.flash_launches.items()}
+        check(ran[instance] == kernel_layers(cfg) and sum(ran.values())
+              == ran[instance], f"{label}: flash launches by instance "
+              f"{ran}, expected {kernel_layers(cfg)} on {instance}")
+    return dev, scale
+
+
+def flash_d256_timing(torch, ops, ref, device, S=2048, window=2048):
+    """recurrentgemma-2b's attention at S (q (1, 10, S, 256), kv (1, 1, S,
+    256) bf16, causal, window 2048): the fp32-FMA instance (the wrapper's
+    choice at D = 256) against plain, beside the bound and
+    ``scaled_dot_product_attention`` on the same inputs (causal without
+    the window: SDPA takes no window, so its time is given for S <=
+    window only).  At S = 2048 the window masks nothing; the served
+    2,100-token prompt's prefill (S = 2099) runs it with the window
+    active."""
+    F = torch.nn.functional
+    case = (1, 10, 1, S, 256, True, window)
+    q, k, v = attention_inputs(torch, case, "bfloat16", device, seed=S)
+    check(ops.flash_instance(q.dtype, 256, q, k, v) == "fma",
+          "D = 256 does not take the fp32-FMA instance")
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.mha(q, k, v, causal=True, window=window)
+    dev, share = flash_deviation(torch, got, want, "bfloat16")
+    check(share <= 1.0, f"flash D = 256: max|dev| {dev:.3e} is {share:.2f}x "
+          "the limit")
+    times = paired_ms(
+        torch, lambda: ops.flash_attention(q, k, v, causal=True,
+                                           window=window),
+        lambda: ref.mha(q, k, v, causal=True, window=window), 10, 2)
+    lib = (cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10)
+        if S <= window else None)
+    bms, by = attention_bound(1, 10, 1, S, 256, 2, window)
+    row = dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
+               max_abs_dev=dev, instance="fma",
+               shape=f"q (1, 10, {S}, 256), kv (1, 1, {S}, 256) bf16, "
+                     f"causal, window {window}")
+    log(f"time flash_attention [{row['shape']}] on the fp32-FMA instance: "
+        f"{row['ms']:.4f} ms (samples {row['ms_samples'][0]:.4f}, "
+        f"{row['ms_samples'][1]:.4f}), plain {row['plain_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}), scaled_dot_product_attention "
+        f"{'not comparable (window active)' if lib is None else f'{lib:.4f} ms'}"
+        f"; max|dev| {dev:.3e} ({share:.2f}x the limit)")
+    return row
+
+
+def rglru_timing(torch, cfg, params, S=2048, seed=3):
+    """One RG-LRU layer's recurrence at S: ``rglru_scan`` (gates and the
+    log-depth scan) and ``linear_scan`` alone, by CUDA events, on layer 0's
+    weights and a bf16 input (1, S, lru_width)."""
+    from repro_torch.models import rglru
+    layer = params.layers[0].mixer
+    gen = torch.Generator(device=params.device)
+    gen.manual_seed(seed)
+    x = torch.randn((1, S, cfg.lru_width), generator=gen,
+                    device=params.device,
+                    dtype=torch.float32).to(params.embed.dtype)
+    log_a, b = rglru._gates(layer, x)
+    a = torch.exp(log_a)
+    scan_ms = cuda_ms(torch, lambda: rglru.rglru_scan(layer, x), 10)
+    linear_ms = cuda_ms(torch, lambda: rglru.linear_scan(a, b), 10)
+    rounds = math.ceil(math.log2(S))
+    log(f"time rglru_scan [(1, {S}, {cfg.lru_width}) bf16, layer 0]: "
+        f"{scan_ms:.4f} ms a layer (the scan alone, {rounds} Hillis-Steele "
+        f"rounds: {linear_ms:.4f} ms)")
+    return dict(scan_ms=scan_ms, linear_scan_ms=linear_ms, S=S,
+                rounds=rounds)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2124,8 +2629,13 @@ def main() -> int:
     model_devs = {"bfloat16": kernel_vs_plain_in_model(
         torch, ops, cfg, params, label=f"{cfg.name} bf16 40 layers",
         tol=MODEL_TOL["bfloat16"])}
+
+    # phase 7b: the decentralized CSVM head on phase 6's frozen weights
+    t_new = time.perf_counter()
+    heads = {cfg.name: head_phase(torch, core, ops, cfg, params)}
     del params
     torch.cuda.empty_cache()
+    new_phase_s = time.perf_counter() - t_new
     cfg2 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32")
     params = model.init_params(cfg2, seed=0, device="cuda")
     model_devs["float32"] = kernel_vs_plain_in_model(
@@ -2203,6 +2713,83 @@ def main() -> int:
         torch, ops, mcfg2, params, label=f"{mcfg.name} fp32 2 layers",
         tol=MAMBA_TOL["float32"])
     del params
+    torch.cuda.empty_cache()
+
+    # phase 11: granite-moe-3b-a800m at full width — serving, the kernel
+    # against the plain attention inside the model (the tensor-core
+    # instance at D = 64), the two MoE routes, and the head on its features
+    t_new = time.perf_counter()
+    gcfg, params, _ = new_model(torch, model, configs, "granite_moe_3b_a800m")
+    g_served = backbone_serving(torch, ops, engine, gcfg, params,
+                                prompts=GRANITE_PROMPTS, max_len=SERVE_LEN,
+                                instance="wgmma")
+    g_tokenwise = [tokenwise_agreement(torch, engine, gcfg, params, prompt,
+                                       max_len=SERVE_LEN)
+                   for prompt in g_served["prompts"][-GRANITE_TOKENWISE:]]
+    model_devs["bfloat16 granite-moe-3b"] = in_model_instances(
+        torch, ops, gcfg, params, label=f"{gcfg.name} bf16 32 layers",
+        instance="wgmma")
+    moe_routes = moe_route_checks(torch, gcfg, params)
+    heads[gcfg.name] = head_phase(torch, core, ops, gcfg, params,
+                                  shape=BACKBONE_HEAD_SHAPE, plain_seqs=0,
+                                  fits=("megakernel",))
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 12: recurrentgemma-2b at full width — serving with a prompt
+    # longer than the window, the kernel against the plain attention inside
+    # the model (the fp32-FMA instance at D = 256), its flash and RG-LRU
+    # times, and the head on its features
+    rcfg, params, _ = new_model(torch, model, configs, "recurrentgemma_2b")
+    check(RG_PROMPTS[0] > rcfg.sliding_window and RG_LEN > RG_PROMPTS[0],
+          "recurrentgemma: the long prompt does not wrap the ring cache")
+    r_served = backbone_serving(torch, ops, engine, rcfg, params,
+                                prompts=RG_PROMPTS, max_len=RG_LEN,
+                                instance="fma")
+    short = r_served["prompts"][-1]
+    rg_tokenwise = [tokenwise_agreement(torch, engine, rcfg, params, short,
+                                        max_len=RG_LEN, tol=RG_TOKENWISE_TOL,
+                                        tokens=False)]
+    model_devs["bfloat16 recurrentgemma-2b"] = in_model_instances(
+        torch, ops, rcfg, params, label=f"{rcfg.name} bf16 26 layers "
+        f"({kernel_layers(rcfg)} attention)", instance="fma")
+    d256 = flash_d256_timing(torch, ops, ref, "cuda")
+    rows["flash_attention"]["variants"].append(d256)
+    # the long prompt's prefill launch (S = 2099, the window active) held
+    # against plain at the shape the main path gives it
+    rows["flash_attention"]["variants"].append(flash_d256_timing(
+        torch, ops, ref, "cuda", S=RG_PROMPTS[0] - 1,
+        window=rcfg.sliding_window))
+    lru = rglru_timing(torch, rcfg, params)
+    heads[rcfg.name] = head_phase(torch, core, ops, rcfg, params,
+                                  shape=BACKBONE_HEAD_SHAPE, plain_seqs=0,
+                                  fits=("megakernel",))
+    del params
+    torch.cuda.empty_cache()
+    # greedy tokens over a 256,000-token vocabulary are no function of the
+    # path in bf16 (logits of ~4 are bf16 multiples of 2^-5, so the top two
+    # tie exactly at some step); in fp32 the two paths give the same tokens
+    rcfg32 = dataclasses.replace(rcfg, param_dtype="float32")
+    params = model.init_params(rcfg32, seed=0, device="cuda")
+    rg_tokenwise.append(tokenwise_agreement(torch, engine, rcfg32, params,
+                                            short, max_len=RG_LEN,
+                                            tol=MODEL_TOL["float32"]))
+    del params
+    torch.cuda.empty_cache()
+    new_phase_s += time.perf_counter() - t_new
+    for h in heads.values():
+        launches["flash_attention"] += h["flash_launches"]
+        for name in FIT_KERNELS:
+            launches[name] += h["fit_launches"][name]
+        for inst, n in h["round_instances"].items():
+            round_instances[inst] += n
+        for name, by in h["two_pass_instances"].items():
+            for inst, n in by.items():
+                two_pass_instances[name][inst] += n
+    for srv in (g_served, r_served):
+        launches["flash_attention"] += srv["launches"]["flash_attention"]
+    log(f"new phases (7b, 11, 12): {new_phase_s:.1f} s; head launches "
+        f"{json.dumps({k: h['fit_launches'] for k, h in heads.items()})}")
 
     flash_tol = {"float32": FLASH_TOL_F32,
                  "bfloat16": "2^-7 |o_plain| + 1e-6 (one bf16 ulp)"}
@@ -2226,7 +2813,30 @@ def main() -> int:
                     for dt, (d, m) in model_devs.items()},
                 serve_instances=served["flash_instances"],
                 sass={f"flash_tc_kernel<{D}>": dict(HGMMA=h, UTMALDG=u)
-                      for D, (h, u) in sass.items()})
+                      for D, (h, u) in sass.items()},
+                launches_by_path={
+                    "serve qwen3-14b": served["launches"]["flash_attention"],
+                    **{f"head features {k}": h["flash_launches"]
+                       for k, h in heads.items()},
+                    "serve granite-moe-3b-a800m":
+                        g_served["launches"]["flash_attention"],
+                    "serve recurrentgemma-2b":
+                        r_served["launches"]["flash_attention"]},
+                serve_new_models={
+                    srv_name: dict(prefill_ms=srv["prefill_ms"],
+                                   decode_ms_median=float(np.median(
+                                       [ms for _, ms in srv["decode_ms"]])),
+                                   wall_s=srv["wall_s"],
+                                   instances=srv["flash_instances"])
+                    for srv_name, srv in (("granite-moe-3b-a800m", g_served),
+                                          ("recurrentgemma-2b", r_served))},
+                head_features={k: {key: h[key] for key in (
+                    "extract_s", "trunk_flops", "extract_tflops", "shape",
+                    "features_kernel_vs_plain")
+                    if key in h} for k, h in heads.items()},
+                moe_routes=moe_routes, rglru=lru,
+                tokenwise={"granite-moe-3b-a800m": g_tokenwise,
+                           "recurrentgemma-2b": rg_tokenwise})
         elif name == "ssd_scan":
             tol = ssd_tol
             extra = dict(serve=dict(
@@ -2261,11 +2871,17 @@ def main() -> int:
             if name != "csvm_round_block":
                 extra["ranks"] = {k: v for k, v in ranks["cases"].items()
                                   if v["kernel"] == name}
+            extra["head"] = {f"{model_name} {what}": fit
+                             for model_name, h in heads.items()
+                             for what, fit in h["fits"].items()
+                             if fit["kernel"] == name}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=dev, max_abs_dev=dev,
             max_abs_dev_by_dtype=devs[name], tol=tol, **row, **extra))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
+        "of main to the kernels line (the build included)")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Serving: batched one-token decode (serve_step) and a tiny greedy loop.
 
 Counterpart of ``repro.launch.serve``.  ``make_jitted_serve_step`` places
-the step on a device mesh and waits for the mesh (ROADMAP Queue 1 item
-12); torch runs the step eagerly.
+the step on a device mesh and waits for the LM half of the meshes (ROADMAP
+Queue 1 item 13.5); torch runs the step eagerly.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """Decoder blocks: dispatch over block kinds.
 
-Counterpart of ``repro.models.blocks``.  The port runs kind ``"attn"``
-(pre-norm attention + MLP, the dense decoder-only families) and kind
-``"ssm"`` (pre-norm Mamba-2 mixer, mamba2); the other kinds and the
-encoder-decoder stack wait for later slices of the port and raise
+Counterpart of ``repro.models.blocks``.  The port runs every decoder-only
+kind: ``"attn"`` (pre-norm attention + MLP, the dense families), ``"moe"``
+(pre-norm attention + the MoE mixer, granite-moe), ``"ssm"`` (pre-norm
+Mamba-2 mixer, mamba2) and ``"rec"`` (pre-norm RG-LRU block + MLP, the
+recurrent layers of recurrentgemma).  The media frontends and the
+encoder-decoder stack wait for a later slice of the port and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -13,14 +15,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.models import attention, layers, mlp, ssm
+from repro_torch.models import attention, layers, mlp, moe, rglru, ssm
 from repro_torch.models.config import ModelConfig
 
-PORTED = ("attn", "ssm")
-_WAITS = {
-    "moe": "the MoE slice",
-    "rec": "the RG-LRU hybrid slice",
-}
+PORTED = ("attn", "moe", "ssm", "rec")
 
 
 def block_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -50,16 +48,18 @@ def check_supported(cfg: ModelConfig) -> None:
 def require_ported(kind: str) -> None:
     if kind not in PORTED:
         raise NotImplementedError(
-            f"'{kind}' blocks wait for {_WAITS.get(kind, 'a later slice')} "
-            "of the port (ROADMAP Queue 1 item 13)")
+            f"'{kind}' blocks wait for a later slice of the port (ROADMAP "
+            "Queue 1 item 13)")
 
 
 class Block(nn.Module):
     """Pre-norm block.  Kind "attn": ln1 -> attn -> residual, ln2 -> mlp
-    -> residual.  Kind "ssm": ln1 -> mixer (Mamba-2) -> residual; it also
-    holds an ``ln2`` that it never uses, because the JAX package's
-    ``init_block`` creates one for every kind and the weight carrier
-    (``convert.params_from_jax``) loads every leaf of the JAX tree."""
+    -> residual; "moe": the same with ``moe`` in place of ``mlp``; "rec":
+    the same with the RG-LRU ``mixer`` in place of ``attn``.  Kind "ssm":
+    ln1 -> mixer (Mamba-2) -> residual; it also holds an ``ln2`` that it
+    never uses, because the JAX package's ``init_block`` creates one for
+    every kind and the weight carrier (``convert.params_from_jax``) loads
+    every leaf of the JAX tree."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype,
                  gen: torch.Generator):
@@ -70,8 +70,14 @@ class Block(nn.Module):
         if kind == "ssm":
             self.mixer = ssm.init_mamba(cfg, dtype, gen)
             return
-        self.attn = attention.init_attention(cfg, dtype, gen)
-        self.mlp = mlp.init_mlp(cfg, dtype, gen)
+        if kind == "rec":
+            self.mixer = rglru.init_rglru_block(cfg, dtype, gen)
+        else:
+            self.attn = attention.init_attention(cfg, dtype, gen)
+        if kind == "moe":
+            self.moe = moe.init_moe(cfg, dtype, gen)
+        else:
+            self.mlp = mlp.init_mlp(cfg, dtype, gen)
 
 
 def init_block(cfg: ModelConfig, kind: str, dtype,
@@ -79,18 +85,31 @@ def init_block(cfg: ModelConfig, kind: str, dtype,
     return Block(cfg, kind, dtype, gen)
 
 
+def feed_forward(params: Block, x, cfg: ModelConfig, kind: str):
+    """ln2 -> MLP or MoE -> residual.  Returns (x, aux_loss or None)."""
+    h = layers.apply_norm(x, params.ln2, cfg.norm)
+    if kind == "moe":
+        y, aux = moe.moe_forward(params.moe, h, cfg)
+        return x + y, aux
+    return x + mlp.mlp_forward(params.mlp, h, cfg), None
+
+
 def block_forward(params: Block, x, cfg: ModelConfig, kind: str, *,
                   causal: bool = True, window: Optional[int] = None):
-    """Full-sequence block.  Returns (x, aux_loss)."""
+    """Full-sequence block.  Returns (x, aux_loss): the MoE load-balance
+    loss for kind "moe", else 0."""
     require_ported(kind)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(x, params.ln1, cfg.norm)
     if kind == "ssm":
-        return x + ssm.mamba_forward(params.mixer, h, cfg), aux
-    x = x + attention.attention_forward(params.attn, h, cfg, causal=causal,
-                                        window=window)
-    h = layers.apply_norm(x, params.ln2, cfg.norm)
-    return x + mlp.mlp_forward(params.mlp, h, cfg), aux
+        return x + ssm.mamba_forward(params.mixer, h, cfg), zero
+    if kind == "rec":
+        x = x + rglru.rglru_block_forward(params.mixer, h, cfg)
+    else:
+        x = x + attention.attention_forward(params.attn, h, cfg,
+                                            causal=causal, window=window)
+    x, aux = feed_forward(params, x, cfg, kind)
+    return x, zero if aux is None else aux
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -98,6 +117,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     require_ported(kind)
     if kind == "ssm":
         return ssm.init_mamba_cache(cfg, batch, dtype, device)
+    if kind == "rec":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
     cache_len = min(max_len, window) if window else max_len
     return attention.init_kv_cache(cfg, batch, cache_len, dtype, device)
 
@@ -111,8 +132,10 @@ def block_decode(params: Block, x1, cache, pos, cfg: ModelConfig,
     if kind == "ssm":
         y, cache = ssm.mamba_decode(params.mixer, h, cache, cfg)
         return x1 + y, cache
-    y, cache = attention.attention_decode(params.attn, h, cache, pos, cfg,
-                                          window=window)
-    x1 = x1 + y
-    h = layers.apply_norm(x1, params.ln2, cfg.norm)
-    return x1 + mlp.mlp_forward(params.mlp, h, cfg), cache
+    if kind == "rec":
+        y, cache = rglru.rglru_block_decode(params.mixer, h, cache, cfg)
+    else:
+        y, cache = attention.attention_decode(params.attn, h, cache, pos,
+                                              cfg, window=window)
+    x1, _ = feed_forward(params, x1 + y, cfg, kind)
+    return x1, cache

@@ -9,14 +9,19 @@ JAX arrays handed over as they are).
 
 - ``params_from_jax(tree, cfg, device)``: the ``repro.models.model.
   init_params`` pytree -> the port's ``LM``, with ``tree["layers"]``
-  (stacked on a leading L axis) unstacked into ``LM.layers``.
+  (stacked on a leading L axis) unstacked into ``LM.layers``; a hybrid's
+  ``tree["pattern_layers"]`` (one stack per pattern position, n_rep deep)
+  and ``tree["tail_layers"]`` interleaved into forward order:
+  ``pattern_layers[j][g]`` is layer g·len(pattern) + j, tail layer t is
+  layer n_rep·len(pattern) + t.
   The mamba2 tree carries over as it is: its fp32 ``A_log``, ``D`` and
   ``dt_bias`` stay fp32 in a bf16 model (the port's ``ssm.Mamba`` holds
   them so, and the dtype check below holds it to that), and the SSM
   block's unused ``ln2`` has its counterpart in ``blocks.Block``.
 - ``cache_from_jax(tree, device)`` / ``cache_to_numpy(cache)``: the
-  decode cache, whose layout both packages share ((L, B, S, KV, D) k and
-  v; (L, B, W-1, conv_ch) conv and (L, B, H, P, N) ssm).
+  decode cache, whose layout both packages share (``{"layers": ...}`` or
+  ``{"pattern_layers": [...], "tail_layers": [...]}``, see
+  ``repro_torch.models.model``).
 """
 from __future__ import annotations
 
@@ -61,6 +66,19 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _unstack(flat: Dict[str, Any], stack: Dict[str, Any], layer_of,
+             depth: int, what: str) -> None:
+    """Each leaf of a stacked layer tree (leading axis ``depth``) into
+    ``flat`` as ``layers.{layer_of(g)}.{name}``."""
+    for key, value in _flatten(stack).items():
+        arr = np.asarray(value)
+        if arr.shape[0] != depth:
+            raise ValueError(f"{what}.{key}: leading axis {arr.shape[0]} "
+                             f"!= {depth}")
+        for g in range(depth):
+            flat[f"layers.{layer_of(g)}.{key}"] = arr[g]
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> M.LM:
     """The port's model holding the weights of a JAX parameter tree.
@@ -72,16 +90,22 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     """
     device = resolve_device(None, device)
     lm = M.init_params(cfg, seed=0, device=device)
-    flat = {k: v for k, v in _flatten(tree).items()
-            if not k.startswith("layers.")}
-    stacked = _flatten(tree["layers"]) if "layers" in tree else {}
-    for key, value in stacked.items():
-        arr = np.asarray(value)
-        if arr.shape[0] != cfg.num_layers:
-            raise ValueError(f"layers.{key}: leading axis {arr.shape[0]} "
-                             f"!= num_layers {cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            flat[f"layers.{i}.{key}"] = arr[i]
+    stacks = ("layers", "pattern_layers", "tail_layers")
+    flat = _flatten({k: v for k, v in tree.items() if k not in stacks})
+    if "layers" in tree:
+        _unstack(flat, tree["layers"], lambda g: g, cfg.num_layers,
+                 "layers")
+    if "pattern_layers" in tree:
+        pat, n_rep, _ = M.hybrid_layout(cfg)
+        if len(tree["pattern_layers"]) != len(pat):
+            raise ValueError(f"pattern_layers: {len(tree['pattern_layers'])}"
+                             f" stacks for a pattern of {len(pat)}")
+        for j, stack in enumerate(tree["pattern_layers"]):
+            _unstack(flat, stack, lambda g, j=j: g * len(pat) + j, n_rep,
+                     f"pattern_layers.{j}")
+        for t, layer in enumerate(tree["tail_layers"]):
+            for key, value in _flatten(layer).items():
+                flat[f"layers.{n_rep * len(pat) + t}.{key}"] = value
     own = dict(lm.named_parameters())
     if set(own) != set(flat):
         raise ValueError(f"parameter names differ: only in the port "
@@ -98,16 +122,25 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     return lm
 
 
+def _map_cache(cache: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``fn`` on every array of a decode cache, keeping its layout."""
+    out: Dict[str, Any] = {}
+    if "layers" in cache:
+        out["layers"] = {name: fn(a) for name, a in cache["layers"].items()}
+    for key in ("pattern_layers", "tail_layers"):
+        if key in cache:
+            out[key] = [{name: fn(a) for name, a in entry.items()}
+                        for entry in cache[key]]
+    return out
+
+
 def cache_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """A JAX decode cache {"layers": {"k": (L, B, S, KV, D), ...}} or
-    {"layers": {"conv": ..., "ssm": ...}} -> the port's cache (the same
-    layout and dtypes)."""
+    """A JAX decode cache -> the port's cache (the same layout and
+    dtypes)."""
     device = resolve_device(None, device)
-    return {"layers": {name: to_tensor(a, device)
-                       for name, a in tree["layers"].items()}}
+    return _map_cache(tree, lambda a: to_tensor(a, device))
 
 
 def cache_to_numpy(cache: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's cache -> {"layers": {name: numpy array}}."""
-    return {"layers": {name: to_numpy(t)
-                       for name, t in cache["layers"].items()}}
+    """The port's cache -> the same layout of numpy arrays."""
+    return _map_cache(cache, to_numpy)

@@ -1,23 +1,34 @@
 """Top-level language model: init, forward, decode.
 
-Counterpart of ``repro.models.model`` for the dense decoder-only families
-(qwen3-14b, qwen3-32b, glm4-9b, command-r-35b) and the SSM family
-(mamba2-370m).  The JAX package stacks the per-layer parameters on a
-leading L axis and scans over them; here the layers are an
-``nn.ModuleList`` and ``forward`` / ``decode_step`` loop over it, each
-layer dispatching on its kind.  The decode cache keeps the JAX layout, one
-stacked tensor per name with a leading L axis ((L, B, S, KV, D) for k and
-v; (L, B, W-1, conv_ch) for conv and (L, B, H, P, N) fp32 for ssm), and
-each layer reads and writes its own view of it in place.
+Counterpart of ``repro.models.model`` for the decoder-only families: the
+dense ones (qwen3-14b, qwen3-32b, glm4-9b, command-r-35b), MoE
+(granite-moe), the SSM family (mamba2-370m) and the RG-LRU hybrid
+(recurrentgemma).  The JAX package stacks the per-layer parameters on a
+leading L axis and scans over them — for a hybrid, one stack per position
+of the block pattern (``pattern_layers``, n_rep deep) and the remainder
+layers apart (``tail_layers``).  Here the layers are one
+``nn.ModuleList`` in forward order (layer l of a hybrid is pattern
+position l mod len(pattern) while l < n_rep * len(pattern), then a tail
+layer), and ``forward`` / ``decode_step`` loop over it, each layer
+dispatching on its kind.
 
-The training surface (``loss_fn``, remat), media frontends, the
-encoder-decoder stack and the MoE and RG-LRU blocks wait for later slices
-of the port (ROADMAP Queue 1 item 13); ``init_params`` raises
-``NotImplementedError`` for their configurations.
+The decode cache keeps the JAX layout.  A stack of one kind has one
+stacked tensor per name with a leading L axis: {"layers": {name: (L, B,
+...)}} ((L, B, S, KV, D) for k and v; (L, B, W-1, conv_ch) for conv and
+(L, B, H, P, N) fp32 for ssm).  A hybrid has {"pattern_layers": [{name:
+(n_rep, B, ...)} per pattern position], "tail_layers": [{name: (B, ...)}
+per tail layer]} (an RG-LRU layer holds conv (B, W-1, w) and h (B, w)
+fp32).  Each layer reads and writes its own view of it in place
+(``layer_cache``).
+
+The training surface (``loss_fn``, remat), the media frontends and the
+encoder-decoder stack wait for later slices of the port (ROADMAP Queue 1
+item 13); ``init_params`` raises ``NotImplementedError`` for their
+configurations.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -84,10 +95,10 @@ def _decoder_window(cfg: ModelConfig, mode: str) -> Optional[int]:
     return None
 
 
-def forward(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
-            mode: str = "train"):
-    """Returns (logits (B, S, V), aux_loss).  batch: {"tokens": (B, S)}.
-    ``mode``: "train" | "prefill" | "long" (sliding-window fallback)."""
+def hidden(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
+           mode: str = "train"):
+    """The forward pass up to the LM head: (final-normed hidden states
+    (B, S, d), aux_loss)."""
     x = _embed_tokens(params, _tokens(batch["tokens"], params.device), cfg)
     window = _decoder_window(cfg, mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -95,29 +106,75 @@ def forward(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
         x, a = blocks.block_forward(lp, x, cfg, kind, causal=True,
                                     window=window)
         aux = aux + a
-    x = layers.apply_norm(x, params.final_norm, cfg.norm)
+    return layers.apply_norm(x, params.final_norm, cfg.norm), aux
+
+
+def forward(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
+            mode: str = "train"):
+    """Returns (logits (B, S, V), aux_loss: the MoE load-balance loss summed
+    over the layers, else 0).  batch: {"tokens": (B, S)}.  ``mode``:
+    "train" | "prefill" | "long" (sliding-window fallback)."""
+    x, aux = hidden(params, batch, cfg, mode=mode)
     return x @ _head(params, cfg), aux
+
+
+def hybrid_layout(cfg: ModelConfig):
+    """(pattern, n_rep, number of tail layers) of a mixed stack."""
+    pat = cfg.block_pattern
+    n_rep, rem = divmod(cfg.num_layers, len(pat))
+    return pat, n_rep, rem
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                mode: str = "decode", device="cuda") -> Dict[str, Any]:
-    """Decode state, zeros: {"layers": {"k": (L, B, S, KV, D), "v": ...}}
-    (plus the int8 scales) for attention stacks, {"layers": {"conv":
-    (L, B, W-1, conv_ch) in the model dtype, "ssm": (L, B, H, P, N) fp32}}
-    for SSM stacks.  In "long" mode (or with an always-on sliding window)
-    the attention caches are ring buffers of the window's size.  (Every
-    family the port runs has one block kind.)"""
+    """Decode state, zeros, in the JAX layout (module docstring): one kind
+    -> {"layers": {name: (L, B, ...)}}; a hybrid -> {"pattern_layers":
+    [...], "tail_layers": [...]}.  In "long" mode (or with an always-on
+    sliding window) the attention caches are ring buffers of the window's
+    size."""
     blocks.check_supported(cfg)
     device = resolve_device(None, device)
     window = _decoder_window(cfg, "long" if mode == "long" else "decode")
-    kind, = set(blocks.block_kinds(cfg))
-    one = blocks.init_block_cache(cfg, kind, batch, max_len,
-                                  layers.torch_dtype(cfg), device,
-                                  window=window)
-    L = cfg.num_layers
-    return {"layers": {name: torch.zeros((L, *t.shape), dtype=t.dtype,
-                                         device=device)
-                       for name, t in one.items()}}
+    dtype = layers.torch_dtype(cfg)
+
+    def one(kind):
+        return blocks.init_block_cache(cfg, kind, batch, max_len, dtype,
+                                       device, window=window)
+
+    def stacked(kind, n):
+        return {name: torch.zeros((n, *t.shape), dtype=t.dtype,
+                                  device=device)
+                for name, t in one(kind).items()}
+
+    kinds = blocks.block_kinds(cfg)
+    if len(set(kinds)) == 1:
+        return {"layers": stacked(kinds[0], cfg.num_layers)}
+    pat, n_rep, rem = hybrid_layout(cfg)
+    return {"pattern_layers": [stacked(kind, n_rep) for kind in pat],
+            "tail_layers": [one(pat[i % len(pat)]) for i in range(rem)]}
+
+
+def layer_cache(cache: Dict[str, Any], i: int,
+                cfg: ModelConfig) -> Dict[str, Tensor]:
+    """Layer i's cache entries: views into ``cache``, written in place."""
+    if "layers" in cache:
+        return {name: t[i] for name, t in cache["layers"].items()}
+    pat, n_rep, _ = hybrid_layout(cfg)
+    if i < n_rep * len(pat):
+        g, j = divmod(i, len(pat))
+        return {name: t[g] for name, t in cache["pattern_layers"][j].items()}
+    return cache["tail_layers"][i - n_rep * len(pat)]
+
+
+def cache_leaves(cache: Dict[str, Any]) -> List[Tuple[Tensor, int]]:
+    """Every tensor of a decode cache with its batch (slot) axis, in a
+    fixed order: 1 in a stacked entry, 0 in a tail layer's."""
+    leaves = [(t, 1) for t in cache.get("layers", {}).values()]
+    for entry in cache.get("pattern_layers", []):
+        leaves += [(t, 1) for t in entry.values()]
+    for entry in cache.get("tail_layers", []):
+        leaves += [(t, 0) for t in entry.values()]
+    return leaves
 
 
 def decode_step(params: LM, cache: Dict[str, Any], token, pos,
@@ -129,8 +186,7 @@ def decode_step(params: LM, cache: Dict[str, Any], token, pos,
     window = _decoder_window(cfg, "long" if mode == "long" else "decode")
     for i, (kind, lp) in enumerate(zip(blocks.block_kinds(cfg),
                                        params.layers)):
-        views = {name: t[i] for name, t in cache["layers"].items()}
-        x, _ = blocks.block_decode(lp, x, views, pos, cfg, kind,
-                                   window=window)
+        x, _ = blocks.block_decode(lp, x, layer_cache(cache, i, cfg), pos,
+                                   cfg, kind, window=window)
     x = layers.apply_norm(x, params.final_norm, cfg.norm)
     return (x @ _head(params, cfg))[:, 0], cache

@@ -1,0 +1,128 @@
+"""Mixture-of-experts block (granite-moe family): a top-k router and
+SwiGLU experts, with two routes.
+
+Counterpart of ``repro.models.moe``.
+
+- ``"dense"``: every expert runs on every token, with a masked combine.
+  Exact; the default and the oracle.  Costs num_experts / top_k times the
+  routed FLOPs.
+- ``"scatter"``: capacity dispatch (GShard-style).  Expert e takes at
+  most C = int(capacity_factor · T · k / E) + 1 tokens, slotted in token
+  order; an assignment past C is dropped.
+
+The router runs in fp32 and returns the Switch-style load-balance loss
+beside the gates.  The JAX package's two ``.at[].add`` of the scatter
+route become a plain index write and a fixed-order sum: a kept
+(expert, slot) pair is unique, so the dispatch needs no accumulation (the
+dropped assignments write a spare slot past C that is cut off), and each
+token has exactly k contributions, summed over k in one reduction.  So no
+atomic add is involved and a bf16 run repeats bit for bit.
+
+``torch.topk`` and ``lax.top_k`` may break exact ties of router
+probabilities differently; with random fp32 router logits a tie has
+probability 0, and the tests rely on that.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+
+
+class MoE(nn.Module):
+    """router (d, E) fp32; w_gate and w_up (E, d, f), w_down (E, f, d) in
+    the model dtype, under the names of ``repro.models.moe.init_moe``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, gen: torch.Generator):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+        self.router = layers.dense_init(gen, (d, E), torch.float32)
+        self.w_gate = layers.dense_init(gen, (E, d, f), dtype)
+        self.w_up = layers.dense_init(gen, (E, d, f), dtype)
+        self.w_down = layers.dense_init(gen, (E, f, d), dtype)
+
+
+def init_moe(cfg: ModelConfig, dtype, gen: torch.Generator) -> MoE:
+    return MoE(cfg, dtype, gen)
+
+
+def _route(params: MoE, x2: Tensor, cfg: ModelConfig):
+    """x2: (T, d) -> (gates (T, k) fp32, idx (T, k), aux_loss scalar)."""
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    probs = torch.softmax(x2.to(torch.float32) @ params.router, dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / (torch.sum(gates, dim=-1, keepdim=True) + 1e-9)
+    # Switch aux loss: E * sum_e (share of first choices to e) * (mean
+    # router probability of e)
+    onehot = torch.nn.functional.one_hot(idx[:, 0], E).to(torch.float32)
+    frac = torch.mean(onehot, dim=0)
+    aux = E * torch.sum(frac * torch.mean(probs, dim=0))
+    return gates, idx, aux
+
+
+def _expert_ffn(xe: Tensor, params: MoE) -> Tensor:
+    """xe: (E, C, d) -> (E, C, d), each expert's SwiGLU on its rows."""
+    g = torch.bmm(xe, params.w_gate)
+    u = torch.bmm(xe, params.w_up)
+    return torch.bmm(layers.silu(g) * u, params.w_down)
+
+
+def moe_forward_dense(params: MoE, x: Tensor, cfg: ModelConfig):
+    """Every expert on every token; the gates combine them.  x: (B, S, d)
+    -> ((B, S, d), aux)."""
+    B, S, d = x.shape
+    T, E, f = B * S, cfg.num_experts, cfg.d_ff
+    x2 = x.reshape(T, d)
+    gates, idx, aux = _route(params, x2, cfg)
+    comb = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    comb.scatter_(1, idx, gates)            # top-k indices are distinct
+    g = torch.matmul(x2, params.w_gate)                         # (E, T, f)
+    u = torch.matmul(x2, params.w_up)
+    h = comb.T.to(x.dtype)[:, :, None] * (layers.silu(g) * u)
+    # one contraction over (e, f), as the JAX package's einsum
+    y = h.transpose(0, 1).reshape(T, E * f) @ params.w_down.reshape(E * f, d)
+    return y.reshape(B, S, d), aux
+
+
+def capacity(cfg: ModelConfig, T: int) -> int:
+    """Rows of each expert in the scatter route for T tokens."""
+    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    return int(cfg.moe_capacity_factor * T * k / E) + 1
+
+
+def moe_forward_scatter(params: MoE, x: Tensor, cfg: ModelConfig):
+    """Capacity dispatch: token t's j-th choice e takes slot = the number
+    of earlier assignments (in (token, choice) order) to e, and is dropped
+    when slot >= C.  x: (B, S, d) -> ((B, S, d), aux)."""
+    B, S, d = x.shape
+    T, k, E = B * S, cfg.num_experts_per_tok, cfg.num_experts
+    C = capacity(cfg, T)
+    x2 = x.reshape(T, d)
+    gates, idx, aux = _route(params, x2, cfg)
+    flat_e = idx.reshape(T * k)
+    onehot = torch.nn.functional.one_hot(flat_e, E)               # (T*k, E)
+    slot = torch.sum((torch.cumsum(onehot, dim=0) - onehot) * onehot,
+                     dim=-1)                                       # (T*k,)
+    keep = slot < C
+    tok_id = torch.arange(T, device=x.device).repeat_interleave(k)
+    # kept (expert, slot) pairs are distinct; dropped ones go to slot C,
+    # which is cut off, so a plain index write is exact
+    xe = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
+    xe[flat_e, torch.where(keep, slot, C)] = x2[tok_id]
+    ye = _expert_ffn(xe[:, :C], params)                            # (E, C, d)
+    slot = torch.where(keep, slot, C - 1)
+    contrib = ye[flat_e, slot] * (gates.reshape(T * k) * keep)[:, None].to(
+        x.dtype)
+    y = contrib.reshape(T, k, d).sum(dim=1)
+    return y.reshape(B, S, d), aux
+
+
+def moe_forward(params: MoE, x: Tensor, cfg: ModelConfig):
+    """The MoE mixer by ``cfg.moe_routing``.  Returns (y, aux_loss)."""
+    if cfg.moe_routing == "scatter":
+        return moe_forward_scatter(params, x, cfg)
+    return moe_forward_dense(params, x, cfg)

@@ -2,13 +2,16 @@
 cache, so that serving pays one forward for the prompt instead of
 len(prompt) decode steps.
 
-Counterpart of ``repro.models.prefill`` for blocks of kind "attn" and
-"ssm".  Each attention layer's self-attention runs
+Counterpart of ``repro.models.prefill`` for every decoder-only block
+kind.  Each attention layer (kinds "attn" and "moe") runs
 ``attention.self_attend``: the CUDA flash kernel on the card (one launch
 per layer), the plain ``_attend`` on the CPU.  Each SSM layer runs
 ``ssm.ssd``: the CUDA ``ssd_scan`` kernel on the card (one launch per
 layer), whose final state seeds the layer's decode state, and the plain
-``ssd_chunked`` on the CPU.
+``ssd_chunked`` on the CPU.  Each RG-LRU layer (kind "rec") seeds its
+conv history from the last W-1 rows of its pre-conv branch and its state
+from the scan's final h.  The entries are packed into the layout of
+``model.init_cache`` (a hybrid's pattern and tail stacks included).
 
 Ring placement: decode writes slot = pos mod cache_len, so after
 prefilling positions [0, S) the slot s must hold the largest position
@@ -21,7 +24,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import attention, blocks, layers, mlp, ssm
+from repro_torch.models import attention, blocks, layers, rglru, ssm
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -68,6 +71,13 @@ def _ssm_prefill(params: ssm.Mamba, u, cfg: ModelConfig):
     return out, {"conv": _last_rows(xbc, cfg.conv_width - 1), "ssm": final}
 
 
+def _rec_prefill(params: rglru.RGLRU, x, cfg: ModelConfig):
+    """RG-LRU block forward that also returns {"conv": the last W-1 rows
+    of the pre-conv branch, "h": the final state (B, w) fp32}."""
+    out, rec, h_last = rglru.rglru_mix(params, x, cfg)
+    return out, {"conv": _last_rows(rec, cfg.conv_width - 1), "h": h_last}
+
+
 def _block_prefill(params: blocks.Block, x, cfg: ModelConfig, kind: str, *,
                    window, cache_len):
     blocks.require_ported(kind)
@@ -75,11 +85,13 @@ def _block_prefill(params: blocks.Block, x, cfg: ModelConfig, kind: str, *,
     if kind == "ssm":
         y, cache = _ssm_prefill(params.mixer, h, cfg)
         return x + y, cache
-    y, cache = _attn_prefill(params.attn, h, cfg, window=window,
-                             cache_len=cache_len)
-    x = x + y
-    h2 = layers.apply_norm(x, params.ln2, cfg.norm)
-    return x + mlp.mlp_forward(params.mlp, h2, cfg), cache
+    if kind == "rec":
+        y, cache = _rec_prefill(params.mixer, h, cfg)
+    else:
+        y, cache = _attn_prefill(params.attn, h, cfg, window=window,
+                                 cache_len=cache_len)
+    x, _ = blocks.feed_forward(params, x + y, cfg, kind)
+    return x, cache
 
 
 def _cache_len(max_len: int, window) -> int:
@@ -108,7 +120,8 @@ def prefill(params: M.LM, batch: Dict[str, Any], cfg: ModelConfig,
                                        params.layers)):
         x, entry = _block_prefill(lp, x, cfg, kind, window=window,
                                   cache_len=_cache_len(max_len, window))
+        views = M.layer_cache(cache, i, cfg)
         for name, t in entry.items():
-            cache["layers"][name][i] = t
+            views[name].copy_(t)
     x = layers.apply_norm(x, params.final_norm, cfg.norm)
     return x @ M._head(params, cfg), cache, S

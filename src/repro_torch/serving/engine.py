@@ -10,10 +10,11 @@ forward runs the CUDA flash-attention kernel, or for mamba2 the CUDA
 ``ssd_scan`` kernel, once per layer).
 
 Slot hygiene: on admission every cache entry of the slot is zeroed — k
-and v, and the conv history and SSM state of mamba2.  Attention does not
-depend on it (the ring mask k_pos <= pos already hides unwritten slots);
-the SSM state does: a reused slot would otherwise carry its previous
-request's state.  The cache is updated in place.
+and v, the conv history and SSM state of mamba2, and the conv history
+and RG-LRU state of recurrentgemma (in its pattern and tail stacks).
+Attention does not depend on it (the ring mask k_pos <= pos already hides
+unwritten slots); the recurrent states do: a reused slot would otherwise
+carry its previous request's state.  The cache is updated in place.
 """
 from __future__ import annotations
 
@@ -106,8 +107,8 @@ class ServeEngine(FifoEngine):
                                  self.cfg)
 
     def _reset_slot_state(self, b: int) -> None:
-        for t in self.cache["layers"].values():
-            t[:, b].zero_()
+        for t, axis in model.cache_leaves(self.cache):
+            t.select(axis, b).zero_()
 
     def _admit(self) -> None:
         for b in range(self.max_batch):
@@ -125,8 +126,9 @@ class ServeEngine(FifoEngine):
         toks = torch.as_tensor(req.prompt[:-1], device=self.device)[None]
         _, solo, _ = prefill(self.params, {"tokens": toks}, self.cfg,
                              self.max_len)
-        for name, t in self.cache["layers"].items():
-            t[:, b] = solo["layers"][name][:, 0]
+        for (t, axis), (one, _) in zip(model.cache_leaves(self.cache),
+                                       model.cache_leaves(solo)):
+            t.select(axis, b).copy_(one.select(axis, 0))
         self.pos[b] = len(req.prompt) - 1
 
     def _current_tokens(self) -> np.ndarray:

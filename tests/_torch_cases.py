@@ -1,8 +1,47 @@
 """Seeded inputs shared by the torch port's kernel tests (CPU and CUDA),
-and the plain model of the stream instances' order of arithmetic; no jax,
-so that the CUDA tests run where jax is not installed."""
+the plain model of the stream instances' order of arithmetic, and the
+``one_thread`` fixture every port test module imports; no jax, so that
+the CUDA tests run where jax is not installed."""
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread while the importing module runs (``from
+    _torch_cases import one_thread`` makes it autouse there): the port's
+    test tensors are small, and under several test workers torch's
+    per-process intra-op thread pools oversubscribe the cores (on an
+    8-core CPU a test of 0.7 s alone took 30 s beside five other files
+    under six workers); the old count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def stand_in_counters(monkeypatch):
+    """For the CPU rehearsals of chip_smoke.py's phases (the CPU has no
+    kernel): each wrapper call of a CSVM kernel, and each self-attention
+    call of the model, counts as one launch; the counters start at 0.
+    Returns ``repro_torch.kernels.ops``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    for name in ("csvm_round_block", "csvm_block_update",
+                 "csvm_local_update"):
+        def counted(*a, _fn=getattr(ops, name), _name=name, **k):
+            ops.launches[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(ops, name, counted)
+    plain = attention.self_attend
+
+    def attend(q, k, v, **kw):
+        ops.launches["flash_attention"] += 1
+        return plain(q, k, v, **kw)
+    monkeypatch.setattr(attention, "self_attend", attend)
+    ops.reset_launches()
+    return ops
 
 
 def problem(m, n, p, seed=0, scale_b=0.05):

@@ -20,6 +20,7 @@ from repro_torch.kernels import ops, ref
 
 from _torch_cases import (ROUND_CASES, TWO_PASS_CASES, problem,
                           two_pass_problem)
+from _torch_cases import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -940,3 +941,78 @@ def test_two_ranks_on_the_card_match_one_rank(cuda):
         assert out["launches"] == 50
         assert out["instances"] == {"stream": 50, "direct": 0}
         torch.testing.assert_close(out["B"], one.cpu(), atol=ATOL, rtol=0)
+
+
+def test_moe_routes_on_the_card(cuda):
+    """Reduced granite-moe in bf16 on the card: the scatter route at a
+    capacity that drops nothing within chip_smoke's relative limit of the
+    dense route, and at the configured capacity bit for bit in two runs
+    (no atomic adds)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import model, moe
+    cfg = configs.get_reduced("granite_moe_1b_a400m", param_dtype="bfloat16")
+    params = model.init_params(cfg, seed=0, device=cuda)
+    layer = params.layers[0].moe
+    h = torch.randn((2, 300, cfg.d_model), device=cuda).to(torch.bfloat16)
+    ample = dataclasses.replace(cfg, moe_routing="scatter",
+                                moe_capacity_factor=2.0)
+    dense, _ = moe.moe_forward_dense(layer, h, cfg)
+    scat, _ = moe.moe_forward_scatter(layer, h, ample)
+    dev = float((scat.float() - dense.float()).abs().max())
+    assert dev <= chip_smoke.MOE_LAYER_TOL * float(dense.float().abs().max())
+    tight = dataclasses.replace(cfg, moe_routing="scatter")
+    a, _ = moe.moe_forward_scatter(layer, h, tight)
+    b, _ = moe.moe_forward_scatter(layer, h, tight)
+    assert torch.equal(a, b)
+
+
+def test_hybrid_prefill_at_head_dim_256_takes_the_fma_instance(cuda):
+    """The reduced recurrentgemma at its full head dim (D = 256) and 5
+    layers in bf16: block prefill of a prompt longer than the window, one
+    fp32-FMA flash launch per attention layer, logits within chip_smoke's
+    bf16 in-model limit of the plain attention's; decode from the wrapped
+    ring cache stays finite."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get_reduced("recurrentgemma_2b", num_layers=5,
+                              head_dim=256, param_dtype="bfloat16")
+    params = model.init_params(cfg, seed=0, device=cuda)
+    ops.reset_launches()
+    dev, _ = chip_smoke.kernel_vs_plain_in_model(
+        torch, ops, cfg, params, label="reduced hybrid bf16 D=256",
+        tol=chip_smoke.MODEL_TOL["bfloat16"], prompt=150)
+    assert ops.flash_launches == {"wgmma": 0, "fma": 2}
+    assert dev <= chip_smoke.MODEL_TOL["bfloat16"]
+
+
+def test_head_features_and_fit_on_the_card_match_the_cpu(cuda):
+    """The head's features (reduced qwen3-14b, fp32) on the card within
+    the fp32 in-model limit of the CPU's, and the fit under ``megakernel``
+    on the card within 1e-5 of the plain fit on the CPU, given the same
+    features and rho."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.optim import decsvm_head as head
+    cfg = configs.get_reduced("qwen3_14b")
+    cpu = model.init_params(cfg, seed=0, device="cpu")
+    card = model.init_params(cfg, seed=0, device="cpu").to(cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (96, 16))
+    want = head.extract_features(cpu, cfg, toks)
+    got = head.extract_features(card, cfg, toks)
+    assert float((got.cpu() - want).abs().max()) <= \
+        chip_smoke.MODEL_TOL["float32"]
+    feats = want.reshape(4, 24, -1)
+    y = np.sign(np.random.default_rng(1).standard_normal((4, 24)))
+    rho = tc.compute_rho(head.standardize(feats, "cpu")[0], 0.3,
+                         "epanechnikov")
+    acfg = tc.ADMMConfig(lam=0.02, h=0.3, max_iter=200)
+    B0, _ = head.train_decsvm_head(feats, y, ring(4), acfg, rho=rho,
+                                   device="cpu")
+    ops.reset_launches()
+    B1, _ = head.train_decsvm_head(
+        feats.to(cuda), y, ring(4),
+        tc.ADMMConfig(lam=0.02, h=0.3, max_iter=200, backend="megakernel"),
+        rho=rho)
+    assert ops.launches["csvm_round_block"] == 1
+    assert float((B1.cpu() - B0).abs().max()) <= ATOL

@@ -15,6 +15,7 @@ from repro.core import simulate as jsim
 from repro_torch.core import graph as tgraph
 from repro_torch.core import metrics as tmetrics
 from repro_torch.core import simulate as tsim
+from _torch_cases import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -34,6 +34,7 @@ from repro_torch.core import solver as ts
 from repro_torch.core import tuning as ttuning
 from repro_torch.launch import mesh
 from repro_torch.kernels import ops
+from _torch_cases import one_thread  # noqa: F401
 
 MAX_ITER = 60
 # fp32 tier: the same fp32 arithmetic in another summation order
@@ -42,18 +43,6 @@ ATOL = 1e-5
 ATOL_BF16 = 1e-2
 FOLDS = 3
 BACKENDS = ["jnp", "pallas", "megakernel", "megakernel_bf16"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread while this module runs: its tensors are tiny, and
-    under several test workers torch's per-process thread pools contend
-    for the cores (about 10x slower under four workers); the old count
-    is restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -32,24 +32,13 @@ from repro_torch.core import penalties as tpen
 from repro_torch.core import tuning as ttuning
 from repro_torch.kernels import ops
 from repro_torch.serving import DecsvmFitServer, FitRequest
+from _torch_cases import one_thread  # noqa: F401
 
 MAX_ITER = 80
 NPROB = 3
 FOLDS = 3
 ATOL = 1e-5
 GAP_ATOL = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread while this module runs: its tensors are tiny, and
-    under several test workers torch's per-process thread pools contend
-    for the cores (about 10x slower under four workers); the old count
-    is restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rhos(X, n_folds=FOLDS):

@@ -15,6 +15,7 @@ from repro.kernels import ref as jref
 from repro.models import attention as jattention
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention
+from _torch_cases import one_thread  # noqa: F401
 
 # fp32: the same fp32 softmax summed in another order — the repo's kernel
 # tier (tests/test_kernels.py).

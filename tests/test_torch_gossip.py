@@ -14,18 +14,7 @@ from repro.core import ADMMConfig, SimConfig, decsvm_fit, generate
 from repro.core import gossip as jg
 from repro.core.graph import erdos_renyi, metropolis_weights, ring
 from repro_torch.core import gossip as tg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread while this module runs: its tensors are tiny, and
-    under several test workers torch's per-process thread pools contend
-    for the cores (about 10x slower under four workers); the old count
-    is restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_cases import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("W", [erdos_renyi(10, 0.4, seed=5), ring(7),

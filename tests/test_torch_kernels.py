@@ -17,6 +17,7 @@ from repro_torch.kernels import ops, ref
 from _torch_cases import (ROUND_CASES, problem as _problem,
                           segments as _segments, stream_x_pass,
                           sum_in_order)
+from _torch_cases import one_thread  # noqa: F401
 
 # fp32: the same chain of fp32 dots in another summation order (XLA on
 # the CPU vs torch) — the repo's fp32 tier.

@@ -8,6 +8,7 @@ import torch
 
 from repro.core import losses as jl
 from repro_torch.core import losses as tl
+from _torch_cases import one_thread  # noqa: F401
 
 # fp32 elementwise formulas evaluated by two libraries (different exp /
 # erf implementations): a few ulps of values of order 1.

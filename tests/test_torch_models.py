@@ -6,7 +6,9 @@ JAX-initialised weights.  Reduced configs of the four dense families the
 port serves: qwen3-14b, qwen3-32b, glm4-9b (partial RoPE, biases) and
 command-r-35b (layernorm, tied embeddings); the forward pass, the blocks
 and the weight carrier also for the SSM family, mamba2-370m (its mixer:
-``test_torch_ssm.py``).
+``test_torch_ssm.py``), the MoE family, granite-moe-1b-a400m
+(``test_torch_moe.py``), and the RG-LRU hybrid, recurrentgemma-2b (its
+pattern stacks; ``test_torch_rglru.py``).
 """
 import dataclasses
 
@@ -23,6 +25,7 @@ from repro.models import mlp as jmlp
 from repro.models import model as jmodel
 import repro_torch.configs as tconfigs
 from repro_torch.models import attention, blocks, convert, layers, mlp, model
+from _torch_cases import one_thread  # noqa: F401
 
 # fp32: the same fp32 arithmetic summed in another order (XLA on the CPU
 # vs torch) — the tier of tests/test_prefill.py.
@@ -31,8 +34,9 @@ DENSE = ["qwen3_14b", "qwen3_32b", "glm4_9b", "command_r_35b"]
 KEY = jax.random.PRNGKey(0)
 
 
-# the families the port serves (tests/test_prefill.py:16 covers mamba2)
-SERVED = DENSE + ["mamba2_370m"]
+# the families the port serves (tests/test_prefill.py:16 covers mamba2,
+# granite-moe and recurrentgemma)
+SERVED = DENSE + ["mamba2_370m", "granite_moe_1b_a400m", "recurrentgemma_2b"]
 
 
 def _pair(arch):
@@ -55,7 +59,10 @@ def any_pair(request):
 
 
 def _layer0(jp):
-    return jax.tree.map(lambda t: t[0], jp["layers"])
+    """Layer 0 of a JAX tree: the first of its stack, or of a hybrid's
+    first pattern stack."""
+    stack = jp["layers"] if "layers" in jp else jp["pattern_layers"][0]
+    return jax.tree.map(lambda t: t[0], stack)
 
 
 def _close(got, want, atol=ATOL):
@@ -78,9 +85,7 @@ def test_config_registry_is_a_copy(arch):
     assert tconfigs.get("qwen3_14b").padded_vocab == 152064
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m",
-                                  "recurrentgemma_2b",
-                                  "seamless_m4t_large_v2", "internvl2_1b"])
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "internvl2_1b"])
 def test_families_not_ported_raise_at_construction(arch):
     cfg = tconfigs.get_reduced(arch)          # the lookup itself works
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
@@ -163,20 +168,37 @@ def test_mlp_matches_jax(act):
            jmlp.mlp_forward(jp, jnp.asarray(x), jcfg))
 
 
+def _port_layers(jcfg, keys):
+    """For the JAX leaf at path ``keys``: (the port's layer, the index
+    along the leaf's leading axis, or None for a tail layer's leaf) for
+    each layer the leaf holds."""
+    if keys[0] == "layers":
+        return [(i, i) for i in range(jcfg.num_layers)]
+    pat = jcfg.block_pattern
+    n_rep = jcfg.num_layers // len(pat)
+    if keys[0] == "pattern_layers":
+        return [(g * len(pat) + keys[1], g) for g in range(n_rep)]
+    return [(n_rep * len(pat) + keys[1], None)]
+
+
 def test_params_from_jax_carries_every_weight(any_pair):
     arch, jcfg, jp, tcfg, tp = any_pair
     flat = {name: convert.to_numpy(p) for name, p in tp.named_parameters()}
     stacked = jax.tree_util.tree_flatten_with_path(jp)[0]
+    stacks = ("layers", "pattern_layers", "tail_layers")
+    keys_of = [[getattr(p, "key", getattr(p, "idx", None)) for p in path]
+               for path, _ in stacked]
     assert len(flat) == sum(
-        jcfg.num_layers if path[0].key == "layers" else 1
-        for path, _ in stacked)
-    for path, leaf in stacked:
-        keys = [p.key for p in path]
+        len(_port_layers(jcfg, keys)) if keys[0] in stacks else 1
+        for keys in keys_of)
+    for keys, (_, leaf) in zip(keys_of, stacked):
         leaf = np.asarray(leaf)
-        if keys[0] == "layers":
-            for i in range(jcfg.num_layers):
-                name = ".".join(["layers", str(i)] + keys[1:])
-                np.testing.assert_array_equal(flat[name], leaf[i])
+        if keys[0] in stacks:
+            rest = [str(k) for k in keys[1 if keys[0] == "layers" else 2:]]
+            for i, g in _port_layers(jcfg, keys):
+                name = ".".join(["layers", str(i)] + rest)
+                np.testing.assert_array_equal(
+                    flat[name], leaf if g is None else leaf[g])
         else:
             np.testing.assert_array_equal(flat[".".join(keys)], leaf)
     bad = dict(jp, embed=np.zeros((3, 3), np.float32))
@@ -245,11 +267,13 @@ def test_attention_decode_matches_jax(pair, variant):
 def test_forward_matches_jax(any_pair):
     arch, jcfg, jp, tcfg, tp = any_pair
     toks = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, 24))
-    jl, _ = jmodel.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
-                           jcfg)
+    jl, jaux = jmodel.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                              jcfg)
     tl, aux = model.forward(tp, {"tokens": toks}, tcfg)
     assert tuple(tl.shape) == (2, 24, jcfg.padded_vocab)
-    assert float(aux) == 0.0
+    # the MoE load-balance loss summed over layers; 0 for the other kinds
+    assert float(aux) == pytest.approx(float(jaux), abs=1e-5)
+    assert (float(aux) > 0) == (arch.startswith("granite"))
     _close(tl, jl)
 
 
@@ -263,8 +287,6 @@ def test_block_kinds_and_blocks_match_jax(any_pair):
     ty, _ = blocks.block_forward(tp.layers[0], torch.from_numpy(x), tcfg,
                                  kind)
     _close(ty, jy)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        blocks.block_forward(tp.layers[0], torch.from_numpy(x), tcfg, "moe")
 
 
 # bf16 reduced qwen3-14b, JAX and the port on the same bf16 weights: both

@@ -22,6 +22,7 @@ import repro_torch.core as tc
 from repro_torch.core import path as tpath
 from repro_torch.core import tuning as ttuning
 from repro_torch.kernels import ops
+from _torch_cases import one_thread  # noqa: F401
 
 MAX_ITER = 150
 # fp32 tier: the same fp32 arithmetic in another summation order (XLA vs

@@ -36,6 +36,7 @@ from repro.core.admm_adaptive import decsvm_fit_tol
 from repro.core.path import (decsvm_path_batched, decsvm_path_select,
                              decsvm_path_warm)
 from repro_torch.launch import ranks as tranks
+from _torch_cases import one_thread  # noqa: F401
 
 RANKS = [2, 4]
 ROOT = Path(__file__).resolve().parents[1]

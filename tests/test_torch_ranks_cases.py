@@ -10,26 +10,21 @@ to fail on a result moved past its tolerance.
 import copy
 
 import pytest
-import torch
 
 from repro_torch.launch import ranks
+from _torch_cases import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
 def runs():
     """(setup, the four ranks' records, the one-rank runs, the plain
-    references); the references run on one torch thread, as the ranks
-    do."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        s = ranks.setup(4, "cpu", small=True)
-        got = ranks.spawn(ranks.rank_cases, 4, (s,), device="cpu",
-                          deadline_s=300.0)
-        return (s, got, ranks.reference_cases(s),
-                ranks.reference_cases(s, plain=True))
-    finally:
-        torch.set_num_threads(threads)
+    references); the references run on one torch thread (``one_thread``),
+    as the ranks do."""
+    s = ranks.setup(4, "cpu", small=True)
+    got = ranks.spawn(ranks.rank_cases, 4, (s,), device="cpu",
+                      deadline_s=300.0)
+    return (s, got, ranks.reference_cases(s),
+            ranks.reference_cases(s, plain=True))
 
 
 def _check(s, got, one, plain):

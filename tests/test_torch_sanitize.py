@@ -34,23 +34,12 @@ from repro_torch.core import path as tpath
 from repro_torch.core import sanitize as tsan
 from repro_torch.core import solver as ts
 from repro_torch.kernels import ops
+from _torch_cases import one_thread  # noqa: F401
 
 M, N, P = 4, 12, 8
 ITERS = 6
 LAM = 0.05
 ATOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread while this module runs: its tensors are tiny, and
-    under several test workers torch's per-process thread pools contend
-    for the cores (about 10x slower under four workers); the old count
-    is restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @dataclasses.dataclass(frozen=True)

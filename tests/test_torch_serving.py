@@ -23,6 +23,7 @@ from repro_torch.launch import serve
 from repro_torch.models import attention, convert, model
 from repro_torch.models.prefill import _ring_fill, prefill
 from repro_torch.serving import Request, ServeEngine
+from _torch_cases import one_thread  # noqa: F401
 
 # fp32: the tier of tests/test_prefill.py
 ATOL = 5e-5

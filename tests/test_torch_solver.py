@@ -23,6 +23,7 @@ from repro_torch.core import admm as tadmm
 from repro_torch.core import admm_adaptive as tad
 from repro_torch.core import solver as ts
 from repro_torch.kernels import ops
+from _torch_cases import one_thread  # noqa: F401
 
 MAX_ITER = 60
 LAM = 0.05

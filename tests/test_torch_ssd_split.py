@@ -19,6 +19,7 @@ import chip_smoke
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro_torch import configs
 from repro_torch.kernels import ops, ref
+from _torch_cases import one_thread  # noqa: F401
 
 BF16_ULP = chip_smoke.BF16_ULP
 

@@ -22,6 +22,7 @@ from repro.models import ssm as jssm
 import repro_torch.configs as tconfigs
 from repro_torch.kernels import ops, ref
 from repro_torch.models import convert, ssm
+from _torch_cases import one_thread  # noqa: F401
 
 # fp32: the same fp32 arithmetic summed in another order — the repo's SSD
 # tier (tests/test_kernels.py:120, tests/test_prefill.py).

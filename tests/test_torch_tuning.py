@@ -21,6 +21,7 @@ from repro_torch.core import baselines as tbase
 from repro_torch.core import penalties as tpen
 from repro_torch.core import sanitize as tsan
 from repro_torch.core import tuning as ttuning
+from _torch_cases import one_thread  # noqa: F401
 
 # fp32 tier: the same fp32 arithmetic in another summation order, through
 # up to 1500 FISTA iterations or 400 ADMM rounds (measured <= 2.6e-6)

@@ -21,6 +21,7 @@ from repro_torch.kernels import ops
 
 from _torch_cases import (TWO_PASS_CASES, segments, stream_x_pass,
                           sum_in_order, two_pass_problem)
+from _torch_cases import one_thread  # noqa: F401
 
 # fp32: the same fp32 dots summed in another order — the repo's fp32 tier.
 ATOL = 1e-5
