@@ -147,7 +147,35 @@ result lines):
    tokens); the kernel against the plain attention inside the model; the
    fp32-FMA flash at D = 256, S = 2048 beside plain, its bound and
    ``scaled_dot_product_attention``; one RG-LRU layer's scan; the head on
-   its features.
+   its features;
+13. ``flash_attention`` with keys of their own length (``CROSS_CASES``:
+   16 heads of 64 over 1024 frames at 1, 77 and 1000 queries, a ragged Sk
+   of 1000, a GQA case at D = 128) and at the encoder's shape
+   (``ENCODER_CASE``), non-causal, fed as strided views, against
+   ``ref.mha``: fp32 on the fp32-FMA instance, bf16 on both; so too the
+   causal self-attention at the shapes the two models' paths give it
+   (``CAUSAL_PATH_CASES``); a causal or windowed call with Sk != Sq
+   raises before any launch; the encoder and
+   cross shapes of phase 14 timed beside plain, the bound and
+   ``scaled_dot_product_attention``; then internvl2-1b at full width (24
+   layers, d_model 896, 14 heads over 2, bf16): the same 4 requests as
+   granite through the engine with block prefill (24 tensor-core launches
+   each), the kernel against the plain attention inside the model, the
+   forward pass behind a (2, 256, 896) media prefix (24 launches; logits of
+   the text positions only, against plain), each within a limit of about
+   three of its H100 reading with a control above it, the head on its
+   features;
+14. seamless-m4t-large-v2 at full width (24 encoder + 24 decoder layers,
+   d_model 1024, 16 heads of 64, learned positions, bf16): a lockstep
+   batch of four 1000-token prompts, each with its own (1024, 1024) frames,
+   and one of a 77-token prompt, through ``prefill`` with ``enc_media``
+   and 16 greedy ``decode_step``s (per prefill 24 encoder, 24 decoder and
+   24 cross flash launches, counted by path, all on the tensor-core
+   instance); the prefill logits with the kernel against the plain
+   attention on all three paths (a limit of about three of its H100
+   reading, with a control above it); block prefill against token-wise decode
+   from ``build_cross_cache`` (bf16: the first token's logits within a
+   limit, with a control above it; an fp32 copy: the same tokens, 1e-4).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -167,6 +195,7 @@ The last two lines are the ``{"kernels": [...]}`` summary and
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -333,6 +362,62 @@ RG_PROMPTS = (2100, 300, 77)
 RG_TOKENWISE_TOL = 0.25
 RG_LEN = 2176
 NEW_TOKENS = 8
+# Cross-attention through flash_attention with keys of their own length
+# (non-causal, no window), held against ref.mha with the flash limits;
+# (B, H, KV, Sq, Sk, D): seamless-m4t-large-v2's (16 heads of 64 over its
+# 1024 encoder frames) at one query, a short and a long prompt, a ragged
+# Sk, and a GQA case at D = 128 with a batch of 2.  ENCODER_CASE is its
+# encoder's self-attention (non-causal, Sq = Sk = 1024).  Each runs as the
+# model feeds the kernel: (B, S, heads, D) buffers through
+# ``.transpose(1, 2)``.
+CROSS_CASES = [
+    (1, 16, 16, 1, 1024, 64), (1, 16, 16, 77, 1024, 64),
+    (1, 16, 16, 1000, 1024, 64), (1, 16, 16, 300, 1000, 64),
+    (2, 8, 2, 333, 200, 128),
+]
+ENCODER_CASE = (1, 16, 16, 1024, 1024, 64)
+# Causal self-attention at the shapes the two new models' paths give the
+# kernel, (B, H, KV, S, D), as strided views of the model's (B, S, heads,
+# D) buffers: seamless's lockstep decoder (4 x 1000) and its 77-token row;
+# internvl2's longest served prompt (the engine prefills 999 tokens of it
+# and decodes the last), its 1023-token in-model prefill, and its forward
+# pass behind the media prefix (two rows of 256 + 300 positions).
+CAUSAL_PATH_CASES = [
+    ("seamless decoder", (4, 16, 16, 1000, 64)),
+    ("seamless decoder", (1, 16, 16, 77, 64)),
+    ("internvl2 served", (1, 14, 2, 999, 64)),
+    ("internvl2 prefill", (1, 14, 2, 1023, 64)),
+    ("internvl2 media forward", (2, 14, 2, 556, 64)),
+]
+# internvl2-1b: granite's four prompts through the engine; the forward
+# pass behind a media prefix of its 256 positions, two rows of 300 text
+# tokens.
+VLM_PROMPTS = GRANITE_PROMPTS
+VLM_TEXT = 300
+# seamless-m4t-large-v2: a lockstep batch of four 1000-token prompts, each
+# with its own 1024 frames, and one row of a 77-token prompt, 16 greedy
+# tokens each, over a cache of 1024 + 16 positions.
+ENCDEC_PROMPTS = ((1000,) * 4, (77,))
+ENCDEC_NEW = 16
+ENCDEC_LEN = 1024 + 16
+# Its block prefill against token-wise decode from build_cross_cache, on
+# the first generated token's logits in bf16 (48 layers of bf16 rounding
+# on both paths; the greedy tokens over 256,256 logits may tie): measured
+# 3.91e-2 on an H100 (max |logit| ~3, where a bf16 ulp is 2^-6); the limit
+# is about three of them, eight ulps, with recurrentgemma's control (the
+# logits one position earlier, measured 0.436) above it.  The fp32 copy is
+# held at MODEL_TOL["float32"] and to the same tokens.
+ENCDEC_TOKENWISE_TOL = 0.125
+# The bf16 logits with the kernel against the plain attention inside each
+# new model, measured on an H100 (NVIDIA H100 80GB HBM3, 700.00 W):
+# 7.23e-2 for internvl2's 1023-token prefill, 0.113 for its forward pass
+# behind the media prefix, 5.54e-2 for seamless's 1000-token prefill over
+# its 1024 frames (max |logit| 3.3-3.6, where a bf16 ulp is 2^-6).  Each
+# limit is about three of its reading, with a control above it: the plain
+# logits one position earlier (``position_control``).
+VLM_MODEL_TOL = 0.22
+VLM_MEDIA_TOL = 0.34
+ENCDEC_MODEL_TOL = 0.17
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -1675,12 +1760,16 @@ def attention_pairs(S: int, window=None) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def attention_bound(B, H, KV, S, D, itemsize, window=None):
+def attention_bound(B, H, KV, S, D, itemsize, window=None, Sk=None,
+                    causal=True):
     """Causal attention: 4*B*H*D flops a (query, key) pair inside the
     window against the bf16 tensor peak, or q, k, v read and o written once
-    against the memory rate."""
-    flops = 4 * B * H * D * attention_pairs(S, window)
-    nbytes = (2 * B * H + 2 * B * KV) * S * D * itemsize
+    against the memory rate.  With ``causal=False`` every query sees all
+    Sk keys (Sk defaults to S)."""
+    Sk = S if Sk is None else Sk
+    pairs = attention_pairs(S, window) if causal else S * Sk
+    flops = 4 * B * H * D * pairs
+    nbytes = (2 * B * H * S + 2 * B * KV * Sk) * D * itemsize
     return bound(flops, nbytes, PEAK_BF16)
 
 
@@ -1816,11 +1905,26 @@ def plain_self_attend(q, k, v, *, causal, window):
                              window=window)
 
 
+def position_control(torch, kern, plain, tol, label):
+    """The control of an in-model limit: the kernel's logits against the
+    plain ones one position earlier (axis 1), near what a kernel that gave
+    each query its neighbour's output would give.  It must exceed ``tol``;
+    returns it."""
+    control = float((kern[:, 1:].float() - plain[:, :-1].float())
+                    .abs().max())
+    log(f"model {label}: control, the plain logits one position earlier, "
+        f"max|dev| {control:.4e} (must exceed {tol:g})")
+    check(control > tol, f"{label}: the control's max|dev| {control:.4e} "
+          f"is within the limit {tol:g}")
+    return control
+
+
 def kernel_vs_plain_in_model(torch, ops, cfg, params, *, label, tol,
-                             prompt=MODEL_PROMPT, seed=1):
+                             prompt=MODEL_PROMPT, seed=1, controls=None):
     """Block-prefill logits of one prompt with the kernel and with the
     plain attention swapped in (one launch per attention layer); returns
-    (max |dev|, max |logit|)."""
+    (max |dev|, max |logit|).  With a ``controls`` dict, the limit also
+    gets ``position_control``, stored there under ``label``."""
     import numpy as np
     from repro_torch.models import attention
     from repro_torch.models.prefill import prefill
@@ -1845,6 +1949,8 @@ def kernel_vs_plain_in_model(torch, ops, cfg, params, *, label, tol,
         f"attention max|dev| {dev:.4e} (limit {tol:g}), max|logit| "
         f"{scale:.4f}")
     check(dev <= tol, f"{label}: max|dev| {dev:.4e} > {tol}")
+    if controls is not None:
+        controls[label] = position_control(torch, kern, plain, tol, label)
     return dev, scale
 
 
@@ -2400,14 +2506,14 @@ def tokenwise_agreement(torch, engine, cfg, params, prompt, *, max_len,
 
 
 def in_model_instances(torch, ops, cfg, params, *, label, instance,
-                       prompt=MODEL_PROMPT):
-    """``kernel_vs_plain_in_model`` at the bf16 limit, with every kernel
-    launch of it on ``instance``."""
+                       prompt=MODEL_PROMPT, tol=MODEL_TOL["bfloat16"],
+                       controls=None):
+    """``kernel_vs_plain_in_model`` at ``tol`` (the bf16 limit), with every
+    kernel launch of it on ``instance``."""
     before = dict(ops.flash_launches)
     dev, scale = kernel_vs_plain_in_model(torch, ops, cfg, params,
-                                          label=label,
-                                          tol=MODEL_TOL["bfloat16"],
-                                          prompt=prompt)
+                                          label=label, tol=tol,
+                                          prompt=prompt, controls=controls)
     if params.device.type == "cuda":
         ran = {k: v - before[k] for k, v in ops.flash_launches.items()}
         check(ran[instance] == kernel_layers(cfg) and sum(ran.values())
@@ -2477,6 +2583,446 @@ def rglru_timing(torch, cfg, params, S=2048, seed=3):
         f"rounds: {linear_ms:.4f} ms)")
     return dict(scan_ms=scan_ms, linear_scan_ms=linear_ms, S=S,
                 rounds=rounds)
+
+
+def cross_inputs(torch, case, dtype, device, seed):
+    """q (B, H, Sq, D), k and v (B, KV, Sk, D) from a seeded generator, as
+    ``.transpose(1, 2)`` views of (B, S, heads, D) buffers, the way
+    ``attention.cross_attend`` and ``self_attend`` feed the kernel."""
+    B, H, KV, Sq, Sk, D = case
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(S, heads):
+        return torch.randn((B, S, heads, D), generator=gen, device=device,
+                           dtype=torch.float32).to(
+                               getattr(torch, dtype)).transpose(1, 2)
+    return draw(Sq, H), draw(Sk, KV), draw(Sk, KV)
+
+
+def cross_checks(torch, ops, ref, device, devs: dict):
+    """``flash_attention`` with keys of their own length (CROSS_CASES) and
+    at the encoder's shape (ENCODER_CASE), non-causal, and at the causal
+    shapes of the new models' paths (CAUSAL_PATH_CASES), against
+    ``ref.mha`` on the same inputs, within the flash limits: fp32 on the
+    fp32-FMA instance, bf16 on both (the tensor-core one, the wrapper's
+    choice, and the fp32-FMA one by name), one launch of the instance
+    each; then a causal and a windowed call with Sk != Sq must raise
+    ValueError before any launch."""
+    on_card = torch.device(device).type == "cuda"
+    cases = [("encoder" if case == ENCODER_CASE else "cross", case, False)
+             for case in CROSS_CASES + [ENCODER_CASE]]
+    cases += [(path, (B, H, KV, S, S, D), True)
+              for path, (B, H, KV, S, D) in CAUSAL_PATH_CASES]
+    for i, (path, case, causal) in enumerate(cases):
+        B, H, KV, Sq, Sk, D = case
+        mask = "causal" if causal else "non-causal"
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = cross_inputs(torch, case, dtype, device, seed=100 + i)
+            want = ref.mha(q, k, v, causal=causal)
+            runs = ["plain"]
+            if on_card:
+                runs = ["wgmma", "fma"] if dtype == "bfloat16" else ["fma"]
+                check(ops.flash_instance(q.dtype, D, q, k, v) == runs[0],
+                      f"flash_attention {path} {case} {dtype}: the wrapper "
+                      f"does not pick {runs[0]}")
+            for instance in runs:
+                before = dict(ops.flash_launches)
+                if instance == runs[0]:
+                    got = ops.flash_attention(q, k, v, causal=causal)
+                else:
+                    got = ops._flash_launch(q, k, v, instance, causal=causal,
+                                            window=None, sm_scale=None)
+                what = (f"flash_attention {path} B={B} H={H} KV={KV} "
+                        f"Sq={Sq} Sk={Sk} D={D} {mask} {dtype} "
+                        f"[{instance}]")
+                if on_card:
+                    ran = {n: c - before[n]
+                           for n, c in ops.flash_launches.items()}
+                    check(ran[instance] == 1 and sum(ran.values()) == 1,
+                          f"{what}: launched {ran}")
+                check(tuple(got.shape) == tuple(q.shape)
+                      and got.dtype == q.dtype,
+                      f"{what}: output {tuple(got.shape)} {got.dtype}")
+                check(bool(torch.isfinite(got).all()),
+                      f"{what}: non-finite output")
+                dev, share = flash_deviation(torch, got, want, dtype)
+                record(devs, "flash_attention", dtype, dev)
+                check(share <= 1.0, f"{what}: max|dev| {dev:.3e} is "
+                      f"{share:.2f}x the limit")
+                log(f"check {what}: max|dev| {dev:.3e} ({share:.3f} of the "
+                    "limit)")
+    q, k, v = cross_inputs(torch, CROSS_CASES[1], "bfloat16", device, seed=0)
+    before = dict(ops.launches), dict(ops.flash_launches)
+    for kw in (dict(causal=True), dict(causal=False, window=64)):
+        try:
+            ops.flash_attention(q, k, v, **kw)
+        except ValueError:
+            continue
+        check(False, f"flash_attention with Sk != Sq and {kw} did not raise")
+    check((dict(ops.launches), dict(ops.flash_launches)) == before,
+          "a refused flash_attention call launched a kernel")
+    log("check flash_attention with Sk != Sq under a causal mask or a "
+        "window: ValueError, no launch")
+
+
+def cross_timings(torch, ops, ref, device):
+    """seamless-m4t-large-v2's two non-causal flash paths at the lockstep
+    batch's shapes in bf16: the encoder (q and kv (4, 16, 1024, 64)) and
+    the cross-attention of 1000-token prompts over the 1024 frames.  The
+    kernel (the tensor-core instance, as on the path) against its plain
+    version, then the two in turns, beside the bound and
+    ``scaled_dot_product_attention`` on the same inputs.  Returns one row
+    each."""
+    F = torch.nn.functional
+    rows = []
+    for path, case in (("encoder", (4, 16, 16, 1024, 1024, 64)),
+                       ("cross", (4, 16, 16, 1000, 1024, 64))):
+        B, H, KV, Sq, Sk, D = case
+        q, k, v = cross_inputs(torch, case, "bfloat16", device, seed=Sq)
+        check(ops.flash_instance(q.dtype, D, q, k, v) == "wgmma",
+              f"seamless's {path} attention does not take the tensor-core "
+              "instance")
+        got = ops.flash_attention(q, k, v, causal=False)
+        dev, share = flash_deviation(
+            torch, got, ref.mha(q, k, v, causal=False), "bfloat16")
+        check(share <= 1.0, f"flash {path}: max|dev| {dev:.3e} is "
+              f"{share:.2f}x the limit")
+        times = paired_ms(
+            torch, lambda: ops.flash_attention(q, k, v, causal=False),
+            lambda: ref.mha(q, k, v, causal=False), 20, 3)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=False), 20)
+        bms, by = attention_bound(B, H, KV, Sq, D, 2, Sk=Sk, causal=False)
+        row = dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
+                   max_abs_dev=dev, instance="wgmma",
+                   tflops=4 * B * H * D * Sq * Sk / times["ms"] / 1e9,
+                   shape=f"{path}: q ({B}, {H}, {Sq}, {D}), kv ({B}, {KV}, "
+                         f"{Sk}, {D}) bf16, non-causal")
+        log(f"time flash_attention [{row['shape']}]: {row['ms']:.4f} ms "
+            f"(samples {row['ms_samples'][0]:.4f}, "
+            f"{row['ms_samples'][1]:.4f}; {row['tflops']:.1f} TFLOP/s, "
+            f"{bms / row['ms']:.3f} of the bound), plain "
+            f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"scaled_dot_product_attention {lib:.4f} ms; max|dev| "
+            f"{dev:.3e} ({share:.2f}x the limit)")
+        rows.append(row)
+    return rows
+
+
+def media_forward(torch, ops, cfg, params, *, rows=2, text=VLM_TEXT,
+                  seed=4, tol=MODEL_TOL["bfloat16"], control=False):
+    """``model.forward`` of a VLM behind a media prefix, (rows,
+    frontend_len, d_model) from a seeded generator, in front of ``text``
+    tokens a row, with the counters set to 0 just before and read just
+    after: one flash launch per layer over prefix and text, no other
+    kernel; logits of the text positions only, finite; against the same
+    forward with the plain attention swapped in (within ``tol``; with
+    ``control``, also ``position_control``), and against the text alone
+    (logged: what the prefix moves).  Returns the launches, the time and
+    the deviations."""
+    import numpy as np
+    from repro_torch.models import attention, model
+    device = params.device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    media = torch.randn((rows, cfg.frontend_len, cfg.d_model), generator=gen,
+                        device=device,
+                        dtype=torch.float32).to(params.embed.dtype)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (rows, text))
+    batch = {"tokens": toks, "media": media}
+    label = (f"{cfg.name} forward, media prefix ({rows}, {cfg.frontend_len}, "
+             f"{cfg.d_model}) + {text} tokens")
+    synchronize(torch, device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, batch, cfg)
+    synchronize(torch, device)
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches, instances = dict(ops.launches), dict(ops.flash_launches)
+    check(launches["flash_attention"] == kernel_layers(cfg),
+          f"{label}: {launches['flash_attention']} flash launches, expected "
+          f"{kernel_layers(cfg)}")
+    for name, count in launches.items():
+        check(name == "flash_attention" or count == 0,
+              f"{label}: launched {name}")
+    check(tuple(logits.shape) == (rows, text, cfg.padded_vocab),
+          f"{label}: logits {tuple(logits.shape)}, expected the text "
+          "positions only")
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+    kernel_attend = attention.self_attend
+    attention.self_attend = plain_self_attend
+    try:
+        plain, _ = model.forward(params, batch, cfg)
+    finally:
+        attention.self_attend = kernel_attend
+    dev = float((logits.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    text_only, _ = model.forward(params, {"tokens": toks}, cfg)
+    moved = float((logits.float() - text_only.float()).abs().max())
+    log(f"model {label}: {ms:.2f} ms, logits {tuple(logits.shape)}, "
+        f"{launches['flash_attention']} flash launches "
+        f"{json.dumps(instances)}; kernel vs plain attention max|dev| {dev:.4e} (limit {tol:g}), "
+        f"max|logit| {scale:.4f}; the prefix moves the text logits by up to "
+        f"{moved:.4f}")
+    check(dev <= tol, f"{label}: max|dev| {dev:.4e} > {tol}")
+    ctrl = (position_control(torch, logits, plain, tol, label) if control
+            else None)
+    return dict(launches=launches["flash_attention"], instances=instances,
+                ms=ms, max_abs_dev=dev, max_abs_logit=scale,
+                prefix_moves=moved, tol=tol, control_dev=ctrl)
+
+
+def plain_cross_attend(q, k, v):
+    """The plain cross-attention on any device (the check's yardstick)."""
+    import torch
+    from repro_torch.models import attention
+    return attention._attend(q, k, v, torch.arange(q.shape[1],
+                                                   device=q.device),
+                             torch.arange(k.shape[1], device=q.device),
+                             causal=False, window=None)
+
+
+@contextlib.contextmanager
+def flash_paths(ops, counts):
+    """Within the block, ``counts`` (a Counter) gathers the flash launches
+    of each attention path of an encoder-decoder — "encoder" (non-causal
+    self-attention), "decoder" (causal self-attention), "cross" — as the
+    change of ``ops.launches["flash_attention"]`` around each call of
+    ``attention.self_attend`` and ``attention.cross_attend``."""
+    from repro_torch.models import attention
+    self_attend, cross_attend = attention.self_attend, attention.cross_attend
+
+    def counted(fn, path_of):
+        def run(*args, **kw):
+            before = ops.launches["flash_attention"]
+            out = fn(*args, **kw)
+            counts[path_of(kw)] += ops.launches["flash_attention"] - before
+            return out
+        return run
+    attention.self_attend = counted(
+        self_attend, lambda kw: "decoder" if kw["causal"] else "encoder")
+    attention.cross_attend = counted(cross_attend, lambda kw: "cross")
+    try:
+        yield counts
+    finally:
+        attention.self_attend = self_attend
+        attention.cross_attend = cross_attend
+
+
+def encdec_generate(torch, ops, cfg, params, tokens, enc_media, *,
+                    new=ENCDEC_NEW, max_len=ENCDEC_LEN, instance="wgmma"):
+    """An encoder-decoder's serving path, the one the JAX package's tests
+    drive: ``prefill({"tokens", "enc_media"})`` of a lockstep batch, then
+    greedy ``decode_step``s over the seeded cache, ``new`` tokens a row
+    (the first from the prefill's last logits).  The counters are set to 0
+    just before and read just after: one flash launch per encoder layer,
+    per decoder layer and per cross-attention, no other kernel (decode
+    attends in plain torch), all on ``instance`` on the card.  Returns the
+    tokens, the launches by path and the encoder (inside the prefill),
+    prefill and decode times."""
+    from repro_torch.models import model
+    from repro_torch.models.prefill import prefill
+    device = params.device
+    B, S = tokens.shape
+    encoder_ms = []
+    encode = model.encode
+
+    def timed_encode(*args, **kw):
+        synchronize(torch, device)
+        t0 = time.perf_counter()
+        out = encode(*args, **kw)
+        synchronize(torch, device)
+        encoder_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    counts = collections.Counter()
+    decode_ms = []
+    model.encode = timed_encode
+    ops.reset_launches()
+    try:
+        with flash_paths(ops, counts):
+            synchronize(torch, device)
+            t0 = time.perf_counter()
+            logits, cache, pos = prefill(
+                params, {"tokens": tokens, "enc_media": enc_media}, cfg,
+                max_len)
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            synchronize(torch, device)
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            out = [tok]
+            for t in range(new - 1):
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(params, cache, tok,
+                                                  pos + t, cfg)
+                tok = torch.argmax(logits, dim=-1)
+                synchronize(torch, device)
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+                out.append(tok)
+    finally:
+        model.encode = encode
+    launches, instances = dict(ops.launches), dict(ops.flash_launches)
+    E, L = cfg.num_encoder_layers, cfg.num_layers
+    label = f"{cfg.name} lockstep B={B} S={S}"
+    check(dict(counts) == {"encoder": E, "decoder": L, "cross": L},
+          f"{label}: flash launches by path {dict(counts)}, expected "
+          f"encoder {E}, decoder {L}, cross {L}")
+    check(launches["flash_attention"] == E + 2 * L,
+          f"{label}: {launches['flash_attention']} flash launches")
+    for name, count in launches.items():
+        check(name == "flash_attention" or count == 0,
+              f"{label}: launched {name}")
+    if device.type == "cuda":
+        check(instances == {**{k: 0 for k in instances},
+                            instance: E + 2 * L},
+              f"{label}: flash launches by instance {instances}, expected "
+              f"all on {instance}")
+    gen = torch.stack(out, dim=1).cpu()
+    check(tuple(gen.shape) == (B, new) and bool(
+        ((gen >= 0) & (gen < cfg.padded_vocab)).all()),
+        f"{label}: generated {gen.tolist()}")
+    steps = sorted(decode_ms)
+    log(f"encdec {label} + {new} new: encoder {encoder_ms[0]:.2f} ms, "
+        f"prefill {prefill_ms:.2f} ms (the encoder included), decode median "
+        f"{steps[len(steps) // 2]:.2f} ms a step (min {steps[0]:.2f}, max "
+        f"{steps[-1]:.2f}); flash launches by path {json.dumps(counts)}, by "
+        f"instance {json.dumps(instances)}; first tokens "
+        f"{gen[:, :4].tolist()}")
+    return dict(B=B, S=S, tokens=gen.tolist(), launches_by_path=dict(counts),
+                launches=launches["flash_attention"], instances=instances,
+                encoder_ms=encoder_ms[0], prefill_ms=prefill_ms,
+                decode_ms=decode_ms)
+
+
+def encdec_kernel_vs_plain(torch, ops, cfg, params, tokens, enc_media, *,
+                           label, tol, controls=None):
+    """Prefill logits of an encoder-decoder with the kernel on its three
+    attention paths (one launch per encoder layer, decoder layer and
+    cross-attention) and with the plain attention swapped in on all
+    three; returns (max |dev|, max |logit|).  With a ``controls`` dict,
+    the limit also gets ``position_control``, stored there under
+    ``label``."""
+    from repro_torch.models import attention
+    from repro_torch.models.prefill import prefill
+    batch = {"tokens": tokens, "enc_media": enc_media}
+    max_len = tokens.shape[1] + 1
+    want = cfg.num_encoder_layers + 2 * cfg.num_layers
+    before = ops.launches["flash_attention"]
+    kern, _, _ = prefill(params, batch, cfg, max_len)
+    check(ops.launches["flash_attention"] - before == want,
+          f"{label}: the prefill did not launch the kernel {want} times")
+    kernels = attention.self_attend, attention.cross_attend
+    attention.self_attend = plain_self_attend
+    attention.cross_attend = plain_cross_attend
+    try:
+        plain, _, _ = prefill(params, batch, cfg, max_len)
+    finally:
+        attention.self_attend, attention.cross_attend = kernels
+    check(bool(torch.isfinite(kern).all()), f"{label}: non-finite logits")
+    dev = float((kern.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    log(f"model {label}: prefill logits {tuple(kern.shape)}, kernel vs plain "
+        f"attention on the encoder, decoder and cross paths max|dev| "
+        f"{dev:.4e} (limit {tol:g}), max|logit| {scale:.4f}")
+    check(dev <= tol, f"{label}: max|dev| {dev:.4e} > {tol}")
+    if controls is not None:
+        controls[label] = position_control(torch, kern, plain, tol, label)
+    return dev, scale
+
+
+def encdec_tokenwise(torch, cfg, params, prompt, enc_media, *, tol=None,
+                     tokens=True, new=NEW_TOKENS, max_len=ENCDEC_LEN):
+    """One prompt with its frames through block prefill and token by
+    token.  Block: ``prefill`` of all but the prompt's last token (as the
+    engine splices a prompt), then ``decode_step`` from the last one.
+    Token-wise: ``init_cache``, its cross_kv from ``build_cross_cache``,
+    then ``decode_step`` over every prompt token.  As
+    ``tokenwise_agreement``: the first generated token's logits within
+    ``tol`` with a control above it (the token-wise logits one position
+    earlier), and with ``tokens`` the same greedy tokens.  Returns both
+    paths' tokens and the deviations."""
+    from repro_torch.models import model
+    from repro_torch.models.prefill import prefill
+    toks = torch.as_tensor(prompt, device=params.device)[None]
+
+    def greedy(cache, tok, pos, logits):
+        out = []
+        for i in range(new):
+            lg, cache = model.decode_step(params, cache, tok, pos + i, cfg)
+            logits.append(lg.float())
+            tok = torch.argmax(lg, dim=-1)
+            out.append(int(tok[0]))
+        return out
+
+    fast_logits, slow_logits = [], []
+    _, cache, pos = prefill(params, {"tokens": toks[:, :-1],
+                                     "enc_media": enc_media}, cfg, max_len)
+    fast = greedy(cache, toks[:, -1], pos, fast_logits)
+    cache = model.init_cache(cfg, 1, max_len, device=params.device)
+    cache["cross_kv"] = model.build_cross_cache(params, enc_media, cfg)
+    for t in range(len(prompt) - 1):
+        lg, cache = model.decode_step(params, cache, toks[:, t], t, cfg)
+        slow_logits.append(lg.float())
+    slow = greedy(cache, toks[:, -1], len(prompt) - 1, slow_logits)
+    first = slow_logits[len(prompt) - 1]
+    dev = float((fast_logits[0] - first).abs().max())
+    control = float((fast_logits[0] - slow_logits[len(prompt) - 2])
+                    .abs().max())
+    top = torch.topk(first[0], 2).values
+    label = (f"{cfg.name} {cfg.param_dtype}: a {len(prompt)}-token prompt "
+             "with its frames, block prefill and token by token from "
+             "build_cross_cache")
+    log(f"{label}: first generated token's logits max|dev| {dev:.4e} "
+        f"(limit {tol}; control, one position earlier, {control:.4e}; "
+        f"max|logit| {float(first.abs().max()):.4f}, top-2 margin "
+        f"{float(top[0] - top[1]):.4e}); tokens {fast} and {slow}")
+    if tokens:
+        check(fast == slow, f"{label}: tokens {fast} and {slow} differ")
+    if tol is not None:
+        check(dev <= tol, f"{label}: logits max|dev| {dev:.4e} > {tol}")
+        check(control > tol, f"{label}: the control's logits max|dev| "
+              f"{control:.4e} is within the limit {tol}")
+    return dict(first_logits_dev=dev, control_dev=control, tol=tol,
+                block=fast, tokenwise=slow, equal=fast == slow,
+                dtype=cfg.param_dtype)
+
+
+def encdec_phase(torch, ops, cfg, params, *, prompts=ENCDEC_PROMPTS,
+                 seed=5):
+    """An encoder-decoder at full width: each batch of ``prompts`` (equal
+    lengths a batch) with its own frames (a seeded generator, in the
+    model's dtype) through ``encdec_generate``; the prefill logits of the
+    first batch's first row with the kernel against the plain attention
+    (ENCDEC_MODEL_TOL, with its control); the last batch's first prompt
+    through ``encdec_tokenwise`` at the bf16 limit.  Returns the runs, the
+    in-model deviation and its control, the token-wise record, and that
+    prompt with its frames (for an fp32 copy)."""
+    import numpy as np
+    device = params.device
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    runs, inputs = [], []
+    for lengths in prompts:
+        toks = rng.integers(0, cfg.vocab_size, (len(lengths), lengths[0]))
+        media = torch.randn((len(lengths), cfg.frontend_len, cfg.d_model),
+                            generator=gen, device=device,
+                            dtype=torch.float32).to(params.embed.dtype)
+        inputs.append((toks, media))
+        runs.append(encdec_generate(torch, ops, cfg, params, toks, media))
+    toks, media = inputs[0]
+    controls = {}
+    in_model = encdec_kernel_vs_plain(
+        torch, ops, cfg, params, toks[:1], media[:1],
+        label=f"{cfg.name} {cfg.param_dtype} {cfg.num_encoder_layers} + "
+              f"{cfg.num_layers} layers", tol=ENCDEC_MODEL_TOL,
+        controls=controls)
+    short, short_media = inputs[-1][0][0].tolist(), inputs[-1][1][:1]
+    tokenwise = [encdec_tokenwise(torch, cfg, params, short, short_media,
+                                  tol=ENCDEC_TOKENWISE_TOL, tokens=False)]
+    return dict(runs=runs, in_model=in_model,
+                in_model_control=controls.popitem()[1], tokenwise=tokenwise,
+                short=(short, short_media))
 
 
 def main() -> int:
@@ -2777,6 +3323,62 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     new_phase_s += time.perf_counter() - t_new
+
+    # phase 13: internvl2-1b at full width — serving as a text LM, the
+    # kernel against the plain attention inside the model, the forward
+    # pass behind its media prefix, and the head on its features; first
+    # the flash kernel with keys of their own length (phase 14's cross
+    # and encoder shapes) against its plain version, and its times
+    t_13 = time.perf_counter()
+    cross_checks(torch, ops, ref, "cuda", devs)
+    rows["flash_attention"]["variants"] += cross_timings(torch, ops, ref,
+                                                         "cuda")
+    vcfg, params, _ = new_model(torch, model, configs, "internvl2_1b")
+    v_served = backbone_serving(torch, ops, engine, vcfg, params,
+                                prompts=VLM_PROMPTS, max_len=SERVE_LEN,
+                                instance="wgmma")
+    controls, model_limits = {}, {}
+    model_devs["bfloat16 internvl2-1b"] = in_model_instances(
+        torch, ops, vcfg, params, label=f"{vcfg.name} bf16 "
+        f"{vcfg.num_layers} layers", instance="wgmma", tol=VLM_MODEL_TOL,
+        controls=controls)
+    model_limits["bfloat16 internvl2-1b"] = dict(
+        tol=VLM_MODEL_TOL, control_dev=controls.popitem()[1])
+    v_media = media_forward(torch, ops, vcfg, params, tol=VLM_MEDIA_TOL,
+                            control=True)
+    check(v_media["instances"] == {**{k: 0 for k in ops.flash_launches},
+                                   "wgmma": v_media["launches"]},
+          f"{vcfg.name} media forward: flash launches by instance "
+          f"{v_media['instances']}, expected all on wgmma")
+    heads[vcfg.name] = head_phase(torch, core, ops, vcfg, params,
+                                  shape=BACKBONE_HEAD_SHAPE, plain_seqs=0,
+                                  fits=("megakernel",))
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 14: seamless-m4t-large-v2 at full width — the encoder, the
+    # decoder and its cross-attention through prefill, then lockstep
+    # decode; the kernel against the plain attention on all three paths;
+    # block prefill against token-wise decode from build_cross_cache (bf16,
+    # then an fp32 copy: the same tokens)
+    scfg, params, _ = new_model(torch, model, configs,
+                                "seamless_m4t_large_v2")
+    encdec = encdec_phase(torch, ops, scfg, params)
+    model_devs["bfloat16 seamless-m4t-large-v2"] = encdec["in_model"]
+    model_limits["bfloat16 seamless-m4t-large-v2"] = dict(
+        tol=ENCDEC_MODEL_TOL, control_dev=encdec.pop("in_model_control"))
+    short, short_media = encdec.pop("short")
+    del params
+    torch.cuda.empty_cache()
+    scfg32 = dataclasses.replace(scfg, param_dtype="float32")
+    params = model.init_params(scfg32, seed=0, device="cuda")
+    encdec["tokenwise"].append(encdec_tokenwise(
+        torch, scfg32, params, short, short_media,
+        tol=MODEL_TOL["float32"]))
+    del params, short_media
+    torch.cuda.empty_cache()
+    phase_13_14_s = time.perf_counter() - t_13
+    log(f"new phases (13, 14): {phase_13_14_s:.1f} s")
     for h in heads.values():
         launches["flash_attention"] += h["flash_launches"]
         for name in FIT_KERNELS:
@@ -2786,8 +3388,10 @@ def main() -> int:
         for name, by in h["two_pass_instances"].items():
             for inst, n in by.items():
                 two_pass_instances[name][inst] += n
-    for srv in (g_served, r_served):
+    for srv in (g_served, r_served, v_served):
         launches["flash_attention"] += srv["launches"]["flash_attention"]
+    launches["flash_attention"] += v_media["launches"] + sum(
+        run["launches"] for run in encdec["runs"])
     log(f"new phases (7b, 11, 12): {new_phase_s:.1f} s; head launches "
         f"{json.dumps({k: h['fit_launches'] for k, h in heads.items()})}")
 
@@ -2809,7 +3413,8 @@ def main() -> int:
                 decode_bound_ms=decode_bound, wall_s=served["wall_s"]),
                 model_kernel_vs_plain={
                     dt: dict(max_abs_dev=d, max_abs_logit=m,
-                             tol=MODEL_TOL[dt.split()[0]])
+                             **model_limits.get(
+                                 dt, dict(tol=MODEL_TOL[dt.split()[0]])))
                     for dt, (d, m) in model_devs.items()},
                 serve_instances=served["flash_instances"],
                 sass={f"flash_tc_kernel<{D}>": dict(HGMMA=h, UTMALDG=u)
@@ -2821,7 +3426,15 @@ def main() -> int:
                     "serve granite-moe-3b-a800m":
                         g_served["launches"]["flash_attention"],
                     "serve recurrentgemma-2b":
-                        r_served["launches"]["flash_attention"]},
+                        r_served["launches"]["flash_attention"],
+                    "serve internvl2-1b":
+                        v_served["launches"]["flash_attention"],
+                    "forward internvl2-1b media prefix":
+                        v_media["launches"],
+                    **{f"seamless-m4t-large-v2 {path} (B={run['B']}, "
+                       f"S={run['S']})": n
+                       for run in encdec["runs"]
+                       for path, n in run["launches_by_path"].items()}},
                 serve_new_models={
                     srv_name: dict(prefill_ms=srv["prefill_ms"],
                                    decode_ms_median=float(np.median(
@@ -2829,7 +3442,10 @@ def main() -> int:
                                    wall_s=srv["wall_s"],
                                    instances=srv["flash_instances"])
                     for srv_name, srv in (("granite-moe-3b-a800m", g_served),
-                                          ("recurrentgemma-2b", r_served))},
+                                          ("recurrentgemma-2b", r_served),
+                                          ("internvl2-1b", v_served))},
+                vlm_media_forward=v_media,
+                encdec={key: encdec[key] for key in ("runs", "tokenwise")},
                 head_features={k: {key: h[key] for key in (
                     "extract_s", "trunk_flops", "extract_tflops", "shape",
                     "features_kernel_vs_plain")

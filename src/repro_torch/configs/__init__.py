@@ -5,10 +5,8 @@ cited) and ``reduced()`` (a <=2-layer, d_model<=512, <=4-expert smoke variant
 of the same family).  ``get(name)`` / ``get_reduced(name)`` look them up;
 ``ARCHS`` lists all ids.
 
-A copy of ``repro.configs`` (data only, no JAX).  Every family can be
-looked up; a family whose blocks the port does not run yet raises
-``NotImplementedError`` when its model is built
-(``repro_torch.models.model.init_params``), not here.
+A copy of ``repro.configs`` (data only, no JAX).  The port builds and
+runs every family (``repro_torch.models.model.init_params``).
 """
 from __future__ import annotations
 

@@ -6,13 +6,18 @@
 // Replaces the Pallas TPU kernel of the JAX package:
 //   flash_attention  <- repro/kernels/flash_attention.py:flash_attention
 //                       (_flash_kernel)
-// and computes what it computes: for q (B, H, S, D) and k, v (B, KV, S, D)
+// and computes what it computes: for q (B, H, S, D) and k, v (B, KV, Sk, D)
 // in fp32 or bf16, with query head h reading kv head h / (H / KV),
 //   s = (q . k^T) * sm_scale                      (fp32)
-//   s = -1e30 where k_pos >= S, or (causal) k_pos > q_pos, or
+//   s = -1e30 where k_pos >= Sk, or (causal) k_pos > q_pos, or
 //       (window) k_pos <= q_pos - window
 //   online softmax over the key tiles: m, l, acc in fp32
 //   o = acc / l, with l == 0 giving zeros, cast once to q's dtype.
+// The Pallas kernel takes one length for both (Sk = S: self-attention).
+// Here the keys may have their own length Sk, as cross-attention needs
+// (queries of the decoder's prompt against the encoder's frames); the
+// wrapper allows Sk != S only without the causal and window masks, whose
+// positions would otherwise be ambiguous.
 //
 // What bounds it on an H100: causal attention does 4*D flops per (query,
 // visible key) pair, 4*B*H*D*S(S+1)/2 in all, against reading q, k, v and
@@ -42,9 +47,9 @@
 //   hi + mid + lo, which hold its 24 bits, and all three go through the
 //   tensor cores into one fp32 accumulator: 8*D flops per pair instead of
 //   4*D.  Each consumer runs a tile's two products and its softmax in turn;
-//   the two consumers overlap each other.  The ragged end of S is TMA's
-//   zero fill plus the k_pos < S mask; rows past S are not stored; tiles wholly
-//   above the diagonal or left of the window are never loaded, and only
+//   the two consumers overlap each other.  The ragged end of Sk is TMA's
+//   zero fill plus the k_pos < Sk mask; rows past S are not stored; tiles
+//   wholly above the diagonal or left of the window are never loaded, and only
 //   the tiles that cross a mask edge pay for the mask.  q, k, v are read
 //   through 4-d tensor maps (D, S, heads, B) built from their strides, so
 //   the model's transposed (B, S, H, D) buffers go in without a copy; o is
@@ -64,7 +69,7 @@
 //   their output columns tx + 8*j of D.  The probabilities go through
 //   shared memory between the two products.  Under `causal` the key tiles
 //   wholly above the diagonal are never visited, under `window` those
-//   wholly left of it; the ragged end of S is masked inside the kernel
+//   wholly left of it; the ragged end of Sk is masked inside the kernel
 //   (rows past S are computed on zeros and not stored).  Query tiles are
 //   issued heaviest first (the last tile sees the most keys under
 //   `causal`), in both instances.  Arbitrary strides on B, H and S; D has
@@ -118,8 +123,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int H, int group,
-             int S, int D, Strides qs, Strides ks, Strides vs, Strides os,
-             float scale, int causal, int window) {
+             int S, int Sk, int D, Strides qs, Strides ks, Strides vs,
+             Strides os, float scale, int causal, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);         // kBQ x (DP+1)
   float* Ps = Qs + kBQ * (DP + 1);                        // kBQ x (kBK+1)
@@ -146,7 +151,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // The key tiles this query tile can see.
   const int q_last = min(q0 + kBQ, S) - 1;
-  int kt_end = (S + kBK - 1) / kBK;
+  int kt_end = (Sk + kBK - 1) / kBK;
   if (causal) kt_end = min(kt_end, q_last / kBK + 1);
   int kt_begin = 0;
   if (window > 0) {
@@ -169,7 +174,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kBK * DP; idx += kThreads) {
       const int c = idx / DP, d = idx % DP;
       const int kp = k0 + c;
-      const bool ok = kp < S && d < D;
+      const bool ok = kp < Sk && d < D;
       Kt[d * (kBK + 1) + c] = ok ? kb[kp * ks.s + d] : narrow<T>(0.0f);
       Vs[c * DP + d] = ok ? vb[kp * vs.s + d] : narrow<T>(0.0f);
     }
@@ -202,7 +207,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kp = k0 + tx + kTX * j;
-        bool ok = kp < S;
+        bool ok = kp < Sk;
         if (causal) ok = ok && kp <= qp;
         if (window > 0) ok = ok && kp > qp - window;
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
@@ -261,9 +266,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int S, int D, Strides qs, Strides ks,
-                   Strides vs, Strides os, float scale, int causal, int window,
-                   cudaStream_t stream) {
+                   int B, int H, int KV, int S, int Sk, int D, Strides qs,
+                   Strides ks, Strides vs, Strides os, float scale, int causal,
+                   int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, DP>();
   // on every launch: the attribute is per device, and the call is cheap
   const cudaError_t err = cudaFuncSetAttribute(
@@ -273,27 +278,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / KV, S, D, qs, ks,
-      vs, os, scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), H, H / KV, S, Sk, D, qs,
+      ks, vs, os, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KV, int S, int D, Strides qs,
+                     int B, int H, int KV, int S, int Sk, int D, Strides qs,
                      Strides ks, Strides vs, Strides os, float scale,
                      int causal, int window, cudaStream_t stream) {
   if (D <= 32)
-    return launch<T, 32>(q, k, v, o, B, H, KV, S, D, qs, ks, vs, os, scale,
-                         causal, window, stream);
+    return launch<T, 32>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
+                         scale, causal, window, stream);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, KV, S, D, qs, ks, vs, os, scale,
-                         causal, window, stream);
+    return launch<T, 64>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
+                         scale, causal, window, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, H, KV, S, D, qs, ks, vs, os, scale,
-                          causal, window, stream);
-  return launch<T, 256>(q, k, v, o, B, H, KV, S, D, qs, ks, vs, os, scale,
-                        causal, window, stream);
+    return launch<T, 128>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
+                          scale, causal, window, stream);
+  return launch<T, 256>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
+                        scale, causal, window, stream);
 }
 
 }  // namespace
@@ -485,11 +490,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float first, float second) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// The key tiles [begin, end) that query rows first .. last can see.
-__device__ __forceinline__ void key_tiles(int first, int last, int S,
+// The key tiles [begin, end) of Sk keys that query rows first .. last can
+// see.
+__device__ __forceinline__ void key_tiles(int first, int last, int Sk,
                                           int causal, int window, int& begin,
                                           int& end) {
-  end = (S + kBK - 1) / kBK;
+  end = (Sk + kBK - 1) / kBK;
   if (causal) end = min(end, last / kBK + 1);
   begin = 0;
   if (window > 0 && first - window + 1 > 0) begin = (first - window + 1) / kBK;
@@ -505,7 +511,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, OutArgs out, int H,
-                int group, int S, float scale_log2, int causal, int window) {
+                int group, int S, int Sk, float scale_log2, int causal,
+                int window) {
   using L = Layout<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -533,7 +540,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   // The key tiles of the block: those its first to its last row can see.
   int blk_begin, blk_end;
-  key_tiles(q0, min(q0 + kBQ, S) - 1, S, causal, window, blk_begin, blk_end);
+  key_tiles(q0, min(q0 + kBQ, S) - 1, Sk, causal, window, blk_begin, blk_end);
   const int n_tiles = blk_end - blk_begin;
 
   if (wg == 2) {
@@ -572,7 +579,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int c0 = 2 * (lane % 4);
     int my_begin = 0, my_end = 0;                       // no rows: no tiles
     if (qa < S)
-      key_tiles(qa, min(qa + 64, S) - 1, S, causal, window, my_begin, my_end);
+      key_tiles(qa, min(qa + 64, S) - 1, Sk, causal, window, my_begin,
+                my_end);
 
     float acc[L::kHalves][32];
 #pragma unroll
@@ -611,7 +619,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         fence_regs(s);
 
         // mask (only tiles that cross an edge), scale to log2 units, row max
-        const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > qa) ||
+        const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > qa) ||
                           (window > 0 && k0 <= qa + 63 - window);
         float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -621,7 +629,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
           if (edge) {
             const int kp = k0 + 8 * (x / 4) + c0 + (x % 2);
             const int qp = r0 + 8 * i2;
-            bool ok = kp < S;
+            bool ok = kp < Sk;
             if (causal) ok = ok && kp <= qp;
             if (window > 0) ok = ok && kp > qp - window;
             if (!ok) val = kNegInf;
@@ -783,13 +791,13 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KV, int S, Strides qs, Strides ks, Strides vs,
+           int H, int KV, int S, int Sk, Strides qs, Strides ks, Strides vs,
            Strides os, float scale, int causal, int window,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, D, S, H, B, qs.b, qs.h, qs.s, kBQ);
-  if (err == 0) err = make_map(&tk, k, D, S, KV, B, ks.b, ks.h, ks.s, kBK);
-  if (err == 0) err = make_map(&tv, v, D, S, KV, B, vs.b, vs.h, vs.s, kBK);
+  if (err == 0) err = make_map(&tk, k, D, Sk, KV, B, ks.b, ks.h, ks.s, kBK);
+  if (err == 0) err = make_map(&tv, v, D, Sk, KV, B, vs.b, vs.h, vs.s, kBK);
   if (err != 0) return err;
   constexpr int smem = Layout<D>::kBytes;
   const cudaError_t cerr = cudaFuncSetAttribute(
@@ -798,7 +806,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   const OutArgs out{static_cast<__nv_bfloat16*>(o), os.b, os.h, os.s};
   flash_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, out, H, H / KV, S, scale * kLog2e, causal, window);
+      tq, tk, tv, out, H, H / KV, S, Sk, scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -807,39 +815,41 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // o = attention(q, k, v) on `stream`; q, o are (B, H, S, D) and k, v
-// (B, KV, S, D), all fp32 (bf16 = 0) or all bf16, each with its own
-// element strides over (B, H, S) and a unit stride over D.  window <= 0
-// means no window.  Returns the cudaError_t of the launch (0 on success);
-// does not synchronize or allocate.
+// (B, KV, Sk, D), all fp32 (bf16 = 0) or all bf16, each with its own
+// element strides over (B, heads, rows) and a unit stride over D.  window
+// <= 0 means no window; Sk != S is refused under causal or window.  Returns
+// the cudaError_t of the launch (0 on success); does not synchronize or
+// allocate.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    int bf16, int B, int H, int KV, int S, int D,
+                    int bf16, int B, int H, int KV, int S, int Sk, int D,
                     long long q_sb, long long q_sh, long long q_ss,
                     long long k_sb, long long k_sh, long long k_ss,
                     long long v_sb, long long v_sh, long long v_ss,
                     long long o_sb, long long o_sh, long long o_ss,
                     float scale, int causal, int window, void* stream) {
-  if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || D < 1 ||
-      D > 256 || (S + kBQ - 1) / kBQ > 65535)
+  if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || Sk < 1 ||
+      D < 1 || D > 256 || (S + kBQ - 1) / kBQ > 65535 ||
+      (Sk != S && (causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, S, D, qs, ks, vs,
-                                     os, scale, causal, window, st)
-           : dispatch<float>(q, k, v, o, B, H, KV, S, D, qs, ks, vs, os,
+      bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks,
+                                     vs, os, scale, causal, window, st)
+           : dispatch<float>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
                              scale, causal, window, st);
   return static_cast<int>(err);
 }
 
-// The tensor-core instance: q, o are (B, H, S, D) and k, v (B, KV, S, D),
-// all bf16, D = 64 or 128, with element strides over (B, H, S) that are
+// The tensor-core instance: q, o are (B, H, S, D) and k, v (B, KV, Sk, D),
+// all bf16, D = 64 or 128, with element strides over (B, heads, rows) that are
 // multiples of 8 (16 bytes, for the tensor maps; a dimension of size 1 may
 // pass any such stride), a unit stride over D and 16-byte-aligned q, k, v.
 // Same return convention as flash_attention, with the tensor-map errors
 // of flash_attention_error_string besides.
 int flash_attention_tc(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int KV, int S, int D,
+                       int B, int H, int KV, int S, int Sk, int D,
                        long long q_sb, long long q_sh, long long q_ss,
                        long long k_sb, long long k_sh, long long k_ss,
                        long long v_sb, long long v_sh, long long v_ss,
@@ -848,7 +858,9 @@ int flash_attention_tc(const void* q, const void* k, const void* v, void* o,
   const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                                 v_sb, v_sh, v_ss};
   bool ok = B >= 1 && H >= 1 && KV >= 1 && H % KV == 0 && S >= 1 &&
-            (D == 64 || D == 128) && (S + tc::kBQ - 1) / tc::kBQ <= 65535;
+            Sk >= 1 && (D == 64 || D == 128) &&
+            (S + tc::kBQ - 1) / tc::kBQ <= 65535 &&
+            (Sk == S || (!causal && window <= 0));
   for (long long st : strides) ok = ok && st > 0 && st % 8 == 0;
   const void* const bases[3] = {q, k, v};
   for (const void* p : bases)
@@ -857,10 +869,10 @@ int flash_attention_tc(const void* q, const void* k, const void* v, void* o,
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? tc::launch<64>(q, k, v, o, B, H, KV, S, qs, ks, vs, os,
+  return D == 64 ? tc::launch<64>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs, os,
                                   scale, causal, window, st)
-                 : tc::launch<128>(q, k, v, o, B, H, KV, S, qs, ks, vs, os,
-                                   scale, causal, window, st);
+                 : tc::launch<128>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs,
+                                   os, scale, causal, window, st);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -104,10 +104,10 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _flash_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
-    lib.flash_attention.argtypes = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [
+    lib.flash_attention.argtypes = [_P] * 4 + [_I] * 7 + [_LL] * 12 + [
         _F, _I, _I, _P]
     lib.flash_attention.restype = ctypes.c_int
-    lib.flash_attention_tc.argtypes = [_P] * 4 + [_I] * 5 + [_LL] * 12 + [
+    lib.flash_attention_tc.argtypes = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [
         _F, _I, _I, _P]
     lib.flash_attention_tc.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -694,10 +694,11 @@ def flash_instance(dtype: torch.dtype, head_dim: int, *operands) -> str:
     return "fma"
 
 
-def _check_attention(q, k, v, window, instance=None):
+def _check_attention(q, k, v, window, instance=None, *, causal: bool):
     """Check the operands for ``instance`` (default: the one
-    ``flash_instance`` names by dtype and head dim alone); raises
-    ValueError or TypeError before any launch."""
+    ``flash_instance`` names by dtype and head dim alone) under the mask
+    ``causal`` and ``window`` name (the key-length rule depends on it);
+    raises ValueError or TypeError before any launch."""
     name = "flash_attention"
     for what, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
@@ -711,12 +712,13 @@ def _check_attention(q, k, v, window, instance=None):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {what} needs a unit stride over D")
     B, H, S, D = q.shape
-    KV = k.shape[1]
-    if tuple(k.shape) != (B, KV, S, D) or tuple(v.shape) != (B, KV, S, D):
+    KV, Sk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, KV, Sk, D) or tuple(v.shape) != (B, KV, Sk, D):
         raise ValueError(f"{name}: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be (B, KV, S, D) for q "
+                         f"{tuple(v.shape)} must be (B, KV, Sk, D) for q "
                          f"{tuple(q.shape)}")
-    if min(B, H, S, KV) < 1 or H % KV or not 1 <= D <= 256:
+    ref.check_key_length(S, Sk, causal, window)
+    if min(B, H, S, Sk, KV) < 1 or H % KV or not 1 <= D <= 256:
         raise ValueError(f"{name}: needs H % KV == 0 and D <= 256, got "
                          f"q {tuple(q.shape)}, KV={KV}")
     if (S + 63) // 64 > 65535:
@@ -755,12 +757,12 @@ def _flash_launch(q, k, v, instance, *, causal, window, sm_scale):
     """One launch of ``instance`` on CUDA operands (checked here); returns
     the output.  ``flash_attention`` calls it with ``flash_instance``'s
     choice; the fp32-FMA instance also takes bf16."""
-    _check_attention(q, k, v, window, instance)
+    _check_attention(q, k, v, window, instance, causal=causal)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
     scale = float(sm_scale) if sm_scale is not None else D ** -0.5
     lib = _flash_lib()
-    shape = (B, H, k.shape[1], S, D)
+    shape = (B, H, k.shape[1], S, k.shape[2], D)
     tail = (*out.stride()[:3], scale, int(bool(causal)),
             int(window) if window is not None else 0, _stream(q.device))
     with torch.cuda.device(q.device):
@@ -782,9 +784,12 @@ def _flash_launch(q, k, v, instance, *, causal, window, sm_scale):
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     sm_scale=None):
     """Grouped-query attention with an online softmax: q (B, H, S, D),
-    k and v (B, KV, S, D), fp32 or bf16, H % KV == 0, D <= 256; causal
+    k and v (B, KV, Sk, D), fp32 or bf16, H % KV == 0, D <= 256; causal
     and sliding-window (``window``) masks; ``sm_scale`` defaults to
-    D ** -0.5.  Returns (B, H, S, D) in q's dtype.
+    D ** -0.5.  Returns (B, H, S, D) in q's dtype.  The keys may have a
+    length of their own (Sk != S, cross-attention) only with
+    ``causal=False`` and no window; such a call raises ValueError before
+    any launch, on the CPU as on the card.
 
     On the card the inputs may be strided views (unit stride over D), so
     the model's (B, S, H, D) projections go in as ``.transpose(1, 2)``

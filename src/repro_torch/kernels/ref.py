@@ -72,14 +72,26 @@ def decsvm_round_block(X: Tensor, y: Tensor, B: Tensor, P: Tensor,
 NEG_INF = -1e30
 
 
+def check_key_length(S: int, Sk: int, causal: bool, window) -> None:
+    """Keys of their own length (Sk != S) have no positions that a causal
+    or window mask could compare with the queries': such a call raises
+    ValueError."""
+    if Sk != S and (causal or window is not None):
+        raise ValueError(f"flash_attention: keys of their own length (Sk = "
+                         f"{Sk}, S = {S}) take neither a causal mask nor a "
+                         f"window (causal={causal}, window={window})")
+
+
 def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         window: int | None = None, sm_scale: float | None = None) -> Tensor:
     """Grouped-query attention oracle (port of ``repro.kernels.ref.mha``).
 
-    q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0; query head h
+    q: (B, H, S, D); k, v: (B, KV, Sk, D) with H % KV == 0; query head h
     reads kv head h // (H // KV).  window: sliding-window width (attend to
-    [i-window+1, i]); None = full.  Logits, softmax and the product with v
-    are fp32; the output is rounded once to q's dtype.
+    [i-window+1, i]); None = full.  Sk != S (cross-attention; the JAX
+    oracle takes one S) only with ``causal=False`` and no window, else
+    ValueError.  Logits, softmax and the product with v are fp32; the
+    output is rounded once to q's dtype.
 
     Two choices follow the Pallas kernel rather than the JAX oracle, so that
     the kernel and this plain version round alike: the scale is the Python
@@ -89,7 +101,8 @@ def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     does under a causal mask or a window >= 1).
     """
     B, H, S, D = q.shape
-    KV = k.shape[1]
+    KV, Sk = k.shape[1], k.shape[2]
+    check_key_length(S, Sk, causal, window)
     g = H // KV
     scale = float(sm_scale) if sm_scale is not None else D ** -0.5
     f32 = torch.float32
@@ -97,8 +110,8 @@ def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     vr = v.to(f32).repeat_interleave(g, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kr) * scale
     qi = torch.arange(S, device=q.device)[:, None]
-    ki = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    ki = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= ki <= qi
     if window is not None:

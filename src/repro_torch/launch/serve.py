@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.engine import refuse_encoder_decoder
 
 
 def make_serve_step(cfg: ModelConfig, mode: str = "decode"):
@@ -28,7 +29,9 @@ def greedy_generate(cfg: ModelConfig, params: model.LM, prompt,
                     max_new: int = 32) -> torch.Tensor:
     """Greedy generation that prefills by stepping the prompt.  prompt:
     (B, S0) token ids; returns (B, S0 + max_new) int32 on the params'
-    device."""
+    device.  An encoder-decoder config raises NotImplementedError, as in
+    ``ServeEngine``."""
+    refuse_encoder_decoder(cfg, "greedy_generate")
     prompt = torch.as_tensor(prompt, device=params.device,
                              dtype=torch.int32)
     B, S0 = prompt.shape

@@ -1,5 +1,7 @@
 """Grouped-query attention: init, full-sequence (prefill) forward, and
-one-token decode against a preallocated KV cache.
+one-token decode against a preallocated KV cache; cross-attention of a
+decoder over the encoder's output (``kv_x``) or its projected K/V
+(``cross_kv``).
 
 Counterpart of ``repro.models.attention``.  The full-sequence self-
 attention is where the JAX package's Pallas ``flash_attention`` kernel
@@ -7,14 +9,16 @@ replaces its q-chunked XLA twin ``_attend`` 1:1.  Here ``self_attend``
 runs the hand-written CUDA kernel (``repro_torch.kernels.ops.
 flash_attention``) for tensors on the card and the plain ``_attend`` for
 tensors on the CPU; the q chunking of the JAX twin is a memory measure for
-XLA that neither needs (the kernel streams the keys itself).  The one-token
-decode attention is plain torch, as the JAX package leaves it to XLA.
+XLA that neither needs (the kernel streams the keys itself).  The
+full-sequence cross-attention (``cross_attend``: no RoPE, no mask, keys of
+the encoder's length) runs the same kernel on the card; the Pallas kernel
+takes one length for q and kv, so on the TPU it stayed with XLA.  The
+one-token decode attention, self and cross, is plain torch, as the JAX
+package leaves it to XLA.
 
 ``repro.models.shardctx.constrain`` has no counterpart: it pins activation
 layouts on a mesh and is a no-op off one, and the port's LM stack runs
-on one card until its meshes come (ROADMAP Queue 1 item 13.5).  Cross-attention
-(``kv_x`` / ``cross_kv``) comes with the encoder-decoder slice (ROADMAP
-Queue 1 item 13) and raises until then.
+on one card until its meshes come (ROADMAP Queue 1 item 13.5).
 """
 from __future__ import annotations
 
@@ -30,13 +34,11 @@ from repro_torch.models.config import ModelConfig
 Tensor = torch.Tensor
 NEG_INF = -1e30     # never -inf: a row with every key masked stays finite
 
-_CROSS = ("cross-attention comes with the encoder-decoder slice of the port "
-          "(ROADMAP Queue 1 item 13)")
-
 
 class Attention(nn.Module):
     """wq (d, A), wk and wv (d, KV*D), wo (A, d); biases bq, bk, bv with
-    ``attn_bias``; q_norm and k_norm (D,) with ``qk_norm``."""
+    ``attn_bias``; q_norm and k_norm (D,) with ``qk_norm``, except for
+    cross-attention."""
 
     def __init__(self, cfg: ModelConfig, dtype, gen: torch.Generator,
                  cross: bool = False):
@@ -62,30 +64,46 @@ def init_attention(cfg: ModelConfig, dtype, gen: torch.Generator,
     return Attention(cfg, dtype, gen, cross)
 
 
+def _project(params: Attention, x, cfg: ModelConfig, which: str, heads: int,
+             rope: bool, positions: Optional[Tensor]):
+    """One of q ("q", ``heads`` = H) and k ("k", ``heads`` = KV) of x
+    (B, S, d) as (B, S, heads, D): projection, bias, qk-norm and RoPE."""
+    t = x @ getattr(params, f"w{which}")
+    if cfg.attn_bias:
+        t = t + getattr(params, f"b{which}")
+    t = t.reshape(x.shape[0], -1, heads, cfg.head_dim)
+    if cfg.qk_norm:
+        t = layers.rmsnorm(t, getattr(params, f"{which}_norm"))
+    if rope and cfg.pos_embedding == "rope":
+        t = layers.apply_rope(t, positions, fraction=cfg.rope_fraction,
+                              theta=cfg.rope_theta)
+    return t
+
+
+def project_q(params: Attention, x, cfg: ModelConfig, *, rope: bool,
+              positions: Optional[Tensor] = None):
+    """q (B, S, H, D) of x (B, S, d)."""
+    return _project(params, x, cfg, "q", cfg.num_heads, rope, positions)
+
+
+def project_kv(params: Attention, kv_x, cfg: ModelConfig, *, rope: bool,
+               positions: Optional[Tensor] = None):
+    """k and v (B, Skv, KV, D) of kv_x (B, Skv, d); v takes the bias but
+    neither the norm nor RoPE."""
+    k = _project(params, kv_x, cfg, "k", cfg.num_kv_heads, rope, positions)
+    v = kv_x @ params.wv
+    if cfg.attn_bias:
+        v = v + params.bv
+    return k, v.reshape(kv_x.shape[0], -1, cfg.num_kv_heads, cfg.head_dim)
+
+
 def _project_qkv(params: Attention, x, kv_x, cfg: ModelConfig, *,
                  rope: bool, q_positions: Optional[Tensor],
                  k_positions: Optional[Tensor]):
     """q (B, S, H, D) and k, v (B, Skv, KV, D): projections, biases,
     qk-norm and RoPE.  (``attn_act_shard`` only pins layouts on a mesh.)"""
-    B = x.shape[0]
-    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ params.wq
-    k = kv_x @ params.wk
-    v = kv_x @ params.wv
-    if cfg.attn_bias:
-        q, k, v = q + params.bq, k + params.bk, v + params.bv
-    q = q.reshape(B, -1, H, D)
-    k = k.reshape(B, -1, KV, D)
-    v = v.reshape(B, -1, KV, D)
-    if cfg.qk_norm:
-        q = layers.rmsnorm(q, params.q_norm)
-        k = layers.rmsnorm(k, params.k_norm)
-    if rope and cfg.pos_embedding == "rope":
-        q = layers.apply_rope(q, q_positions, fraction=cfg.rope_fraction,
-                              theta=cfg.rope_theta)
-        k = layers.apply_rope(k, k_positions, fraction=cfg.rope_fraction,
-                              theta=cfg.rope_theta)
-    return q, k, v
+    k, v = project_kv(params, kv_x, cfg, rope=rope, positions=k_positions)
+    return project_q(params, x, cfg, rope=rope, positions=q_positions), k, v
 
 
 def _attend(q, k, v, q_pos, k_pos, *, causal: bool,
@@ -123,12 +141,40 @@ def self_attend(q, k, v, *, causal: bool, window: Optional[int]):
     return _attend(q, k, v, pos, pos, causal=causal, window=window)
 
 
+def cross_attend(q, k, v):
+    """Cross-attention, every query against every key: q (B, S, H, D), k
+    and v (B, F, KV, D) -> (B, S, H, D).  On the card: the CUDA flash
+    kernel, non-causal, with keys of their own length F, fed strided
+    (B, heads, rows, D) views as ``self_attend`` feeds it; on the CPU: the
+    plain ``_attend``."""
+    if q.device.type == "cuda":
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=False)
+        return out.transpose(1, 2)
+    return _attend(q, k, v, torch.arange(q.shape[1], device=q.device),
+                   torch.arange(k.shape[1], device=q.device), causal=False,
+                   window=None)
+
+
+def cross_forward(params: Attention, x, cfg: ModelConfig,
+                  cross_kv: dict) -> Tensor:
+    """Full-sequence cross-attention over projected encoder K/V
+    (``cross_kv``: {"k", "v"} (B, F, KV, D), as ``project_kv`` gives
+    them): x (B, S, d) -> (B, S, d); no RoPE and no mask."""
+    B, S, _ = x.shape
+    q = project_q(params, x, cfg, rope=False)
+    out = cross_attend(q, cross_kv["k"], cross_kv["v"])
+    return out.reshape(B, S, -1) @ params.wo
+
+
 def attention_forward(params: Attention, x, cfg: ModelConfig, *,
                       causal: bool = True, window: Optional[int] = None,
                       kv_x: Optional[Tensor] = None) -> Tensor:
-    """Full-sequence self-attention.  x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence attention.  x: (B, S, d) -> (B, S, d).  With ``kv_x``
+    (B, F, d), cross-attention over it: no RoPE and no mask."""
     if kv_x is not None:
-        raise NotImplementedError(_CROSS)
+        k, v = project_kv(params, kv_x, cfg, rope=False)
+        return cross_forward(params, x, cfg, {"k": k, "v": v})
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(params, x, x, cfg, rope=True, q_positions=pos,
@@ -169,12 +215,21 @@ def attention_decode(params: Attention, x1, cache: dict, pos,
 
     The cache is a ring buffer (slot = pos mod cache length) and is
     updated in place (the JAX package returns a new one); returns
-    (out (B, 1, d), cache).
+    (out (B, 1, d), cache).  With ``cross_kv`` ({"k", "v"}: (B, F, KV,
+    D)), attends that fixed encoder K/V instead and leaves ``cache`` as it
+    is.
     """
-    if cross_kv is not None:
-        raise NotImplementedError(_CROSS)
     B = x1.shape[0]
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cross_kv is not None:
+        k, v = cross_kv["k"], cross_kv["v"]
+        q = project_q(params, x1, cfg, rope=False)
+        F = k.shape[1]
+        out = _attend(q, k, v,
+                      torch.full((1,), F, device=x1.device),
+                      torch.arange(F, device=x1.device), causal=False,
+                      window=None)
+        return out.reshape(B, 1, -1) @ params.wo, cache
     pos_b = torch.as_tensor(pos, device=x1.device).reshape(-1).long()
     pos_b = pos_b.expand(B)                                       # (B,)
     q, k1, v1 = _project_qkv(params, x1, x1, cfg, rope=True,

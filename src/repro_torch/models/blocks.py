@@ -1,12 +1,13 @@
-"""Decoder blocks: dispatch over block kinds.
+"""Decoder and encoder blocks: dispatch over block kinds.
 
-Counterpart of ``repro.models.blocks``.  The port runs every decoder-only
-kind: ``"attn"`` (pre-norm attention + MLP, the dense families), ``"moe"``
-(pre-norm attention + the MoE mixer, granite-moe), ``"ssm"`` (pre-norm
-Mamba-2 mixer, mamba2) and ``"rec"`` (pre-norm RG-LRU block + MLP, the
-recurrent layers of recurrentgemma).  The media frontends and the
-encoder-decoder stack wait for a later slice of the port and raise
-``NotImplementedError`` naming their ROADMAP item.
+Counterpart of ``repro.models.blocks``.  The port runs every kind:
+``"attn"`` (pre-norm attention + MLP: the dense families, internvl2's
+language model, and both stacks of seamless-m4t), ``"moe"`` (pre-norm
+attention + the MoE mixer, granite-moe), ``"ssm"`` (pre-norm Mamba-2
+mixer, mamba2) and ``"rec"`` (pre-norm RG-LRU block + MLP, the recurrent
+layers of recurrentgemma).  A decoder block of an encoder-decoder model
+also holds ``cross`` and ``ln_cross``: cross-attention over the encoder's
+output between its mixer and its MLP.
 """
 from __future__ import annotations
 
@@ -17,8 +18,6 @@ from torch import nn
 
 from repro_torch.models import attention, layers, mlp, moe, rglru, ssm
 from repro_torch.models.config import ModelConfig
-
-PORTED = ("attn", "moe", "ssm", "rec")
 
 
 def block_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -33,38 +32,19 @@ def block_kinds(cfg: ModelConfig) -> tuple[str, ...]:
     return ("attn",) * cfg.num_layers
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run
-    yet, naming the slice (ROADMAP Queue 1 item 13) it waits for."""
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type} frontends and the encoder-"
-            "decoder stack wait for a later slice of the port (ROADMAP "
-            "Queue 1 item 13)")
-    for kind in sorted(set(block_kinds(cfg))):
-        require_ported(kind)
-
-
-def require_ported(kind: str) -> None:
-    if kind not in PORTED:
-        raise NotImplementedError(
-            f"'{kind}' blocks wait for a later slice of the port (ROADMAP "
-            "Queue 1 item 13)")
-
-
 class Block(nn.Module):
     """Pre-norm block.  Kind "attn": ln1 -> attn -> residual, ln2 -> mlp
     -> residual; "moe": the same with ``moe`` in place of ``mlp``; "rec":
-    the same with the RG-LRU ``mixer`` in place of ``attn``.  Kind "ssm":
+    the same with the RG-LRU ``mixer`` in place of ``attn``.  With
+    ``cross``, ln_cross -> cross -> residual after the mixer.  Kind "ssm":
     ln1 -> mixer (Mamba-2) -> residual; it also holds an ``ln2`` that it
     never uses, because the JAX package's ``init_block`` creates one for
     every kind and the weight carrier (``convert.params_from_jax``) loads
     every leaf of the JAX tree."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype,
-                 gen: torch.Generator):
+                 gen: torch.Generator, cross: bool = False):
         super().__init__()
-        require_ported(kind)
         self.ln1 = layers.init_norm(cfg.d_model, cfg.norm, dtype, gen.device)
         self.ln2 = layers.init_norm(cfg.d_model, cfg.norm, dtype, gen.device)
         if kind == "ssm":
@@ -74,15 +54,20 @@ class Block(nn.Module):
             self.mixer = rglru.init_rglru_block(cfg, dtype, gen)
         else:
             self.attn = attention.init_attention(cfg, dtype, gen)
+        if cross:
+            self.cross = attention.init_attention(cfg, dtype, gen,
+                                                  cross=True)
+            self.ln_cross = layers.init_norm(cfg.d_model, cfg.norm, dtype,
+                                             gen.device)
         if kind == "moe":
             self.moe = moe.init_moe(cfg, dtype, gen)
         else:
             self.mlp = mlp.init_mlp(cfg, dtype, gen)
 
 
-def init_block(cfg: ModelConfig, kind: str, dtype,
-               gen: torch.Generator) -> Block:
-    return Block(cfg, kind, dtype, gen)
+def init_block(cfg: ModelConfig, kind: str, dtype, gen: torch.Generator,
+               cross: bool = False) -> Block:
+    return Block(cfg, kind, dtype, gen, cross)
 
 
 def feed_forward(params: Block, x, cfg: ModelConfig, kind: str):
@@ -94,11 +79,19 @@ def feed_forward(params: Block, x, cfg: ModelConfig, kind: str):
     return x + mlp.mlp_forward(params.mlp, h, cfg), None
 
 
+def cross_residual(params: Block, x, cfg: ModelConfig, cross_kv: dict):
+    """ln_cross -> cross-attention over the layer's projected encoder K/V
+    (``cross_kv``: {"k", "v"} (B, F, KV, D)) -> residual."""
+    h = layers.apply_norm(x, params.ln_cross, cfg.norm)
+    return x + attention.cross_forward(params.cross, h, cfg, cross_kv)
+
+
 def block_forward(params: Block, x, cfg: ModelConfig, kind: str, *,
-                  causal: bool = True, window: Optional[int] = None):
-    """Full-sequence block.  Returns (x, aux_loss): the MoE load-balance
-    loss for kind "moe", else 0."""
-    require_ported(kind)
+                  causal: bool = True, window: Optional[int] = None,
+                  enc_out: Optional[torch.Tensor] = None):
+    """Full-sequence block; with ``enc_out``, cross-attention over it after
+    the mixer.  Returns (x, aux_loss): the MoE load-balance loss for kind
+    "moe", else 0."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(x, params.ln1, cfg.norm)
     if kind == "ssm":
@@ -108,13 +101,15 @@ def block_forward(params: Block, x, cfg: ModelConfig, kind: str, *,
     else:
         x = x + attention.attention_forward(params.attn, h, cfg,
                                             causal=causal, window=window)
+    if enc_out is not None:
+        k, v = attention.project_kv(params.cross, enc_out, cfg, rope=False)
+        x = cross_residual(params, x, cfg, {"k": k, "v": v})
     x, aux = feed_forward(params, x, cfg, kind)
     return x, zero if aux is None else aux
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, window: Optional[int] = None) -> dict:
-    require_ported(kind)
     if kind == "ssm":
         return ssm.init_mamba_cache(cfg, batch, dtype, device)
     if kind == "rec":
@@ -124,10 +119,11 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def block_decode(params: Block, x1, cache, pos, cfg: ModelConfig,
-                 kind: str, *, window: Optional[int] = None):
-    """One-token block step (the cache is updated in place).  Returns
-    (x1, cache)."""
-    require_ported(kind)
+                 kind: str, *, window: Optional[int] = None,
+                 cross_kv: Optional[dict] = None):
+    """One-token block step (the cache is updated in place); with
+    ``cross_kv`` (the layer's {"k", "v"} (B, F, KV, D)), cross-attention
+    over it after the mixer.  Returns (x1, cache)."""
     h = layers.apply_norm(x1, params.ln1, cfg.norm)
     if kind == "ssm":
         y, cache = ssm.mamba_decode(params.mixer, h, cache, cfg)
@@ -137,5 +133,11 @@ def block_decode(params: Block, x1, cache, pos, cfg: ModelConfig,
     else:
         y, cache = attention.attention_decode(params.attn, h, cache, pos,
                                               cfg, window=window)
-    x1, _ = feed_forward(params, x1 + y, cfg, kind)
+    x1 = x1 + y
+    if cross_kv is not None:
+        h = layers.apply_norm(x1, params.ln_cross, cfg.norm)
+        y, _ = attention.attention_decode(params.cross, h, None, pos, cfg,
+                                          cross_kv=cross_kv)
+        x1 = x1 + y
+    x1, _ = feed_forward(params, x1, cfg, kind)
     return x1, cache

@@ -13,14 +13,18 @@ JAX arrays handed over as they are).
   ``tree["pattern_layers"]`` (one stack per pattern position, n_rep deep)
   and ``tree["tail_layers"]`` interleaved into forward order:
   ``pattern_layers[j][g]`` is layer g·len(pattern) + j, tail layer t is
-  layer n_rep·len(pattern) + t.
+  layer n_rep·len(pattern) + t.  An encoder-decoder's ``tree["enc_layers"]``
+  is unstacked into ``LM.enc_layers`` the same way; its ``pos_embed``,
+  ``enc_norm`` and each decoder layer's ``cross`` and ``ln_cross`` carry
+  over by name.
   The mamba2 tree carries over as it is: its fp32 ``A_log``, ``D`` and
   ``dt_bias`` stay fp32 in a bf16 model (the port's ``ssm.Mamba`` holds
   them so, and the dtype check below holds it to that), and the SSM
   block's unused ``ln2`` has its counterpart in ``blocks.Block``.
 - ``cache_from_jax(tree, device)`` / ``cache_to_numpy(cache)``: the
   decode cache, whose layout both packages share (``{"layers": ...}`` or
-  ``{"pattern_layers": [...], "tail_layers": [...]}``, see
+  ``{"pattern_layers": [...], "tail_layers": [...]}``, and an
+  encoder-decoder's ``{"cross_kv": {"k", "v"}}``, see
   ``repro_torch.models.model``).
 """
 from __future__ import annotations
@@ -67,16 +71,16 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def _unstack(flat: Dict[str, Any], stack: Dict[str, Any], layer_of,
-             depth: int, what: str) -> None:
+             depth: int, what: str, into: str = "layers") -> None:
     """Each leaf of a stacked layer tree (leading axis ``depth``) into
-    ``flat`` as ``layers.{layer_of(g)}.{name}``."""
+    ``flat`` as ``{into}.{layer_of(g)}.{name}``."""
     for key, value in _flatten(stack).items():
         arr = np.asarray(value)
         if arr.shape[0] != depth:
             raise ValueError(f"{what}.{key}: leading axis {arr.shape[0]} "
                              f"!= {depth}")
         for g in range(depth):
-            flat[f"layers.{layer_of(g)}.{key}"] = arr[g]
+            flat[f"{into}.{layer_of(g)}.{key}"] = arr[g]
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
@@ -90,11 +94,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     """
     device = resolve_device(None, device)
     lm = M.init_params(cfg, seed=0, device=device)
-    stacks = ("layers", "pattern_layers", "tail_layers")
+    stacks = ("layers", "pattern_layers", "tail_layers", "enc_layers")
     flat = _flatten({k: v for k, v in tree.items() if k not in stacks})
     if "layers" in tree:
         _unstack(flat, tree["layers"], lambda g: g, cfg.num_layers,
                  "layers")
+    if "enc_layers" in tree:
+        _unstack(flat, tree["enc_layers"], lambda g: g,
+                 cfg.num_encoder_layers, "enc_layers", into="enc_layers")
     if "pattern_layers" in tree:
         pat, n_rep, _ = M.hybrid_layout(cfg)
         if len(tree["pattern_layers"]) != len(pat):
@@ -131,6 +138,9 @@ def _map_cache(cache: Dict[str, Any], fn) -> Dict[str, Any]:
         if key in cache:
             out[key] = [{name: fn(a) for name, a in entry.items()}
                         for entry in cache[key]]
+    if "cross_kv" in cache:
+        out["cross_kv"] = {name: fn(a)
+                           for name, a in cache["cross_kv"].items()}
     return out
 
 

@@ -1,16 +1,23 @@
 """Top-level language model: init, forward, decode.
 
-Counterpart of ``repro.models.model`` for the decoder-only families: the
-dense ones (qwen3-14b, qwen3-32b, glm4-9b, command-r-35b), MoE
-(granite-moe), the SSM family (mamba2-370m) and the RG-LRU hybrid
-(recurrentgemma).  The JAX package stacks the per-layer parameters on a
-leading L axis and scans over them — for a hybrid, one stack per position
-of the block pattern (``pattern_layers``, n_rep deep) and the remainder
-layers apart (``tail_layers``).  Here the layers are one
+Counterpart of ``repro.models.model`` for every family of the registry:
+the dense ones (qwen3-14b, qwen3-32b, glm4-9b, command-r-35b), MoE
+(granite-moe), the SSM family (mamba2-370m), the RG-LRU hybrid
+(recurrentgemma), the VLM (internvl2-1b: a text LM that ``forward`` also
+runs behind a prefix of precomputed media embeddings, (B, F, d), scoring
+the text positions only) and the encoder-decoder (seamless-m4t-large-v2:
+learned positions, an encoder stack over precomputed frame embeddings
+``enc_media`` (B, F, d), non-causal, and cross-attention in every decoder
+layer).  The modality frontends are stubs in the JAX package too: the
+embeddings arrive precomputed.  The JAX package stacks the per-layer
+parameters on a leading L axis and scans over them — for a hybrid, one
+stack per position of the block pattern (``pattern_layers``, n_rep deep)
+and the remainder layers apart (``tail_layers``).  Here the layers are one
 ``nn.ModuleList`` in forward order (layer l of a hybrid is pattern
 position l mod len(pattern) while l < n_rep * len(pattern), then a tail
 layer), and ``forward`` / ``decode_step`` loop over it, each layer
-dispatching on its kind.
+dispatching on its kind; the encoder layers are a second list,
+``enc_layers``.
 
 The decode cache keeps the JAX layout.  A stack of one kind has one
 stacked tensor per name with a leading L axis: {"layers": {name: (L, B,
@@ -19,12 +26,12 @@ stacked tensor per name with a leading L axis: {"layers": {name: (L, B,
 (n_rep, B, ...)} per pattern position], "tail_layers": [{name: (B, ...)}
 per tail layer]} (an RG-LRU layer holds conv (B, W-1, w) and h (B, w)
 fp32).  Each layer reads and writes its own view of it in place
-(``layer_cache``).
+(``layer_cache``).  An encoder-decoder cache also holds {"cross_kv": {"k",
+"v": (L, B, F, KV, D)}}, each decoder layer's projection of the encoder's
+output (``build_cross_cache``), which decode only reads.
 
-The training surface (``loss_fn``, remat), the media frontends and the
-encoder-decoder stack wait for later slices of the port (ROADMAP Queue 1
-item 13); ``init_params`` raises ``NotImplementedError`` for their
-configurations.
+The training surface (``loss_fn``, remat) waits for a later slice of the
+port (ROADMAP Queue 1 item 13.4).
 """
 from __future__ import annotations
 
@@ -34,28 +41,40 @@ import torch
 from torch import nn
 
 from repro_torch.core.admm import resolve_device
-from repro_torch.models import blocks, layers
+from repro_torch.models import attention, blocks, layers
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
+MAX_LEARNED_POS = 8192
 
 
 class LM(nn.Module):
     """embed (V, d), final_norm, lm_head (d, V) unless the embeddings are
-    tied, and the decoder layers."""
+    tied, pos_embed (MAX_LEARNED_POS, d) with learned positions, and the
+    decoder layers; an encoder-decoder model also has the encoder's
+    ``enc_layers`` and ``enc_norm``, and cross-attention in every decoder
+    layer."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
-        blocks.check_supported(cfg)
         dtype = layers.torch_dtype(cfg)
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = layers.dense_init(gen, (V, d), dtype)
         self.final_norm = layers.init_norm(d, cfg.norm, dtype, gen.device)
         if not cfg.tie_embeddings:
             self.lm_head = layers.dense_init(gen, (d, V), dtype)
+        if cfg.pos_embedding == "learned":
+            self.pos_embed = layers.dense_init(gen, (MAX_LEARNED_POS, d),
+                                               dtype)
+        cross = cfg.is_encoder_decoder
         self.layers = nn.ModuleList(
-            blocks.init_block(cfg, kind, dtype, gen)
+            blocks.init_block(cfg, kind, dtype, gen, cross=cross)
             for kind in blocks.block_kinds(cfg))
+        if cross:
+            self.enc_layers = nn.ModuleList(
+                blocks.init_block(cfg, "attn", dtype, gen)
+                for _ in range(cfg.num_encoder_layers))
+            self.enc_norm = layers.init_norm(d, cfg.norm, dtype, gen.device)
 
     @property
     def device(self) -> torch.device:
@@ -68,7 +87,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     with ``seed`` on ``device`` — on the card unless ``device="cpu"``;
     raises without a card.  The draws are not JAX's: tests that compare
     the two packages load JAX's weights (``convert.params_from_jax``)."""
-    blocks.check_supported(cfg)
     device = resolve_device(None, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -79,8 +97,19 @@ def _tokens(tokens, device) -> Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
-def _embed_tokens(params: LM, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return params.embed[tokens]
+def _embed_tokens(params: LM, tokens: Tensor, cfg: ModelConfig,
+                  pos=None) -> Tensor:
+    """Token embeddings (B, S, d), plus, where the config learns them, the
+    position embeddings of 0..S-1 (or, for one token a row, of ``pos``: a
+    scalar or a (B,) vector)."""
+    x = params.embed[tokens]
+    if cfg.pos_embedding == "learned":
+        if pos is None:
+            pos = torch.arange(tokens.shape[1], device=x.device)[None]
+        else:
+            pos = torch.as_tensor(pos, device=x.device).reshape(-1, 1).long()
+        x = x + params.pos_embed[pos % MAX_LEARNED_POS]
+    return x
 
 
 def _head(params: LM, cfg: ModelConfig) -> Tensor:
@@ -95,25 +124,53 @@ def _decoder_window(cfg: ModelConfig, mode: str) -> Optional[int]:
     return None
 
 
+def _on_model(a, params: LM) -> Tensor:
+    """An array (numpy or tensor) on the model's device in its dtype."""
+    return torch.as_tensor(a, device=params.device).to(params.embed.dtype)
+
+
+def encode(params: LM, enc_media, cfg: ModelConfig) -> Tensor:
+    """The encoder of an encoder-decoder model: its layers, non-causal and
+    without a window, over the frame embeddings ``enc_media`` (B, F, d)
+    (in the model's dtype), then ``enc_norm``; returns (B, F, d)."""
+    x = _on_model(enc_media, params)
+    for lp in params.enc_layers:
+        x, _ = blocks.block_forward(lp, x, cfg, "attn", causal=False,
+                                    window=None)
+    return layers.apply_norm(x, params.enc_norm, cfg.norm)
+
+
 def hidden(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
            mode: str = "train"):
-    """The forward pass up to the LM head: (final-normed hidden states
-    (B, S, d), aux_loss)."""
+    """The forward pass up to the LM head: (final-normed hidden states of
+    the text positions (B, S, d), aux_loss)."""
     x = _embed_tokens(params, _tokens(batch["tokens"], params.device), cfg)
+    prefix = 0
+    if cfg.frontend == "vision" and "media" in batch:
+        media = _on_model(batch["media"], params)
+        prefix = media.shape[1]
+        x = torch.cat([media, x], dim=1)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, batch["enc_media"], cfg)
     window = _decoder_window(cfg, mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp in zip(blocks.block_kinds(cfg), params.layers):
         x, a = blocks.block_forward(lp, x, cfg, kind, causal=True,
-                                    window=window)
+                                    window=window, enc_out=enc_out)
         aux = aux + a
-    return layers.apply_norm(x, params.final_norm, cfg.norm), aux
+    x = layers.apply_norm(x, params.final_norm, cfg.norm)
+    return x[:, prefix:], aux
 
 
 def forward(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
             mode: str = "train"):
     """Returns (logits (B, S, V), aux_loss: the MoE load-balance loss summed
-    over the layers, else 0).  batch: {"tokens": (B, S)}.  ``mode``:
-    "train" | "prefill" | "long" (sliding-window fallback)."""
+    over the layers, else 0).  batch: {"tokens": (B, S)}; for the VLM
+    optionally "media" (B, F, d), put in front of the token embeddings
+    (the logits are the text positions' only); for the encoder-decoder
+    "enc_media" (B, F, d), the encoder's input.  ``mode``: "train" |
+    "prefill" | "long" (sliding-window fallback)."""
     x, aux = hidden(params, batch, cfg, mode=mode)
     return x @ _head(params, cfg), aux
 
@@ -131,8 +188,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     -> {"layers": {name: (L, B, ...)}}; a hybrid -> {"pattern_layers":
     [...], "tail_layers": [...]}.  In "long" mode (or with an always-on
     sliding window) the attention caches are ring buffers of the window's
-    size."""
-    blocks.check_supported(cfg)
+    size.  An encoder-decoder cache also holds "cross_kv" (zeros of F =
+    ``cfg.frontend_len or 128`` frames; ``build_cross_cache`` fills it)."""
     device = resolve_device(None, device)
     window = _decoder_window(cfg, "long" if mode == "long" else "decode")
     dtype = layers.torch_dtype(cfg)
@@ -148,10 +205,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     kinds = blocks.block_kinds(cfg)
     if len(set(kinds)) == 1:
-        return {"layers": stacked(kinds[0], cfg.num_layers)}
-    pat, n_rep, rem = hybrid_layout(cfg)
-    return {"pattern_layers": [stacked(kind, n_rep) for kind in pat],
-            "tail_layers": [one(pat[i % len(pat)]) for i in range(rem)]}
+        cache = {"layers": stacked(kinds[0], cfg.num_layers)}
+    else:
+        pat, n_rep, rem = hybrid_layout(cfg)
+        cache = {"pattern_layers": [stacked(kind, n_rep) for kind in pat],
+                 "tail_layers": [one(pat[i % len(pat)]) for i in range(rem)]}
+    if cfg.is_encoder_decoder:
+        shape = (cfg.num_layers, batch, cfg.frontend_len or 128,
+                 cfg.num_kv_heads, cfg.head_dim)
+        cache["cross_kv"] = {name: torch.zeros(shape, dtype=dtype,
+                                               device=device)
+                             for name in ("k", "v")}
+    return cache
+
+
+def cross_kv_of(params: LM, enc_out: Tensor, cfg: ModelConfig
+                ) -> Dict[str, Tensor]:
+    """Each decoder layer's cross K/V of the encoder's output enc_out
+    (B, F, d): {"k", "v": (L, B, F, KV, D)}."""
+    kv = [attention.project_kv(lp.cross, enc_out, cfg, rope=False)
+          for lp in params.layers]
+    return {"k": torch.stack([k for k, _ in kv]),
+            "v": torch.stack([v for _, v in kv])}
+
+
+def build_cross_cache(params: LM, enc_media, cfg: ModelConfig
+                      ) -> Dict[str, Tensor]:
+    """Run the encoder over ``enc_media`` (B, F, d) and project every
+    decoder layer's cross K/V: the "cross_kv" entry of a decode cache."""
+    return cross_kv_of(params, encode(params, enc_media, cfg), cfg)
 
 
 def layer_cache(cache: Dict[str, Any], i: int,
@@ -168,25 +250,33 @@ def layer_cache(cache: Dict[str, Any], i: int,
 
 def cache_leaves(cache: Dict[str, Any]) -> List[Tuple[Tensor, int]]:
     """Every tensor of a decode cache with its batch (slot) axis, in a
-    fixed order: 1 in a stacked entry, 0 in a tail layer's."""
+    fixed order: 1 in a stacked entry and in cross_kv, 0 in a tail
+    layer's."""
     leaves = [(t, 1) for t in cache.get("layers", {}).values()]
     for entry in cache.get("pattern_layers", []):
         leaves += [(t, 1) for t in entry.values()]
     for entry in cache.get("tail_layers", []):
         leaves += [(t, 0) for t in entry.values()]
+    leaves += [(t, 1) for t in cache.get("cross_kv", {}).values()]
     return leaves
 
 
 def decode_step(params: LM, cache: Dict[str, Any], token, pos,
                 cfg: ModelConfig, *, mode: str = "decode"):
     """One-token serve step.  token: (B,) ids; pos: a scalar or a (B,)
-    vector of positions.  Updates ``cache`` in place; returns
-    (logits (B, V), cache)."""
-    x = _embed_tokens(params, _tokens(token, params.device), cfg)[:, None]
+    vector of positions.  With learned positions each slot adds the
+    embedding of its own position; an encoder-decoder cache's "cross_kv"
+    gives each decoder layer its encoder K/V.  Updates ``cache`` in place;
+    returns (logits (B, V), cache)."""
+    x = _embed_tokens(params, _tokens(token, params.device)[:, None], cfg,
+                      pos=pos)
     window = _decoder_window(cfg, "long" if mode == "long" else "decode")
+    cross = cache.get("cross_kv")
     for i, (kind, lp) in enumerate(zip(blocks.block_kinds(cfg),
                                        params.layers)):
-        x, _ = blocks.block_decode(lp, x, layer_cache(cache, i, cfg), pos,
-                                   cfg, kind, window=window)
+        x, _ = blocks.block_decode(
+            lp, x, layer_cache(cache, i, cfg), pos, cfg, kind, window=window,
+            cross_kv=None if cross is None else {name: t[i] for name, t
+                                                 in cross.items()})
     x = layers.apply_norm(x, params.final_norm, cfg.norm)
     return (x @ _head(params, cfg))[:, 0], cache

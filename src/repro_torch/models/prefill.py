@@ -11,7 +11,12 @@ layer), whose final state seeds the layer's decode state, and the plain
 ``ssd_chunked`` on the CPU.  Each RG-LRU layer (kind "rec") seeds its
 conv history from the last W-1 rows of its pre-conv branch and its state
 from the scan's final h.  The entries are packed into the layout of
-``model.init_cache`` (a hybrid's pattern and tail stacks included).
+``model.init_cache`` (a hybrid's pattern and tail stacks included).  An
+encoder-decoder prompt also carries "enc_media": the encoder runs once
+(one non-causal flash launch per encoder layer on the card), its output
+is projected once into "cross_kv" (``model.build_cross_cache``) and each
+decoder layer attends its own K/V there after its self-attention
+(``attention.cross_attend``: one more launch per layer).  As in the JAX package, prefill takes no "media" prefix.
 
 Ring placement: decode writes slot = pos mod cache_len, so after
 prefilling positions [0, S) the slot s must hold the largest position
@@ -79,8 +84,7 @@ def _rec_prefill(params: rglru.RGLRU, x, cfg: ModelConfig):
 
 
 def _block_prefill(params: blocks.Block, x, cfg: ModelConfig, kind: str, *,
-                   window, cache_len):
-    blocks.require_ported(kind)
+                   window, cache_len, cross_kv=None):
     h = layers.apply_norm(x, params.ln1, cfg.norm)
     if kind == "ssm":
         y, cache = _ssm_prefill(params.mixer, h, cfg)
@@ -90,7 +94,10 @@ def _block_prefill(params: blocks.Block, x, cfg: ModelConfig, kind: str, *,
     else:
         y, cache = _attn_prefill(params.attn, h, cfg, window=window,
                                  cache_len=cache_len)
-    x, _ = blocks.feed_forward(params, x + y, cfg, kind)
+    x = x + y
+    if cross_kv is not None:
+        x = blocks.cross_residual(params, x, cfg, cross_kv)
+    x, _ = blocks.feed_forward(params, x, cfg, kind)
     return x, cache
 
 
@@ -116,10 +123,17 @@ def prefill(params: M.LM, batch: Dict[str, Any], cfg: ModelConfig,
     x = M._embed_tokens(params, tokens, cfg)
     window = M._decoder_window(cfg, "long" if mode == "long" else "decode")
     cache = M.init_cache(cfg, B, max_len, mode, device=x.device)
+    cross = None
+    if cfg.is_encoder_decoder:
+        cross = M.build_cross_cache(params, batch["enc_media"], cfg)
+        cache["cross_kv"] = cross
     for i, (kind, lp) in enumerate(zip(blocks.block_kinds(cfg),
                                        params.layers)):
-        x, entry = _block_prefill(lp, x, cfg, kind, window=window,
-                                  cache_len=_cache_len(max_len, window))
+        x, entry = _block_prefill(
+            lp, x, cfg, kind, window=window,
+            cache_len=_cache_len(max_len, window),
+            cross_kv=None if cross is None else {name: t[i] for name, t
+                                                 in cross.items()})
         views = M.layer_cache(cache, i, cfg)
         for name, t in entry.items():
             views[name].copy_(t)

@@ -2,17 +2,19 @@
 elastic-net convoluted-SVM classification head trained on frozen backbone
 features.
 
-Counterpart of ``repro.optim.decsvm_head``.  The backbone (any decoder-only
-family the port runs) is replicated everywhere; each network node
+Counterpart of ``repro.optim.decsvm_head``.  The backbone (any family of
+the registry) is replicated everywhere; each network node
 (hospital, region, pod) holds private sequences.  Features are extracted
 locally, and the sparse linear head is learned with Algorithm 1: each
 round a node sends one (d_model+1)-vector to its one-hop neighbours, never
 the data.
 
-``extract_features`` runs the reference's trunk (embedding, the block
-stack, the final norm; no LM head), which for a hybrid stack differs from
-``model.forward`` in two ways, both kept here because the port is held to
-the reference:
+``extract_features`` runs the reference's trunk (embedding with learned
+positions where the config has them, the decoder's block stack, the final
+norm; no LM head and no media prefix; for an encoder-decoder, no encoder
+and no cross-attention: the decoder stack alone over the tokens), which for
+a hybrid stack differs from ``model.forward`` in two ways, both kept here
+because the port is held to the reference:
 
 - layer order: the trunk runs each pattern position's stacked layers to
   the end before it starts the next (for recurrentgemma-2b layers 0, 3,
@@ -55,7 +57,6 @@ def extract_features(params: M.LM, cfg: ModelConfig, tokens,
                      batch_size: int = 64) -> Tensor:
     """Mean-pooled final-layer features of each sequence, (N, d_model) in
     the model's dtype on the params' device.  tokens: (N, S) ids."""
-    blocks.check_supported(cfg)
     order, window = trunk_order(cfg)
     kinds = blocks.block_kinds(cfg)
     tokens = M._tokens(tokens, params.device)

@@ -15,6 +15,13 @@ and RG-LRU state of recurrentgemma (in its pattern and tail stacks).
 Attention does not depend on it (the ring mask k_pos <= pos already hides
 unwritten slots); the recurrent states do: a reused slot would otherwise
 carry its previous request's state.  The cache is updated in place.
+
+An encoder-decoder model is not served here: a request has no field for
+the encoder's input, and the JAX package's engine does not feed one
+either (its block prefill has no "enc_media", and without block prefill
+it decodes against a zeroed cross_kv; ROADMAP caveats).  Such a model
+runs through ``prefill`` with its "enc_media" and then ``decode_step``
+over the seeded cache, in lockstep.
 """
 from __future__ import annotations
 
@@ -29,6 +36,18 @@ from repro_torch.core.admm import resolve_device
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.prefill import prefill
+
+
+def refuse_encoder_decoder(cfg: ModelConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` for an encoder-decoder config: ``what``
+    would decode its prompt against a cross_kv that no encoder filled."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{what}: {cfg.name} is an encoder-decoder model, and a request "
+            "carries no encoder input (the JAX package's engine and "
+            "greedy_generate decode against a zeroed cross_kv); run "
+            "prefill({'tokens', 'enc_media'}) and decode_step instead "
+            "(ROADMAP caveats)")
 
 
 @dataclasses.dataclass
@@ -69,7 +88,8 @@ class ServeEngine(FifoEngine):
     ``device`` defaults to the card (raises without one; pass
     ``device="cpu"`` for the plain path on the CPU); the parameters are
     moved there.  Greedy argmax is over the padded vocabulary, as in the
-    JAX package.
+    JAX package.  An encoder-decoder config raises NotImplementedError
+    (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, params: model.LM, *,
@@ -77,6 +97,7 @@ class ServeEngine(FifoEngine):
                  eos_id: Optional[int] = None, block_prefill: bool = False,
                  device="cuda"):
         super().__init__()
+        refuse_encoder_decoder(cfg, "ServeEngine")
         self.device = resolve_device(None, device)
         self.cfg = cfg
         self.params = params.to(self.device)

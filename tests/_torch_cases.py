@@ -23,9 +23,9 @@ def one_thread():
 
 def stand_in_counters(monkeypatch):
     """For the CPU rehearsals of chip_smoke.py's phases (the CPU has no
-    kernel): each wrapper call of a CSVM kernel, and each self-attention
-    call of the model, counts as one launch; the counters start at 0.
-    Returns ``repro_torch.kernels.ops``."""
+    kernel): each wrapper call of a CSVM kernel, and each self- and
+    cross-attention call of the model, counts as one launch; the counters
+    start at 0.  Returns ``repro_torch.kernels.ops``."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention
     for name in ("csvm_round_block", "csvm_block_update",
@@ -34,12 +34,11 @@ def stand_in_counters(monkeypatch):
             ops.launches[_name] += 1
             return _fn(*a, **k)
         monkeypatch.setattr(ops, name, counted)
-    plain = attention.self_attend
-
-    def attend(q, k, v, **kw):
-        ops.launches["flash_attention"] += 1
-        return plain(q, k, v, **kw)
-    monkeypatch.setattr(attention, "self_attend", attend)
+    for name in ("self_attend", "cross_attend"):
+        def attend(q, k, v, _fn=getattr(attention, name), **kw):
+            ops.launches["flash_attention"] += 1
+            return _fn(q, k, v, **kw)
+        monkeypatch.setattr(attention, name, attend)
     ops.reset_launches()
     return ops
 

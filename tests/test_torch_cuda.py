@@ -588,6 +588,150 @@ def test_serve_engine_on_the_card_matches_the_cpu(cuda):
 
 
 # --------------------------------------------------------------------------
+# flash_attention with keys of their own length; the VLM and the
+# encoder-decoder on the card
+# --------------------------------------------------------------------------
+
+CROSS_RUNS = [(case, "float32", "fma") for case in
+              chip_smoke.CROSS_CASES + [chip_smoke.ENCODER_CASE]] + [
+    (case, "bfloat16", instance) for case in
+    chip_smoke.CROSS_CASES + [chip_smoke.ENCODER_CASE]
+    for instance in ("wgmma", "fma")]
+
+
+@pytest.mark.parametrize("case,dtype,instance", CROSS_RUNS)
+def test_cross_flash_matches_plain(cuda, case, dtype, instance):
+    """chip_smoke.py's cross cases and the encoder's shape, non-causal, as
+    the model's strided views: each instance that takes the dtype, one
+    launch of it, within the flash limits of ref.mha."""
+    q, k, v = chip_smoke.cross_inputs(torch, case, dtype, cuda, seed=3)
+    ops.reset_launches()
+    got = ops._flash_launch(q, k, v, instance, causal=False, window=None,
+                            sm_scale=None)
+    assert ops.flash_launches[instance] == 1
+    assert sum(ops.flash_launches.values()) == 1
+    want = ref.mha(q, k, v, causal=False)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _, share = chip_smoke.flash_deviation(torch, got, want, dtype)
+    assert share <= 1.0
+    if instance == "wgmma":
+        assert ops.flash_instance(q.dtype, q.shape[-1], q, k, v) == "wgmma"
+
+
+CAUSAL_PATH_RUNS = [((B, H, KV, S, S, D), dtype, instance)
+                    for _, (B, H, KV, S, D) in chip_smoke.CAUSAL_PATH_CASES
+                    for dtype, instance in (("float32", "fma"),
+                                            ("bfloat16", "wgmma"),
+                                            ("bfloat16", "fma"))]
+
+
+@pytest.mark.parametrize("case,dtype,instance", CAUSAL_PATH_RUNS)
+def test_causal_flash_at_the_new_paths_shapes(cuda, case, dtype, instance):
+    """chip_smoke.py's causal path cases (seamless's decoder, internvl2's
+    prefills), as the model's strided views: each instance that takes the
+    dtype, one launch of it, within the flash limits of ref.mha."""
+    q, k, v = chip_smoke.cross_inputs(torch, case, dtype, cuda, seed=5)
+    ops.reset_launches()
+    got = ops._flash_launch(q, k, v, instance, causal=True, window=None,
+                            sm_scale=None)
+    assert ops.flash_launches[instance] == 1
+    assert sum(ops.flash_launches.values()) == 1
+    want = ref.mha(q, k, v, causal=True)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _, share = chip_smoke.flash_deviation(torch, got, want, dtype)
+    assert share <= 1.0
+    if instance == "wgmma":
+        assert ops.flash_instance(q.dtype, q.shape[-1], q, k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("instance", ["wgmma", "fma"])
+def test_cross_flash_refuses_a_mask_before_any_launch(cuda, instance):
+    """Sk != Sq with a causal mask or a window raises ValueError on the
+    card before a launch, through the wrapper and by instance."""
+    q, k, v = chip_smoke.cross_inputs(torch, (1, 4, 4, 33, 70, 64),
+                                      "bfloat16", cuda, seed=4)
+    ops.reset_launches()
+    for kw in (dict(causal=True, window=None),
+               dict(causal=False, window=16)):
+        with pytest.raises(ValueError, match="keys of their own length"):
+            ops.flash_attention(q, k, v, **kw)
+        with pytest.raises(ValueError, match="keys of their own length"):
+            ops._flash_launch(q, k, v, instance, sm_scale=None, **kw)
+    assert sum(ops.launches.values()) == 0
+    assert sum(ops.flash_launches.values()) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_encdec_on_the_card(cuda, dtype):
+    """The reduced seamless-m4t: prefill logits with the kernel on the
+    encoder, decoder and cross paths (one launch per layer and path)
+    against the plain attention on the card, the bf16 in-model limit (fp32:
+    the fp32 one); and the lockstep path's greedy tokens equal to the same
+    run on the CPU in fp32."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get_reduced("seamless_m4t_large_v2", param_dtype=dtype)
+    params = model.init_params(cfg, seed=0, device="cpu").to(cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 75))
+    media = torch.from_numpy(rng.standard_normal(
+        (2, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    ops.reset_launches()
+    dev, _ = chip_smoke.encdec_kernel_vs_plain(
+        torch, ops, cfg, params, toks, media.to(cuda), label="reduced",
+        tol=chip_smoke.MODEL_TOL[dtype])
+    n = cfg.num_encoder_layers + 2 * cfg.num_layers
+    want = {"wgmma": n, "fma": 0} if dtype == "bfloat16" else \
+        {"wgmma": 0, "fma": n}
+    assert ops.flash_launches == want
+    if dtype == "float32":
+        from repro_torch.models.prefill import prefill
+        card = chip_smoke.encdec_generate(torch, ops, cfg, params, toks,
+                                          media.to(cuda), new=6, max_len=96,
+                                          instance="fma")
+        cpu = model.init_params(cfg, seed=0, device="cpu")
+        logits, cache, pos = prefill(cpu, {"tokens": toks,
+                                           "enc_media": media}, cfg, 96)
+        tok, out = torch.argmax(logits[:, -1], -1), []
+        for t in range(6):
+            out.append(tok)
+            logits, cache = model.decode_step(cpu, cache, tok, pos + t, cfg)
+            tok = torch.argmax(logits, -1)
+        assert card["tokens"] == torch.stack(out, 1).tolist()
+
+
+def test_reduced_vlm_on_the_card(cuda):
+    """The reduced internvl2 in bf16: block prefill and the forward pass
+    behind its media prefix with the tensor-core kernel against the plain
+    attention (one launch a layer, the bf16 in-model limit); in fp32 the
+    engine's tokens on the card equal the CPU's."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.serving import Request, ServeEngine
+    cfg = configs.get_reduced("internvl2_1b", param_dtype="bfloat16")
+    params = model.init_params(cfg, seed=0, device=cuda)
+    ops.reset_launches()
+    dev, _ = chip_smoke.in_model_instances(torch, ops, cfg, params,
+                                           label="reduced vlm bf16",
+                                           instance="wgmma", prompt=150)
+    out = chip_smoke.media_forward(torch, ops, cfg, params, text=40)
+    assert out["instances"] == {"wgmma": cfg.num_layers, "fma": 0}
+    cfg = configs.get_reduced("internvl2_1b")
+    prompts = [np.random.default_rng(6).integers(0, cfg.vocab_size,
+                                                 n).tolist()
+               for n in (40, 9)]
+    got = {}
+    for device in ("cpu", cuda):
+        eng = ServeEngine(cfg, model.init_params(cfg, seed=0, device="cpu"),
+                          max_batch=2, max_len=64, block_prefill=True,
+                          device=device)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=5))
+        got[str(device)] = {r: q.generated for r, q in eng.run().items()}
+    assert got["cpu"] == got[str(cuda)]
+
+
+# --------------------------------------------------------------------------
 # ssd_scan and the mamba2 serving path
 # --------------------------------------------------------------------------
 

@@ -112,15 +112,15 @@ def test_wrapper_checks_raise_before_launch(what, make, err):
     q, k, v = (torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16),
                torch.zeros(1, 2, 8, 16))
     with pytest.raises(err):
-        ops._check_attention(*make(q, k, v), None)
+        ops._check_attention(*make(q, k, v), None, causal=True)
 
 
 def test_wrapper_checks_window_and_accept_strided_views():
     q = torch.zeros(1, 8, 4, 16).transpose(1, 2)      # (B, H, S, D) view
     k = torch.zeros(1, 8, 2, 16).transpose(1, 2)
-    ops._check_attention(q, k, k, 3)
+    ops._check_attention(q, k, k, 3, causal=True)
     with pytest.raises(ValueError):
-        ops._check_attention(q, k, k, 0)
+        ops._check_attention(q, k, k, 0, causal=True)
     # the output buffer takes q's strides, so it transposes back for free
     assert torch.empty_like(q).transpose(1, 2).is_contiguous()
 
@@ -230,8 +230,10 @@ def test_tensor_core_instance_rejects_a_misaligned_base(what):
     ops_in[what] = flat[1:].view(shape)
     assert ops_in[what].data_ptr() % 16 == 2
     with pytest.raises(ValueError, match="16-byte aligned"):
-        ops._check_attention(ops_in["q"], ops_in["k"], ops_in["v"], None)
-    ops._check_attention(*(t.float() for t in ops_in.values()), None)
+        ops._check_attention(ops_in["q"], ops_in["k"], ops_in["v"], None,
+                             causal=True)
+    ops._check_attention(*(t.float() for t in ops_in.values()), None,
+                         causal=True)
 
 
 @pytest.mark.parametrize("row", [132, 68])
@@ -243,7 +245,7 @@ def test_tensor_core_instance_rejects_strides_off_16_bytes(row):
     k = _bf16_zeros(1, 2, 8, D)
     assert ops.flash_instance(q.dtype, D) == "wgmma"
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
-        ops._check_attention(q, k, k, None)
+        ops._check_attention(q, k, k, None, causal=True)
 
 
 def test_tensor_core_instance_takes_the_models_transposed_views():
@@ -253,7 +255,7 @@ def test_tensor_core_instance_takes_the_models_transposed_views():
     for B, heads in ((2, 40), (1, 40), (1, 1)):
         q = _bf16_zeros(B, 100, heads, 128).transpose(1, 2)
         k = _bf16_zeros(B, 100, 1 if heads == 1 else 8, 128).transpose(1, 2)
-        ops._check_attention(q, k, k, 64)
+        ops._check_attention(q, k, k, 64, causal=True)
         strides = ops._tma_strides(q)
         assert all(st > 0 and st % 8 == 0 for st in strides)
         assert strides[2] == heads * 128
@@ -273,21 +275,21 @@ def test_misaligned_bf16_operands_choose_the_fma_instance(what, fault):
               "v": _bf16_zeros(1, 2, 8, 128)}
     assert ops.flash_instance(torch.bfloat16, 128,
                               *ops_in.values()) == "wgmma"
-    ops._check_attention(*ops_in.values(), None, "wgmma")
+    ops._check_attention(*ops_in.values(), None, "wgmma", causal=True)
     shape = tuple(ops_in[what].shape)
     if fault == "base":
         ops_in[what] = _bf16_zeros(1 + ops_in[what].numel())[1:].view(shape)
     else:
         ops_in[what] = _bf16_zeros(*shape[:3], 132)[..., :128]
     assert ops.flash_instance(torch.bfloat16, 128, *ops_in.values()) == "fma"
-    ops._check_attention(*ops_in.values(), None, "fma")
+    ops._check_attention(*ops_in.values(), None, "fma", causal=True)
     with pytest.raises(ValueError, match="16"):
-        ops._check_attention(*ops_in.values(), None, "wgmma")
+        ops._check_attention(*ops_in.values(), None, "wgmma", causal=True)
     fp32 = [t.float() for t in ops_in.values()]
     with pytest.raises(ValueError, match="takes bf16"):
-        ops._check_attention(*fp32, None, "wgmma")
+        ops._check_attention(*fp32, None, "wgmma", causal=True)
     with pytest.raises(ValueError, match="unknown instance"):
-        ops._check_attention(*fp32, None, "tc")
+        ops._check_attention(*fp32, None, "tc", causal=True)
 
 
 def test_chip_smoke_reads_the_tensor_core_build():

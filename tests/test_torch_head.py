@@ -187,7 +187,9 @@ def test_tuned_head_matches_jax():
 
 def test_entry_points_need_a_card_unless_told():
     """The head fits on the features' device, or on CUDA for numpy
-    features (raising without a card); the launcher likewise."""
+    features (raising without a card); the launcher likewise.  The VLM
+    backbone is built on the card unless told; on the CPU its features
+    are the reference's."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     feats = np.zeros((2, 4, 3), np.float32)
@@ -197,8 +199,15 @@ def test_entry_points_need_a_card_unless_told():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decentralized_head.run(m=2, n=4, S=4, log=lambda *a: None)
     cfg = tconfigs.get_reduced("internvl2_1b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        head.extract_features(None, cfg, np.zeros((1, 4), np.int64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_params(cfg)
+    jcfg, jp, tcfg, tp = _pair("internvl2_1b")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 6))
+    np.testing.assert_allclose(
+        head.extract_features(tp, tcfg, toks).numpy(),
+        np.asarray(jhead.extract_features(jp, jcfg,
+                                          jnp.asarray(toks, jnp.int32))),
+        atol=ATOL, rtol=0)
 
 
 def test_launch_decentralized_head_on_cpu():

@@ -7,8 +7,10 @@ port serves: qwen3-14b, qwen3-32b, glm4-9b (partial RoPE, biases) and
 command-r-35b (layernorm, tied embeddings); the forward pass, the blocks
 and the weight carrier also for the SSM family, mamba2-370m (its mixer:
 ``test_torch_ssm.py``), the MoE family, granite-moe-1b-a400m
-(``test_torch_moe.py``), and the RG-LRU hybrid, recurrentgemma-2b (its
-pattern stacks; ``test_torch_rglru.py``).
+(``test_torch_moe.py``), the RG-LRU hybrid, recurrentgemma-2b (its
+pattern stacks; ``test_torch_rglru.py``), the VLM, internvl2-1b
+(``test_torch_vlm.py``), and the encoder-decoder, seamless-m4t-large-v2
+(its encoder stack and cross-attention; ``test_torch_encdec.py``).
 """
 import dataclasses
 
@@ -34,9 +36,10 @@ DENSE = ["qwen3_14b", "qwen3_32b", "glm4_9b", "command_r_35b"]
 KEY = jax.random.PRNGKey(0)
 
 
-# the families the port serves (tests/test_prefill.py:16 covers mamba2,
-# granite-moe and recurrentgemma)
-SERVED = DENSE + ["mamba2_370m", "granite_moe_1b_a400m", "recurrentgemma_2b"]
+# the families the port runs (tests/test_prefill.py:16 covers mamba2,
+# granite-moe, recurrentgemma and seamless-m4t)
+SERVED = DENSE + ["mamba2_370m", "granite_moe_1b_a400m", "recurrentgemma_2b",
+                  "internvl2_1b", "seamless_m4t_large_v2"]
 
 
 def _pair(arch):
@@ -86,12 +89,25 @@ def test_config_registry_is_a_copy(arch):
 
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "internvl2_1b"])
-def test_families_not_ported_raise_at_construction(arch):
-    cfg = tconfigs.get_reduced(arch)          # the lookup itself works
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.init_cache(cfg, 1, 8, device="cpu")
+def test_media_and_encdec_families_build_as_jax(arch):
+    """The VLM and the encoder-decoder build on the CPU with the JAX
+    tree's parameters (names, shapes, dtypes; learned positions, the
+    encoder stack and the cross-attention of the encoder-decoder) and the
+    JAX decode cache's layout (cross_kv included)."""
+    jcfg, tcfg = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
+    lm = model.init_params(tcfg, device="cpu")
+    carried = convert.params_from_jax(jmodel.init_params(jcfg, KEY), tcfg,
+                                      "cpu")
+    shapes = {n: (p.shape, p.dtype) for n, p in lm.named_parameters()}
+    assert shapes == {n: (p.shape, p.dtype)
+                      for n, p in carried.named_parameters()}
+    assert any(n.startswith("enc_layers.") for n in shapes) == \
+        (arch == "seamless_m4t_large_v2")
+    jc = jax.tree_util.tree_flatten_with_path(jmodel.init_cache(jcfg, 2, 8))
+    tc = jax.tree_util.tree_flatten_with_path(convert.cache_to_numpy(
+        model.init_cache(tcfg, 2, 8, device="cpu")))
+    assert [(p, a.shape, a.dtype) for p, a in tc[0]] == \
+        [(p, a.shape, a.dtype) for p, a in jc[0]]
 
 
 def test_entry_points_default_to_cuda():
@@ -174,6 +190,8 @@ def _port_layers(jcfg, keys):
     each layer the leaf holds."""
     if keys[0] == "layers":
         return [(i, i) for i in range(jcfg.num_layers)]
+    if keys[0] == "enc_layers":
+        return [(i, i) for i in range(jcfg.num_encoder_layers)]
     pat = jcfg.block_pattern
     n_rep = jcfg.num_layers // len(pat)
     if keys[0] == "pattern_layers":
@@ -185,7 +203,7 @@ def test_params_from_jax_carries_every_weight(any_pair):
     arch, jcfg, jp, tcfg, tp = any_pair
     flat = {name: convert.to_numpy(p) for name, p in tp.named_parameters()}
     stacked = jax.tree_util.tree_flatten_with_path(jp)[0]
-    stacks = ("layers", "pattern_layers", "tail_layers")
+    stacks = ("layers", "pattern_layers", "tail_layers", "enc_layers")
     keys_of = [[getattr(p, "key", getattr(p, "idx", None)) for p in path]
                for path, _ in stacked]
     assert len(flat) == sum(
@@ -194,9 +212,11 @@ def test_params_from_jax_carries_every_weight(any_pair):
     for keys, (_, leaf) in zip(keys_of, stacked):
         leaf = np.asarray(leaf)
         if keys[0] in stacks:
-            rest = [str(k) for k in keys[1 if keys[0] == "layers" else 2:]]
+            one = keys[0] in ("layers", "enc_layers")
+            rest = [str(k) for k in keys[1 if one else 2:]]
+            into = "enc_layers" if keys[0] == "enc_layers" else "layers"
             for i, g in _port_layers(jcfg, keys):
-                name = ".".join(["layers", str(i)] + rest)
+                name = ".".join([into, str(i)] + rest)
                 np.testing.assert_array_equal(
                     flat[name], leaf if g is None else leaf[g])
         else:
@@ -228,8 +248,13 @@ def test_attention_prefill_path_matches_jax(pair, window):
     _close(attention.attention_forward(ta, tx, tcfg, window=window),
            jattention.attention_forward(ja, jnp.asarray(x), jcfg,
                                         window=window))
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        attention.attention_forward(ta, tx, tcfg, kv_x=tx)
+    # cross-attention over a source of another length: no RoPE, no mask
+    kv_x = _randn(2, 7, jcfg.d_model, seed=14) * 0.5
+    _close(attention.attention_forward(ta, tx, tcfg, causal=False,
+                                       kv_x=torch.from_numpy(kv_x)),
+           jattention.attention_forward(ja, jnp.asarray(x), jcfg,
+                                        causal=False,
+                                        kv_x=jnp.asarray(kv_x)))
 
 
 @pytest.mark.parametrize("variant", ["ring", "vector_pos", "int8", "window"])
@@ -267,9 +292,13 @@ def test_attention_decode_matches_jax(pair, variant):
 def test_forward_matches_jax(any_pair):
     arch, jcfg, jp, tcfg, tp = any_pair
     toks = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, 24))
-    jl, jaux = jmodel.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
-                              jcfg)
-    tl, aux = model.forward(tp, {"tokens": toks}, tcfg)
+    batch = {"tokens": toks}
+    if jcfg.is_encoder_decoder:
+        batch["enc_media"] = _randn(2, jcfg.frontend_len, jcfg.d_model,
+                                    seed=15)
+    jl, jaux = jmodel.forward(jp, {k: jnp.asarray(v) for k, v in
+                                   batch.items()}, jcfg)
+    tl, aux = model.forward(tp, batch, tcfg)
     assert tuple(tl.shape) == (2, 24, jcfg.padded_vocab)
     # the MoE load-balance loss summed over layers; 0 for the other kinds
     assert float(aux) == pytest.approx(float(jaux), abs=1e-5)
