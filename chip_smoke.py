@@ -176,6 +176,24 @@ result lines):
    reading, with a control above it); block prefill against token-wise decode
    from ``build_cross_cache`` (bf16: the first token's logits within a
    limit, with a control above it; an fp32 copy: the same tokens, 1e-4).
+15. training: ``flash_attention_backward`` (``csrc/flash_backward.cu``)
+   against ``ref.mha_backward`` at the shapes the families' training
+   gives it (``BACKWARD_CASES``: qwen3-14b, internvl2-1b, seamless's
+   encoder and cross-attention, recurrentgemma-2b's window), fp32 and
+   bf16 on the model's transposed buffers, each gradient within its limit
+   with a control above it, two launches equal bit for bit; its times
+   beside plain, the bound and the backward of
+   ``scaled_dot_product_attention``; then qwen3-14b at full width, depth
+   cut to 4 layers, bf16: one step's loss and gradients through the
+   kernels against the same step with the plain attention (B = 1, limits
+   from readings, a control above the gradients' limit; no plain
+   attention reached under grad), ``train_loop`` for 10 steps at B = 2 x
+   S = 4096 on ``token_stream`` (the counters read around it: 8 flash
+   forward launches a step, the pass and its remat, and 4 backward;
+   finite losses; step ms, tokens/s, peak memory, forward plus backward
+   against the optimizer), a checkpoint resume at the reduced config (bit
+   for bit), and mamba2's refusal to train on the card (no ssd_scan
+   backward kernel yet).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -419,6 +437,46 @@ VLM_MODEL_TOL = 0.22
 VLM_MEDIA_TOL = 0.34
 ENCDEC_MODEL_TOL = 0.17
 
+# phase 15: training.  flash_attention_backward at the shapes the families'
+# training gives it, (B, H, KV, S, Sk, D, causal, window), every operand
+# the model's (B, rows, heads, D) buffer seen through .transpose(1, 2).
+BACKWARD_CASES = [
+    ("qwen3-14b", (2, 40, 8, 4096, 4096, 128, True, None)),
+    ("internvl2-1b", (1, 14, 2, 999, 999, 64, True, None)),
+    ("seamless encoder", (4, 16, 16, 1024, 1024, 64, False, None)),
+    ("seamless cross", (4, 16, 16, 1000, 1024, 64, False, None)),
+    ("recurrentgemma-2b", (1, 10, 1, 2099, 2099, 256, True, 2048)),
+]
+# The kernel against ref.mha_backward on the same inputs, each of dq, dk,
+# dv.  fp32: max |dev| within BACKWARD_TOL_F32 of max |grad| (the same
+# fp32 closed form summed in another order; the first H100 readings were
+# 5.6e-6 at qwen3-14b's shape and 4.6e-6 at recurrentgemma-2b's).  bf16:
+# both read the same bf16 inputs and round each gradient once, so an entry
+# may differ by one bf16 ulp of the plain one, plus that fp32 floor:
+# |dev| <= 2^-7 |plain| + BACKWARD_TOL_F32 max |plain| (the first readings
+# used 0.77-0.99 of it).  The control: the kernel's dq against the plain dq
+# one query row earlier (1.0-1.4 of max |dq|), which must exceed the fp32
+# limit.
+BACKWARD_TOL_F32 = 2e-5
+# qwen3-14b at full width, depth cut 40 -> 4: the kernel step against the
+# step with the plain attention (B = 1: its S x S buffers), then train_loop.
+TRAIN_ARCH = "qwen3_14b"
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 10
+PLAIN_STEP_BATCH = 1
+# The kernel step against the plain-attention step (bf16 weights and
+# grads): |loss_k - loss_p|, and for each parameter max |g_k - g_p| over
+# max |g_p|.  The first H100 reading: loss 1.33e-4 (of 13.006), gradients
+# 1.91e-2 at most (layers.2.attn.q_norm; median 1.28e-2): the bf16
+# one-ulp differences of the two attentions through 4 layers.  The limits
+# are about three of it.  The control, the kernel step's gradients of
+# another batch against the plain step's of this one, read 0.944 at its
+# smallest leaf; every leaf's control must exceed the gradient limit.
+TRAIN_LOSS_TOL = 5e-4
+TRAIN_GRAD_TOL = 6e-2
+CKPT_ARCH = "qwen3_14b"
+CKPT_BATCH, CKPT_SEQ = 2, 128
+
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
     "csvm_local_update": "src/repro/kernels/csvm_update.py:83",
@@ -426,11 +484,16 @@ REPLACES = {
     "csvm_round_block": "src/repro/kernels/csvm_update.py:277",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:76",
+    "flash_attention_backward": "no Pallas kernel: XLA autodiff of "
+                                "repro.models.attention._attend "
+                                "(src/repro/models/attention.py:74-126)",
 }
 SOURCES = {name: "src/repro_torch/kernels/csrc/csvm_update.cu"
            for name in FIT_KERNELS}
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCES["ssd_scan"] = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SOURCES["flash_attention_backward"] = \
+    "src/repro_torch/kernels/csrc/flash_backward.cu"
 
 
 def log(*args):
@@ -3025,6 +3088,517 @@ def encdec_phase(torch, ops, cfg, params, *, prompts=ENCDEC_PROMPTS,
                 short=(short, short_media))
 
 
+def backward_inputs(torch, ops, case, dtype, device, seed):
+    """q, k, v and do as the model's (B, rows, heads, D) buffers seen
+    through ``.transpose(1, 2)``, and o = flash_attention(q, k, v) (the
+    kernel on the card)."""
+    B, H, KV, S, Sk, D, causal, window = case
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(heads, rows):
+        return torch.randn((B, rows, heads, D), generator=gen, device=device,
+                           dtype=torch.float32).to(
+                               getattr(torch, dtype)).transpose(1, 2)
+    q, k, v, do = draw(H, S), draw(KV, Sk), draw(KV, Sk), draw(H, S)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return q, k, v, o, do
+
+
+def backward_deviation(torch, got, want, dtype):
+    """(max |dev|, max |dev| / max |want|, the share of the limit used)
+    of one gradient: fp32 against BACKWARD_TOL_F32 max |want|, bf16
+    against one bf16 ulp of each plain entry plus that floor."""
+    dev = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    worst = float(dev.max())
+    floor = BACKWARD_TOL_F32 * scale
+    if dtype == "float32":
+        share = worst / floor if floor > 0 else (0.0 if worst == 0 else
+                                                 math.inf)
+    else:
+        share = float((dev / (BF16_ULP * want.float().abs() + floor)).max())
+    return worst, worst / max(scale, 1e-30), share
+
+
+def backward_checks(torch, ops, ref, device, devs: dict):
+    """At every case of BACKWARD_CASES, fp32 and bf16: the forward
+    ``flash_attention`` against ``ref.mha`` (one launch of the instance
+    ``ops.flash_instance`` names, within FLASH_TOL_F32 or one bf16 ulp);
+    then ``flash_attention_backward`` against ``ref.mha_backward``, both
+    fed the plain o: each of dq, dk, dv within its limit, in its input's
+    dtype and layout, finite; two launches on the same inputs equal bit
+    for bit; the control above the limit.  Returns the readings."""
+    cuda = torch.device(device).type == "cuda"
+    readings = []
+    for i, (label, case) in enumerate(BACKWARD_CASES):
+        B, H, KV, S, Sk, D, causal, window = case
+        for dtype in ("float32", "bfloat16"):
+            kw = dict(causal=causal, window=window)
+            shape = (f"{label} B={B} H={H} KV={KV} S={S} Sk={Sk} D={D} "
+                     f"causal={causal} window={window} {dtype}")
+            before = dict(ops.flash_launches)
+            q, k, v, o, do = backward_inputs(torch, ops, case, dtype, device,
+                                             seed=100 + i)
+            instance = "plain"
+            if cuda:
+                instance = ops.flash_instance(q.dtype, D, q, k, v)
+                ran = {name: n - before[name]
+                       for name, n in ops.flash_launches.items()}
+                check(ran[instance] == 1 and sum(ran.values()) == 1,
+                      f"flash_attention {shape}: launched {ran}, expected "
+                      f"one {instance} launch")
+            plain_o = ref.mha(q, k, v, **kw)
+            check(bool(torch.isfinite(o).all()),
+                  f"flash_attention {shape}: non-finite output")
+            dev, share = flash_deviation(torch, o, plain_o, dtype)
+            record(devs, "flash_attention", dtype, dev)
+            log(f"check flash_attention {shape} [{instance}]: max|dev| "
+                f"{dev:.3e} ({share:.3f} of the limit)")
+            check(share <= 1.0, f"flash_attention {shape}: max|dev| "
+                  f"{dev:.3e} is {share:.2f}x the limit")
+            o = plain_o
+            before = ops.launches["flash_attention_backward"]
+            got = ops.flash_attention_backward(q, k, v, o, do, **kw)
+            again = ops.flash_attention_backward(q, k, v, o, do, **kw)
+            what = f"flash_attention_backward {shape}"
+            if cuda:
+                check(ops.launches["flash_attention_backward"] - before == 2,
+                      f"{what}: did not launch the kernel twice")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{what}: two launches on the same inputs differ")
+            del again
+            want = ref.mha_backward(q, k, v, o, do, **kw)
+            reading = {}
+            for name, g, w, t in zip(("dq", "dk", "dv"), got, want,
+                                     (q, k, v)):
+                check(tuple(g.shape) == tuple(t.shape) and g.dtype == t.dtype
+                      and (not cuda or g.stride() == t.stride()),
+                      f"{what}: {name} {tuple(g.shape)} {g.dtype} "
+                      f"{g.stride()} is not laid out as its input")
+                check(bool(torch.isfinite(g).all()),
+                      f"{what}: non-finite {name}")
+                reading[name] = backward_deviation(torch, g, w, dtype)
+            control = float((got[0][:, :, 1:].float()
+                             - want[0][:, :, :-1].float()).abs().max()) / max(
+                float(want[0].float().abs().max()), 1e-30)
+            log(f"check {what}: " + ", ".join(
+                f"max|d{n[1:]} dev| {d:.3e} ({r:.2e} of max|{n}|, {sh:.3f} "
+                f"of the limit)" for n, (d, r, sh) in reading.items())
+                + f"; control (dq one row earlier) {control:.3e} of max|dq|")
+            for name, (_, _, share) in reading.items():
+                check(share <= 1.0, f"{what}: {name} at {share:.3f}x its "
+                      "limit")
+            check(control > BACKWARD_TOL_F32, f"{what}: the control "
+                  f"{control:.3e} is within the fp32 limit")
+            record(devs, "flash_attention_backward", dtype,
+                   max(d for d, _, _ in reading.values()))
+            readings.append(dict(case=label, dtype=dtype, control=control,
+                                 **{n: dict(max_abs_dev=d, rel=r, share=sh)
+                                    for n, (d, r, sh) in reading.items()}))
+            del q, k, v, o, do, got, want, plain_o
+            if cuda:
+                torch.cuda.empty_cache()
+    return readings
+
+
+def backward_bound(case, itemsize=2):
+    """The least time of one backward: 10 D flops a visible (query, key)
+    pair (s, dP, dV, dK, dQ: two each) at the bf16 tensor peak, or q, k,
+    v, o, do read and dq, dk, dv written once at the memory rate."""
+    B, H, KV, S, Sk, D, causal, window = case
+    pairs = attention_pairs(S, window) if causal else S * Sk
+    nbytes = (4 * B * H * S + 4 * B * KV * Sk) * D * itemsize
+    return bound(10 * B * H * pairs * D, nbytes, PEAK_BF16), pairs
+
+
+def sdpa_backward_ms(torch, q, k, v, do, causal, window):
+    """The library's time: the backward of one
+    ``scaled_dot_product_attention`` call on the same inputs (autograd
+    of its q, k, v; the forward outside the timed region).  Without a
+    window the dispatcher picks the backend (``is_causal``); with one, the
+    causal window goes in as a boolean ``attn_mask`` built once, and the
+    memory-efficient backend runs it where it takes the call (GQA by
+    ``enable_gqa``, else with k and v repeated to the query heads inside
+    the graph), else the math backend.  Returns (ms, backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    H, KV = q.shape[1], k.shape[1]
+    if window is None:
+        tries = [("default", None, False)]
+        kw = dict(is_causal=causal)
+    else:
+        S, Sk = q.shape[2], k.shape[2]
+        qi = torch.arange(S, device=q.device)[:, None]
+        ki = torch.arange(Sk, device=q.device)[None, :]
+        kw = dict(attn_mask=(ki <= qi) & (ki > qi - window))
+        tries = [("efficient, enable_gqa", SDPBackend.EFFICIENT_ATTENTION,
+                  False),
+                 ("efficient, k and v repeated to the query heads",
+                  SDPBackend.EFFICIENT_ATTENTION, True),
+                 ("math, enable_gqa", SDPBackend.MATH, False)]
+    for backend, which, repeat in tries:
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def forward():
+            kk, vv = ks, vs
+            if repeat:
+                kk, vv = (t.repeat_interleave(H // KV, dim=1)
+                          for t in (ks, vs))
+            return F.scaled_dot_product_attention(
+                qs, kk, vv, enable_gqa=H != KV and not repeat, **kw)
+        try:
+            if which is None:
+                out = forward()
+            else:
+                with sdpa_kernel([which]):
+                    out = forward()
+        except RuntimeError as err:
+            log(f"scaled_dot_product_attention [{backend}] refused "
+                f"q {tuple(q.shape)} kv {tuple(k.shape)} window {window}: "
+                f"{str(err).splitlines()[0][:160]}")
+            continue
+        ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), 10)
+        del out
+        return ms, backend
+    check(False, f"no backend of scaled_dot_product_attention took q "
+          f"{tuple(q.shape)} kv {tuple(k.shape)} window {window}")
+
+
+def backward_timings(torch, ops, ref, device):
+    """The kernel beside ``ref.mha_backward`` (in turns), its bound and
+    the backward of ``scaled_dot_product_attention`` on the same bf16
+    inputs (the library's time, ``sdpa_backward_ms``), at every case of
+    BACKWARD_CASES; the first row is qwen3-14b's, also timed on fp32
+    inputs (``fp32_ms``)."""
+    rows = []
+    for i, (label, case) in enumerate(BACKWARD_CASES):
+        B, H, KV, S, Sk, D, causal, window = case
+        q, k, v, o, do = backward_inputs(torch, ops, case, "bfloat16", device,
+                                         seed=200 + i)
+        kw = dict(causal=causal, window=window)
+        big = i == 0
+        times = paired_ms(
+            torch, lambda: ops.flash_attention_backward(q, k, v, o, do, **kw),
+            lambda: ref.mha_backward(q, k, v, o, do, **kw),
+            3 if big else 10, 1 if big else 3)
+        lib, backend = sdpa_backward_ms(torch, q, k, v, do, causal, window)
+        (bms, by), pairs = backward_bound(case)
+        row = dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
+                   library_backend=backend, case=label, tflops=16 * B * H * pairs * D
+                   / times["ms"] / 1e9,
+                   shape=f"q (B={B}, H={H}, S={S}, D={D}), kv (KV={KV}, "
+                         f"Sk={Sk}) bf16, causal={causal}, window={window}")
+        if big:
+            q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, o, do))
+            row["fp32_ms"] = cuda_ms(torch, lambda: ops.flash_attention_backward(
+                q32, k32, v32, o32, do32, **kw), 2)
+            del q32, k32, v32, o32, do32
+        rows.append(row)
+        lib_text = f"{lib:.4f} ms [{backend}]"
+        log(f"time flash_attention_backward {label} [{row['shape']}]: "
+            f"{row['ms']:.4f} ms (samples {row['ms_samples'][0]:.4f}, "
+            f"{row['ms_samples'][1]:.4f}; {row['tflops']:.2f} TFLOP/s at 16 D "
+            f"a pair, {bms / row['ms']:.4f} of the bound), plain "
+            f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"scaled_dot_product_attention backward {lib_text}"
+            + (f"; fp32 inputs {row['fp32_ms']:.4f} ms" if big else ""))
+        del q, k, v, o, do
+        torch.cuda.empty_cache()
+    return dict(rows[0], variants=rows[1:])
+
+
+@contextlib.contextmanager
+def counted_plain(ref, attention):
+    """Counts the calls of the plain attention and its plain backward
+    (``ref.mha``, ``ref.mha_backward``, ``attention._attend``) inside the
+    block."""
+    calls = collections.Counter()
+    saved = [(ref, "mha"), (ref, "mha_backward"), (attention, "_attend")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    for mod, name, fn in saved:
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, name, wrapped)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def leaf_deviation(torch, got, want) -> float:
+    """max |got - want| / max |want| of one gradient leaf."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def train_step_vs_plain(torch, ops, ref, model, cfg, batch, other):
+    """The step's loss and gradients with the kernels against the same
+    step with the plain attention swapped in, from the same weights and
+    batch; the control is the kernel step's gradients of ``other``.  The
+    kernel step must launch the flash forward twice a layer (the pass and
+    its remat) and the backward once, and call no plain attention."""
+    from repro_torch.models import attention
+    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
+    L = cfg.num_layers
+
+    def loss_and_grads(b):
+        lm.zero_grad(set_to_none=True)
+        loss = model.loss_fn(lm, b, cfg)
+        loss.backward()
+        grads = {n: p.grad for n, p in lm.named_parameters()}
+        lm.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    ops.reset_launches()
+    with counted_plain(ref, attention) as calls:
+        loss_k, grads_k = loss_and_grads(batch)
+        torch.cuda.synchronize()
+    ran = dict(ops.launches)
+    check(sum(calls.values()) == 0, f"train step: a CUDA tensor under grad "
+          f"reached the plain attention: {dict(calls)}")
+    check(ran["flash_attention"] == 2 * L
+          and ran["flash_attention_backward"] == L,
+          f"train step: launches {ran}, expected {2 * L} flash forward "
+          f"(pass + remat) and {L} backward")
+    kernel_attend = attention.self_attend
+    attention.self_attend = plain_self_attend
+    try:
+        ops.reset_launches()
+        loss_p, grads_p = loss_and_grads(batch)
+        check(ops.launches["flash_attention"] == 0
+              and ops.launches["flash_attention_backward"] == 0,
+              f"train step with the plain attention launched {ops.launches}")
+    finally:
+        attention.self_attend = kernel_attend
+    _, grads_c = loss_and_grads(other)
+    devs = {n: leaf_deviation(torch, g, grads_p[n])
+            for n, g in grads_k.items()}
+    ctl = {n: leaf_deviation(torch, g, grads_p[n])
+           for n, g in grads_c.items()}
+    loss_dev = abs(float(loss_k) - float(loss_p))
+    worst = max(devs, key=devs.get)
+    log(f"train step {cfg.name} B={batch['tokens'].shape[0]} "
+        f"S={batch['tokens'].shape[1]}: loss kernel {float(loss_k):.6f}, "
+        f"plain {float(loss_p):.6f}, |dev| {loss_dev:.4e} (limit "
+        f"{TRAIN_LOSS_TOL:g}); gradients, max over {len(devs)} parameters "
+        f"of max|g_k - g_p| / max|g_p|: {devs[worst]:.4e} at {worst} "
+        f"(limit {TRAIN_GRAD_TOL:g}), median "
+        f"{sorted(devs.values())[len(devs) // 2]:.4e}; control (another "
+        f"batch's kernel gradients) max {max(ctl.values()):.4e}, min "
+        f"{min(ctl.values()):.4e}")
+    for n in sorted(devs, key=devs.get)[-6:]:
+        log(f"train step leaf {n}: {devs[n]:.4e} (control {ctl[n]:.4e})")
+    check(bool(torch.isfinite(loss_k)) and loss_dev <= TRAIN_LOSS_TOL,
+          f"train step: loss |dev| {loss_dev:.4e} > {TRAIN_LOSS_TOL}")
+    check(devs[worst] <= TRAIN_GRAD_TOL, f"train step: {worst} gradient "
+          f"{devs[worst]:.4e} > {TRAIN_GRAD_TOL}")
+    check(min(ctl.values()) > TRAIN_GRAD_TOL, "train step: the control "
+          f"{min(ctl.values()):.4e} is within the limit at "
+          f"{min(ctl, key=ctl.get)}")
+    out = dict(loss_kernel=float(loss_k), loss_plain=float(loss_p),
+               loss_dev=loss_dev, loss_tol=TRAIN_LOSS_TOL,
+               grad_dev_max=devs[worst], grad_dev_leaf=worst,
+               grad_tol=TRAIN_GRAD_TOL, control_max=max(ctl.values()),
+               control_min=min(ctl.values()),
+               batch=int(batch["tokens"].shape[0]))
+    del lm, grads_k, grads_p, grads_c
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def step_events(torch, train):
+    """CUDA events around the two halves of each step that
+    ``train.make_train_step`` builds, recorded inside the block: at the
+    call of ``model.loss_fn`` (the forward, then its backward), at the
+    call of ``adamw_update`` and at its return.  Yields a list that gets
+    one dict a step: the events, the loss and gnorm."""
+    steps = []
+    loss_fn, update = train.model.loss_fn, train.adamw_update
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def timed_loss(*a, **kw):
+        start = mark()
+        loss = loss_fn(*a, **kw)
+        steps.append(dict(start=start, loss=loss))
+        return loss
+
+    def timed_update(*a, **kw):
+        mid = mark()
+        out = update(*a, **kw)
+        steps[-1].update(mid=mid, end=mark(), gnorm=out[2])
+        return out
+    train.model.loss_fn, train.adamw_update = timed_loss, timed_update
+    try:
+        yield steps
+    finally:
+        train.model.loss_fn, train.adamw_update = loss_fn, update
+
+
+def train_run(torch, ops, train, cfg):
+    """``train_loop`` for TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_SEQ on
+    ``token_stream``, with the counters set to 0 just before and read just
+    after: every loss and gnorm finite, each step 2 flash forward
+    launches a layer (pass and remat) on the tensor-core instance and one
+    backward, nothing else launched.  Each step is timed by CUDA events
+    from the call of ``loss_fn`` to the end of ``adamw_update``
+    (``step_events``).  Returns the launches and the times."""
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with step_events(torch, train) as events:
+        _, losses = train.train_loop(cfg, steps=TRAIN_STEPS,
+                                     batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                     lr=3e-4, log_every=1, seed=0,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(events) == TRAIN_STEPS and all("end" in e for e in events),
+          f"train_loop: {len(events)} steps timed, expected {TRAIN_STEPS}")
+    history = [dict(loss=float(e["loss"]), gnorm=float(e["gnorm"]),
+                    ms=e["start"].elapsed_time(e["end"]),
+                    fwd_bwd_ms=e["start"].elapsed_time(e["mid"]),
+                    opt_ms=e["mid"].elapsed_time(e["end"])) for e in events]
+    launches = dict(ops.launches)
+    instances = dict(ops.flash_launches)
+    peak = torch.cuda.max_memory_allocated()
+    for i, h in enumerate(history):
+        log(f"train step {i}: loss {h['loss']:.6f} gnorm {h['gnorm']:.6f} "
+            f"{h['ms']:.2f} ms (forward + backward {h['fwd_bwd_ms']:.2f}, "
+            f"optimizer {h['opt_ms']:.2f})")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"])
+              for h in history), "train_loop: a non-finite loss or gnorm")
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(flash_attention=2 * L * TRAIN_STEPS,
+                flash_attention_backward=L * TRAIN_STEPS)
+    check(launches == want, f"train_loop launches {launches}, expected "
+          f"{want}")
+    check(instances["wgmma"] == 2 * L * TRAIN_STEPS,
+          f"train_loop: flash forward launches by instance {instances}")
+    med = float(sorted(h["ms"] for h in history)[len(history) // 2])
+    fb = float(sorted(h["fwd_bwd_ms"] for h in history)[len(history) // 2])
+    opt = float(sorted(h["opt_ms"] for h in history)[len(history) // 2])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train {cfg.name} {L} layers, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s, median step {med:.2f} ms "
+        f"({tokens / med * 1e3:.1f} tokens/s; forward + backward {fb:.2f} "
+        f"ms, optimizer {opt:.2f} ms, CUDA events), peak memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); launches "
+        f"{launches['flash_attention']} flash forward ({L} + {L} remat a "
+        f"step), {launches['flash_attention_backward']} backward; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return dict(launches=launches, flash_instances=instances,
+                median_step_ms=med, fwd_bwd_ms=fb, opt_ms=opt,
+                tokens_per_s=tokens / med * 1e3, peak_bytes=peak,
+                wall_s=wall, steps=history)
+
+
+def checkpoint_resume(torch, configs, model, train, data, ckpt):
+    """At the reduced config on the card: two steps, a checkpoint, step 3;
+    then a fresh model and state restored from it take step 3 again; the
+    loss, gnorm, parameters and moments must equal bit for bit."""
+    import shutil
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = configs.get_reduced(CKPT_ARCH)
+    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
+    state = adamw_init(lm)
+    step = train.make_train_step(cfg, AdamWConfig(lr=1e-3), total_steps=10)
+    stream = data.token_stream(cfg, CKPT_BATCH, CKPT_SEQ, seed=2,
+                               device="cuda")
+    batches = [next(stream) for _ in range(3)]
+    for b in batches[:2]:
+        lm, state, _ = step(lm, state, b)
+    path = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(path, ignore_errors=True)
+    ckpt.save_train_state(path, lm, state, cfg, step=2)
+    lm, state, m = step(lm, state, batches[2])
+    lm2, state2, at = ckpt.restore_train_state(path, cfg, device="cuda")
+    lm2, state2, m2 = step(lm2, state2, batches[2])
+    shutil.rmtree(path, ignore_errors=True)
+    own = dict(lm2.named_parameters())
+    same = (at == 2 and torch.equal(m["loss"], m2["loss"])
+            and torch.equal(m["gnorm"], m2["gnorm"])
+            and all(torch.equal(p, own[n]) for n, p in lm.named_parameters())
+            and all(torch.equal(t, state2[key][n]) for key in ("m", "v")
+                    for n, t in state[key].items())
+            and torch.equal(state["step"], state2["step"]))
+    log(f"checkpoint {cfg.name} ({cfg.param_dtype}, B={CKPT_BATCH} "
+        f"S={CKPT_SEQ}): step 3 after restoring step 2's checkpoint "
+        f"{'equals' if same else 'differs from'} the continued run's bit "
+        f"for bit (loss {float(m['loss']):.6f}, gnorm "
+        f"{float(m['gnorm']):.6f})")
+    check(same, "checkpoint resume: step 3 differs from the continued run")
+    return dict(loss=float(m["loss"]), gnorm=float(m["gnorm"]))
+
+
+def mamba_refusal(torch, ops, configs, model, train, data):
+    """mamba2's reduced config on the card: ``train_step`` raises
+    NotImplementedError, naming the ROADMAP item, before any ssd_scan
+    launch."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = configs.get_reduced("mamba2_370m")
+    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
+    step = train.make_train_step(cfg, AdamWConfig())
+    batch = next(data.token_stream(cfg, 2, 64, seed=0, device="cuda"))
+    before = dict(ops.launches)
+    try:
+        step(lm, adamw_init(lm), batch)
+        raised = None
+    except NotImplementedError as err:
+        raised = str(err)
+    log(f"train {cfg.name} on the card: "
+        f"{'NotImplementedError: ' + raised if raised else 'no error'}; "
+        f"ssd_scan launches {ops.launches['ssd_scan'] - before['ssd_scan']}")
+    check(raised is not None and "13.6" in raised,
+          "mamba2 training on the card did not raise NotImplementedError "
+          "naming ROADMAP Queue 1 item 13.6")
+    check(ops.launches == before, f"mamba2 training launched "
+          f"{ {k: ops.launches[k] - before[k] for k in before} } before "
+          "raising")
+
+
+def training_phase(torch, ops, ref, devs: dict):
+    """Phase 15: the backward kernel's checks and times, the kernel step
+    against the plain one and ``train_loop`` at qwen3-14b's full width (4
+    layers), the checkpoint resume and mamba2's refusal.  Returns the
+    phase's numbers."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs
+    from repro_torch.data import synthetic as data
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    readings = backward_checks(torch, ops, ref, "cuda", devs)
+    timing = backward_timings(torch, ops, ref, "cuda")
+    full = configs.get(TRAIN_ARCH)
+    cfg = configs.get(TRAIN_ARCH, num_layers=TRAIN_LAYERS)
+    log(f"train {cfg.name}: the one cut is depth, {full.num_layers} -> "
+        f"{cfg.num_layers} layers; d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads over {cfg.num_kv_heads}, D {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.padded_vocab} (padded), {cfg.param_dtype}")
+    stream = data.token_stream(cfg, PLAIN_STEP_BATCH, TRAIN_SEQ, seed=1,
+                               device="cuda")
+    step_check = train_step_vs_plain(torch, ops, ref, model, cfg,
+                                     next(stream), next(stream))
+    run = train_run(torch, ops, train, cfg)
+    resume = checkpoint_resume(torch, configs, model, train, data, ckpt)
+    mamba_refusal(torch, ops, configs, model, train, data)
+    seconds = time.perf_counter() - t0
+    log(f"phase 15: {seconds:.1f} s")
+    return dict(readings=readings, timing=timing, step_check=step_check,
+                run=run, resume=resume, seconds=seconds)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3379,6 +3953,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_13_14_s = time.perf_counter() - t_13
     log(f"new phases (13, 14): {phase_13_14_s:.1f} s")
+
+    # phase 15: training — flash_attention_backward against its plain
+    # version at the families' shapes and its times; qwen3-14b at full
+    # width, 4 layers: the kernel step against the plain-attention step,
+    # then train_loop (the main path, counters read around it); the
+    # checkpoint resume; mamba2's refusal on the card
+    training = training_phase(torch, ops, ref, devs)
+    rows["flash_attention_backward"] = training["timing"]
+    train_launches = training["run"]["launches"]
+    launches["flash_attention_backward"] = \
+        train_launches["flash_attention_backward"]
+    launches["flash_attention"] += train_launches["flash_attention"]
     for h in heads.values():
         launches["flash_attention"] += h["flash_launches"]
         for name in FIT_KERNELS:
@@ -3431,6 +4017,9 @@ def main() -> int:
                         v_served["launches"]["flash_attention"],
                     "forward internvl2-1b media prefix":
                         v_media["launches"],
+                    f"train_loop {TRAIN_ARCH} ({TRAIN_LAYERS} layers, "
+                    f"{TRAIN_STEPS} steps: pass + remat)":
+                        train_launches["flash_attention"],
                     **{f"seamless-m4t-large-v2 {path} (B={run['B']}, "
                        f"S={run['S']})": n
                        for run in encdec["runs"]
@@ -3453,6 +4042,19 @@ def main() -> int:
                 moe_routes=moe_routes, rglru=lru,
                 tokenwise={"granite-moe-3b-a800m": g_tokenwise,
                            "recurrentgemma-2b": rg_tokenwise})
+        elif name == "flash_attention_backward":
+            tol = {"float32": f"{BACKWARD_TOL_F32:g} max|grad|",
+                   "bfloat16": f"2^-7 |grad_plain| + {BACKWARD_TOL_F32:g} "
+                               "max|grad_plain| (one bf16 ulp)"}
+            run = training["run"]
+            extra = dict(
+                checks=training["readings"],
+                train_step_vs_plain=training["step_check"],
+                train_loop={k: run[k] for k in (
+                    "median_step_ms", "fwd_bwd_ms", "opt_ms", "tokens_per_s",
+                    "peak_bytes", "wall_s", "flash_instances", "steps")},
+                checkpoint_resume=training["resume"],
+                phase_s=training["seconds"])
         elif name == "ssd_scan":
             tol = ssd_tol
             extra = dict(serve=dict(

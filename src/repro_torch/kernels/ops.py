@@ -1,15 +1,20 @@
 """Wrappers of the CUDA kernels: checks, launch counters, residency rule.
 
 For tensors on the CPU each wrapper computes its kernel's plain torch
-version (``csvm_update.*_plain``, ``ref.mha``, ``ref.ssd_scan``); for
-CUDA tensors it launches the CUDA kernel of ``csrc/csvm_update.cu``,
-``csrc/flash_attention.cu`` or ``csrc/ssd_scan.cu`` on
+version (``csvm_update.*_plain``, ``ref.mha``, ``ref.mha_backward``,
+``ref.ssd_scan``); for CUDA tensors it launches the CUDA kernel of
+``csrc/csvm_update.cu``, ``csrc/flash_attention.cu``,
+``csrc/flash_backward.cu`` or ``csrc/ssd_scan.cu`` on
 ``torch.cuda.current_stream()`` or raises — there is no fallback from one
 to the other.  Operands must be on one device with the documented shapes
 and dtypes: the CSVM kernels take contiguous fp32 (X may be bf16 where
 stated), ``flash_attention`` fp32 or bf16 views with a unit stride over
-D, ``ssd_scan`` fp32 or bf16 x/B/C views with a unit stride over their
-last axis; anything else raises before launch.
+D (``flash_attention_backward`` likewise for o and do), ``ssd_scan``
+fp32 or bf16 x/B/C views with a unit stride over their last axis;
+anything else raises before launch.  ``FlashAttention`` is the
+``torch.autograd.Function`` of the two flash wrappers, which the model
+trains through on the card; ``ssd_scan`` has no backward kernel yet and
+refuses CUDA inputs that require grad.
 
 ``launches[name]`` counts the kernel launches of each wrapper (one per
 call that reached the kernel, none for the plain version), so a run can
@@ -36,7 +41,7 @@ from repro_torch.kernels.csvm_update import (csvm_block_update_plain,
                                              csvm_round_block_plain)
 
 KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block",
-           "flash_attention", "ssd_scan")
+           "flash_attention", "ssd_scan", "flash_attention_backward")
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # flash_attention's two instances: bf16 tensor cores (wgmma, TMA) and fp32
 # FMAs on the CUDA cores
@@ -112,6 +117,17 @@ def _flash_lib() -> ctypes.CDLL:
     lib.flash_attention_tc.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_backward_lib() -> ctypes.CDLL:
+    lib = build.load("flash_backward")
+    lib.flash_attention_backward.argtypes = [_P] * 9 + [_I] * 7 + [
+        _LL] * 24 + [_F, _I, _I, _P]
+    lib.flash_attention_backward.restype = ctypes.c_int
+    lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -808,6 +824,88 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                          sm_scale=sm_scale)
 
 
+def _check_backward(q, k, v, o, do, window, *, causal: bool):
+    """The forward's checks on q, k, v (either instance's rules: the
+    backward kernel reads fp32 and bf16 views alike), and o and do shaped,
+    typed and placed as q, with a unit stride over D."""
+    _check_attention(q, k, v, window, "fma", causal=causal)
+    for what, t in (("o", o), ("do", do)):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(
+                q.shape):
+            raise ValueError(f"flash_attention_backward: {what} must have "
+                             f"q's shape {tuple(q.shape)}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"flash_attention_backward: {what} is {t.dtype} "
+                            f"on {t.device}, q {q.dtype} on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_backward: {what} needs a "
+                             "unit stride over D")
+
+
+def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
+                             window=None, sm_scale=None):
+    """dq, dk, dv of ``o = flash_attention(q, k, v, causal=, window=,
+    sm_scale=)`` given ``do`` = dL/do: q, o, do (B, H, S, D), k, v (B, KV,
+    Sk, D), one dtype (fp32 or bf16), the forward's masks and rules (Sk !=
+    S only unmasked).  Returns (dq, dk, dv) in the inputs' dtype, each laid
+    out as its input (``torch.empty_like``: a transposed (B, S, heads, D)
+    view gets a transposed result).
+
+    On the card: the three passes of ``csrc/flash_backward.cu`` (row
+    statistics, dk/dv per kv head and key tile, dq per head and query
+    tile), no atomics, so two launches on the same inputs agree bit for
+    bit; on the CPU: ``ref.mha_backward``."""
+    name = "flash_attention_backward"
+    if not _is_cuda(q, name):
+        return ref.mha_backward(q, k, v, o, do, causal=causal, window=window,
+                                sm_scale=sm_scale)
+    _check_backward(q, k, v, o, do, window, causal=causal)
+    B, H, S, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+    scale = float(sm_scale) if sm_scale is not None else D ** -0.5
+    lib = _flash_backward_lib()
+    strides = [st for t in (q, k, v, o, do, dq, dk, dv)
+               for st in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), int(q.dtype == torch.bfloat16), B, H, KV, S,
+            Sk, D, *strides, scale, int(bool(causal)),
+            int(window) if window is not None else 0, _stream(q.device))
+    _check_call(name, err, lib.flash_attention_backward_error_string)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward runs the wrapper
+    (the kernel on the card) and keeps q, k, v and o; the backward runs
+    ``flash_attention_backward`` on them.  Inputs (B, heads, rows, D) as
+    the wrappers take them.  ``FlashAttention.apply(q, k, v, causal,
+    window, sm_scale)``; where no input requires grad (serving) it is the
+    one ``flash_attention`` launch, and its output has no graph."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale):
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, window, sm_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, sm_scale = ctx.mask
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, do, causal=causal, window=window, sm_scale=sm_scale)
+        return dq, dk, dv, None, None, None
+
+
 # --------------------------------------------------------------------------
 # SSD scan (Mamba-2)
 # --------------------------------------------------------------------------
@@ -991,10 +1089,20 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):
     B and C runs chunk-parallel on the tensor cores; the rest, a
     misaligned bf16 view included, runs the fp32-FMA chunk walk, at a
     chunk that is a multiple of 8 up to 128 and n a multiple of 4 within
-    the shared memory of a block.
+    the shared memory of a block.  The kernel has no backward yet: with
+    grad on, a CUDA call whose inputs require grad raises
+    NotImplementedError before any launch (the CPU's plain scan trains).
     """
     if not _is_cuda(x, "ssd_scan"):
         return ref.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (x, dt, A, B, C, D)):
+        raise NotImplementedError(
+            "ssd_scan: no backward kernel yet, so a CUDA call whose inputs "
+            "require grad would cut the gradient (ROADMAP Queue 1 item "
+            "13.6: the ssd_scan backward kernel and mamba2 training on the "
+            "card)")
     p = x.shape[-1] if x.dim() == 4 else 0
     n = B.shape[-1] if isinstance(B, torch.Tensor) and B.dim() == 3 else 0
     instance = ssd_instance(x.dtype, p, n, int(chunk), x, B, C)

@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.ref``: each oracle is the exact math every
 driver runs (``core.solver``), in fp32, independent of the kernels and of
 their plain versions in ``csvm_update.py`` (which repeat the kernels'
 bf16 rounding points).  ``mha`` is the oracle of ``flash_attention`` and
-its plain version: ``ops.flash_attention`` runs it for CPU tensors;
+its plain version: ``ops.flash_attention`` runs it for CPU tensors, as
+``ops.flash_attention_backward`` runs ``mha_backward``;
 ``ssd_scan`` is the plain version of the ``ssd_scan`` kernel, which
 ``ops.ssd_scan`` runs for CPU tensors.
 """
@@ -120,6 +121,52 @@ def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vr)
     return out.to(q.dtype)
+
+
+def mha_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, *,
+                 causal: bool = True, window: int | None = None,
+                 sm_scale: float | None = None):
+    """dq, dk, dv of ``mha`` given its output o and do = dL/do: the closed
+    form the ``flash_attention_backward`` kernel computes, in fp32, each
+    result rounded once to its input's dtype.  P is recomputed as ``mha``
+    computes it (the same scale and -1e30 mask), delta = rowsum(do * o),
+
+        dv = P^T do,  dS = P * (do v^T - delta),
+        dq = scale dS k,  dk = scale dS^T q,
+
+    dk and dv summed over the g = H / KV query heads of each kv head.
+    Shapes and rules as ``mha``: q, o, do (B, H, S, D); k, v (B, KV, Sk,
+    D)."""
+    B, H, S, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    check_key_length(S, Sk, causal, window)
+    g = H // KV
+    scale = float(sm_scale) if sm_scale is not None else D ** -0.5
+    f32 = torch.float32
+    qf, dof = q.to(f32), do.to(f32)
+    kr = k.to(f32).repeat_interleave(g, dim=1)
+    vr = v.to(f32).repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    del logits
+    delta = torch.sum(dof * o.to(f32), dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", probs, dof)
+    ds = probs * (torch.einsum("bhqd,bhkd->bhqk", dof, vr) - delta)
+    del probs
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+
+    def group_sum(t):
+        return t.reshape(B, KV, g, Sk, D).sum(dim=2)
+    return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(
+        v.dtype)
 
 
 def _sequential_cumsum(a: Tensor, dim: int) -> Tensor:

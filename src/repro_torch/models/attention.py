@@ -16,6 +16,13 @@ takes one length for q and kv, so on the TPU it stayed with XLA.  The
 one-token decode attention, self and cross, is plain torch, as the JAX
 package leaves it to XLA.
 
+Training: the JAX package differentiates ``_attend`` with XLA's autodiff
+(its Pallas kernel has no VJP and never runs in training).  On the card
+the port's kernel output carries no autograd graph, so ``self_attend``
+and ``cross_attend`` go through ``ops.FlashAttention``, whose backward
+is the hand-written ``flash_attention_backward`` kernel; on the CPU
+autograd differentiates ``_attend``.
+
 ``repro.models.shardctx.constrain`` has no counterpart: it pins activation
 layouts on a mesh and is a no-op off one, and the port's LM stack runs
 on one card until its meshes come (ROADMAP Queue 1 item 13.5).
@@ -130,12 +137,13 @@ def _attend(q, k, v, q_pos, k_pos, *, causal: bool,
 def self_attend(q, k, v, *, causal: bool, window: Optional[int]):
     """Self-attention over positions 0..S-1: q (B, S, H, D), k and v
     (B, S, KV, D) -> (B, S, H, D).  On the card: the CUDA flash kernel,
-    fed the (B, S, H, D) tensors as strided (B, H, S, D) views (no copy);
-    on the CPU: the plain ``_attend``."""
+    fed the (B, S, H, D) tensors as strided (B, H, S, D) views (no copy),
+    and under grad its backward kernel (``ops.FlashAttention``); on
+    the CPU: the plain ``_attend``, which autograd differentiates."""
     if q.device.type == "cuda":
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal,
-                                  window=window)
+        out = ops.FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), causal, window,
+                                       None)
         return out.transpose(1, 2)
     pos = torch.arange(q.shape[1], device=q.device)
     return _attend(q, k, v, pos, pos, causal=causal, window=window)
@@ -145,11 +153,11 @@ def cross_attend(q, k, v):
     """Cross-attention, every query against every key: q (B, S, H, D), k
     and v (B, F, KV, D) -> (B, S, H, D).  On the card: the CUDA flash
     kernel, non-causal, with keys of their own length F, fed strided
-    (B, heads, rows, D) views as ``self_attend`` feeds it; on the CPU: the
-    plain ``_attend``."""
+    (B, heads, rows, D) views as ``self_attend`` feeds it, differentiated
+    by its backward kernel under grad; on the CPU: the plain ``_attend``."""
     if q.device.type == "cuda":
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=False)
+        out = ops.FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), False, None, None)
         return out.transpose(1, 2)
     return _attend(q, k, v, torch.arange(q.shape[1], device=q.device),
                    torch.arange(k.shape[1], device=q.device), causal=False,

@@ -21,6 +21,11 @@ JAX arrays handed over as they are).
   ``dt_bias`` stay fp32 in a bf16 model (the port's ``ssm.Mamba`` holds
   them so, and the dtype check below holds it to that), and the SSM
   block's unused ``ln2`` has its counterpart in ``blocks.Block``.
+- ``params_to_jax(lm, cfg)``: the inverse, JAX's stacked layout as numpy
+  (``flat_to_jax`` stacks any {name: leaf} dict so, tensors included);
+  ``opt_state_from_jax`` / ``opt_state_to_jax``: an AdamW state {"m",
+  "v", "step"} whose moments have the parameter layout.  The checkpoints
+  (``repro_torch.checkpoint``) and the gradient parity tests use them.
 - ``cache_from_jax(tree, device)`` / ``cache_to_numpy(cache)``: the
   decode cache, whose layout both packages share (``{"layers": ...}`` or
   ``{"pattern_layers": [...], "tail_layers": [...]}``, and an
@@ -29,12 +34,13 @@ JAX arrays handed over as they are).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch.core.admm import resolve_device
+from repro_torch.models import blocks
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -43,7 +49,10 @@ Tensor = torch.Tensor
 
 def to_tensor(a, device) -> Tensor:
     """A numpy-readable array -> a tensor on ``device`` with the same
-    dtype and bits (bfloat16 included, carried as int16)."""
+    dtype and bits (bfloat16 included, carried as int16); a tensor moves
+    as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)          # a writable copy: JAX hands read-only buffers
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
@@ -75,7 +84,7 @@ def _unstack(flat: Dict[str, Any], stack: Dict[str, Any], layer_of,
     """Each leaf of a stacked layer tree (leading axis ``depth``) into
     ``flat`` as ``{into}.{layer_of(g)}.{name}``."""
     for key, value in _flatten(stack).items():
-        arr = np.asarray(value)
+        arr = value if isinstance(value, torch.Tensor) else np.asarray(value)
         if arr.shape[0] != depth:
             raise ValueError(f"{what}.{key}: leading axis {arr.shape[0]} "
                              f"!= {depth}")
@@ -83,19 +92,13 @@ def _unstack(flat: Dict[str, Any], stack: Dict[str, Any], layer_of,
             flat[f"{into}.{layer_of(g)}.{key}"] = arr[g]
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device="cuda") -> M.LM:
-    """The port's model holding the weights of a JAX parameter tree.
+_STACKS = ("layers", "pattern_layers", "tail_layers", "enc_layers")
 
-    Every parameter of the port is set from the tree and every leaf of
-    the tree is used, with its shape and dtype checked; anything else
-    raises.  (The module is first built by ``init_params``, whose random
-    draw is then overwritten.)
-    """
-    device = resolve_device(None, device)
-    lm = M.init_params(cfg, seed=0, device=device)
-    stacks = ("layers", "pattern_layers", "tail_layers", "enc_layers")
-    flat = _flatten({k: v for k, v in tree.items() if k not in stacks})
+
+def flat_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """A tree in JAX's parameter layout -> {the port's parameter name:
+    leaf}, the stacks unstacked into forward order (module docstring)."""
+    flat = _flatten({k: v for k, v in tree.items() if k not in _STACKS})
     if "layers" in tree:
         _unstack(flat, tree["layers"], lambda g: g, cfg.num_layers,
                  "layers")
@@ -113,6 +116,21 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         for t, layer in enumerate(tree["tail_layers"]):
             for key, value in _flatten(layer).items():
                 flat[f"layers.{n_rep * len(pat) + t}.{key}"] = value
+    return flat
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                    device="cuda") -> M.LM:
+    """The port's model holding the weights of a JAX parameter tree.
+
+    Every parameter of the port is set from the tree and every leaf of
+    the tree is used, with its shape and dtype checked; anything else
+    raises.  (The module is first built by ``init_params``, whose random
+    draw is then overwritten.)
+    """
+    device = resolve_device(None, device)
+    lm = M.init_params(cfg, seed=0, device=device)
+    flat = flat_from_jax(tree, cfg)
     own = dict(lm.named_parameters())
     if set(own) != set(flat):
         raise ValueError(f"parameter names differ: only in the port "
@@ -127,6 +145,95 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         with torch.no_grad():
             param.copy_(value)
     return lm
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a.b.c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    out: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *path, last = key.split(".")
+        node = out
+        for name in path:
+            node = node.setdefault(name, {})
+        node[last] = value
+    return out
+
+
+def _stack(layers: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Per-layer {name: leaf} dicts -> one nested dict of stacked leaves
+    (a leading axis of len(layers))."""
+    return _nest({name: _stack_leaves([lay[name] for lay in layers])
+                  for name in layers[0]})
+
+
+def _stack_leaves(leaves):
+    if isinstance(leaves[0], torch.Tensor):
+        return torch.stack(leaves)
+    return np.stack(leaves)
+
+
+def flat_to_jax(flat: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of ``flat_from_jax``: {the port's parameter name: leaf}
+    -> JAX's layout, each stack's layers stacked on a leading axis (leaves
+    stay tensors or numpy arrays, as given)."""
+    per_layer: Dict[str, Dict[int, Dict[str, Any]]] = {}
+    rest = {}
+    for name, value in flat.items():
+        head, _, tail = name.partition(".")
+        if head in ("layers", "enc_layers"):
+            idx, _, key = tail.partition(".")
+            per_layer.setdefault(head, {}).setdefault(int(idx), {})[key] = \
+                value
+        else:
+            rest[name] = value
+    tree = _nest(rest)
+    if "enc_layers" in per_layer:
+        enc = per_layer["enc_layers"]
+        tree["enc_layers"] = _stack([enc[i] for i in sorted(enc)])
+    dec = per_layer.get("layers", {})
+    if len(set(blocks.block_kinds(cfg))) == 1:
+        tree["layers"] = _stack([dec[i] for i in range(cfg.num_layers)])
+    else:
+        pat, n_rep, rem = M.hybrid_layout(cfg)
+        tree["pattern_layers"] = [
+            _stack([dec[g * len(pat) + j] for g in range(n_rep)])
+            for j in range(len(pat))]
+        tree["tail_layers"] = [_nest(dec[n_rep * len(pat) + t])
+                               for t in range(rem)]
+    return tree
+
+
+def params_to_jax(params: M.LM, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: the port's model -> JAX's
+    stacked parameter layout as numpy arrays (bf16 widened exactly to
+    fp32; ``checkpoint.ckpt`` keeps bf16 bits itself)."""
+    return flat_to_jax({name: to_numpy(p)
+                        for name, p in params.named_parameters()}, cfg)
+
+
+def opt_state_from_jax(state: Dict[str, Any], cfg: ModelConfig,
+                       device="cuda") -> Dict[str, Any]:
+    """A JAX AdamW state {"m", "v" (trees in the parameter layout),
+    "step"} -> the port's {"m": {name: fp32}, "v": {...}, "step": 0-d
+    int32} (``repro_torch.optim.adamw``)."""
+    device = resolve_device(None, device)
+    out: Dict[str, Any] = {
+        key: {name: to_tensor(a, device).to(torch.float32)
+              for name, a in flat_from_jax(state[key], cfg).items()}
+        for key in ("m", "v")}
+    out["step"] = to_tensor(np.asarray(state["step"], np.int32), device)
+    return out
+
+
+def opt_state_to_jax(state: Dict[str, Any], cfg: ModelConfig
+                     ) -> Dict[str, Any]:
+    """The inverse of ``opt_state_from_jax``, as numpy arrays."""
+    out: Dict[str, Any] = {
+        key: flat_to_jax({name: to_numpy(t)
+                          for name, t in state[key].items()}, cfg)
+        for key in ("m", "v")}
+    out["step"] = np.asarray(to_numpy(state["step"]), np.int32)
+    return out
 
 
 def _map_cache(cache: Dict[str, Any], fn) -> Dict[str, Any]:

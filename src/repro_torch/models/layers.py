@@ -20,7 +20,8 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def frozen(t: Tensor) -> nn.Parameter:
-    """A parameter that autograd does not track (serving only)."""
+    """A parameter that autograd does not track, as serving wants it;
+    ``model.trainable_`` unfreezes a model for training."""
     return nn.Parameter(t, requires_grad=False)
 
 

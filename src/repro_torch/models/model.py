@@ -30,8 +30,16 @@ fp32).  Each layer reads and writes its own view of it in place
 "v": (L, B, F, KV, D)}}, each decoder layer's projection of the encoder's
 output (``build_cross_cache``), which decode only reads.
 
-The training surface (``loss_fn``, remat) waits for a later slice of the
-port (ROADMAP Queue 1 item 13.4).
+Training: ``loss_fn`` is the next-token cross entropy of ``forward`` plus
+the MoE aux loss, as JAX's.  A model built with ``trainable=True`` (or
+passed through ``trainable_``) has parameters that require grad; serving
+keeps them frozen.  In ``mode="train"`` with grad on and a trainable
+model, each layer of ``hidden`` and ``encode`` runs under
+``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
+layer, the counterpart of JAX's per-layer ``jax.checkpoint`` with
+``remat_policy="full"`` (save nothing).  JAX's "dots" and "names"
+policies keep chosen products across the boundary; the port has no
+counterpart yet and raises (ROADMAP Queue 1 item 13.5).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.admm import resolve_device
 from repro_torch.models import attention, blocks, layers
@@ -81,16 +90,27 @@ class LM(nn.Module):
         return self.embed.device
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                trainable: bool = False) -> LM:
     """Random weights, N(0, 0.02^2) for every matrix (norm gains and biases
     as the JAX package sets them), drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device`` — on the card unless ``device="cpu"``;
     raises without a card.  The draws are not JAX's: tests that compare
-    the two packages load JAX's weights (``convert.params_from_jax``)."""
+    the two packages load JAX's weights (``convert.params_from_jax``).
+    Frozen for serving unless ``trainable``."""
     device = resolve_device(None, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return LM(cfg, gen)
+    lm = LM(cfg, gen)
+    return trainable_(lm) if trainable else lm
+
+
+def trainable_(params: LM) -> LM:
+    """Every parameter of ``params`` set to require grad, in place (a
+    model built for serving is frozen); returns it."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
 
 
 def _tokens(tokens, device) -> Tensor:
@@ -129,14 +149,40 @@ def _on_model(a, params: LM) -> Tensor:
     return torch.as_tensor(a, device=params.device).to(params.embed.dtype)
 
 
-def encode(params: LM, enc_media, cfg: ModelConfig) -> Tensor:
+def _remat(params: LM, cfg: ModelConfig, mode: str) -> bool:
+    """Whether ``hidden`` checkpoints its layers: ``mode="train"``, grad
+    on, and a trainable model.  Only JAX's "full" policy has a
+    counterpart."""
+    if mode != "train" or not torch.is_grad_enabled() or not any(
+            p.requires_grad for p in params.parameters()):
+        return False
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
+            "layers only (\"full\"); saving chosen products across the "
+            "boundary waits for ROADMAP Queue 1 item 13.5")
+    return True
+
+
+def _layer(lp, x, cfg: ModelConfig, kind: str, remat: bool, **kw):
+    """One block, under ``torch.utils.checkpoint`` when ``remat``."""
+    if not remat:
+        return blocks.block_forward(lp, x, cfg, kind, **kw)
+    return checkpoint(lambda h, enc: blocks.block_forward(
+        lp, h, cfg, kind, **{**kw, "enc_out": enc}), x, kw.get("enc_out"),
+        use_reentrant=False)
+
+
+def encode(params: LM, enc_media, cfg: ModelConfig, *,
+           mode: str = "prefill") -> Tensor:
     """The encoder of an encoder-decoder model: its layers, non-causal and
     without a window, over the frame embeddings ``enc_media`` (B, F, d)
-    (in the model's dtype), then ``enc_norm``; returns (B, F, d)."""
+    (in the model's dtype), then ``enc_norm``; returns (B, F, d).  Each
+    layer is checkpointed under ``_remat`` (``mode="train"``)."""
     x = _on_model(enc_media, params)
+    remat = _remat(params, cfg, mode)
     for lp in params.enc_layers:
-        x, _ = blocks.block_forward(lp, x, cfg, "attn", causal=False,
-                                    window=None)
+        x, _ = _layer(lp, x, cfg, "attn", remat, causal=False, window=None)
     return layers.apply_norm(x, params.enc_norm, cfg.norm)
 
 
@@ -152,12 +198,13 @@ def hidden(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
         x = torch.cat([media, x], dim=1)
     enc_out = None
     if cfg.is_encoder_decoder:
-        enc_out = encode(params, batch["enc_media"], cfg)
+        enc_out = encode(params, batch["enc_media"], cfg, mode=mode)
     window = _decoder_window(cfg, mode)
+    remat = _remat(params, cfg, mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp in zip(blocks.block_kinds(cfg), params.layers):
-        x, a = blocks.block_forward(lp, x, cfg, kind, causal=True,
-                                    window=window, enc_out=enc_out)
+        x, a = _layer(lp, x, cfg, kind, remat, causal=True, window=window,
+                      enc_out=enc_out)
         aux = aux + a
     x = layers.apply_norm(x, params.final_norm, cfg.norm)
     return x[:, prefix:], aux
@@ -173,6 +220,25 @@ def forward(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
     "prefill" | "long" (sliding-window fallback)."""
     x, aux = hidden(params, batch, cfg, mode=mode)
     return x @ _head(params, cfg), aux
+
+
+def loss_fn(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
+            mode: str = "train", aux_weight: float = 0.01) -> Tensor:
+    """Next-token cross entropy (+ ``aux_weight`` x the MoE load-balance
+    loss), as ``repro.models.model.loss_fn``: fp32 logits, labels below 0
+    masked, the mean over the unmasked positions (at least 1).  The gold
+    logit is a ``gather``: the value of JAX's iota-mask sum (one nonzero
+    term) without one more fp32 (B, S, V) buffer; JAX avoids the gather
+    only for the vocab-sharded layout of its meshes."""
+    logits, aux = forward(params, batch, cfg, mode=mode)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = (labels >= 0).to(torch.float32)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    ce = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                       min=1.0)
+    return ce + aux_weight * aux
 
 
 def hybrid_layout(cfg: ModelConfig):

@@ -1160,3 +1160,107 @@ def test_head_features_and_fit_on_the_card_match_the_cpu(cuda):
         rho=rho)
     assert ops.launches["csvm_round_block"] == 1
     assert float((B1.cpu() - B0).abs().max()) <= ATOL
+
+
+# (B, H, KV, S, Sk, D, causal, window): small shapes of every case the
+# training paths give flash_attention_backward
+BACKWARD_SMALL = [
+    (1, 4, 2, 128, 128, 64, True, None), (2, 6, 2, 200, 200, 32, True, None),
+    (1, 4, 2, 160, 160, 32, True, 17), (2, 4, 4, 100, 130, 64, False, None),
+    (1, 8, 2, 150, 150, 128, True, None), (1, 2, 1, 170, 170, 256, True, 33),
+    (1, 4, 2, 77, 77, 40, False, 9), (1, 14, 2, 99, 99, 64, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BACKWARD_SMALL)
+def test_flash_backward_matches_plain(cuda, case, dtype):
+    """The backward kernel against ``ref.mha_backward`` on the model's
+    transposed buffers, within chip_smoke's limits (fp32 2e-5 of max
+    |grad|; bf16 one ulp plus that floor), each result laid out as its
+    input; two launches equal bit for bit."""
+    causal, window = case[6], case[7]
+    q, k, v, o, do = chip_smoke.backward_inputs(torch, ops, case, dtype,
+                                                cuda, seed=3)
+    before = dict(ops.launches)
+    got = ops.flash_attention_backward(q, k, v, o, do, causal=causal,
+                                       window=window)
+    again = ops.flash_attention_backward(q, k, v, o, do, causal=causal,
+                                         window=window)
+    assert ops.launches["flash_attention_backward"] == \
+        before["flash_attention_backward"] + 2
+    want = ref.mha_backward(q, k, v, o, do, causal=causal, window=window)
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert torch.equal(g, a)
+        assert g.dtype == t.dtype and g.stride() == t.stride()
+        _, _, share = chip_smoke.backward_deviation(torch, g, w, dtype)
+        assert share <= 1.0
+
+
+def test_training_through_the_kernels_on_the_card(cuda, monkeypatch):
+    """A reduced qwen3 step on the card: the flash forward twice a layer
+    (pass and remat), the backward once, no plain attention reached, and
+    loss and grads near the same step with the plain attention (fp32)."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import attention, model
+    cfg = configs.get_reduced("qwen3_14b")
+    lm = model.init_params(cfg, seed=0, device=cuda, trainable=True)
+    batch = next(token_stream(cfg, 2, 96, seed=0, device=cuda))
+
+    def run():
+        lm.zero_grad(set_to_none=True)
+        loss = model.loss_fn(lm, batch, cfg)
+        loss.backward()
+        return loss.detach(), {n: p.grad.clone()
+                               for n, p in lm.named_parameters()}
+
+    ops.reset_launches()
+    with chip_smoke.counted_plain(ref, attention) as calls:
+        loss, grads = run()
+    assert sum(calls.values()) == 0
+    assert ops.launches["flash_attention"] == 2 * cfg.num_layers
+    assert ops.launches["flash_attention_backward"] == cfg.num_layers
+    monkeypatch.setattr(attention, "self_attend",
+                        chip_smoke.plain_self_attend)
+    loss_p, grads_p = run()
+    assert abs(float(loss) - float(loss_p)) <= 1e-5
+    for n, g in grads.items():
+        scale = float(grads_p[n].abs().max())
+        assert float((g - grads_p[n]).abs().max()) <= 1e-4 * max(scale, 1e-30)
+
+
+def test_mamba2_training_is_refused_on_the_card(cuda):
+    """ssd_scan has no backward kernel: a step raises before any launch."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = configs.get_reduced("mamba2_370m")
+    lm = model.init_params(cfg, seed=0, device=cuda, trainable=True)
+    batch = next(token_stream(cfg, 2, 64, seed=0, device=cuda))
+    before = dict(ops.launches)
+    with pytest.raises(NotImplementedError, match="13.6"):
+        make_train_step(cfg, AdamWConfig())(lm, adamw_init(lm), batch)
+    assert ops.launches == before
+
+
+def test_flash_backward_raises_without_its_library(cuda, monkeypatch,
+                                                    tmp_path):
+    """A CUDA tensor gets the backward kernel or an error — never the
+    plain version."""
+    from repro_torch.kernels import build
+    q = torch.randn(1, 4, 64, 32, device=cuda)
+    k = torch.randn(1, 2, 64, 32, device=cuda)
+    monkeypatch.setitem(build.SOURCES, "flash_backward",
+                        tmp_path / "missing.cu")
+    monkeypatch.delitem(build._loaded, "flash_backward", raising=False)
+    ops._flash_backward_lib.cache_clear()
+    before = dict(ops.launches)
+    try:
+        with pytest.raises((OSError, RuntimeError)):
+            ops.flash_attention_backward(q, k, k, q, q)
+    finally:
+        ops._flash_backward_lib.cache_clear()
+    assert ops.launches == before
