@@ -15,8 +15,11 @@ result lines):
    instances of ``csvm_round_block`` and of the two-pass update
    (``update_stream_kernel``), and the wgmma, its waits and the
    copies (UTMALDG, UBLKCP, LDGSTS) of the tensor-core passes of
-   ``ssd_scan`` (a count of 0 where the design needs the instruction, or a
-   wait after every wgmma of an SSD pass, fails the run);
+   ``ssd_scan``, and the wgmma, TMA loads and waits of the tensor-core
+   kernels of ``flash_attention_backward`` with ptxas's spill report (a
+   count of 0 where the design needs the instruction, a wait after every
+   wgmma of an SSD pass or a backward kernel, or a spill in a backward
+   tensor-core kernel, fails the run);
 3. the CSVM kernels: each against its plain torch version on the card,
    at the paper's design size and at the full size below, in fp32 and
    bf16, with held rounds, ``nact = 0``, lambda vectors and
@@ -180,7 +183,9 @@ result lines):
    against ``ref.mha_backward`` at the shapes the families' training
    gives it (``BACKWARD_CASES``: qwen3-14b, internvl2-1b, seamless's
    encoder and cross-attention, recurrentgemma-2b's window), fp32 and
-   bf16 on the model's transposed buffers, each gradient within its limit
+   bf16 on the model's transposed buffers, each on the instance
+   ``ops.flash_backward_instance`` names (bf16 at D = 64/128: tensor
+   cores; fp32 and D = 256: fp32 FMAs), each gradient within its limit
    with a control above it, two launches equal bit for bit; its times
    beside plain, the bound and the backward of
    ``scaled_dot_product_attention``; then qwen3-14b at full width, depth
@@ -189,11 +194,18 @@ result lines):
    from readings, a control above the gradients' limit; no plain
    attention reached under grad), ``train_loop`` for 10 steps at B = 2 x
    S = 4096 on ``token_stream`` (the counters read around it: 8 flash
-   forward launches a step, the pass and its remat, and 4 backward;
+   forward launches a step, the pass and its remat, and 4 backward, all
+   on the tensor-core instances;
    finite losses; step ms, tokens/s, peak memory, forward plus backward
    against the optimizer), a checkpoint resume at the reduced config (bit
    for bit), and mamba2's refusal to train on the card (no ssd_scan
-   backward kernel yet).
+   backward kernel yet);
+16. the two instances of ``flash_attention_backward`` on the same bf16
+   inputs at every ``BACKWARD_CASES`` shape the tensor-core one takes
+   (D = 64/128), each forced by name against ``ref.mha_backward`` within
+   the bf16 limit with a control above it, relaunches bit for bit; then
+   the two timed in turns beside the bound, the tensor-core one no slower
+   (``time flash_attention_backward instances`` lines).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -655,6 +667,44 @@ def ssd_tensor_core_sass(build):
     check(all(c["WARPGROUP.DEPBAR"] < c["HGMMA"] for c in found.values()),
           f"ptxas serialized the wgmmas of a tensor-core ssd_scan pass (a "
           f"wait after each): {found}")
+    return found
+
+
+BACKWARD_OPCODES = ("HGMMA", "UTMALDG", "UBLKCP", "WARPGROUP.DEPBAR")
+BACKWARD_TC_KERNELS = ("dq_tc_kernel", "dkdv_tc_kernel")
+
+
+def backward_tensor_core_sass(build):
+    """Disassemble the backward library and check its tensor-core kernels
+    (``dq_tc_kernel`` and ``dkdv_tc_kernel`` at D = 64 and 128): they issue
+    wgmma and TMA loads, their wgmmas are pipelined (fewer waits than
+    wgmmas, where ptxas, when it serializes them, puts a wait after each),
+    and ptxas reports no spill for them.  Returns {kernel<D>: {opcode:
+    count, "registers": n, "spills": ptxas's line}}."""
+    found = {}
+    for fn, counts in sass_counts(disassemble(build, "flash_backward"),
+                                  BACKWARD_OPCODES).items():
+        inst = re.search(r"(%s)ILi(\d+)E" % "|".join(BACKWARD_TC_KERNELS), fn)
+        if inst:
+            found[f"{inst.group(1)}<{inst.group(2)}>"] = dict(
+                zip(BACKWARD_OPCODES, counts))
+    for name, regs, spills in ptxas_report(build.build_log("flash_backward")):
+        if name in found:
+            found[name].update(registers=regs, spills=spills)
+    for name, c in found.items():
+        log(f"sass {name}: " + ", ".join(
+            f"{c[op]} {op}" for op in BACKWARD_OPCODES)
+            + f"; ptxas {c.get('registers')} registers, {c.get('spills')}")
+    want = {f"{k}<{D}>" for k in BACKWARD_TC_KERNELS for D in (64, 128)}
+    check(set(found) == want and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in found.values()),
+        f"a tensor-core backward kernel issues no wgmma or TMA load: {found}")
+    check(all(c["WARPGROUP.DEPBAR"] < c["HGMMA"] for c in found.values()),
+          f"ptxas serialized the wgmmas of a tensor-core backward kernel: "
+          f"{found}")
+    check(all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                        c.get("spills", "")) for c in found.values()),
+          f"ptxas spills in a tensor-core backward kernel: {found}")
     return found
 
 
@@ -3126,7 +3176,9 @@ def backward_checks(torch, ops, ref, device, devs: dict):
     ``flash_attention`` against ``ref.mha`` (one launch of the instance
     ``ops.flash_instance`` names, within FLASH_TOL_F32 or one bf16 ulp);
     then ``flash_attention_backward`` against ``ref.mha_backward``, both
-    fed the plain o: each of dq, dk, dv within its limit, in its input's
+    fed the plain o (two launches of the instance
+    ``ops.flash_backward_instance`` names: bf16 at D = 64/128 on the
+    tensor cores): each of dq, dk, dv within its limit, in its input's
     dtype and layout, finite; two launches on the same inputs equal bit
     for bit; the control above the limit.  Returns the readings."""
     cuda = torch.device(device).type == "cuda"
@@ -3159,12 +3211,19 @@ def backward_checks(torch, ops, ref, device, devs: dict):
                   f"{dev:.3e} is {share:.2f}x the limit")
             o = plain_o
             before = ops.launches["flash_attention_backward"]
+            by = dict(ops.flash_backward_launches)
             got = ops.flash_attention_backward(q, k, v, o, do, **kw)
             again = ops.flash_attention_backward(q, k, v, o, do, **kw)
             what = f"flash_attention_backward {shape}"
             if cuda:
-                check(ops.launches["flash_attention_backward"] - before == 2,
-                      f"{what}: did not launch the kernel twice")
+                instance = ops.flash_backward_instance(q.dtype, D, q, k, v, o,
+                                                       do)
+                what += f" [{instance}]"
+                check(ops.launches["flash_attention_backward"] - before == 2
+                      and ops.flash_backward_launches[instance]
+                      - by[instance] == 2,
+                      f"{what}: did not launch the kernel twice on its "
+                      "instance")
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
                       f"{what}: two launches on the same inputs differ")
             del again
@@ -3194,12 +3253,20 @@ def backward_checks(torch, ops, ref, device, devs: dict):
             record(devs, "flash_attention_backward", dtype,
                    max(d for d, _, _ in reading.values()))
             readings.append(dict(case=label, dtype=dtype, control=control,
+                                 instance=instance,
                                  **{n: dict(max_abs_dev=d, rel=r, share=sh)
                                     for n, (d, r, sh) in reading.items()}))
             del q, k, v, o, do, got, want, plain_o
             if cuda:
                 torch.cuda.empty_cache()
     return readings
+
+
+# flops a visible (query, key) pair per D that each backward instance
+# executes: fp32 FMAs 16 (s, dP and dS in passes 2 and 3, dV, dK, dQ);
+# tensor cores 22 (s three times, dP twice, and dV, dK, dQ each with two
+# bf16 terms of P or dS)
+BACKWARD_EXECUTED = {"fma": 16, "wgmma": 22}
 
 
 def backward_bound(case, itemsize=2):
@@ -3285,9 +3352,11 @@ def backward_timings(torch, ops, ref, device):
             3 if big else 10, 1 if big else 3)
         lib, backend = sdpa_backward_ms(torch, q, k, v, do, causal, window)
         (bms, by), pairs = backward_bound(case)
+        instance = ops.flash_backward_instance(q.dtype, D, q, k, v, o, do)
+        per_pair = BACKWARD_EXECUTED[instance]
         row = dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
-                   library_backend=backend, case=label, tflops=16 * B * H * pairs * D
-                   / times["ms"] / 1e9,
+                   library_backend=backend, case=label, instance=instance,
+                   tflops=per_pair * B * H * pairs * D / times["ms"] / 1e9,
                    shape=f"q (B={B}, H={H}, S={S}, D={D}), kv (KV={KV}, "
                          f"Sk={Sk}) bf16, causal={causal}, window={window}")
         if big:
@@ -3297,16 +3366,137 @@ def backward_timings(torch, ops, ref, device):
             del q32, k32, v32, o32, do32
         rows.append(row)
         lib_text = f"{lib:.4f} ms [{backend}]"
-        log(f"time flash_attention_backward {label} [{row['shape']}]: "
-            f"{row['ms']:.4f} ms (samples {row['ms_samples'][0]:.4f}, "
-            f"{row['ms_samples'][1]:.4f}; {row['tflops']:.2f} TFLOP/s at 16 D "
-            f"a pair, {bms / row['ms']:.4f} of the bound), plain "
+        log(f"time flash_attention_backward {label} [{row['shape']}] "
+            f"[{instance}]: {row['ms']:.4f} ms (samples "
+            f"{row['ms_samples'][0]:.4f}, {row['ms_samples'][1]:.4f}; "
+            f"{row['tflops']:.2f} TFLOP/s at {per_pair} D a pair, "
+            f"{bms / row['ms']:.4f} of the bound), plain "
             f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"scaled_dot_product_attention backward {lib_text}"
             + (f"; fp32 inputs {row['fp32_ms']:.4f} ms" if big else ""))
         del q, k, v, o, do
         torch.cuda.empty_cache()
     return dict(rows[0], variants=rows[1:])
+
+
+def kernel_split(torch, fn, reps: int = 3):
+    """{kernel<args>: device ms a call} of the kernels ``fn`` launches,
+    from ``torch.profiler`` over ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.search(r"(\w+<[^()]*>)", e.name)
+            split[name.group(1) if name else e.name[:60]] += (
+                e.time_range.elapsed_us() / 1e3 / reps)
+    return dict(split)
+
+
+def backward_instance_checks(torch, ops, ref, device, devs: dict):
+    """Phase 16: at every case of BACKWARD_CASES that the tensor-core
+    instance takes (D = 64 or 128), in bf16, both instances of
+    ``flash_attention_backward`` forced by name on the same inputs (o the
+    plain forward's) against ``ref.mha_backward``: each of dq, dk, dv
+    within the bf16 limit, two launches equal bit for bit and counted on
+    their instance, the control above the limit; then the two timed in
+    turns (wgmma, fma, fma, wgmma; CUDA events), the tensor-core one no
+    slower, and each instance's device time split by kernel
+    (``kernel_split``).  On CPU tensors (a rehearsal) both names run the wrapper's
+    plain version and nothing is timed.  Returns a row a case."""
+    cuda = torch.device(device).type == "cuda"
+    rows = []
+    for i, (label, case) in enumerate(BACKWARD_CASES):
+        B, H, KV, S, Sk, D, causal, window = case
+        if D not in (64, 128):
+            continue
+        kw = dict(causal=causal, window=window)
+        q, k, v, _, do = backward_inputs(torch, ops, case, "bfloat16", device,
+                                         seed=300 + i)
+        o = ref.mha(q, k, v, **kw)
+        want = ref.mha_backward(q, k, v, o, do, **kw)
+        runs = {}
+        for inst in ops.FLASH_BACKWARD_INSTANCES:
+            def run(inst=inst):
+                if not cuda:
+                    return ops.flash_attention_backward(q, k, v, o, do, **kw)
+                return ops._flash_backward_launch(q, k, v, o, do, inst,
+                                                  sm_scale=None, **kw)
+            runs[inst] = run
+        row = dict(case=label, shape=f"q (B={B}, H={H}, S={S}, D={D}), kv "
+                   f"(KV={KV}, Sk={Sk}) bf16, causal={causal}, "
+                   f"window={window}")
+        for inst, run in runs.items():
+            what = f"flash_attention_backward {label} bf16 [{inst}, forced]"
+            before = dict(ops.flash_backward_launches)
+            got, again = run(), run()
+            if cuda:
+                check(ops.flash_backward_launches[inst] - before[inst] == 2,
+                      f"{what}: did not launch its instance twice")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{what}: two launches on the same inputs differ")
+            reading = {name: backward_deviation(torch, g, w, "bfloat16")
+                       for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+            control = float((got[0][:, :, 1:].float()
+                             - want[0][:, :, :-1].float()).abs().max()) / max(
+                float(want[0].float().abs().max()), 1e-30)
+            log(f"check {what}: " + ", ".join(
+                f"max|d{n[1:]} dev| {d:.3e} ({sh:.3f} of the limit)"
+                for n, (d, _, sh) in reading.items())
+                + f"; control {control:.3e} of max|dq|")
+            for name, (_, _, share) in reading.items():
+                check(share <= 1.0, f"{what}: {name} at {share:.3f}x its "
+                      "limit")
+            check(control > BACKWARD_TOL_F32, f"{what}: the control "
+                  f"{control:.3e} is within the fp32 limit")
+            record(devs, "flash_attention_backward", "bfloat16",
+                   max(d for d, _, _ in reading.values()))
+            row[inst] = dict(control=control, **{
+                n: dict(max_abs_dev=d, share=sh)
+                for n, (d, _, sh) in reading.items()})
+            del got, again
+        if cuda:
+            big = S * H * B >= 2 ** 18
+            reps = {"wgmma": 10 if big else 20, "fma": 2 if big else 5}
+            w1 = cuda_ms(torch, runs["wgmma"], reps["wgmma"])
+            f1 = cuda_ms(torch, runs["fma"], reps["fma"])
+            f2 = cuda_ms(torch, runs["fma"], reps["fma"])
+            w2 = cuda_ms(torch, runs["wgmma"], reps["wgmma"])
+            (bms, by), pairs = backward_bound(case)
+            for inst, (t1, t2) in (("wgmma", (w1, w2)), ("fma", (f1, f2))):
+                ms = (t1 + t2) / 2
+                row[inst].update(ms=ms, ms_samples=[t1, t2],
+                                 tflops=BACKWARD_EXECUTED[inst] * B * H
+                                 * pairs * D / ms / 1e9)
+            row.update(bound_ms=bms, bound_by=by)
+            for inst, run in runs.items():
+                row[inst]["kernels_ms"] = kernel_split(torch, run)
+            log(f"time flash_attention_backward instances {label} "
+                f"[{row['shape']}]: wgmma {row['wgmma']['ms']:.4f} ms "
+                f"(samples {w1:.4f}, {w2:.4f}; "
+                f"{row['wgmma']['tflops']:.1f} TFLOP/s at 22 D a pair), fma "
+                f"{row['fma']['ms']:.4f} ms (samples {f1:.4f}, {f2:.4f}; "
+                f"{row['fma']['tflops']:.2f} TFLOP/s at 16 D a pair), bound "
+                f"{bms:.4f} ms ({by}); wgmma / fma "
+                f"{row['wgmma']['ms'] / row['fma']['ms']:.4f}; device ms "
+                f"a call by kernel (torch.profiler): " + ", ".join(
+                    f"{name} {ms:.4f}" for inst in runs
+                    for name, ms in row[inst]["kernels_ms"].items()))
+            check(row["wgmma"]["ms"] <= row["fma"]["ms"],
+                  f"flash_attention_backward {label}: the tensor-core "
+                  f"instance ({row['wgmma']['ms']:.4f} ms) is slower than "
+                  f"the fp32-FMA one ({row['fma']['ms']:.4f} ms)")
+        rows.append(row)
+        del q, k, v, o, do, want, runs
+        if cuda:
+            torch.cuda.empty_cache()
+    return rows
 
 
 @contextlib.contextmanager
@@ -3448,7 +3638,7 @@ def train_run(torch, ops, train, cfg):
     ``token_stream``, with the counters set to 0 just before and read just
     after: every loss and gnorm finite, each step 2 flash forward
     launches a layer (pass and remat) on the tensor-core instance and one
-    backward, nothing else launched.  Each step is timed by CUDA events
+    backward, on the tensor-core instance too, nothing else launched.  Each step is timed by CUDA events
     from the call of ``loss_fn`` to the end of ``adamw_update``
     (``step_events``).  Returns the launches and the times."""
     L = cfg.num_layers
@@ -3471,6 +3661,7 @@ def train_run(torch, ops, train, cfg):
                     opt_ms=e["mid"].elapsed_time(e["end"])) for e in events]
     launches = dict(ops.launches)
     instances = dict(ops.flash_launches)
+    backward_instances = dict(ops.flash_backward_launches)
     peak = torch.cuda.max_memory_allocated()
     for i, h in enumerate(history):
         log(f"train step {i}: loss {h['loss']:.6f} gnorm {h['gnorm']:.6f} "
@@ -3485,6 +3676,9 @@ def train_run(torch, ops, train, cfg):
           f"{want}")
     check(instances["wgmma"] == 2 * L * TRAIN_STEPS,
           f"train_loop: flash forward launches by instance {instances}")
+    check(backward_instances == {"wgmma": L * TRAIN_STEPS, "fma": 0},
+          f"train_loop: backward launches by instance {backward_instances}, "
+          "expected every one on the tensor-core instance")
     med = float(sorted(h["ms"] for h in history)[len(history) // 2])
     fb = float(sorted(h["fwd_bwd_ms"] for h in history)[len(history) // 2])
     opt = float(sorted(h["opt_ms"] for h in history)[len(history) // 2])
@@ -3495,9 +3689,11 @@ def train_run(torch, ops, train, cfg):
         f"ms, optimizer {opt:.2f} ms, CUDA events), peak memory "
         f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); launches "
         f"{launches['flash_attention']} flash forward ({L} + {L} remat a "
-        f"step), {launches['flash_attention_backward']} backward; loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        f"step), {launches['flash_attention_backward']} backward "
+        f"{json.dumps(backward_instances)}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
     return dict(launches=launches, flash_instances=instances,
+                backward_instances=backward_instances,
                 median_step_ms=med, fwd_bwd_ms=fb, opt_ms=opt,
                 tokens_per_s=tokens / med * 1e3, peak_bytes=peak,
                 wall_s=wall, steps=history)
@@ -3646,6 +3842,7 @@ def main() -> int:
             log(f"ptxas {kernel}: {regs} registers, {spills}{extra}")
     sass = tensor_core_sass(build)
     ssd_sass = ssd_tensor_core_sass(build)
+    backward_sass = backward_tensor_core_sass(build)
     bulk = bulk_copy_sass(build)
     for bf16 in (False, True):
         per_sm, sms = ops.round_block_occupancy(0, bf16)
@@ -3961,6 +4158,12 @@ def main() -> int:
     # checkpoint resume; mamba2's refusal on the card
     training = training_phase(torch, ops, ref, devs)
     rows["flash_attention_backward"] = training["timing"]
+    # phase 16: the backward's two instances on the same inputs at the
+    # cases the tensor-core one takes, and their times
+    t16 = time.perf_counter()
+    backward_instances = backward_instance_checks(torch, ops, ref, "cuda",
+                                                  devs)
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
     train_launches = training["run"]["launches"]
     launches["flash_attention_backward"] = \
         train_launches["flash_attention_backward"]
@@ -4049,10 +4252,13 @@ def main() -> int:
             run = training["run"]
             extra = dict(
                 checks=training["readings"],
+                instance_launches=run["backward_instances"],
+                instances=backward_instances, sass=backward_sass,
                 train_step_vs_plain=training["step_check"],
                 train_loop={k: run[k] for k in (
                     "median_step_ms", "fwd_bwd_ms", "opt_ms", "tokens_per_s",
-                    "peak_bytes", "wall_s", "flash_instances", "steps")},
+                    "peak_bytes", "wall_s", "flash_instances",
+                    "backward_instances", "steps")},
                 checkpoint_resume=training["resume"],
                 phase_s=training["seconds"])
         elif name == "ssd_scan":

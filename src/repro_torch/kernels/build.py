@@ -7,8 +7,9 @@ At first use each source under ``csrc/`` is compiled for Hopper
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <src>
 
 The library lands in ``build/kernels/`` at the repository root (listed in
-``.gitignore``); its name carries a hash of the source and the flags, so a
-changed source is rebuilt.  ptxas's register and spill report is kept
+``.gitignore``); its name carries a hash of the source, of every header
+under ``csrc/`` (``hopper.cuh``, which the tensor-core kernels include)
+and of the flags, so a changed source or header is rebuilt.  ptxas's register and spill report is kept
 beside it as ``<name>-<hash>.log``.  No PyTorch header is included, so a
 build takes seconds; ``build_all`` starts one ``nvcc`` per source, all
 together.
@@ -50,8 +51,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library is (or will be) for the current source."""
+    """Where ``name``'s library is (or will be) for the current source and
+    headers."""
     digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -19,44 +19,103 @@
 //   dS    = P * (do . v^T - delta)
 //   dq    = scale * dS k
 //   dk    = scale * dS^T q          summed over the g query heads
-// all in fp32, each result rounded once to the inputs' dtype.  A row that
+// in fp32 (the tensor-core instance: fp32 accumulators, see its numerics
+// below), each result rounded once to the inputs' dtype.  A row that
 // sees no key (l == 0, where the forward writes zeros) gets P = 0, so its
 // gradients are zero.
 //
-// Three passes, one launch each, no atomics: every output element is summed
-// by one thread in a fixed order, so the results repeat bit for bit.
-//   1. stats_kernel, per (b*h, query tile): m and l recomputed from q and k
-//      over the key tiles the tile sees (the forward's online max and sum,
-//      without P.V), and delta from do and o; written to an fp32 scratch of
-//      3 * B * H * S floats.  The forward stays as it is and writes no
-//      logsumexp, so its instances keep their measured times and bits.
+// What bounds it on an H100: the bound counts 10*D flops per visible
+// (query, key) pair (s, dP, dV, dK, dQ: 2D each) at the bf16 tensor-core
+// peak, against reading q, k, v, o, do and writing dq, dk, dv once; at
+// qwen3-14b's (2, 40/8, 4096, 128) causal that is 0.87 ms, operations-
+// bound.  Every instance recomputes P from q and k instead of keeping it
+// (an S x S tile per head), and none uses atomics: every output element is
+// summed by one thread in a fixed order, so the results repeat bit for bit
+// and no partial buffers (dq partials would be ~5 GB at qwen3's shape) are
+// needed.  Two instances; the wrapper picks one from dtype, D and the
+// operands (ops.flash_backward_instance, the forward's rule):
+//
+// * flash_attention_backward_tc ("wgmma": bf16, D = 64 or 128, 16-byte-
+//   aligned bases and strides of q, k, v, o, do) runs every product on the
+//   tensor cores (bf16 wgmma, fp32 accumulators) in two kernels.  Tiles
+//   arrive by TMA (128-byte swizzle, 64 x 64 boxes of 4-d tensor maps
+//   built from the strides, so the model's transposed (B, S, heads, D)
+//   buffers go in without a copy) in a two-stage ring guarded by
+//   mbarriers.
+//   A. dq_tc_kernel, per (b*h, 128-query tile), a block of three
+//      warpgroups as the forward's flash_tc_kernel: two consumers of 64
+//      rows, and one thread of the third issuing the loads, giving its
+//      registers to the consumers (setmaxnreg).  q and do are loaded once;
+//      delta = rowsum(do * o) from 16-byte loads of o and do; loop 1 over
+//      the key tiles the tile sees computes s = q k^T (SS wgmma, both
+//      K-major) and the online max and sum, giving lse = m + log2 l per
+//      row (log2 units; +inf for rows past S, so that their P is 0), which
+//      is written with delta to an fp32 scratch of 2 * B * H * S_pad floats
+//      (S_pad: S rounded up to 128) for pass B; loop 2 over the same tiles
+//      computes s again and dP = do v^T, P = 2^(s - lse), dS = P (dP -
+//      delta) in fp32 registers, and dq += dS k with dS as the register A
+//      operand and k MN-major from shared memory (as the forward's P.V
+//      reads V).  dq is stored times the scale from registers through its
+//      strides.  This folds the stats and dq passes of the fp32 instance
+//      into one launch; the forward writes no logsumexp, so serving keeps
+//      its launches and bits.
+//   B. dkdv_tc_kernel, per (b*kv head, 64-key tile), one warpgroup a block
+//      and two blocks an SM: the dk and dv accumulators (128 registers a
+//      thread at D = 128) with s^T and dP^T need more than the 168
+//      registers a thread of a three-warpgroup block gets (ptxas caps it
+//      there whatever setmaxnreg asks, spills, and serializes the wgmmas),
+//      so thread 0 issues the loads itself, refilling a stage as soon as
+//      the four warps have released it.  K and V stay in shared memory
+//      while, for each of the g query heads in order, the 64-row (q, do)
+//      tiles that see the key tile stream through with their lse and delta
+//      (1-D bulk copies): s^T = k q^T and dP^T = v do^T (SS), P^T and dS^T
+//      in registers, then dv += P^T do and dk += dS^T q with do and q
+//      MN-major; dk and dv accumulate in registers over the whole GQA
+//      group, and one block writes each of their elements.  (The same
+//      one-warpgroup shape for pass A measured slower at qwen3-14b's shape,
+//      so pass A keeps the shared key stream of two consumers.)
+//   Numerics: the products of bf16 operands are exact in the fp32
+//   accumulators; P and dS, fp32 values, go into the tensor cores as the
+//   A operand split into two bf16 terms, hi + lo (lo the rounding of what
+//   hi leaves: p to ~2^-17), each its own wgmma into one accumulator.  One
+//   term breaks the port's bf16 check (one ulp of the plain gradient plus
+//   2e-5 of its max) by 16-39x; two hold it, the rest being one-ulp flips
+//   of the final rounding (tests/test_torch_flash_grad.py emulates it).
+//   So the instance runs 22*D flops a pair on the tensor cores: s three
+//   times (pass A twice, pass B), dP twice, dv, dk and dq each 2 x 2D.
+//   Ragged ends: TMA zero-fills rows past S and Sk; keys past Sk are masked
+//   in pass A (and their dk, dv rows never stored in pass B), rows past S
+//   have P = 0 through lse = +inf.  Only tiles that cross a mask edge pay
+//   for the mask; tiles outside it are never loaded.
+//
+// * flash_attention_backward ("fma": fp32, D = 256 and other D, and bf16
+//   views the tensor maps cannot take) is the port's first design, three
+//   passes of fp32 FMAs on the CUDA cores (67 TFLOP/s peak) with every
+//   tile widened to fp32 in shared memory:
+//   1. stats_kernel, per (b*h, query tile): m and l recomputed from q and
+//      k over the key tiles the tile sees, and delta from do and o; written
+//      to an fp32 scratch of 3 * B * H * S floats.
 //   2. dkdv_kernel, per (b*kv head, key tile): K and V stay in shared
 //      memory while the g query heads of the group, and for each head the
 //      query tiles that see the key tile, stream through in a fixed order;
 //      dk and dv accumulate in registers.
 //   3. dq_kernel, per (b*h, query tile): the key tiles stream through; dq
 //      accumulates in registers.
-//
-// What bounds it on an H100: 16*D flops per visible (query, key) pair over
-// the three passes (2D, 8D, 6D), against reading q, k, v, o, do and writing
-// dq, dk, dv once; at qwen3-14b's (2, 40/8, 4096, 128) causal that is 1.37
-// TFLOP, operations-bound.  This first design runs them as fp32 FMAs on the
-// CUDA cores (67 TFLOP/s peak) with every tile widened to fp32 in shared
-// memory: 128 threads (16 x 8) a block; thread (ty, tx) owns query rows
-// ty*kR .. ty*kR+kR-1 of a score tile and keys tx + 8*j, and (in pass 2) key
-// rows ty*kKR .. and columns tx + 8*j of D.  Tiles shrink with D so that a
-// block fits in shared memory: 64 x 64 up to D = 64, 64 queries x 32 keys
-// at D = 128, 32 x 16 at D = 256.  The tensor cores (wgmma), TMA and a
-// logsumexp written by the forward are later work (ROADMAP Queue 2).
-//
-// Arbitrary element strides over (B, heads, rows) for every operand and
-// result; D has unit stride.  Under `causal` or `window` only the tiles that
-// see each other are visited; the ragged ends of S and Sk are masked inside
-// the kernels.
+//   16*D flops per pair (2D, 8D, 6D); 128 threads (16 x 8) a block;
+//   thread (ty, tx) owns query rows ty*kR .. ty*kR+kR-1 of a score tile
+//   and keys tx + 8*j, and (in pass 2) key rows ty*kKR .. and columns tx +
+//   8*j of D.  Tiles shrink with D so that a block fits in shared memory:
+//   64 x 64 up to D = 64, 64 queries x 32 keys at D = 128, 32 x 16 at
+//   D = 256.  Arbitrary element strides over (B, heads, rows) for every
+//   operand and result; D has unit stride.  Under `causal` or `window`
+//   only the tiles that see each other are visited; the ragged ends of S
+//   and Sk are masked inside the kernels.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -582,6 +641,628 @@ cudaError_t dispatch(const Args& a) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The tensor-core instance: bf16, D in {64, 128}
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBox = 64;          // rows of a TMA box, a panel, a warpgroup's tile
+constexpr int kStages = 2;        // depth of the streamed ring
+constexpr int kRowsA = 128;       // pass A's query rows a block
+constexpr int kThreadsA = 384;    // pass A: warpgroups 0, 1 consume; 2 loads
+constexpr int kThreads = 128;     // pass B: one warpgroup a block
+
+// A panel of 64 rows of a (rows, D) operand in shared memory: D / 64
+// "halves" of 64 columns, each 64 rows of 128 bytes, swizzled by TMA in
+// 1024-byte atoms of 8 rows.
+template <int D>
+struct Panel {
+  static constexpr int kHalf = kBox * kRowBytes;
+  static constexpr int kBytes = (D / 64) * kHalf;
+};
+
+// Pass A's shared memory, in bytes: the q and do tiles of the block, a
+// 64-row panel for each consumer warpgroup, and a ring of (K, V) tiles of
+// 64 keys; every buffer starts on a 1024-byte boundary.
+template <int D>
+struct LayoutA {
+  static constexpr int kPanel = Panel<D>::kBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + 2 * kPanel;
+  static constexpr int kK = kDO + 2 * kPanel;
+  static constexpr int kV = kK + kStages * kPanel;
+  static constexpr int kBar = kV + kStages * kPanel;       // 1 + 2 kStages
+  static constexpr int kBytes = kBar + 64 + 1024;           // + alignment slack
+};
+
+// Pass B's: the K and V tiles of the block (64 keys each) and a ring of
+// (q, do) tiles of 64 rows with their 64 lse and 64 delta values.
+template <int D>
+struct LayoutB {
+  static constexpr int kPanel = Panel<D>::kBytes;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kPanel;
+  static constexpr int kQ = kV + kPanel;
+  static constexpr int kDO = kQ + kStages * kPanel;
+  static constexpr int kStats = kDO + kStages * kPanel;     // lse | delta
+  static constexpr int kStatsBytes = 2 * kBox * 4;
+  static constexpr int kBar = kStats + kStages * kStatsBytes;
+  static constexpr int kBytes = kBar + 64 + 1024;
+};
+
+// A contiguous span of device memory into shared memory (a 1-D bulk copy;
+// addresses and size multiples of 16 bytes), completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Rows row0 .. row0 + 63 of head h, batch b into a Panel<D> at dst: one
+// 64 x 64 box per half.
+template <int D>
+__device__ __forceinline__ void load_panel(uint32_t dst, const CUtensorMap* map,
+                                           uint32_t bar, int row0, int h,
+                                           int b) {
+#pragma unroll
+  for (int hf = 0; hf < D / 64; ++hf)
+    tma_load(dst + hf * Panel<D>::kHalf, map, bar, 64 * hf, row0, h, b);
+}
+
+// acc (64 x D) += A . B over 64 rows of K: A as four k16 steps of
+// registers, B a Panel<D> at `panel`, MN-major (its rows are the K
+// dimension, contiguous in D).  At D = 128 both 64-column halves go in one
+// m64n128k16 product, the second half one half-panel (LBO) past the first.
+template <int D>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 64][32],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t panel) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 128) {
+      wgmma_rs128(acc[0], acc[1], a[kk],
+                  sw128_desc(panel + kk * 16 * kRowBytes,
+                             Panel<D>::kHalf, 1024));
+    } else {
+      wgmma_rs(acc[0], a[kk],
+               sw128_desc(panel + kk * 16 * kRowBytes, 1024, 1024));
+    }
+  }
+}
+
+// d (64 x 64) = A . B^T over D, A and B K-major Panel<D>s (rows
+// contiguous in D); D / 16 steps of 16 columns, 32 bytes apart inside a
+// swizzled row (the hardware applies the swizzle to the address).
+template <int D>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a_panel,
+                                           uint32_t b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int at = (kk / 4) * Panel<D>::kHalf + 32 * (kk % 4);
+    wgmma_ss(d, sw128_desc(a_panel + at, 16, 1024),
+             sw128_desc(b_panel + at, 16, 1024), kk > 0);
+  }
+}
+
+// Releases the stage of load i (lane 0 of each warp arrives on its empty
+// barrier); thread 0 then refills the stage with load i + kStages, if
+// there is one of the `loads`, once all four warps have released it.
+template <class Issue>
+__device__ __forceinline__ void release(int i, int loads, uint32_t empty,
+                                        int lane, Issue&& issue) {
+  const int st = i % kStages;
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty + 8 * st);
+  if (threadIdx.x == 0 && i + kStages < loads) {
+    mbar_wait(empty + 8 * st, (i / kStages) & 1);
+    issue(i + kStages);
+  }
+  __syncwarp();
+}
+
+// An accumulator tile (64 x 64 fp32) as the A operand of a product over
+// its columns, in two bf16 terms, hi + lo (lo the rounding of what hi
+// leaves, an exact subtraction): registers 8 kk + 2 r, + 1 form register r
+// of step kk.
+__device__ __forceinline__ void split2(const float (&x)[32],
+                                       uint32_t (&hi)[4][4],
+                                       uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&t);
+      const __nv_bfloat162 u =
+          __floats2bfloat162_rn(a - __low2float(t), b - __high2float(t));
+      lo[kk][r] = *reinterpret_cast<const uint32_t*>(&u);
+    }
+}
+
+// The thread's warpgroup, broadcast from lane 0 so that the compiler knows
+// it is warp-uniform: a wgmma under a branch it takes for divergent makes
+// ptxas serialize every wgmma of the kernel.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
+__device__ __forceinline__ uint32_t align1024(const unsigned char* raw) {
+  const uint32_t at = smem_u32(raw);
+  return at + ((1024u - (at & 1023u)) & 1023u);
+}
+
+struct Out {
+  __nv_bfloat16* p;
+  long long sb, sh, ss;   // elements; D has unit stride
+};
+
+struct ArgsA {
+  const __nv_bfloat16* o;
+  long long o_sb, o_sh, o_ss;
+  const __nv_bfloat16* dout;
+  long long do_sb, do_sh, do_ss;
+  Out dq;
+  float* stats;          // lse (log2 units) | delta, each B * H * S_pad
+  int H, group, S_pad;
+  Mask mk;
+  float scale, scale_log2;
+};
+
+struct ArgsB {
+  const float* stats;
+  Out dk, dv;
+  int H, KV, group, S_pad;
+  Mask mk;
+  float scale, scale_log2;
+};
+
+// Rows r0 and r0 + 8 of a 64 x D accumulator pair, times `mul`, rounded
+// once to bf16 through `out`'s strides; rows at or past `rows` are not
+// stored.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 64][32],
+                                           __nv_bfloat16* base, long long ss,
+                                           int r0, int rows, int c0,
+                                           float mul) {
+#pragma unroll
+  for (int i2 = 0; i2 < 2; ++i2) {
+    const int r = r0 + 8 * i2;
+    if (r >= rows) continue;
+    __nv_bfloat16* row = base + r * ss;
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int x = 4 * j + 2 * i2;
+        *reinterpret_cast<__nv_bfloat162*>(row + 64 * hf + 8 * j + c0) =
+            __floats2bfloat162_rn(acc[hf][x] * mul, acc[hf][x + 1] * mul);
+      }
+  }
+}
+
+// ---- pass A: lse, delta and dq per (b*h, 128-query tile) ----
+// Two consumer warpgroups of 64 rows share the stream of key tiles, which
+// one thread of a third warpgroup issues.
+template <int D>
+__global__ void __launch_bounds__(kThreadsA, 1)
+dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo, const ArgsA a) {
+  using L = LayoutA<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = align1024(smem_raw);
+  const uint32_t sQ = base + L::kQ, sDO = base + L::kDO;
+  const uint32_t sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t full = q_full + 8;                     // kStages barriers
+  const uint32_t empty = full + 8 * kStages;            // kStages barriers
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H, kvh = h / a.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRowsA;  // heaviest first
+  const int S = a.mk.S;
+  const int wg = warpgroup();
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 8);                     // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the key tiles of the block, streamed twice: K alone for the row
+  // statistics, then K and V for dq
+  int blk_begin, blk_end;
+  a.mk.key_tiles(q0, kRowsA, kBox, blk_begin, blk_end);   // q0 < S
+  const int n = blk_end - blk_begin;
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 4 * L::kPanel);
+      for (int w = 0; w < 2; ++w) {                     // a panel a consumer
+        load_panel<D>(sQ + w * L::kPanel, &tq, q_full, q0 + kBox * w, h,
+                      b);
+        load_panel<D>(sDO + w * L::kPanel, &tdo, q_full, q0 + kBox * w,
+                      h, b);
+      }
+      for (int i = 0; i < 2 * n; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) mbar_wait(empty + 8 * st, ((i / kStages) - 1) & 1);
+        const bool second = i >= n;
+        const int k0 = (blk_begin + (second ? i - n : i)) * kBox;
+        mbar_expect_tx(full + 8 * st, (second ? 2 : 1) * L::kPanel);
+        load_panel<D>(sK + st * L::kPanel, &tk, full + 8 * st, k0,
+                            kvh, b);
+        if (second)
+          load_panel<D>(sV + st * L::kPanel, &tv, full + 8 * st, k0,
+                              kvh, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int qa = q0 + 64 * wg;
+    // this thread's rows of every accumulator, r0 and r0 + 8, and its
+    // columns 8 j + c0 + {0, 1}
+    const int r0 = qa + 16 * warp + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    int my_begin = 0, my_end = 0;                         // no rows: no tiles
+    if (qa < S) a.mk.key_tiles(qa, kBox, kBox, my_begin, my_end);
+
+    // delta = rowsum(do * o): the four threads of a quad share rows r0 and
+    // r0 + 8, each summing a quarter of D from 16-byte loads
+    float delta[2];
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int qp = r0 + 8 * i2;
+      float acc = 0.0f;
+      if (qp < S) {
+        const int d0 = (lane % 4) * (D / 4);
+        const __nv_bfloat16* orow =
+            a.o + b * a.o_sb + h * a.o_sh + qp * a.o_ss + d0;
+        const __nv_bfloat16* drow =
+            a.dout + b * a.do_sb + h * a.do_sh + qp * a.do_ss + d0;
+#pragma unroll
+        for (int c = 0; c < D / 4; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc = fmaf(__low2float(d2[e]), __low2float(o2[e]), acc);
+            acc = fmaf(__high2float(d2[e]), __high2float(o2[e]), acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      delta[i2] = acc;
+    }
+
+    // ---- loop 1: the row max m and sum l of 2^(s - m), s in log2 units ----
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kStages;
+      const int kt = blk_begin + i;
+      mbar_wait(full + 8 * st, (i / kStages) & 1);
+      if (kt >= my_begin && kt < my_end) {
+        const int k0 = kt * kBox;
+        float s[32];
+#pragma unroll
+        for (int x = 0; x < 32; ++x) s[x] = 0.0f;
+        wgmma_fence();
+        product_ss<D>(s, sQ + wg * L::kPanel, sK + st * L::kPanel);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        const bool edge = k0 + kBox > a.mk.Sk ||
+                          (a.mk.causal && k0 + kBox - 1 > qa) ||
+                          (a.mk.window > 0 && k0 <= qa + 63 - a.mk.window);
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          const int i2 = (x / 2) % 2;
+          float val = s[x] * a.scale_log2;
+          if (edge && !a.mk.visible(r0 + 8 * i2, k0 + 8 * (x / 4) + c0 + x % 2))
+            val = kNegInf;
+          s[x] = val;
+          mx[i2] = fmaxf(mx[i2], val);
+        }
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 1));
+          mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 2));
+          const float m_new = fmaxf(m[i2], mx[i2]);
+          l[i2] *= ex2(m[i2] - m_new);
+          m[i2] = m_new;
+        }
+#pragma unroll
+        for (int x = 0; x < 32; ++x) l[(x / 2) % 2] += ex2(s[x] - m[(x / 2) % 2]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+
+    // lse = m + log2 l per row; rows past S (and a row that sees no key)
+    // get +inf, so that their P is 0 in both passes, and delta 0
+    float lse[2];
+    const long long BHS = static_cast<long long>(gridDim.x) * a.S_pad;
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      l[i2] += __shfl_xor_sync(0xffffffffu, l[i2], 1);
+      l[i2] += __shfl_xor_sync(0xffffffffu, l[i2], 2);
+      const int qp = r0 + 8 * i2;
+      const bool seen = qp < S && l[i2] > 0.0f;
+      lse[i2] = seen ? m[i2] + log2f(l[i2]) : INFINITY;
+      if (!seen) delta[i2] = 0.0f;
+      if (lane % 4 == 0) {
+        a.stats[static_cast<long long>(bh) * a.S_pad + qp] = lse[i2];
+        a.stats[BHS + static_cast<long long>(bh) * a.S_pad + qp] = delta[i2];
+      }
+    }
+
+    // ---- loop 2: P, dP = do v^T, dS = P (dP - delta), dq += dS k ----
+    float dq[D / 64][32];
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dq[hf][x] = 0.0f;
+    for (int i = n; i < 2 * n; ++i) {
+      const int st = i % kStages;
+      const int kt = blk_begin + i - n;
+      mbar_wait(full + 8 * st, (i / kStages) & 1);
+      if (kt >= my_begin && kt < my_end) {
+        const int k0 = kt * kBox;
+        const uint32_t kbase = sK + st * L::kPanel;
+        float s[32], dp[32];
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          s[x] = 0.0f;
+          dp[x] = 0.0f;
+        }
+        wgmma_fence();
+        product_ss<D>(s, sQ + wg * L::kPanel, kbase);
+        product_ss<D>(dp, sDO + wg * L::kPanel, sV + st * L::kPanel);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+        const bool edge = k0 + kBox > a.mk.Sk ||
+                          (a.mk.causal && k0 + kBox - 1 > qa) ||
+                          (a.mk.window > 0 && k0 <= qa + 63 - a.mk.window);
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          const int i2 = (x / 2) % 2;
+          float p = ex2(s[x] * a.scale_log2 - lse[i2]);
+          if (edge && !a.mk.visible(r0 + 8 * i2, k0 + 8 * (x / 4) + c0 + x % 2))
+            p = 0.0f;
+          dp[x] = p * (dp[x] - delta[i2]);                // dS
+        }
+        uint32_t ds_hi[4][4], ds_lo[4][4];
+        split2(dp, ds_hi, ds_lo);
+        wgmma_fence();
+        product_rs<D>(dq, ds_hi, kbase);
+        product_rs<D>(dq, ds_lo, kbase);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf) fence_regs(dq[hf]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+    store_rows<D>(dq, a.dq.p + b * a.dq.sb + h * a.dq.sh, a.dq.ss, r0, S, c0,
+                  a.scale);
+  }
+}
+
+// ---- pass B: dk and dv per (b*kv head, 64-key tile) ----
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo, const ArgsB a) {
+  using L = LayoutB<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = align1024(smem_raw);
+  const uint32_t sK = base + L::kK, sV = base + L::kV;
+  const uint32_t sQ = base + L::kQ, sDO = base + L::kDO;
+  const uint32_t sStats = base + L::kStats;
+  const uint32_t kv_full = base + L::kBar;
+  const uint32_t full = kv_full + 8;
+  const uint32_t empty = full + 8 * kStages;
+
+  const int bkv = blockIdx.x;
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const int k0 = blockIdx.y * kBox;   // under `causal` the first tiles see most
+  const int Sk = a.mk.Sk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // the query tiles the block's keys see, for each of the group's heads in
+  // order
+  int q_begin, q_end;
+  a.mk.query_tiles(k0, kBox, kBox, q_begin, q_end);
+  const int per_head = max(q_end - q_begin, 0);
+  const int n = a.group * per_head;
+  const long long BHS = static_cast<long long>(gridDim.x / a.KV) * a.H * a.S_pad;
+
+  // tile i of the block's sequence into its stage (thread 0 only)
+  auto issue = [&](int i) {
+    const int st = i % kStages;
+    const int h = kvh * a.group + i / per_head;
+    const int q0 = (q_begin + i % per_head) * kBox;
+    const uint32_t bar = full + 8 * st;
+    mbar_expect_tx(bar, 2 * L::kPanel + L::kStatsBytes);
+    load_panel<D>(sQ + st * L::kPanel, &tq, bar, q0, h, b);
+    load_panel<D>(sDO + st * L::kPanel, &tdo, bar, q0, h, b);
+    const float* row =
+        a.stats + (static_cast<long long>(b) * a.H + h) * a.S_pad + q0;
+    bulk_load(sStats + st * L::kStatsBytes, row, kBox * 4, bar);
+    bulk_load(sStats + st * L::kStatsBytes + kBox * 4, row + BHS, kBox * 4,
+              bar);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 4);                     // the 4 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(kv_full, 2 * L::kPanel);
+    load_panel<D>(sK, &tk, kv_full, k0, kvh, b);
+    load_panel<D>(sV, &tv, kv_full, k0, kvh, b);
+    for (int i = 0; i < min(n, kStages); ++i) issue(i);
+  }
+  __syncthreads();
+
+  // this thread's key rows r0 and r0 + 8 and query columns 8 j + c0 + {0, 1}
+  const int r0 = k0 + 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  float dk[D / 64][32], dv[D / 64][32];
+#pragma unroll
+  for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      dk[hf][x] = 0.0f;
+      dv[hf][x] = 0.0f;
+    }
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int st = i % kStages;
+    const int q0 = (q_begin + i % per_head) * kBox;
+    const uint32_t qbase = sQ + st * L::kPanel;
+    const uint32_t dobase = sDO + st * L::kPanel;
+    const float* lse_s = reinterpret_cast<const float*>(
+        smem_raw + (sStats + st * L::kStatsBytes - smem_u32(smem_raw)));
+    mbar_wait(full + 8 * st, (i / kStages) & 1);
+    float s[32], dp[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      s[x] = 0.0f;
+      dp[x] = 0.0f;
+    }
+    // s^T = k q^T and dP^T = v do^T for the block's 64 keys
+    wgmma_fence();
+    product_ss<D>(s, sK, qbase);
+    product_ss<D>(dp, sV, dobase);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    // P^T = 2^(s^T - lse) (0 past S: lse = +inf there) and dS^T =
+    // P^T (dP^T - delta), by query column
+    const bool edge = (a.mk.causal && q0 < k0 + 63) ||
+                      (a.mk.window > 0 && q0 + 63 >= k0 + a.mk.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + c0;
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + col);
+      const float2 dl = *reinterpret_cast<const float2*>(lse_s + kBox + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e;
+        const int kp = r0 + 8 * ((e / 2) % 2);
+        const int qp = q0 + col + e % 2;
+        float p = ex2(s[x] * a.scale_log2 - (e % 2 ? ls.y : ls.x));
+        if (edge && !a.mk.visible(qp, kp)) p = 0.0f;
+        s[x] = p;
+        dp[x] = p * (dp[x] - (e % 2 ? dl.y : dl.x));
+      }
+    }
+    uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+    split2(s, p_hi, p_lo);
+    split2(dp, ds_hi, ds_lo);
+    // dv += P^T do and dk += dS^T q, do and q MN-major
+    wgmma_fence();
+    product_rs<D>(dv, p_hi, dobase);
+    product_rs<D>(dv, p_lo, dobase);
+    product_rs<D>(dk, ds_hi, qbase);
+    product_rs<D>(dk, ds_lo, qbase);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf) {
+      fence_regs(dk[hf]);
+      fence_regs(dv[hf]);
+    }
+    release(i, n, empty, lane, issue);
+  }
+  store_rows<D>(dk, a.dk.p + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, r0, Sk, c0,
+                a.scale);
+  store_rows<D>(dv, a.dv.p + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, r0, Sk, c0,
+                1.0f);
+}
+
+// The operands of one call: pointers, shapes and element strides over (B,
+// heads, rows) of q, k, v, o, do, dq, dk, dv, in that order.
+struct Call {
+  const void *q, *k, *v, *o, *dout;
+  void *dq, *dk, *dv;
+  float* stats;
+  int B, H, KV, S, Sk;
+  long long st[8][3];
+  float scale;
+  int causal, window;
+  cudaStream_t stream;
+};
+
+template <int D>
+int launch(const Call& c) {
+  CUtensorMap tq, tk, tv, tdo;
+  auto map = [&](CUtensorMap* m, const void* p, int rows, int heads, int t) {
+    return make_map(m, p, D, rows, heads, c.B, c.st[t][0], c.st[t][1],
+                    c.st[t][2], kBox);
+  };
+  int err = map(&tq, c.q, c.S, c.H, 0);
+  if (err == 0) err = map(&tk, c.k, c.Sk, c.KV, 1);
+  if (err == 0) err = map(&tv, c.v, c.Sk, c.KV, 2);
+  if (err == 0) err = map(&tdo, c.dout, c.S, c.H, 4);
+  if (err != 0) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      LayoutA<D>::kBytes);
+  if (cerr == cudaSuccess)
+    cerr = cudaFuncSetAttribute(dkdv_tc_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                LayoutB<D>::kBytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int q_tiles = (c.S + kRowsA - 1) / kRowsA;
+  const Mask mk{c.S, c.Sk, c.causal, c.window > 0 ? c.window : 0};
+  const float scale_log2 = c.scale * kLog2e;
+  auto out = [&](void* p, int i) {
+    return Out{static_cast<__nv_bfloat16*>(p), c.st[i][0], c.st[i][1],
+               c.st[i][2]};
+  };
+  const ArgsA aa{static_cast<const __nv_bfloat16*>(c.o), c.st[3][0],
+                 c.st[3][1], c.st[3][2],
+                 static_cast<const __nv_bfloat16*>(c.dout), c.st[4][0],
+                 c.st[4][1], c.st[4][2], out(c.dq, 5), c.stats, c.H,
+                 c.H / c.KV, q_tiles * kRowsA, mk, c.scale, scale_log2};
+  dq_tc_kernel<D><<<dim3(c.B * c.H, q_tiles), kThreadsA, LayoutA<D>::kBytes,
+                    c.stream>>>(tq, tk, tv, tdo, aa);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const ArgsB ab{c.stats, out(c.dk, 6), out(c.dv, 7), c.H, c.KV, c.H / c.KV,
+                 q_tiles * kRowsA, mk, c.scale, scale_log2};
+  dkdv_tc_kernel<D><<<dim3(c.B * c.KV, (c.Sk + kBox - 1) / kBox), kThreads,
+                      LayoutB<D>::kBytes, c.stream>>>(tq, tk, tv, tdo, ab);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 extern "C" {
 
 // dq, dk, dv of o = attention(q, k, v) given do, on `stream`: q, o, do, dq
@@ -636,8 +1317,54 @@ int flash_attention_backward(
   return static_cast<int>(err);
 }
 
+// The tensor-core instance: q, o, do, dq (B, H, S, D) and k, v, dk, dv
+// (B, KV, Sk, D), all bf16, D = 64 or 128.  q, k, v, o and do need
+// 16-byte-aligned bases and element strides over (B, heads, rows) that are
+// multiples of 8 (a dimension of size 1 may pass any such stride); dq, dk
+// and dv 4-byte-aligned bases and even strides.  `stats` is an fp32
+// scratch of 2 * B * H * S_pad floats, S_pad = S rounded up to a multiple
+// of 128, 16-byte aligned.  Same return convention as
+// flash_attention_backward, with the tensor-map errors of
+// flash_attention_backward_error_string besides.
+int flash_attention_backward_tc(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
+    int H, int KV, int S, int Sk, int D, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, long long do_sb, long long do_sh,
+    long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
+    long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
+    long long dv_sh, long long dv_ss, float scale, int causal, int window,
+    void* stream) {
+  tc::Call c{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(stats),
+             B, H, KV, S, Sk,
+             {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
+              {o_sb, o_sh, o_ss}, {do_sb, do_sh, do_ss},
+              {dq_sb, dq_sh, dq_ss}, {dk_sb, dk_sh, dk_ss},
+              {dv_sb, dv_sh, dv_ss}},
+             scale, causal, window, static_cast<cudaStream_t>(stream)};
+  bool ok = B >= 1 && H >= 1 && KV >= 1 && H % KV == 0 && S >= 1 &&
+            Sk >= 1 && (D == 64 || D == 128) &&
+            (S + tc::kRowsA - 1) / tc::kRowsA <= 65535 &&
+            (Sk + tc::kBox - 1) / tc::kBox <= 65535 &&
+            (Sk == S || (!causal && window <= 0));
+  for (int t = 0; t < 8; ++t)
+    for (long long st : c.st[t])
+      ok = ok && st > 0 && st % (t < 5 ? 8 : 2) == 0;
+  const void* const loaded[5] = {q, k, v, o, dout};
+  for (const void* p : loaded)
+    ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const void* const stored[3] = {dq, dk, dv};
+  for (const void* p : stored)
+    ok = ok && reinterpret_cast<uintptr_t>(p) % 4 == 0;
+  ok = ok && reinterpret_cast<uintptr_t>(stats) % 16 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return D == 64 ? tc::launch<64>(c) : tc::launch<128>(c);
+}
+
 const char* flash_attention_backward_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return tc::error_string(err);
 }
 
 }  // extern "C"

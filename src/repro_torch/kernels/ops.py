@@ -22,7 +22,9 @@ show that its path went through the kernels; ``flash_launches``,
 ``round_block_launches`` and ``ssd_launches`` split
 ``launches["flash_attention"]``, ``launches["csvm_round_block"]`` and
 ``launches["ssd_scan"]`` by the instance that ran (``flash_instance``,
-``round_block_instance``, ``ssd_instance``), and ``two_pass_launches``
+``round_block_instance``, ``ssd_instance``), ``flash_backward_launches``
+splits ``launches["flash_attention_backward"]``
+(``flash_backward_instance``), and ``two_pass_launches``
 splits ``launches["csvm_block_update"]`` plus
 ``launches["csvm_local_update"]`` (``two_pass_instance``).
 """
@@ -47,6 +49,11 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # FMAs on the CUDA cores
 FLASH_INSTANCES = ("wgmma", "fma")
 flash_launches: Dict[str, int] = {name: 0 for name in FLASH_INSTANCES}
+# flash_attention_backward's two instances: bf16 tensor cores (wgmma, TMA;
+# two kernels) and fp32 FMAs on the CUDA cores (three kernels)
+FLASH_BACKWARD_INSTANCES = ("wgmma", "fma")
+flash_backward_launches: Dict[str, int] = {
+    name: 0 for name in FLASH_BACKWARD_INSTANCES}
 # csvm_round_block's two instances: X streamed through shared memory once a
 # round (TMA bulk copies) and X read twice a round with plain loads
 ROUND_INSTANCES = ("stream", "direct")
@@ -86,6 +93,8 @@ def reset_launches() -> None:
         launches[name] = 0
     for name in FLASH_INSTANCES:
         flash_launches[name] = 0
+    for name in FLASH_BACKWARD_INSTANCES:
+        flash_backward_launches[name] = 0
     for name in ROUND_INSTANCES:
         round_block_launches[name] = 0
     for name in SSD_INSTANCES:
@@ -126,6 +135,9 @@ def _flash_backward_lib() -> ctypes.CDLL:
     lib.flash_attention_backward.argtypes = [_P] * 9 + [_I] * 7 + [
         _LL] * 24 + [_F, _I, _I, _P]
     lib.flash_attention_backward.restype = ctypes.c_int
+    lib.flash_attention_backward_tc.argtypes = [_P] * 9 + [_I] * 6 + [
+        _LL] * 24 + [_F, _I, _I, _P]
+    lib.flash_attention_backward_tc.restype = ctypes.c_int
     lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
     return lib
@@ -744,20 +756,27 @@ def _check_attention(q, k, v, window, instance=None, *, causal: bool):
     if instance not in (None,) + FLASH_INSTANCES:
         raise ValueError(f"{name}: unknown instance {instance!r}")
     if (instance or flash_instance(q.dtype, D)) == "wgmma":
-        if flash_instance(q.dtype, D) != "wgmma":
-            raise ValueError(f"{name}: the tensor-core instance takes bf16 "
-                             f"at D = 64 or 128, got {q.dtype}, D={D}")
-        # the tensor maps: 16-byte-aligned bases, strides of 16 bytes
-        for what, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: {what}'s base is not 16-byte "
-                                 "aligned, as the bf16 kernel's TMA loads "
-                                 "need")
-            if any(n > 1 and st % 8 for n, st in zip(t.shape[:3],
-                                                     t.stride()[:3])):
-                raise ValueError(f"{name}: {what}'s strides {t.stride()} "
-                                 "are not multiples of 16 bytes, as the "
-                                 "bf16 kernel's TMA loads need")
+        _check_tensor_core(name, q.dtype, D, q=q, k=k, v=v)
+
+
+def _check_tensor_core(name, dtype, D, **operands):
+    """The tensor-core instances' rules: bf16 at D = 64 or 128, and
+    operands that the tensor maps (and 16-byte loads) can take —
+    16-byte-aligned bases, strides of 16 bytes over the dimensions of
+    size > 1; raises ValueError."""
+    if flash_instance(dtype, D) != "wgmma":
+        raise ValueError(f"{name}: the tensor-core instance takes bf16 "
+                         f"at D = 64 or 128, got {dtype}, D={D}")
+    for what, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what}'s base is not 16-byte "
+                             "aligned, as the bf16 kernel's TMA loads "
+                             "need")
+        if any(n > 1 and st % 8 for n, st in zip(t.shape[:3],
+                                                 t.stride()[:3])):
+            raise ValueError(f"{name}: {what}'s strides {t.stride()} "
+                             "are not multiples of 16 bytes, as the "
+                             "bf16 kernel's TMA loads need")
 
 
 def _tma_strides(t):
@@ -824,22 +843,85 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                          sm_scale=sm_scale)
 
 
-def _check_backward(q, k, v, o, do, window, *, causal: bool):
-    """The forward's checks on q, k, v (either instance's rules: the
-    backward kernel reads fp32 and bf16 views alike), and o and do shaped,
-    typed and placed as q, with a unit stride over D."""
+def flash_backward_instance(dtype: torch.dtype, head_dim: int,
+                            *operands) -> str:
+    """The instance of the backward kernel that a CUDA call runs, by the
+    forward's rule (``flash_instance``): ``"wgmma"`` (bf16 tensor cores,
+    TMA) for bf16 at D = 64 or 128, ``"fma"`` (fp32 FMAs, any dtype)
+    otherwise; given the operands (q, k, v, o, do), a bf16 call whose
+    bases or strides the tensor maps cannot take goes to ``"fma"`` too."""
+    return flash_instance(dtype, head_dim, *operands)
+
+
+def _check_backward(q, k, v, o, do, window, instance=None, *,
+                    causal: bool):
+    """The forward's checks on q, k, v (the fp32-FMA instance's rules),
+    and o and do shaped, typed and placed as q, with a unit stride over D;
+    for ``instance`` (default: the one ``flash_backward_instance`` names
+    by dtype and head dim alone) ``"wgmma"``, the tensor-core rules on q,
+    k, v, o and do.  Raises ValueError or TypeError before any launch."""
+    name = "flash_attention_backward"
     _check_attention(q, k, v, window, "fma", causal=causal)
     for what, t in (("o", o), ("do", do)):
         if not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(
                 q.shape):
-            raise ValueError(f"flash_attention_backward: {what} must have "
-                             f"q's shape {tuple(q.shape)}")
+            raise ValueError(f"{name}: {what} must have q's shape "
+                             f"{tuple(q.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
-            raise TypeError(f"flash_attention_backward: {what} is {t.dtype} "
-                            f"on {t.device}, q {q.dtype} on {q.device}")
+            raise TypeError(f"{name}: {what} is {t.dtype} on {t.device}, q "
+                            f"{q.dtype} on {q.device}")
         if t.stride(-1) != 1:
-            raise ValueError(f"flash_attention_backward: {what} needs a "
-                             "unit stride over D")
+            raise ValueError(f"{name}: {what} needs a unit stride over D")
+    if instance not in (None,) + FLASH_BACKWARD_INSTANCES:
+        raise ValueError(f"{name}: unknown instance {instance!r}")
+    D = q.shape[-1]
+    if (instance or flash_backward_instance(q.dtype, D)) == "wgmma":
+        _check_tensor_core(name, q.dtype, D, q=q, k=k, v=v, o=o, do=do)
+
+
+def backward_stats_floats(B: int, H: int, S: int, instance: str) -> int:
+    """Floats of the fp32 scratch that one backward call of ``instance``
+    needs: m, l and delta per query row for ``"fma"``; lse and delta per
+    row, S rounded up to the tensor-core instance's 128-row query tiles,
+    for ``"wgmma"``."""
+    if instance == "wgmma":
+        return 2 * B * H * (-(-S // 128) * 128)
+    return 3 * B * H * S
+
+
+def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
+                           sm_scale):
+    """One call of ``instance`` on CUDA operands (checked here); returns
+    (dq, dk, dv).  ``flash_attention_backward`` calls it with
+    ``flash_backward_instance``'s choice; the fp32-FMA instance also takes
+    bf16."""
+    _check_backward(q, k, v, o, do, window, instance, causal=causal)
+    B, H, S, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty(backward_stats_floats(B, H, S, instance),
+                        dtype=torch.float32, device=q.device)
+    scale = float(sm_scale) if sm_scale is not None else D ** -0.5
+    lib = _flash_backward_lib()
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, stats)]
+    tail = (scale, int(bool(causal)),
+            int(window) if window is not None else 0, _stream(q.device))
+    with torch.cuda.device(q.device):
+        if instance == "wgmma":
+            strides = [st for t in (q, k, v, o, do, dq, dk, dv)
+                       for st in _tma_strides(t)]
+            err = lib.flash_attention_backward_tc(
+                *ptrs, B, H, KV, S, Sk, D, *strides, *tail)
+        else:
+            strides = [st for t in (q, k, v, o, do, dq, dk, dv)
+                       for st in t.stride()[:3]]
+            err = lib.flash_attention_backward(
+                *ptrs, int(q.dtype == torch.bfloat16), B, H, KV, S, Sk, D,
+                *strides, *tail)
+    _check_call("flash_attention_backward", err,
+                lib.flash_attention_backward_error_string)
+    flash_backward_launches[instance] += 1
+    return dq, dk, dv
 
 
 def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
@@ -851,32 +933,19 @@ def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
     out as its input (``torch.empty_like``: a transposed (B, S, heads, D)
     view gets a transposed result).
 
-    On the card: the three passes of ``csrc/flash_backward.cu`` (row
-    statistics, dk/dv per kv head and key tile, dq per head and query
-    tile), no atomics, so two launches on the same inputs agree bit for
-    bit; on the CPU: ``ref.mha_backward``."""
-    name = "flash_attention_backward"
-    if not _is_cuda(q, name):
+    On the card, the instance ``flash_backward_instance`` names from the
+    operands: bf16 at D = 64 or 128 with 16-byte-aligned bases and strides
+    runs the two tensor-core kernels of ``csrc/flash_backward.cu`` (lse,
+    delta and dq per head and query tile; dk and dv per kv head and key
+    tile); the rest its three fp32-FMA passes.  Neither uses atomics, so
+    two launches on the same inputs agree bit for bit.  On the CPU:
+    ``ref.mha_backward``."""
+    if not _is_cuda(q, "flash_attention_backward"):
         return ref.mha_backward(q, k, v, o, do, causal=causal, window=window,
                                 sm_scale=sm_scale)
-    _check_backward(q, k, v, o, do, window, causal=causal)
-    B, H, S, D = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
-    scale = float(sm_scale) if sm_scale is not None else D ** -0.5
-    lib = _flash_backward_lib()
-    strides = [st for t in (q, k, v, o, do, dq, dk, dv)
-               for st in t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_backward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), int(q.dtype == torch.bfloat16), B, H, KV, S,
-            Sk, D, *strides, scale, int(bool(causal)),
-            int(window) if window is not None else 0, _stream(q.device))
-    _check_call(name, err, lib.flash_attention_backward_error_string)
-    return dq, dk, dv
+    instance = flash_backward_instance(q.dtype, q.shape[-1], q, k, v, o, do)
+    return _flash_backward_launch(q, k, v, o, do, instance, causal=causal,
+                                  window=window, sm_scale=sm_scale)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1197,6 +1197,92 @@ def test_flash_backward_matches_plain(cuda, case, dtype):
         assert share <= 1.0
 
 
+# the cases of BACKWARD_SMALL that the tensor-core instance takes (bf16, D
+# = 64 or 128)
+BACKWARD_TC = [c for c in BACKWARD_SMALL if c[5] in (64, 128)]
+
+
+@pytest.mark.parametrize("instance", ["wgmma", "fma"])
+@pytest.mark.parametrize("case", BACKWARD_TC)
+def test_flash_backward_instances_match_plain(cuda, case, instance):
+    """Each instance of the backward kernel, forced by name, against
+    ``ref.mha_backward`` on the same bf16 inputs within chip_smoke's limit
+    (one bf16 ulp plus 2e-5 of max |grad|); two launches equal bit for
+    bit; each launch counted on its instance."""
+    causal, window = case[6], case[7]
+    q, k, v, o, do = chip_smoke.backward_inputs(torch, ops, case, "bfloat16",
+                                                cuda, seed=4)
+    assert ops.flash_backward_instance(q.dtype, q.shape[-1], q, k, v, o,
+                                       do) == "wgmma"
+    before = dict(ops.flash_backward_launches)
+    kw = dict(causal=causal, window=window, sm_scale=None)
+    got = ops._flash_backward_launch(q, k, v, o, do, instance, **kw)
+    again = ops._flash_backward_launch(q, k, v, o, do, instance, **kw)
+    assert ops.flash_backward_launches[instance] == before[instance] + 2
+    want = ref.mha_backward(q, k, v, o, do, causal=causal, window=window)
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert torch.equal(g, a)
+        assert g.dtype == t.dtype and g.stride() == t.stride()
+        _, _, share = chip_smoke.backward_deviation(torch, g, w, "bfloat16")
+        assert share <= 1.0
+
+
+@pytest.mark.parametrize("what", ["q", "k", "v", "o", "do"])
+@pytest.mark.parametrize("fault", ["base", "stride"])
+def test_misaligned_bf16_backward_takes_the_fma_instance(cuda, what, fault):
+    """A bf16 operand 2 bytes off a 16-byte boundary, or with a row pitch
+    of 132 elements (not a multiple of 16 bytes), sends the call
+    to the fp32-FMA instance, within the limit; the tensor-core instance,
+    forced, refuses it before any launch."""
+    case = (1, 4, 2, 96, 96, 128, True, None)
+    ins = dict(zip(("q", "k", "v", "o", "do"), chip_smoke.backward_inputs(
+        torch, ops, case, "bfloat16", cuda, seed=5)))
+    t = ins[what]
+    if fault == "base":
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        moved = flat[1:].view(t.shape)
+    else:
+        moved = torch.empty(*t.shape[:3], 132, dtype=t.dtype,
+                            device=cuda)[..., :128]
+    moved.copy_(t)
+    ins[what] = moved
+    args = tuple(ins.values())
+    assert ops.flash_backward_instance(moved.dtype, 128, *args) == "fma"
+    before = dict(ops.flash_backward_launches)
+    got = ops.flash_attention_backward(*args, causal=True)
+    assert ops.flash_backward_launches["fma"] == before["fma"] + 1
+    want = ref.mha_backward(*args, causal=True)
+    for g, w in zip(got, want):
+        assert chip_smoke.backward_deviation(torch, g, w, "bfloat16")[2] <= 1
+    before = dict(ops.launches)
+    with pytest.raises(ValueError, match="16"):
+        ops._flash_backward_launch(*args, "wgmma", causal=True, window=None,
+                                   sm_scale=None)
+    assert ops.launches == before
+
+
+def test_bf16_training_backward_runs_on_the_tensor_cores(cuda):
+    """A reduced qwen3 step in bf16 (D = 64): every backward launch on the
+    tensor-core instance, one a layer, no plain attention reached, finite
+    gradients."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import attention, model
+    cfg = configs.get_reduced("qwen3_14b", param_dtype="bfloat16")
+    lm = model.init_params(cfg, seed=0, device=cuda, trainable=True)
+    batch = next(token_stream(cfg, 2, 200, seed=1, device=cuda))
+    ops.reset_launches()
+    with chip_smoke.counted_plain(ref, attention) as calls:
+        loss = model.loss_fn(lm, batch, cfg)
+        loss.backward()
+    assert sum(calls.values()) == 0
+    assert ops.flash_backward_launches == {"wgmma": cfg.num_layers,
+                                           "fma": 0}
+    assert ops.launches["flash_attention_backward"] == cfg.num_layers
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in lm.parameters())
+
+
 def test_training_through_the_kernels_on_the_card(cuda, monkeypatch):
     """A reduced qwen3 step on the card: the flash forward twice a layer
     (pass and remat), the backward once, no plain attention reached, and

@@ -163,3 +163,227 @@ def test_chip_smoke_backward_checks_rehearsal(monkeypatch):
         (2, 40, 8, 4096, 4096, 128, True, None))
     assert pairs == 4096 * 4097 // 2 and by == "operations"
     assert abs(bms - 1e3 * 10 * 2 * 40 * pairs * 128 / 989e12) < 1e-9
+
+
+# --------------------------------------------------------------------------
+# The tensor-core instance of the backward kernel ("wgmma")
+# --------------------------------------------------------------------------
+
+def _emulate_tensor_core_backward(q, k, v, o, do, *, causal, window=None,
+                                  terms=(2,)):
+    """The tensor-core instance's rounding points (csrc/flash_backward.cu
+    flash_attention_backward_tc), emulated: q, k, v, do exact bf16, every
+    product accumulated in fp32; P, dP, delta and dS in fp32; P and dS
+    split into ``t`` bf16 terms (each the rounding of what the earlier
+    ones leave) before the three "P / dS x operand" products, each term
+    its own product into one fp32 sum; each gradient rounded once to
+    bf16.  Returns {t: (dq, dk, dv)} for each t of ``terms``."""
+    B, H, S, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = D ** -0.5
+    f32 = torch.float32
+    qf, dof = q.to(f32), do.to(f32)
+    kr = k.to(f32).repeat_interleave(g, dim=1)
+    vr = v.to(f32).repeat_interleave(g, dim=1)
+    qi = torch.arange(S)[:, None]
+    ki = torch.arange(Sk)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    probs = torch.softmax(torch.where(mask, qf @ kr.transpose(-1, -2) * scale,
+                                      ref.NEG_INF), dim=-1)
+    delta = (dof * o.to(f32)).sum(-1, keepdim=True)
+    ds = probs * (dof @ vr.transpose(-1, -2) - delta)
+
+    def split(x, t):
+        parts = []
+        for _ in range(t):
+            part = x.to(torch.bfloat16).to(f32)
+            parts.append(part)
+            x = x - part
+        return parts
+
+    def group_sum(x):
+        return x.reshape(B, KV, g, Sk, D).sum(dim=2)
+
+    out = {}
+    for t in terms:
+        p_t, ds_t = split(probs, t), split(ds, t)
+        dv = sum(p.transpose(-1, -2) @ dof for p in p_t)
+        dq = sum(d @ kr for d in ds_t) * scale
+        dk = sum(d.transpose(-1, -2) @ qf for d in ds_t) * scale
+        out[t] = (dq.to(torch.bfloat16), group_sum(dk).to(torch.bfloat16),
+                  group_sum(dv).to(torch.bfloat16))
+    return out
+
+
+# (B, H, KV, S, Sk, D, causal, window): qwen3-14b's head dim and group 5,
+# causal at a ragged S; D = 64 under a window of 17; non-causal with keys
+# of their own length
+EMULATED = [
+    (1, 10, 2, 997, 997, 128, True, None),
+    (1, 8, 2, 300, 300, 64, True, 17),
+    (2, 4, 4, 256, 300, 64, False, None),
+]
+
+
+@pytest.mark.parametrize("case", EMULATED)
+def test_tensor_core_backward_numerics_need_two_terms(case):
+    """chip_smoke.backward_deviation's bf16 limit (one bf16 ulp of the
+    plain gradient plus 2e-5 of its max) holds for the emulated
+    tensor-core instance with P and dS in two bf16 terms, and one term
+    breaks it many times over: which is why the kernel splits them."""
+    import chip_smoke
+    B, H, KV, S, Sk, D, causal, window = case
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16) for shape in (
+        (B, H, S, D), (B, KV, Sk, D), (B, KV, Sk, D), (B, H, S, D)))
+    o = ref.mha(q, k, v, causal=causal, window=window)
+    want = ref.mha_backward(q, k, v, o, do, causal=causal, window=window)
+    got = _emulate_tensor_core_backward(q, k, v, o, do, causal=causal,
+                                        window=window, terms=(1, 2))
+    shares = {t: [chip_smoke.backward_deviation(torch, g, w, "bfloat16")[2]
+                  for g, w in zip(grads, want)]
+              for t, grads in got.items()}
+    assert max(shares[2]) <= 1.0
+    assert min(shares[1]) > 4.0
+
+
+@pytest.mark.parametrize("dtype,D,instance", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 256, "fma"), (torch.bfloat16, 32, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+])
+def test_backward_instance_by_dtype_and_head_dim(dtype, D, instance):
+    assert ops.flash_backward_instance(dtype, D) == instance
+    assert ops.FLASH_BACKWARD_INSTANCES == ("wgmma", "fma")
+
+
+def _backward_operands(D=128, dtype=torch.bfloat16):
+    z = torch.zeros
+    return {"q": z(1, 4, 8, D, dtype=dtype), "k": z(1, 2, 8, D, dtype=dtype),
+            "v": z(1, 2, 8, D, dtype=dtype), "o": z(1, 4, 8, D, dtype=dtype),
+            "do": z(1, 4, 8, D, dtype=dtype)}
+
+
+@pytest.mark.parametrize("what", ["q", "k", "v", "o", "do"])
+@pytest.mark.parametrize("fault", ["base", "stride"])
+def test_misaligned_backward_operands_choose_the_fma_instance(what, fault):
+    """Given q, k, v, o and do, a bf16 call at D = 128 with one operand's
+    base 2 bytes off a 16-byte boundary, or its row pitch off 16 bytes,
+    goes to the fp32-FMA instance, whose checks pass; forced by name, the
+    tensor-core instance refuses it with ValueError before any launch."""
+    ins = _backward_operands()
+    assert ops.flash_backward_instance(torch.bfloat16, 128,
+                                       *ins.values()) == "wgmma"
+    ops._check_backward(*ins.values(), None, "wgmma", causal=True)
+    shape = tuple(ins[what].shape)
+    if fault == "base":
+        ins[what] = torch.zeros(1 + ins[what].numel(),
+                                dtype=torch.bfloat16)[1:].view(shape)
+        assert ins[what].data_ptr() % 16 == 2
+    else:
+        ins[what] = torch.zeros(*shape[:3], 132,
+                                dtype=torch.bfloat16)[..., :128]
+    assert ops.flash_backward_instance(torch.bfloat16, 128,
+                                       *ins.values()) == "fma"
+    ops._check_backward(*ins.values(), None, "fma", causal=True)
+    match = "16-byte aligned" if fault == "base" else "multiples of 16"
+    with pytest.raises(ValueError, match=match):
+        ops._check_backward(*ins.values(), None, "wgmma", causal=True)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 64)])
+def test_forced_tensor_core_backward_refuses_what_it_cannot_take(dtype, D):
+    """fp32 and D = 256 have no tensor-core backward: forced by name, the
+    check raises ValueError (before any launch); the default and the
+    fp32-FMA instance take them."""
+    ins = _backward_operands(D, dtype)
+    with pytest.raises(ValueError, match="takes bf16"):
+        ops._check_backward(*ins.values(), None, "wgmma", causal=True)
+    ops._check_backward(*ins.values(), None, causal=True)
+    ops._check_backward(*ins.values(), None, "fma", causal=True)
+    with pytest.raises(ValueError, match="unknown instance"):
+        ops._check_backward(*ins.values(), None, "tc", causal=True)
+
+
+def test_backward_scratch_by_instance():
+    """The fp32-FMA instance keeps m, l and delta per row; the tensor-core
+    one lse and delta per row of its 128-row query tiles."""
+    assert ops.backward_stats_floats(2, 40, 4096, "fma") == 3 * 2 * 40 * 4096
+    assert ops.backward_stats_floats(2, 40, 4096, "wgmma") == \
+        2 * 2 * 40 * 4096
+    assert ops.backward_stats_floats(1, 14, 999, "wgmma") == 2 * 14 * 1024
+
+
+def test_chip_smoke_backward_instance_rehearsal(monkeypatch):
+    """chip_smoke's phase 16 on CPU tensors at small shapes of its cases:
+    the cases at D = 64/128 only, both instance names running the plain
+    version (every reading 0), each control far above the limit, nothing
+    timed; and its reader of the tensor-core kernels' build."""
+    import types
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "BACKWARD_CASES", [
+        ("causal", (1, 4, 2, 40, 40, 64, True, None)),
+        ("cross", (2, 4, 4, 24, 37, 128, False, None)),
+        ("window", (1, 2, 1, 30, 30, 256, True, 9))])
+    devs = {}
+    rows = chip_smoke.backward_instance_checks(torch, ops, ref, "cpu", devs)
+    assert [r["case"] for r in rows] == ["causal", "cross"]
+    assert devs["flash_attention_backward"] == {"bfloat16": 0.0}
+    for row in rows:
+        for inst in ("wgmma", "fma"):
+            assert row[inst]["dq"]["share"] == 0.0
+            assert row[inst]["control"] > 100 * chip_smoke.BACKWARD_TOL_F32
+            assert "ms" not in row[inst]
+
+    names = [f"_ZN2tc{len(k)}{k}ILi{D}EEEv14CUtensorMap_stS1_S1_S1_NS_5Args"
+             f"{'A' if k.startswith('dq') else 'B'}E"
+             for k in chip_smoke.BACKWARD_TC_KERNELS for D in (64, 128)]
+    log_text = "".join(
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        for fn in names)
+    sass = "".join(
+        f"\t\tFunction : {fn}\n"
+        "        /*0100*/  UTMALDG.4D [UR8], [UR4] ;\n"
+        "        /*0200*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ ;\n"
+        "        /*0210*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR9], R24 ;\n"
+        "        /*0220*/  WARPGROUP.DEPBAR.LE gsb0, 0x0 ;\n"
+        for fn in names)
+    build = types.SimpleNamespace(build_log=lambda name: log_text)
+    monkeypatch.setattr(chip_smoke, "disassemble", lambda b, name: sass)
+    found = chip_smoke.backward_tensor_core_sass(build)
+    assert set(found) == {"dq_tc_kernel<64>", "dq_tc_kernel<128>",
+                          "dkdv_tc_kernel<64>", "dkdv_tc_kernel<128>"}
+    assert found["dkdv_tc_kernel<128>"]["HGMMA"] == 2
+    assert found["dkdv_tc_kernel<128>"]["registers"] == 168
+    spilled = log_text.replace("0 bytes spill stores", "708 bytes spill stores",
+                               1)
+    build = types.SimpleNamespace(build_log=lambda name: spilled)
+    with pytest.raises(chip_smoke.SmokeFailure, match="spills"):
+        chip_smoke.backward_tensor_core_sass(build)
+
+
+def test_library_names_hash_the_shared_header(tmp_path, monkeypatch):
+    """The tensor-core kernels include csrc/hopper.cuh: a library's name
+    hashes every header under csrc/ beside its source, so an edited header
+    builds a new library instead of loading a stale one."""
+    from repro_torch.kernels import build
+    assert (build.CSRC / "hopper.cuh").exists()
+    src, header = tmp_path / "k.cu", tmp_path / "h.cuh"
+    src.write_text("#include \"h.cuh\"\n")
+    header.write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setitem(build.SOURCES, "k", src)
+    before = build.library_path("k")
+    assert build.library_path("k") == before
+    header.write_text("// two\n")
+    assert build.library_path("k") != before
