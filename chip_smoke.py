@@ -197,15 +197,34 @@ result lines):
    forward launches a step, the pass and its remat, and 4 backward, all
    on the tensor-core instances;
    finite losses; step ms, tokens/s, peak memory, forward plus backward
-   against the optimizer), a checkpoint resume at the reduced config (bit
-   for bit), and mamba2's refusal to train on the card (no ssd_scan
-   backward kernel yet);
+   against the optimizer), and a checkpoint resume at the reduced config
+   (bit for bit);
 16. the two instances of ``flash_attention_backward`` on the same bf16
    inputs at every ``BACKWARD_CASES`` shape the tensor-core one takes
    (D = 64/128), each forced by name against ``ref.mha_backward`` within
    the bf16 limit with a control above it, relaunches bit for bit; then
    the two timed in turns beside the bound, the tensor-core one no slower
-   (``time flash_attention_backward instances`` lines).
+   (``time flash_attention_backward instances`` lines);
+17. mamba2 training: ``ssd_scan_backward`` (``csrc/ssd_backward.cu``)
+   against ``ref.ssd_scan_backward`` at ``SSD_CASES`` and at mamba2-370m's
+   training shape (b 8, s 2048, 32 heads of 64, n 128, chunk 64), fp32
+   and bf16, dfinal None and drawn, mamba2's x, B, C as strided slices of
+   one conv output: each gradient within its limit (a share of its max
+   |grad|; bf16 dx, dB, dC one ulp beyond it) with a control above it,
+   two launches equal bit for bit; its times beside plain and the bound
+   at the training shape (split by kernel) and at (1, 2048); then
+   mamba2-370m as configured (48 layers, bf16, no cut): one step's loss
+   and gradients through the kernels against the same step with the plain
+   scan under torch autograd (B = 2 x S = 2048, A_log, D and dt_bias
+   among the leaves, a control above the limit; no plain scan reached
+   under grad), and so in an fp32 copy cut to 2 layers, ``train_loop``
+   for 10 steps at B = 8 x S = 2048 (the
+   counters read around it: 2 ``ssd_scan`` launches a layer a step, all
+   on the tensor-core instance, and one ``ssd_scan_backward``; nothing
+   else; finite losses; step ms, tokens/s, peak memory) and a checkpoint
+   resume at the reduced config (bit for bit) — the ``check
+   ssd_scan_backward``, ``time ssd_scan_backward`` and ``train ...``
+   lines.
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -489,6 +508,55 @@ TRAIN_GRAD_TOL = 6e-2
 CKPT_ARCH = "qwen3_14b"
 CKPT_BATCH, CKPT_SEQ = 2, 128
 
+# phase 17: mamba2 training.  ssd_scan_backward at SSD_CASES and at
+# mamba2-370m's training shape (b 8, s 2048, 32 heads of 64, n 128, chunk
+# 64), each with dfinal zero (None) and drawn.
+SSD_TRAIN_CASE = (8, 2048, 32, 64, 128, 64)
+SSD_BACKWARD_CASES = SSD_CASES + [SSD_TRAIN_CASE]
+# The kernel against ref.ssd_scan_backward on the same inputs: each
+# gradient's max |dev| as a share of its max |grad|.  fp32 outputs (all six
+# in fp32; ddt, dA and dD in bf16): the same fp32 closed form summed in
+# another order; each limit is about three of the largest reading of a
+# first check of the kernel at these shapes, dA's the widest (a sum over
+# every row of dt times the reverse cumsum of dcum, whose terms cancel).
+# This phase's largest readings on an H100 (NVIDIA H100 80GB HBM3, 700.00
+# W, the 256-thread gradient pass) were dx 2.86e-7, ddt 6.09e-7, dA
+# 1.22e-5, dB 1.01e-6, dC 3.41e-7, dD 4.89e-7: 0.12-0.72 of the limits.
+# bf16 dx, dB, dC: both round the fp32 gradient once, so an entry may
+# differ by one bf16 ulp of the plain one plus that floor (readings up to
+# 0.96 of it).  The control: the kernel's gradients against plain's for dy
+# one row later (``roll``), which must exceed each fp32 limit (its
+# smallest reading, 0.11 of max |dD|, is 8.7e4 times dD's limit).
+SSD_BACKWARD_TOL = {"dx": 4e-7, "ddt": 2.2e-6, "dA": 1e-4, "dB": 2e-6,
+                    "dC": 6e-7, "dD": 1.3e-6}
+SSD_GRADS = tuple(SSD_BACKWARD_TOL)
+# mamba2-370m as configured (48 layers, d_model 1024, bf16): the kernel
+# step against the step with the plain scan (``ssd_chunked`` under torch
+# autograd on the card) at B = 2 x S = 2048, then train_loop for
+# TRAIN_STEPS steps at B = 8 x S = 2048; the checkpoint resume at the
+# reduced config.
+MAMBA_TRAIN_ARCH = "mamba2_370m"
+MAMBA_STEP_BATCH = 2
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 8, 2048
+# The kernel step against the plain-scan step: |loss_k - loss_p|, and for
+# each parameter max |g_k - g_p| over max |g_p|; the control, another
+# batch's kernel gradients against this batch's plain ones, must exceed
+# the gradient limit at every leaf.  bf16, 48 layers: the first H100
+# reading (NVIDIA H100 80GB HBM3, 700.00 W) was 2.52e-4 on the loss (of
+# 11.06) and 0.145 on the gradients (layers.28.mixer.A_log; median
+# 4.5e-2): one-ulp differences of each layer's bf16 y carried through 48
+# layers (the prefill logits of phase 10 differ by 0.148 the same way),
+# largest on A_log and dt_bias, whose gradients are sums over every row
+# that cancel.  The limits are about three of it, the gradients' 2.8 of
+# it, under the control's smallest leaf (0.46).  fp32, full width cut to
+# 2 layers (as phase 10's fp32 check): the fp32 closed form summed in
+# another order through two layers; the first reading was 0 on the loss
+# and 5.56e-5 on the gradients (layers.0.mixer.A_log; median 9.0e-7), the
+# gradients' limit about three of it and the loss's the fp32 tier.
+MAMBA_STEP_TOL = {"bfloat16": dict(loss=7.5e-4, grad=0.4),
+                  "float32": dict(loss=1e-4, grad=1.7e-4)}
+MAMBA_FP32_LAYERS = 2
+
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
     "csvm_local_update": "src/repro/kernels/csvm_update.py:83",
@@ -499,6 +567,9 @@ REPLACES = {
     "flash_attention_backward": "no Pallas kernel: XLA autodiff of "
                                 "repro.models.attention._attend "
                                 "(src/repro/models/attention.py:74-126)",
+    "ssd_scan_backward": "no Pallas kernel: XLA autodiff of "
+                         "repro.models.ssm.ssd_chunked "
+                         "(src/repro/models/ssm.py:53-106)",
 }
 SOURCES = {name: "src/repro_torch/kernels/csrc/csvm_update.cu"
            for name in FIT_KERNELS}
@@ -506,6 +577,7 @@ SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCES["ssd_scan"] = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SOURCES["flash_attention_backward"] = \
     "src/repro_torch/kernels/csrc/flash_backward.cu"
+SOURCES["ssd_scan_backward"] = "src/repro_torch/kernels/csrc/ssd_backward.cu"
 
 
 def log(*args):
@@ -3500,13 +3572,11 @@ def backward_instance_checks(torch, ops, ref, device, devs: dict):
 
 
 @contextlib.contextmanager
-def counted_plain(ref, attention):
-    """Counts the calls of the plain attention and its plain backward
-    (``ref.mha``, ``ref.mha_backward``, ``attention._attend``) inside the
-    block."""
+def counted_calls(targets):
+    """Counts the calls of each ``(module, name)`` function of ``targets``
+    inside the block, by name, and puts the functions back after."""
     calls = collections.Counter()
-    saved = [(ref, "mha"), (ref, "mha_backward"), (attention, "_attend")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     for mod, name, fn in saved:
         def wrapped(*a, _fn=fn, _name=name, **kw):
             calls[_name] += 1
@@ -3517,6 +3587,14 @@ def counted_plain(ref, attention):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def counted_plain(ref, attention):
+    """Counts the calls of the plain attention and its plain backward
+    (``ref.mha``, ``ref.mha_backward``, ``attention._attend``) inside the
+    block."""
+    return counted_calls([(ref, "mha"), (ref, "mha_backward"),
+                          (attention, "_attend")])
 
 
 def leaf_deviation(torch, got, want) -> float:
@@ -3633,35 +3711,30 @@ def step_events(torch, train):
         train.model.loss_fn, train.adamw_update = loss_fn, update
 
 
-def train_run(torch, ops, train, cfg):
-    """``train_loop`` for TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_SEQ on
+def timed_train_loop(torch, ops, train, cfg, batch: int, seq: int,
+                     steps: int = TRAIN_STEPS):
+    """``train_loop`` for ``steps`` steps at batch x seq on
     ``token_stream``, with the counters set to 0 just before and read just
-    after: every loss and gnorm finite, each step 2 flash forward
-    launches a layer (pass and remat) on the tensor-core instance and one
-    backward, on the tensor-core instance too, nothing else launched.  Each step is timed by CUDA events
-    from the call of ``loss_fn`` to the end of ``adamw_update``
-    (``step_events``).  Returns the launches and the times."""
-    L = cfg.num_layers
+    after; each step timed by CUDA events from the call of ``loss_fn`` to
+    the end of ``adamw_update`` (``step_events``), every loss and gnorm
+    finite.  Returns the launches (by kernel and by instance), the step
+    times and the peak memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
     with step_events(torch, train) as events:
-        _, losses = train.train_loop(cfg, steps=TRAIN_STEPS,
-                                     batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        _, losses = train.train_loop(cfg, steps=steps, batch=batch, seq=seq,
                                      lr=3e-4, log_every=1, seed=0,
                                      device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(len(events) == TRAIN_STEPS and all("end" in e for e in events),
-          f"train_loop: {len(events)} steps timed, expected {TRAIN_STEPS}")
+    check(len(events) == steps and all("end" in e for e in events),
+          f"train_loop: {len(events)} steps timed, expected {steps}")
     history = [dict(loss=float(e["loss"]), gnorm=float(e["gnorm"]),
                     ms=e["start"].elapsed_time(e["end"]),
                     fwd_bwd_ms=e["start"].elapsed_time(e["mid"]),
                     opt_ms=e["mid"].elapsed_time(e["end"])) for e in events]
-    launches = dict(ops.launches)
-    instances = dict(ops.flash_launches)
-    backward_instances = dict(ops.flash_backward_launches)
     peak = torch.cuda.max_memory_allocated()
     for i, h in enumerate(history):
         log(f"train step {i}: loss {h['loss']:.6f} gnorm {h['gnorm']:.6f} "
@@ -3669,6 +3742,29 @@ def train_run(torch, ops, train, cfg):
             f"optimizer {h['opt_ms']:.2f})")
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"])
               for h in history), "train_loop: a non-finite loss or gnorm")
+
+    def median(key):
+        return float(sorted(h[key] for h in history)[len(history) // 2])
+    med = median("ms")
+    return dict(launches=dict(ops.launches),
+                flash_instances=dict(ops.flash_launches),
+                backward_instances=dict(ops.flash_backward_launches),
+                ssd_instances=dict(ops.ssd_launches), median_step_ms=med,
+                fwd_bwd_ms=median("fwd_bwd_ms"), opt_ms=median("opt_ms"),
+                tokens_per_s=batch * seq / med * 1e3, peak_bytes=peak,
+                wall_s=wall, steps=history, losses=losses)
+
+
+def train_run(torch, ops, train, cfg):
+    """``timed_train_loop`` for TRAIN_STEPS steps at TRAIN_BATCH x
+    TRAIN_SEQ: each step 2 flash forward launches a layer (pass and remat)
+    on the tensor-core instance and one backward, on the tensor-core
+    instance too, nothing else launched.  Returns the launches and the
+    times."""
+    L = cfg.num_layers
+    run = timed_train_loop(torch, ops, train, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    launches, instances = run["launches"], run["flash_instances"]
+    backward_instances = run["backward_instances"]
     want = {name: 0 for name in ops.KERNELS}
     want.update(flash_attention=2 * L * TRAIN_STEPS,
                 flash_attention_backward=L * TRAIN_STEPS)
@@ -3679,33 +3775,29 @@ def train_run(torch, ops, train, cfg):
     check(backward_instances == {"wgmma": L * TRAIN_STEPS, "fma": 0},
           f"train_loop: backward launches by instance {backward_instances}, "
           "expected every one on the tensor-core instance")
-    med = float(sorted(h["ms"] for h in history)[len(history) // 2])
-    fb = float(sorted(h["fwd_bwd_ms"] for h in history)[len(history) // 2])
-    opt = float(sorted(h["opt_ms"] for h in history)[len(history) // 2])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses = run.pop("losses")
     log(f"train {cfg.name} {L} layers, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
-        f"{TRAIN_STEPS} steps in {wall:.2f} s, median step {med:.2f} ms "
-        f"({tokens / med * 1e3:.1f} tokens/s; forward + backward {fb:.2f} "
-        f"ms, optimizer {opt:.2f} ms, CUDA events), peak memory "
-        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); launches "
-        f"{launches['flash_attention']} flash forward ({L} + {L} remat a "
-        f"step), {launches['flash_attention_backward']} backward "
+        f"{TRAIN_STEPS} steps in {run['wall_s']:.2f} s, median step "
+        f"{run['median_step_ms']:.2f} ms ({run['tokens_per_s']:.1f} "
+        f"tokens/s; forward + backward {run['fwd_bwd_ms']:.2f} ms, "
+        f"optimizer {run['opt_ms']:.2f} ms, CUDA events), peak memory "
+        f"{run['peak_bytes'] / 1e9:.2f} GB (torch.cuda.max_memory_allocated);"
+        f" launches {launches['flash_attention']} flash forward ({L} + {L} "
+        f"remat a step), {launches['flash_attention_backward']} backward "
         f"{json.dumps(backward_instances)}; loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}")
-    return dict(launches=launches, flash_instances=instances,
-                backward_instances=backward_instances,
-                median_step_ms=med, fwd_bwd_ms=fb, opt_ms=opt,
-                tokens_per_s=tokens / med * 1e3, peak_bytes=peak,
-                wall_s=wall, steps=history)
+    return run
 
 
-def checkpoint_resume(torch, configs, model, train, data, ckpt):
-    """At the reduced config on the card: two steps, a checkpoint, step 3;
-    then a fresh model and state restored from it take step 3 again; the
-    loss, gnorm, parameters and moments must equal bit for bit."""
+def checkpoint_resume(torch, configs, model, train, data, ckpt,
+                      arch=CKPT_ARCH):
+    """At ``arch``'s reduced config on the card: two steps, a checkpoint,
+    step 3; then a fresh model and state restored from it take step 3
+    again; the loss, gnorm, parameters and moments must equal bit for
+    bit."""
     import shutil
     from repro_torch.optim import AdamWConfig, adamw_init
-    cfg = configs.get_reduced(CKPT_ARCH)
+    cfg = configs.get_reduced(arch)
     lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
     state = adamw_init(lm)
     step = train.make_train_step(cfg, AdamWConfig(lr=1e-3), total_steps=10)
@@ -3737,37 +3829,10 @@ def checkpoint_resume(torch, configs, model, train, data, ckpt):
     return dict(loss=float(m["loss"]), gnorm=float(m["gnorm"]))
 
 
-def mamba_refusal(torch, ops, configs, model, train, data):
-    """mamba2's reduced config on the card: ``train_step`` raises
-    NotImplementedError, naming the ROADMAP item, before any ssd_scan
-    launch."""
-    from repro_torch.optim import AdamWConfig, adamw_init
-    cfg = configs.get_reduced("mamba2_370m")
-    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
-    step = train.make_train_step(cfg, AdamWConfig())
-    batch = next(data.token_stream(cfg, 2, 64, seed=0, device="cuda"))
-    before = dict(ops.launches)
-    try:
-        step(lm, adamw_init(lm), batch)
-        raised = None
-    except NotImplementedError as err:
-        raised = str(err)
-    log(f"train {cfg.name} on the card: "
-        f"{'NotImplementedError: ' + raised if raised else 'no error'}; "
-        f"ssd_scan launches {ops.launches['ssd_scan'] - before['ssd_scan']}")
-    check(raised is not None and "13.6" in raised,
-          "mamba2 training on the card did not raise NotImplementedError "
-          "naming ROADMAP Queue 1 item 13.6")
-    check(ops.launches == before, f"mamba2 training launched "
-          f"{ {k: ops.launches[k] - before[k] for k in before} } before "
-          "raising")
-
-
 def training_phase(torch, ops, ref, devs: dict):
     """Phase 15: the backward kernel's checks and times, the kernel step
     against the plain one and ``train_loop`` at qwen3-14b's full width (4
-    layers), the checkpoint resume and mamba2's refusal.  Returns the
-    phase's numbers."""
+    layers), and the checkpoint resume.  Returns the phase's numbers."""
     from repro_torch import checkpoint as ckpt
     from repro_torch import configs
     from repro_torch.data import synthetic as data
@@ -3788,9 +3853,367 @@ def training_phase(torch, ops, ref, devs: dict):
                                      next(stream), next(stream))
     run = train_run(torch, ops, train, cfg)
     resume = checkpoint_resume(torch, configs, model, train, data, ckpt)
-    mamba_refusal(torch, ops, configs, model, train, data)
     seconds = time.perf_counter() - t0
     log(f"phase 15: {seconds:.1f} s")
+    return dict(readings=readings, timing=timing, step_check=step_check,
+                run=run, resume=resume, seconds=seconds)
+
+
+# --------------------------------------------------------------------------
+# phase 17: the ssd_scan backward kernel and mamba2 training
+# --------------------------------------------------------------------------
+
+def ssd_backward_inputs(torch, case, dtype, device, seed, dfinal: bool):
+    """``ssd_inputs`` of the case, then dy (b, s, h, p) in the inputs'
+    dtype (standard normal) and dfinal (b, h, p, n) fp32 (standard normal)
+    or None."""
+    b, s, h, p, n = case[:5]
+    args = ssd_inputs(torch, case, dtype, device, seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1000)
+    f32 = dict(generator=gen, device=device, dtype=torch.float32)
+    dy = torch.randn((b, s, h, p), **f32).to(args[0].dtype)
+    final = torch.randn((b, h, p, n), **f32) if dfinal else None
+    return (*args, dy, final)
+
+
+def ssd_backward_deviation(torch, name, got, want, dtype):
+    """(max |dev|, max |dev| / max |want|, the share of the limit used) of
+    one gradient: fp32 outputs (all in fp32; ddt, dA, dD in bf16) against
+    SSD_BACKWARD_TOL[name] max |want|, bf16 dx, dB, dC against one bf16
+    ulp of each plain entry plus that floor."""
+    dev = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    worst = float(dev.max())
+    floor = SSD_BACKWARD_TOL[name] * scale
+    if dtype == "float32" or got.dtype == torch.float32:
+        share = worst / floor if floor > 0 else (0.0 if worst == 0 else
+                                                 math.inf)
+    else:
+        share = float((dev / (BF16_ULP * want.float().abs() + floor)).max())
+    return worst, worst / max(scale, 1e-30), share
+
+
+def ssd_backward_checks(torch, ops, ref, device, devs: dict,
+                        cases=SSD_BACKWARD_CASES):
+    """At every case, fp32 and bf16, with dfinal None and drawn:
+    ``ssd_scan_backward`` against ``ref.ssd_scan_backward`` on the same
+    inputs (mamba2-370m's x, B, C as strided slices of one conv output):
+    two launches, equal bit for bit; each of the six gradients in its
+    dtype and shape, finite, within its limit; the control (the kernel's
+    gradients against plain's for dy one row later) above each fp32
+    limit.  Returns the readings."""
+    cuda = torch.device(device).type == "cuda"
+    readings = []
+    for i, case in enumerate(cases):
+        b, s, h, p, n, chunk = case
+        for dtype in ("float32", "bfloat16"):
+            for with_final in (False, True):
+                args = ssd_backward_inputs(torch, case, dtype, device,
+                                           seed=300 + i, dfinal=with_final)
+                what = (f"ssd_scan_backward b={b} s={s} h={h} p={p} n={n} "
+                        f"chunk={chunk} {dtype} dfinal "
+                        f"{'drawn' if with_final else 'None'}")
+                before = ops.launches["ssd_scan_backward"]
+                got = ops.ssd_scan_backward(*args, chunk=chunk)
+                again = ops.ssd_scan_backward(*args, chunk=chunk)
+                if cuda:
+                    check(ops.launches["ssd_scan_backward"] - before == 2,
+                          f"{what}: did not launch the kernel twice")
+                    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                          f"{what}: two launches on the same inputs differ")
+                del again
+                want = ref.ssd_scan_backward(*args, chunk=chunk)
+                x, dy = args[0], args[6]
+                shifted = ref.ssd_scan_backward(
+                    *args[:6], dy.roll(1, dims=1), args[7], chunk=chunk)
+                shapes = ((b, s, h, p), (b, s, h), (h,), (b, s, n),
+                          (b, s, n), (h,))
+                dtypes = (x.dtype, torch.float32, torch.float32, x.dtype,
+                          x.dtype, torch.float32)
+                reading, control = {}, {}
+                for name, g, w, c, shape, dt in zip(
+                        SSD_GRADS, got, want, shifted, shapes, dtypes):
+                    check(tuple(g.shape) == shape and g.dtype == dt,
+                          f"{what}: {name} {tuple(g.shape)} {g.dtype}, "
+                          f"expected {shape} {dt}")
+                    check(bool(torch.isfinite(g).all()),
+                          f"{what}: non-finite {name}")
+                    reading[name] = ssd_backward_deviation(torch, name, g, w,
+                                                           dtype)
+                    control[name] = float((g.float() - c.float()).abs().max(
+                    )) / max(float(c.float().abs().max()), 1e-30)
+                log(f"check {what}: " + ", ".join(
+                    f"{n} {r:.2e} of max ({sh:.3f} of the limit)"
+                    for n, (_, r, sh) in reading.items())
+                    + "; control (dy one row later) " + ", ".join(
+                        f"{n} {c:.2e}" for n, c in control.items()))
+                for name, (_, _, share) in reading.items():
+                    check(share <= 1.0, f"{what}: {name} at {share:.3f}x "
+                          "its limit")
+                    check(control[name] > SSD_BACKWARD_TOL[name],
+                          f"{what}: the control of {name} "
+                          f"{control[name]:.3e} is within its limit")
+                record(devs, "ssd_scan_backward", dtype,
+                       max(d for d, _, _ in reading.values()))
+                readings.append(dict(
+                    case=list(case), dtype=dtype, dfinal=with_final,
+                    control=control,
+                    **{n: dict(max_abs_dev=d, rel=r, share=sh)
+                       for n, (d, r, sh) in reading.items()}))
+                del got, want, shifted, args
+                if cuda:
+                    torch.cuda.empty_cache()
+    return readings
+
+
+def ssd_backward_work(b, s, h, p, n, chunk, itemsize, dfinal=True):
+    """(flops, bytes) of one ``ssd_scan_backward`` call.  Flops: two a
+    multiply-add of the closed form, per (b, head) and chunk of v valid
+    rows with t = v(v+1)/2 pairs j <= i: six v·p·n products (the chunk's
+    local state and dy (x) C sum for the state walk, g B, state_in^T dy,
+    g^T xdt and the carry-in's C . (state_in^T dy) share folded into
+    them) and four t-pair products (M^T dy, dy . xdt, S B, S C: two over
+    p, two over n), and per (b, chunk) G = C B^T over its t pairs.  Bytes:
+    x, dy, dx (itemsize), B, C, dB, dC (itemsize), dt, ddt (fp32), A, D,
+    dA, dD (fp32) and dfinal (fp32) once each; the fp32 state scratch is
+    the kernel's choice, not the function's."""
+    full, tail = divmod(s, chunk)
+    rows = [chunk] * full + ([tail] if tail else [])
+    pairs = sum(v * (v + 1) // 2 for v in rows)
+    flops = 2 * b * (h * (6 * s * p * n + 2 * pairs * p + 2 * pairs * n)
+                     + pairs * n)
+    nbytes = ((3 * b * s * h * p + 4 * b * s * n) * itemsize
+              + 2 * b * s * h * 4 + 4 * h * 4
+              + (b * h * p * n * 4 if dfinal else 0))
+    return flops, nbytes
+
+
+def ssd_backward_bound(b, s, h, p, n, chunk, itemsize, dfinal=True):
+    """The least time of one ``ssd_scan_backward`` call (``bound``): the
+    flops of ``ssd_backward_work`` at the peak of the input type (bf16:
+    the tensor cores), or its bytes at the memory rate."""
+    flops, nbytes = ssd_backward_work(b, s, h, p, n, chunk, itemsize,
+                                      dfinal)
+    return bound(flops, nbytes, PEAK_BF16 if itemsize == 2 else PEAK_FP32)
+
+
+def ssd_backward_timings(torch, ops, ref, device):
+    """The kernel beside ``ref.ssd_scan_backward`` (in turns: kernel,
+    plain, plain, kernel; CUDA events) and its bound, at mamba2-370m's
+    training shape (the first row; its device time split by kernel with
+    ``kernel_split``) and at one 2048-token sequence, bf16 inputs as the
+    model gives them, dfinal None (as in training).  No single torch call
+    computes the scan's gradient: no library time."""
+    rows = []
+    for case in (SSD_TRAIN_CASE, (1, 2048, 32, 64, 128, 64)):
+        args = ssd_backward_inputs(torch, case, "bfloat16", device,
+                                   seed=case[0], dfinal=False)
+        chunk = case[5]
+        kernel = lambda: ops.ssd_scan_backward(*args, chunk=chunk)
+        plain = lambda: ref.ssd_scan_backward(*args, chunk=chunk)
+        times = paired_ms(torch, kernel, plain, 5, 2)
+        bms, by = ssd_backward_bound(*case, 2, dfinal=False)
+        flops, nbytes = ssd_backward_work(*case, 2, dfinal=False)
+        row = dict(times, bound_ms=bms, bound_by=by, library_ms=None,
+                   flops=flops, bytes=nbytes,
+                   tflops=flops / times["ms"] / 1e9,
+                   shape=f"x (b={case[0]}, s={case[1]}, h=32, p=64), B/C "
+                         f"(n=128) bf16 strided, chunk 64")
+        if case == SSD_TRAIN_CASE:
+            row["split"] = kernel_split(torch, kernel)
+        rows.append(row)
+        log(f"time ssd_scan_backward [{row['shape']}]: {row['ms']:.4f} ms "
+            f"(samples {row['ms_samples'][0]:.4f}, "
+            f"{row['ms_samples'][1]:.4f}; {row['tflops']:.2f} TFLOP/s of "
+            f"the function's {flops / 1e9:.2f} GFLOP, {bms / row['ms']:.4f} "
+            f"of the bound), plain {row['plain_ms']:.4f} ms (samples "
+            f"{row['plain_ms_samples'][0]:.4f}, "
+            f"{row['plain_ms_samples'][1]:.4f}), bound {bms:.4f} ms ({by}; "
+            f"{nbytes / 1e9:.4f} GB), library: none"
+            + ("; by kernel " + json.dumps(
+                {k: round(v, 4) for k, v in row["split"].items()})
+               if "split" in row else ""))
+        del args
+        torch.cuda.empty_cache()
+    return dict(rows[0], variants=rows[1:])
+
+
+def counted_plain_scan(ref, ssm):
+    """Counts the calls of the plain scans and the plain backward
+    (``ref.ssd_scan``, ``ref.ssd_scan_backward``, ``ssm.ssd_chunked``)
+    inside the block."""
+    return counted_calls([(ref, "ssd_scan"), (ref, "ssd_scan_backward"),
+                          (ssm, "ssd_chunked")])
+
+
+def autograd_ssd(x, dt, A, B, C, D, cfg):
+    """The plain scan under torch autograd on any device: the port's
+    ``ssd_chunked`` at the JAX package's chunk (the plain step's
+    yardstick only)."""
+    from repro_torch.models import ssm
+    return ssm.ssd_chunked(x, dt, A, B, C,
+                           ssm.jax_chunk(cfg.ssm_chunk, x.shape[1]), D=D)
+
+
+def mamba_step_vs_plain(torch, ops, ref, model, cfg, batch, other):
+    """mamba2's training step with the kernels against the same step with
+    the plain scan under torch autograd swapped in (``autograd_ssd``),
+    from the same weights and batch, within ``MAMBA_STEP_TOL`` of the
+    config's dtype; the control is the kernel step's gradients of
+    ``other``.  The kernel step must launch ``ssd_scan`` twice a layer (the
+    pass and its remat; bf16 on the tensor-core instance, fp32 on the
+    fp32-FMA one) and ``ssd_scan_backward`` once, and call no plain
+    scan."""
+    from repro_torch.models import ssm
+    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
+    L = cfg.num_layers
+    tol = MAMBA_STEP_TOL[cfg.param_dtype]
+    instance = "wgmma" if cfg.param_dtype == "bfloat16" else "fma"
+
+    def loss_and_grads(b):
+        lm.zero_grad(set_to_none=True)
+        loss = model.loss_fn(lm, b, cfg)
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in lm.named_parameters()}
+        lm.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    ops.reset_launches()
+    with counted_plain_scan(ref, ssm) as calls:
+        loss_k, grads_k = loss_and_grads(batch)
+        torch.cuda.synchronize()
+    ran = dict(ops.launches)
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(ssd_scan=2 * L, ssd_scan_backward=L)
+    check(sum(calls.values()) == 0, f"mamba train step: a CUDA tensor "
+          f"under grad reached a plain scan: {dict(calls)}")
+    check(ran == want, f"mamba train step: launches {ran}, expected {want}")
+    check(ops.ssd_launches == {k: 2 * L * (k == instance)
+                               for k in ops.SSD_INSTANCES},
+          f"mamba train step: ssd_scan by instance {ops.ssd_launches}")
+    kernel_ssd = ssm.ssd
+    ssm.ssd = autograd_ssd
+    try:
+        ops.reset_launches()
+        loss_p, grads_p = loss_and_grads(batch)
+        check(ops.launches == {name: 0 for name in ops.KERNELS},
+              f"train step with the plain scan launched {ops.launches}")
+    finally:
+        ssm.ssd = kernel_ssd
+    _, grads_c = loss_and_grads(other)
+    devs = {n: leaf_deviation(torch, g, grads_p[n])
+            for n, g in grads_k.items() if float(grads_p[n].abs().max()) > 0}
+    ctl = {n: leaf_deviation(torch, grads_c[n], grads_p[n]) for n in devs}
+    loss_dev = abs(float(loss_k) - float(loss_p))
+    worst = max(devs, key=devs.get)
+    log(f"train step {cfg.name} {L} layers {cfg.param_dtype} "
+        f"B={batch['tokens'].shape[0]} S={batch['tokens'].shape[1]}: loss "
+        f"kernel {float(loss_k):.6f}, plain scan {float(loss_p):.6f}, |dev| "
+        f"{loss_dev:.4e} (limit {tol['loss']:g}); gradients, max over "
+        f"{len(devs)} parameters (of {len(grads_k)}; the rest have no "
+        f"gradient on either side) of max|g_k - g_p| / max|g_p|: "
+        f"{devs[worst]:.4e} at {worst} (limit {tol['grad']:g}), median "
+        f"{sorted(devs.values())[len(devs) // 2]:.4e}; control (another "
+        f"batch's kernel gradients) max {max(ctl.values()):.4e}, min "
+        f"{min(ctl.values()):.4e}")
+    for n in sorted(devs, key=devs.get)[-6:]:
+        log(f"train step leaf {n}: {devs[n]:.4e} (control {ctl[n]:.4e})")
+    for n in sorted(n for n in devs if n.endswith(("A_log", ".D",
+                                                   "dt_bias")))[:6]:
+        log(f"train step leaf {n}: {devs[n]:.4e} (control {ctl[n]:.4e})")
+    what = f"mamba train step ({cfg.param_dtype}, {L} layers)"
+    check(bool(torch.isfinite(loss_k)) and loss_dev <= tol["loss"],
+          f"{what}: loss |dev| {loss_dev:.4e} > {tol['loss']}")
+    check(devs[worst] <= tol["grad"], f"{what}: {worst} gradient "
+          f"{devs[worst]:.4e} > {tol['grad']}")
+    check(min(ctl.values()) > tol["grad"], f"{what}: the control "
+          f"{min(ctl.values()):.4e} is within the limit at "
+          f"{min(ctl, key=ctl.get)}")
+    ssm_leaves = {n: devs[n] for n in devs
+                  if n.endswith(("A_log", ".D", "dt_bias"))}
+    out = dict(dtype=cfg.param_dtype, layers=L, loss_kernel=float(loss_k),
+               loss_plain=float(loss_p), loss_dev=loss_dev,
+               loss_tol=tol["loss"], grad_dev_max=devs[worst],
+               grad_dev_leaf=worst,
+               grad_dev_median=sorted(devs.values())[len(devs) // 2],
+               grad_dev_ssm_leaves_max=max(ssm_leaves.values()),
+               grad_tol=tol["grad"], control_max=max(ctl.values()),
+               control_min=min(ctl.values()),
+               batch=int(batch["tokens"].shape[0]))
+    del lm, grads_k, grads_p, grads_c
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba_train_run(torch, ops, train, cfg):
+    """``timed_train_loop`` for TRAIN_STEPS steps at MAMBA_TRAIN_BATCH x
+    MAMBA_TRAIN_SEQ: each step 2 ``ssd_scan`` launches a layer (pass and
+    remat), every one on the tensor-core instance, and one
+    ``ssd_scan_backward``, nothing else launched.  Returns the launches and
+    the times."""
+    L = cfg.num_layers
+    run = timed_train_loop(torch, ops, train, cfg, MAMBA_TRAIN_BATCH,
+                           MAMBA_TRAIN_SEQ)
+    launches = run["launches"]
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(ssd_scan=2 * L * TRAIN_STEPS,
+                ssd_scan_backward=L * TRAIN_STEPS)
+    check(launches == want, f"train_loop launches {launches}, expected "
+          f"{want}")
+    check(run["ssd_instances"] == {"wgmma": 2 * L * TRAIN_STEPS, "fma": 0},
+          f"train_loop: ssd_scan launches by instance "
+          f"{run['ssd_instances']}, expected every one on the tensor-core "
+          "instance")
+    losses = run.pop("losses")
+    log(f"train {cfg.name} {L} layers, B={MAMBA_TRAIN_BATCH} "
+        f"S={MAMBA_TRAIN_SEQ}: {TRAIN_STEPS} steps in {run['wall_s']:.2f} s,"
+        f" median step {run['median_step_ms']:.2f} ms "
+        f"({run['tokens_per_s']:.1f} tokens/s; forward + backward "
+        f"{run['fwd_bwd_ms']:.2f} ms, optimizer {run['opt_ms']:.2f} ms, CUDA "
+        f"events), peak memory {run['peak_bytes'] / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated); launches "
+        f"{launches['ssd_scan']} ssd_scan ({L} + {L} remat a step, "
+        f"{json.dumps(run['ssd_instances'])}), "
+        f"{launches['ssd_scan_backward']} ssd_scan_backward; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return run
+
+
+def mamba_training_phase(torch, ops, ref, devs: dict):
+    """Phase 17: ``ssd_scan_backward``'s checks and times, then mamba2-370m
+    as configured: the kernel step against the plain-scan step (B = 2 x S
+    = 2048; again in an fp32 copy cut to MAMBA_FP32_LAYERS layers),
+    ``train_loop`` (B = 8 x S = 2048), and the checkpoint resume at the
+    reduced config.  Returns the phase's numbers."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs
+    from repro_torch.data import synthetic as data
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    readings = ssd_backward_checks(torch, ops, ref, "cuda", devs)
+    timing = ssd_backward_timings(torch, ops, ref, "cuda")
+    cfg = configs.get(MAMBA_TRAIN_ARCH)
+    log(f"train {cfg.name}: as configured, no cut; {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.ssm_nheads} heads x {cfg.ssm_headdim},"
+        f" state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab "
+        f"{cfg.padded_vocab} (padded), {cfg.param_dtype}")
+    stream = data.token_stream(cfg, MAMBA_STEP_BATCH, MAMBA_TRAIN_SEQ,
+                               seed=1, device="cuda")
+    batch, other = next(stream), next(stream)
+    step_check = {"bfloat16": mamba_step_vs_plain(
+        torch, ops, ref, model, cfg, batch, other)}
+    cfg32 = dataclasses.replace(cfg, num_layers=MAMBA_FP32_LAYERS,
+                                param_dtype="float32")
+    step_check["float32"] = mamba_step_vs_plain(torch, ops, ref, model,
+                                                cfg32, batch, other)
+    run = mamba_train_run(torch, ops, train, cfg)
+    resume = checkpoint_resume(torch, configs, model, train, data, ckpt,
+                               arch=MAMBA_TRAIN_ARCH)
+    seconds = time.perf_counter() - t0
+    log(f"phase 17: {seconds:.1f} s")
     return dict(readings=readings, timing=timing, step_check=step_check,
                 run=run, resume=resume, seconds=seconds)
 
@@ -4155,7 +4578,7 @@ def main() -> int:
     # version at the families' shapes and its times; qwen3-14b at full
     # width, 4 layers: the kernel step against the plain-attention step,
     # then train_loop (the main path, counters read around it); the
-    # checkpoint resume; mamba2's refusal on the card
+    # checkpoint resume
     training = training_phase(torch, ops, ref, devs)
     rows["flash_attention_backward"] = training["timing"]
     # phase 16: the backward's two instances on the same inputs at the
@@ -4164,6 +4587,15 @@ def main() -> int:
     backward_instances = backward_instance_checks(torch, ops, ref, "cuda",
                                                   devs)
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    # phase 17: mamba2 training — ssd_scan_backward against its plain
+    # version and its times; mamba2-370m as configured: the kernel step
+    # against the plain-scan step, then train_loop (the main path, counters
+    # read around it); the checkpoint resume at the reduced config
+    mamba_training = mamba_training_phase(torch, ops, ref, devs)
+    rows["ssd_scan_backward"] = mamba_training["timing"]
+    mamba_launches = mamba_training["run"]["launches"]
+    launches["ssd_scan"] += mamba_launches["ssd_scan"]
+    launches["ssd_scan_backward"] = mamba_launches["ssd_scan_backward"]
     train_launches = training["run"]["launches"]
     launches["flash_attention_backward"] = \
         train_launches["flash_attention_backward"]
@@ -4261,6 +4693,21 @@ def main() -> int:
                     "backward_instances", "steps")},
                 checkpoint_resume=training["resume"],
                 phase_s=training["seconds"])
+        elif name == "ssd_scan_backward":
+            tol = {"float32": {k: f"{v:g} max|grad|"
+                               for k, v in SSD_BACKWARD_TOL.items()},
+                   "bfloat16": "dx, dB, dC: 2^-7 |grad_plain| + the fp32 "
+                               "limit max|grad_plain| (one bf16 ulp); ddt, "
+                               "dA, dD: the fp32 limits"}
+            run = mamba_training["run"]
+            extra = dict(
+                checks=mamba_training["readings"],
+                train_step_vs_plain=mamba_training["step_check"],
+                train_loop={k: run[k] for k in (
+                    "median_step_ms", "fwd_bwd_ms", "opt_ms", "tokens_per_s",
+                    "peak_bytes", "wall_s", "ssd_instances", "steps")},
+                checkpoint_resume=mamba_training["resume"],
+                phase_s=mamba_training["seconds"])
         elif name == "ssd_scan":
             tol = ssd_tol
             extra = dict(serve=dict(
@@ -4272,7 +4719,11 @@ def main() -> int:
                              max_abs_state_dev=sd, tol=MAMBA_TOL[dt])
                     for dt, (d, m, sd) in mamba_devs.items()},
                 serve_instances=m_served["ssd_instances"],
-                model_instances_bf16=model_instances, sass=ssd_sass)
+                model_instances_bf16=model_instances, sass=ssd_sass,
+                launches_by_path={
+                    "serve mamba2-370m": m_served["launches"]["ssd_scan"],
+                    f"train_loop {MAMBA_TRAIN_ARCH} ({TRAIN_STEPS} steps: "
+                    "pass + remat)": mamba_launches["ssd_scan"]})
         else:
             tol = {dt: TOL[dt] for dt in devs[name]}
             row["library_ms"] = None

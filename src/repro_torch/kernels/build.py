@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"csvm_update": CSRC / "csvm_update.cu",
            "flash_attention": CSRC / "flash_attention.cu",
            "flash_backward": CSRC / "flash_backward.cu",
-           "ssd_scan": CSRC / "ssd_scan.cu"}
+           "ssd_scan": CSRC / "ssd_scan.cu",
+           "ssd_backward": CSRC / "ssd_backward.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

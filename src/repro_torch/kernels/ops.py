@@ -2,19 +2,20 @@
 
 For tensors on the CPU each wrapper computes its kernel's plain torch
 version (``csvm_update.*_plain``, ``ref.mha``, ``ref.mha_backward``,
-``ref.ssd_scan``); for CUDA tensors it launches the CUDA kernel of
-``csrc/csvm_update.cu``, ``csrc/flash_attention.cu``,
-``csrc/flash_backward.cu`` or ``csrc/ssd_scan.cu`` on
-``torch.cuda.current_stream()`` or raises — there is no fallback from one
-to the other.  Operands must be on one device with the documented shapes
-and dtypes: the CSVM kernels take contiguous fp32 (X may be bf16 where
-stated), ``flash_attention`` fp32 or bf16 views with a unit stride over
-D (``flash_attention_backward`` likewise for o and do), ``ssd_scan``
-fp32 or bf16 x/B/C views with a unit stride over their last axis;
-anything else raises before launch.  ``FlashAttention`` is the
-``torch.autograd.Function`` of the two flash wrappers, which the model
-trains through on the card; ``ssd_scan`` has no backward kernel yet and
-refuses CUDA inputs that require grad.
+``ref.ssd_scan``, ``ref.ssd_scan_backward``); for CUDA tensors it launches
+the CUDA kernel of ``csrc/csvm_update.cu``, ``csrc/flash_attention.cu``,
+``csrc/flash_backward.cu``, ``csrc/ssd_scan.cu`` or
+``csrc/ssd_backward.cu`` on ``torch.cuda.current_stream()`` or raises —
+there is no fallback from one to the other.  Operands must be on one
+device with the documented shapes and dtypes: the CSVM kernels take
+contiguous fp32 (X may be bf16 where stated), ``flash_attention`` fp32 or
+bf16 views with a unit stride over D (``flash_attention_backward``
+likewise for o and do), ``ssd_scan`` fp32 or bf16 x/B/C views with a unit
+stride over their last axis (``ssd_scan_backward`` likewise for dy);
+anything else raises before launch.  ``FlashAttention`` and ``SSDScan`` are the
+``torch.autograd.Function``s of the flash and SSD wrappers, which the
+model trains through on the card; ``ssd_scan`` goes through ``SSDScan``
+whenever an input requires grad.
 
 ``launches[name]`` counts the kernel launches of each wrapper (one per
 call that reached the kernel, none for the plain version), so a run can
@@ -43,7 +44,8 @@ from repro_torch.kernels.csvm_update import (csvm_block_update_plain,
                                              csvm_round_block_plain)
 
 KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block",
-           "flash_attention", "ssd_scan", "flash_attention_backward")
+           "flash_attention", "ssd_scan", "flash_attention_backward",
+           "ssd_scan_backward")
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # flash_attention's two instances: bf16 tensor cores (wgmma, TMA) and fp32
 # FMAs on the CUDA cores
@@ -152,6 +154,17 @@ def _ssd_lib() -> ctypes.CDLL:
     lib.ssd_scan_tc.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_backward_lib() -> ctypes.CDLL:
+    lib = build.load("ssd_backward")
+    lib.ssd_scan_backward.argtypes = [_P] * 21 + [_I] * 8 + [_LL] * 13 + [
+        _P]
+    lib.ssd_scan_backward.restype = ctypes.c_int
+    lib.ssd_scan_backward_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_backward_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -1034,8 +1047,10 @@ def ssd_smem_bytes(chunk: int, n: int) -> int:
                 + Q * (Q + 8) + n * _SSD_PT)
 
 
-def _check_ssd(x, dt, A, B, C, D, chunk, instance="fma"):
-    name = "ssd_scan"
+def _check_ssd_operands(name, x, dt, A, B, C, D, chunk):
+    """The rules that the forward's and the backward's kernels share:
+    devices, shapes, dtypes, unit strides over p and n, n a multiple of
+    4, a chunk a multiple of 8 up to 128."""
     for what, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C),
                     ("D", D)):
         if not isinstance(t, torch.Tensor):
@@ -1076,6 +1091,13 @@ def _check_ssd(x, dt, A, B, C, D, chunk, instance="fma"):
     if chunk % 8 or not 8 <= chunk <= _SSD_MAX_CHUNK:
         raise ValueError(f"{name}: chunk={chunk} must be a multiple of 8 in "
                          f"[8, {_SSD_MAX_CHUNK}]")
+
+
+def _check_ssd(x, dt, A, B, C, D, chunk, instance="fma"):
+    name = "ssd_scan"
+    _check_ssd_operands(name, x, dt, A, B, C, D, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[2]
     if instance == "wgmma":
         if ssd_instance(x.dtype, p, n, chunk) != "wgmma":
             raise ValueError(f"{name}: the tensor-core instance takes bf16 "
@@ -1143,6 +1165,17 @@ def _ssd_launch(x, dt, A, B, C, D, chunk: int, instance: str,
     return y, final
 
 
+def _ssd_forward(x, dt, A, B, C, D, chunk):
+    """The scan without a graph: ``ref.ssd_scan`` on the CPU, the kernel
+    of ``ssd_instance``'s choice on the card."""
+    if not _is_cuda(x, "ssd_scan"):
+        return ref.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    p = x.shape[-1] if x.dim() == 4 else 0
+    n = B.shape[-1] if isinstance(B, torch.Tensor) and B.dim() == 3 else 0
+    instance = ssd_instance(x.dtype, p, n, int(chunk), x, B, C)
+    return _ssd_launch(x, dt, A, B, C, D, chunk, instance)
+
+
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):
     """Mamba-2 SSD chunked scan with the final state: x (b, s, h, p) fp32
     or bf16; dt (b, s, h), A and D (h,) fp32; B and C (b, s, n) in x's
@@ -1158,21 +1191,156 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):
     B and C runs chunk-parallel on the tensor cores; the rest, a
     misaligned bf16 view included, runs the fp32-FMA chunk walk, at a
     chunk that is a multiple of 8 up to 128 and n a multiple of 4 within
-    the shared memory of a block.  The kernel has no backward yet: with
-    grad on, a CUDA call whose inputs require grad raises
-    NotImplementedError before any launch (the CPU's plain scan trains).
+    the shared memory of a block.  With grad on and an input that requires
+    grad, the call goes through ``SSDScan``: the same forward launch, and
+    ``ssd_scan_backward`` (the ``csrc/ssd_backward.cu`` kernel on the
+    card, ``ref.ssd_scan_backward`` on the CPU) for the gradient; without
+    grad (serving) it is one launch and the outputs have no graph.
     """
-    if not _is_cuda(x, "ssd_scan"):
-        return ref.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (x, dt, A, B, C, D)):
-        raise NotImplementedError(
-            "ssd_scan: no backward kernel yet, so a CUDA call whose inputs "
-            "require grad would cut the gradient (ROADMAP Queue 1 item "
-            "13.6: the ssd_scan backward kernel and mamba2 training on the "
-            "card)")
-    p = x.shape[-1] if x.dim() == 4 else 0
-    n = B.shape[-1] if isinstance(B, torch.Tensor) and B.dim() == 3 else 0
-    instance = ssd_instance(x.dtype, p, n, int(chunk), x, B, C)
-    return _ssd_launch(x, dt, A, B, C, D, chunk, instance)
+        return SSDScan.apply(x, dt, A, B, C, D, int(chunk))
+    return _ssd_forward(x, dt, A, B, C, D, chunk)
+
+
+_SSD_BACKWARD_THREADS = 512   # csrc/ssd_backward.cu kGradThreads
+
+
+def ssd_backward_smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Shared memory of the larger block kernel of ``ssd_scan_backward``
+    (``ssd_backward_smem_bytes`` of ``csrc/ssd_backward.cu``), fp32: the
+    chunk pass holds B and C (Q x (n+4)) and the decayed x dt and exp(cum)
+    dy (Q x (p4+4), p4 = p rounded up to 4) and four Q-vectors; the
+    gradient pass holds B, C, g or state_in (p4 x (n+4)), S and M (Q x
+    (Q+4)), x dt and dy, eight Q-vectors, the tiles' partial sums (Q x
+    (Q/4) twice, Q x (p4/4) twice, Q x (n/4)) and two reduction buffers of
+    its 512 threads."""
+    Q, p4 = int(chunk), -(-int(p) // 4) * 4
+    NS, QS, PS = n + 4, Q + 4, p4 + 4
+    chunk_pass = 2 * Q * NS + 2 * Q * PS + 4 * Q
+    grad_pass = (2 * Q * NS + p4 * NS + 2 * Q * QS + 2 * Q * PS + 8 * Q
+                 + 2 * Q * (Q // 4) + 2 * Q * (p4 // 4) + Q * (n // 4)
+                 + 2 * _SSD_BACKWARD_THREADS)
+    return 4 * max(chunk_pass, grad_pass)
+
+
+def _check_ssd_backward(x, dt, A, B, C, D, dy, dfinal, chunk):
+    """The forward's operand rules, dy shaped, typed and placed as x with
+    a unit stride over p, dfinal None or a dense (b, h, p, n) fp32 tensor,
+    and the blocks within a block's shared memory; raises ValueError or
+    TypeError before any launch."""
+    name = "ssd_scan_backward"
+    _check_ssd_operands(name, x, dt, A, B, C, D, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    if not isinstance(dy, torch.Tensor) or tuple(dy.shape) != tuple(
+            x.shape):
+        raise ValueError(f"{name}: dy must have x's shape {tuple(x.shape)}")
+    if dy.dtype != x.dtype or dy.device != x.device:
+        raise TypeError(f"{name}: dy is {dy.dtype} on {dy.device}, x "
+                        f"{x.dtype} on {x.device}")
+    if dy.stride(-1) != 1:
+        raise ValueError(f"{name}: dy needs a unit stride over p")
+    if dfinal is not None:
+        if not isinstance(dfinal, torch.Tensor) or tuple(
+                dfinal.shape) != (b, h, p, n):
+            raise ValueError(f"{name}: dfinal must be ({b}, {h}, {p}, {n})")
+        if dfinal.dtype != torch.float32 or dfinal.device != x.device:
+            raise TypeError(f"{name}: dfinal must be float32 on {x.device}")
+        if not dfinal.is_contiguous():
+            raise ValueError(f"{name}: dfinal must be contiguous")
+    if ssd_backward_smem_bytes(chunk, p, n) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: chunk={chunk}, p={p}, n={n} need "
+                         f"{ssd_backward_smem_bytes(chunk, p, n)} bytes of "
+                         f"shared memory, over {_SMEM_LIMIT}")
+    groups = -(-h // ssd_head_group(b, s, h, chunk))
+    if b * -(-s // chunk) * groups > 2 ** 31 - 1:
+        raise ValueError(f"{name}: x {tuple(x.shape)} exceeds the grid")
+
+
+def ssd_scan_backward(x, dt, A, B, C, D, dy, dfinal=None, *,
+                      chunk: int = 64):
+    """dx, ddt, dA, dB, dC, dD of ``(y, final) = ssd_scan(x, dt, A, B, C,
+    D, chunk=chunk)`` given dy = dL/dy (b, s, h, p) in x's dtype and
+    dfinal = dL/dfinal (b, h, p, n) fp32 or None (zeros).  Operands and
+    rules as ``ssd_scan`` (the model's strided slices of one conv output
+    go in without a copy; dy needs a unit stride over p).  Returns dx
+    (b, s, h, p) and dB, dC (b, s, n) in x's dtype, ddt (b, s, h) and dA,
+    dD (h,) fp32, all dense.
+
+    On the card: the four kernels of ``csrc/ssd_backward.cu`` (the chunk
+    pass, the state walk both ways, the gradient pass, the reduction) at
+    any chunk the blocks' shared memory takes (``ssd_backward_smem_bytes``:
+    mamba2-370m's chunk 64 at p = 64, n = 128 takes 201,728 bytes), with
+    ``ssd_head_group`` heads a block and an fp32 scratch of two (b, nc, h,
+    p, n) arrays and two per-group (b, nc·chunk, n) partials; no atomics,
+    so two launches on the same inputs agree bit for bit.  On the CPU:
+    ``ref.ssd_scan_backward``."""
+    if not _is_cuda(x, "ssd_scan_backward"):
+        return ref.ssd_scan_backward(x, dt, A, B, C, D, dy, dfinal,
+                                     chunk=chunk)
+    chunk = int(chunk)
+    _check_ssd_backward(x, dt, A, B, C, D, dy, dfinal, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    nc = -(-s // chunk)
+    group = ssd_head_group(b, s, h, chunk)
+    groups = -(-h // group)
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s, h), dtype=f32, device=dev)
+    dA = torch.empty((h,), dtype=f32, device=dev)
+    dD = torch.empty((h,), dtype=f32, device=dev)
+    dB = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+    dC = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+    states = torch.empty(b * nc * h * p * n, dtype=f32, device=dev)
+    grads = torch.empty_like(states)
+    cum_last, partA, partD = (torch.empty(b * nc * h, dtype=f32, device=dev)
+                              for _ in range(3))
+    partB, partC = (torch.empty(groups * b * nc * chunk * n, dtype=f32,
+                                device=dev) for _ in range(2))
+    lib = _ssd_backward_lib()
+    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, D, dy)]
+    ptrs.append(dfinal.data_ptr() if dfinal is not None else None)
+    ptrs += [t.data_ptr() for t in (dx, ddt, dA, dB, dC, dD, states, grads,
+                                    cum_last, partB, partC, partA, partD)]
+    strides = (*x.stride()[:3], *dy.stride()[:3], *dt.stride(),
+               B.stride(0), B.stride(1), C.stride(0), C.stride(1))
+    with torch.cuda.device(dev):
+        err = lib.ssd_scan_backward(
+            *ptrs, int(x.dtype == torch.bfloat16), b, s, h, p, n, chunk,
+            group, *strides, _stream(dev))
+    _check_call("ssd_scan_backward", err, lib.ssd_scan_backward_error_string)
+    return dx, ddt, dA, dB, dC, dD
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with its gradient: the forward runs the scan (the
+    kernel on the card) and keeps x, dt, A, B, C and D; the backward runs
+    ``ssd_scan_backward`` on them.  ``SSDScan.apply(x, dt, A, B, C, D,
+    chunk)`` returns (y, final state); either cotangent may be None (the
+    model's loss reads y only), and none gives no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, chunk):
+        y, final = _ssd_forward(x, dt, A, B, C, D, chunk)
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        if dy is None and dfinal is None:
+            return (None,) * 7
+        x, dt, A, B, C, D = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        elif dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+        grads = ssd_scan_backward(x, dt, A, B, C, D, dy, dfinal,
+                                  chunk=ctx.chunk)
+        return (*grads, None)

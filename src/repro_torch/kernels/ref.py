@@ -7,7 +7,8 @@ bf16 rounding points).  ``mha`` is the oracle of ``flash_attention`` and
 its plain version: ``ops.flash_attention`` runs it for CPU tensors, as
 ``ops.flash_attention_backward`` runs ``mha_backward``;
 ``ssd_scan`` is the plain version of the ``ssd_scan`` kernel, which
-``ops.ssd_scan`` runs for CPU tensors.
+``ops.ssd_scan`` runs for CPU tensors, as ``ops.ssd_scan_backward`` runs
+``ssd_scan_backward``.
 """
 from __future__ import annotations
 
@@ -236,3 +237,114 @@ def ssd_scan(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
                  + inputs[:, c])
     y = y + torch.stack(carry, dim=1) + D.to(f32)[:, None] * xc
     return y.reshape(b, nc * Q, h, p)[:, :s].to(x.dtype), state
+
+
+def ssd_scan_backward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor,
+                      C: Tensor, D: Tensor, dy: Tensor,
+                      dfinal: Tensor | None = None, *, chunk: int = 64):
+    """Plain version of the ``ssd_scan_backward`` kernel: the VJP of
+    ``ssd_scan`` (y and the final state) given dy = dL/dy (b, s, h, p) in
+    x's dtype and dfinal = dL/d(final state) (b, h, p, n) fp32, or None
+    for zeros.  Shapes, padding of a ragged tail (dt = 0) and the index
+    order of cum as ``ssd_scan``.  Per chunk, with L_ij = exp(cum_i -
+    cum_j) [j <= i], G = C B^T, M = G * L, xdt = x dt, state_in[c] the
+    forward's carried state and g[c] the gradient of the state leaving
+    chunk c (g[nc-1] = dfinal, g[c-1] = exp(last_c) g[c] + sum_i
+    exp(cum_i) dy_i (x) C_i):
+
+        dxdt_j = sum_{i>=j} M_ij dy_i + exp(last - cum_j) g B_j
+        dx     = D dy + dt dxdt,           dD = sum dy . x
+        S_ij   = (dy_i . xdt_j) L_ij
+        dC_i   = sum_h [sum_j S_ij B_j + exp(cum_i) state_in^T dy_i]
+        dB_j   = sum_h [sum_i S_ij C_i + exp(last - cum_j) g^T xdt_j]
+        dcum_t = sum_j R_tj - sum_i R_it + exp(cum_t) dy_t . (state_in C_t)
+                 - u_t   (R = S * G, u_j = xdt_j . exp(last - cum_j) g B_j),
+                 and the chunk's last row also exp(last) <g, state_in>
+                 + sum_j u_j
+        da     = reverse cumsum of dcum in the chunk
+        ddt    = x . dxdt + A da,          dA = sum dt da
+
+    Every decay is an exp of a difference of cumulative sums, never a
+    ratio.  All arithmetic is fp32; dx, dB and dC are rounded once to
+    their inputs' dtype, ddt, dA and dD are fp32.  Returns (dx, ddt, dA,
+    dB, dC, dD)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    f32 = torch.float32
+    Q = int(chunk)
+    nc = -(-s // Q)
+    pad = nc * Q - s
+    xf, dtf, dyf = x.to(f32), dt.to(f32), dy.to(f32)
+    Bf, Cf = B.to(f32), C.to(f32)
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dyf = F.pad(dyf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, pad))
+    xc = xf.reshape(b, nc, Q, h, p)
+    dyc = dyf.reshape(b, nc, Q, h, p)
+    dtc = dtf.reshape(b, nc, Q, h)
+    Bc, Cc = Bf.reshape(b, nc, Q, n), Cf.reshape(b, nc, Q, n)
+    Af = A.to(f32)
+    cum = _sequential_cumsum(dtc * Af, dim=2)               # (b, nc, Q, h)
+    last = cum[:, :, -1]                                    # (b, nc, h)
+    ecum = torch.exp(cum)
+    decay_in = torch.exp(last[:, :, None] - cum)            # (b, nc, Q, h)
+    xdt = xc * dtc[..., None]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (b, nc, i, j, h)
+    L = torch.where(tri[:, :, None], torch.exp(diff), 0.0)
+    del diff
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None]
+    # the forward's carried states, and the state gradients walked back
+    local = torch.einsum("bcjn,bcjhp->bchpn", Bc, xdt * decay_in[..., None])
+    back = torch.einsum("bcihp,bcin->bchpn", dyc * ecum[..., None], Cc)
+    state = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+    state_in = []
+    for c in range(nc):
+        state_in.append(state)
+        state = state * torch.exp(last[:, c])[..., None, None] + local[:, c]
+    grad = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+            if dfinal is None else dfinal.to(f32))
+    gs = [None] * nc
+    for c in reversed(range(nc)):
+        gs[c] = grad
+        grad = grad * torch.exp(last[:, c])[..., None, None] + back[:, c]
+    del local, back, state, grad
+    state_in = torch.stack(state_in, dim=1)                 # (b, nc, h, p, n)
+    gs = torch.stack(gs, dim=1)
+    # dxdt, dx, dD
+    dxdt_state = (torch.einsum("bchpn,bcjn->bcjhp", gs, Bc)
+                  * decay_in[..., None])
+    dxdt = torch.einsum("bcijh,bcihp->bcjhp", G * L, dyc) + dxdt_state
+    dx = D.to(f32)[:, None] * dyc + dtc[..., None] * dxdt
+    dD = (dyc * xc).sum(dim=(0, 1, 2, 4))
+    # S, dB, dC
+    S = torch.einsum("bcihp,bcjhp->bcijh", dyc, xdt) * L
+    del L
+    dC = (torch.einsum("bcijh,bcjn->bcin", S, Bc)
+          + torch.einsum("bcihp,bchpn->bcin", dyc * ecum[..., None],
+                         state_in))
+    dB = (torch.einsum("bcijh,bcin->bcjn", S, Cc)
+          + torch.einsum("bcjhp,bchpn->bcjn", xdt * decay_in[..., None], gs))
+    # dcum, its reverse cumsum da, ddt and dA
+    R = S * G
+    del S
+    dcum = R.sum(dim=3) - R.sum(dim=2)                      # (b, nc, Q, h)
+    del R
+    carry = torch.einsum("bchpn,bctn->bcthp", state_in, Cc)
+    dcum = dcum + ecum * (dyc * carry).sum(dim=-1)
+    del carry
+    u = (xdt * dxdt_state).sum(dim=-1)
+    dcum = dcum - u
+    dcum[:, :, -1] += (torch.exp(last) * (gs * state_in).sum(dim=(-2, -1))
+                       + u.sum(dim=2))
+    da = dcum.flip(2).cumsum(dim=2).flip(2)
+    ddt = (xc * dxdt).sum(dim=-1) + Af * da
+    dA = (dtc * da).sum(dim=(0, 1, 2))
+
+    def rows(t):
+        return t.reshape(b, nc * Q, *t.shape[3:])[:, :s]
+    return (rows(dx).to(x.dtype), rows(ddt), dA, rows(dB).to(B.dtype),
+            rows(dC).to(C.dtype), dD)

@@ -3,9 +3,11 @@ synthetic data.
 
 Counterpart of ``repro.launch.train``.  ``make_train_step`` returns the
 eager step: ``model.loss_fn``, its gradient by autograd (on the card the
-attention's through the ``flash_attention_backward`` kernel, each layer
-recomputed under ``torch.utils.checkpoint``), then ``adamw_update`` in
-place at ``cosine_schedule(step, total_steps, warmup=20)``, as JAX's.
+attention's through the ``flash_attention_backward`` kernel and mamba2's
+SSD scan through the ``ssd_scan_backward`` kernel, so every family trains
+there; each layer recomputed under ``torch.utils.checkpoint``), then
+``adamw_update`` in place at ``cosine_schedule(step, total_steps,
+warmup=20)``, as JAX's.
 ``make_jitted_train_step`` places the step on a device mesh and waits
 for the LM half of the meshes (ROADMAP Queue 1 item 13.5).
 

@@ -4,14 +4,18 @@ Counterpart of ``repro.models.ssm``.  Prefill runs the chunked SSD
 algorithm (quadratic within a chunk, a linear recurrence across chunks);
 decode carries a (B, nheads, headdim, state) SSM state.
 
-The JAX package runs the XLA twin ``ssd_chunked`` on every path and
-leaves its Pallas ``ssd_scan`` kernel off them.  Here ``ssd`` takes the
-twin's place as ``attention.self_attend`` does for attention: for tensors
-on the card it launches the hand-written CUDA kernel
-(``repro_torch.kernels.ops.ssd_scan``) at ``cfg.ssm_chunk``, which takes a
-ragged tail itself and also returns the final state; for tensors on the
-CPU it runs the plain ``ssd_chunked`` with the JAX package's chunk rule
-(the chunk shrinks until it divides S), so that the CPU path mirrors JAX.
+The JAX package runs the XLA twin ``ssd_chunked`` on every path (and
+trains through its XLA autodiff) and leaves its Pallas ``ssd_scan``
+kernel off them.  Here ``ssd`` takes the twin's place as
+``attention.self_attend`` does for attention: for tensors on the card it
+launches the hand-written CUDA kernel (``repro_torch.kernels.ops.ssd_scan``)
+at ``cfg.ssm_chunk``, which takes a ragged tail itself and also returns
+the final state; under grad the call goes through ``ops.SSDScan``, whose
+backward is the hand-written ``ssd_scan_backward`` kernel (serving, with
+no grad, stays one ``ssd_scan`` launch).  For tensors on the CPU it runs
+the plain ``ssd_chunked`` with the JAX package's chunk rule (the chunk
+shrinks until it divides S), trained by torch autograd, so that the CPU
+path mirrors JAX.
 
 Oracle for tests: ``ssd_naive`` (the direct recurrence).  The decode step
 updates its cache entries in place.
@@ -165,8 +169,10 @@ def jax_chunk(chunk: int, S: int) -> int:
 def ssd(x, dt, A, B, C, D, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """The SSD scan of one layer: (y (b, s, h, p), final state (b, h, p, n)
     fp32).  On the card: the CUDA ``ssd_scan`` kernel at ``cfg.ssm_chunk``,
-    fed the model's strided slices of the conv output (no copy); on the
-    CPU: the plain ``ssd_chunked`` at the JAX package's chunk."""
+    fed the model's strided slices of the conv output (no copy), through
+    ``ops.SSDScan`` (the ``ssd_scan_backward`` kernel) when an input
+    requires grad; on the CPU: the plain ``ssd_chunked`` at the JAX
+    package's chunk."""
     if x.device.type == "cuda":
         return ops.ssd_scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
     return ssd_chunked(x, dt, A, B, C, jax_chunk(cfg.ssm_chunk, x.shape[1]),

@@ -1316,19 +1316,101 @@ def test_training_through_the_kernels_on_the_card(cuda, monkeypatch):
         assert float((g - grads_p[n]).abs().max()) <= 1e-4 * max(scale, 1e-30)
 
 
-def test_mamba2_training_is_refused_on_the_card(cuda):
-    """ssd_scan has no backward kernel: a step raises before any launch."""
+def test_mamba2_training_step_on_the_card(cuda, monkeypatch):
+    """A reduced mamba2 step on the card (fp32, chunk 16): ssd_scan twice a
+    layer (pass and remat), ssd_scan_backward once, no plain scan reached;
+    loss and grads (A_log, D and dt_bias among them) near the same step
+    with the plain scan under torch autograd."""
     from repro_torch import configs
     from repro_torch.data.synthetic import token_stream
-    from repro_torch.launch.train import make_train_step
-    from repro_torch.models import model
-    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.models import model, ssm
     cfg = configs.get_reduced("mamba2_370m")
     lm = model.init_params(cfg, seed=0, device=cuda, trainable=True)
-    batch = next(token_stream(cfg, 2, 64, seed=0, device=cuda))
+    batch = next(token_stream(cfg, 2, 100, seed=0, device=cuda))
+
+    def run():
+        lm.zero_grad(set_to_none=True)
+        loss = model.loss_fn(lm, batch, cfg)
+        loss.backward()
+        return loss.detach(), {n: p.grad.clone()
+                               for n, p in lm.named_parameters()
+                               if p.grad is not None}
+
+    ops.reset_launches()
+    with chip_smoke.counted_plain_scan(ref, ssm) as calls:
+        loss, grads = run()
+    assert sum(calls.values()) == 0
+    assert ops.launches["ssd_scan"] == 2 * cfg.num_layers
+    assert ops.launches["ssd_scan_backward"] == cfg.num_layers
+    assert any(n.endswith("A_log") for n in grads)
+    monkeypatch.setattr(ssm, "ssd", chip_smoke.autograd_ssd)
+    loss_p, grads_p = run()
+    assert set(grads) == set(grads_p)
+    assert abs(float(loss) - float(loss_p)) <= 1e-5
+    for n, g in grads.items():
+        scale = float(grads_p[n].abs().max())
+        assert float((g - grads_p[n]).abs().max()) <= 1e-4 * max(scale, 1e-30)
+
+
+@pytest.mark.parametrize("dfinal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(2, 200, 3, 32, 64, 64),
+                                  (1, 1999, 32, 64, 128, 64)])
+def test_ssd_backward_matches_plain(cuda, case, dtype, dfinal):
+    """The backward kernel against ``ref.ssd_scan_backward`` within
+    chip_smoke's limits (fp32 a share of each max |grad|; bf16 dx, dB, dC
+    one ulp beyond it), mamba2-370m's shape as the model's strided slices
+    (1999: a ragged last chunk); two launches equal bit for bit."""
+    args = chip_smoke.ssd_backward_inputs(torch, case, dtype, cuda, seed=6,
+                                          dfinal=dfinal)
+    before = ops.launches["ssd_scan_backward"]
+    got = ops.ssd_scan_backward(*args, chunk=case[5])
+    again = ops.ssd_scan_backward(*args, chunk=case[5])
+    assert ops.launches["ssd_scan_backward"] == before + 2
+    want = ref.ssd_scan_backward(*args, chunk=case[5])
+    for name, g, a, w in zip(chip_smoke.SSD_GRADS, got, again, want):
+        assert torch.equal(g, a)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert chip_smoke.ssd_backward_deviation(torch, name, g, w,
+                                                 dtype)[2] <= 1.0
+
+
+def test_ssd_scan_under_grad_on_the_card_has_a_gradient(cuda):
+    """ops.ssd_scan with an input that requires grad goes through SSDScan:
+    the output carries a graph, and its backward is one kernel launch;
+    without grad it is one forward launch and no graph."""
+    x, dt, A, B, C, D = chip_smoke.ssd_inputs(
+        torch, (1, 130, 32, 64, 128, 64), "bfloat16", cuda, seed=7)
+    x = x.detach().requires_grad_(True)
+    ops.reset_launches()
+    with torch.no_grad():
+        y, final = ops.ssd_scan(x, dt, A, B, C, D, chunk=64)
+    assert y.grad_fn is None and ops.launches["ssd_scan"] == 1
+    y, final = ops.ssd_scan(x, dt, A, B, C, D, chunk=64)
+    assert y.grad_fn is not None and final.grad_fn is not None
+    y.float().sum().backward()
+    assert ops.launches["ssd_scan"] == 2
+    assert ops.launches["ssd_scan_backward"] == 1
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+def test_ssd_backward_raises_on_bad_operands_before_a_launch(cuda):
+    """Bad operands raise before any launch: a chunk the blocks cannot
+    take, a dy of another dtype, device or stride, a dfinal of another
+    shape."""
+    args = list(chip_smoke.ssd_backward_inputs(
+        torch, (1, 70, 2, 8, 16, 16), "float32", cuda, seed=2, dfinal=True))
     before = dict(ops.launches)
-    with pytest.raises(NotImplementedError, match="13.6"):
-        make_train_step(cfg, AdamWConfig())(lm, adamw_init(lm), batch)
+    bad = [(dict(chunk=12), ValueError),
+           (dict(args=args[:6] + [args[6].double(), args[7]]), TypeError),
+           (dict(args=args[:6] + [args[6].cpu(), args[7]]), TypeError),
+           (dict(args=args[:6] + [args[6].transpose(2, 3), args[7]]),
+            ValueError),
+           (dict(args=args[:7] + [args[7][..., :8]]), ValueError)]
+    for change, err in bad:
+        with pytest.raises(err):
+            ops.ssd_scan_backward(*change.get("args", args),
+                                  chunk=change.get("chunk", 16))
     assert ops.launches == before
 
 
@@ -1349,4 +1431,25 @@ def test_flash_backward_raises_without_its_library(cuda, monkeypatch,
             ops.flash_attention_backward(q, k, k, q, q)
     finally:
         ops._flash_backward_lib.cache_clear()
+    assert ops.launches == before
+
+
+def test_ssd_backward_raises_without_its_library(cuda, monkeypatch,
+                                                  tmp_path):
+    """A CUDA tensor gets the SSD backward kernel or an error — never the
+    plain version."""
+    from repro_torch.kernels import build
+    args = chip_smoke.ssd_backward_inputs(torch, (1, 70, 2, 8, 16, 16),
+                                          "float32", cuda, seed=3,
+                                          dfinal=False)
+    monkeypatch.setitem(build.SOURCES, "ssd_backward",
+                        tmp_path / "missing.cu")
+    monkeypatch.delitem(build._loaded, "ssd_backward", raising=False)
+    ops._ssd_backward_lib.cache_clear()
+    before = dict(ops.launches)
+    try:
+        with pytest.raises((OSError, RuntimeError)):
+            ops.ssd_scan_backward(*args, chunk=16)
+    finally:
+        ops._ssd_backward_lib.cache_clear()
     assert ops.launches == before

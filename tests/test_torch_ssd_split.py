@@ -391,6 +391,88 @@ def test_chip_smoke_lists_the_instances_that_take_a_case():
                for c in chip_smoke.SSD_CASES[-3:])
 
 
+def test_chip_smoke_ssd_backward_checks_rehearsal():
+    """chip_smoke's phase 17 checks on CPU tensors at small shapes: the
+    wrapper runs the plain version, so every reading is 0, and each
+    control (dy one row later) is far above its limit."""
+    devs = {}
+    readings = chip_smoke.ssd_backward_checks(
+        torch, ops, ref, "cpu", devs,
+        cases=[(1, 64, 2, 8, 16, 32), (1, 70, 3, 16, 32, 16)])
+    assert len(readings) == 8
+    assert [(r["dtype"], r["dfinal"]) for r in readings[:4]] == [
+        ("float32", False), ("float32", True), ("bfloat16", False),
+        ("bfloat16", True)]
+    assert devs["ssd_scan_backward"] == {"float32": 0.0, "bfloat16": 0.0}
+    for r in readings:
+        for name, limit in chip_smoke.SSD_BACKWARD_TOL.items():
+            assert r[name]["share"] == 0.0
+            assert r["control"][name] > 100 * limit
+
+
+def test_chip_smoke_ssd_backward_bound_by_hand():
+    """``ssd_backward_work`` at (b, s, h, p, n, chunk) = (1, 10, 2, 4, 8, 4)
+    in bf16 with a dfinal, worked out by hand: chunks of 4, 4 and 2 rows
+    give 10 + 10 + 3 = 23 pairs j <= i; flops 2 (2 (6·10·4·8 + 2·23·4 +
+    2·23·8) + 23·8) = 10,256; bytes (3·10·2·4 + 4·10·8)·2 + 2·10·2·4 +
+    4·2·4 + 2·4·8·4 = 1,568, which bound it.  At mamba2-370m's training
+    shape (8, 2048, 32, 64, 128, 64) without a dfinal the bytes bound it
+    too, barely: 222,298,624 bytes (0.0664 ms) against 6.48e10 flops at
+    the bf16 peak (0.0655 ms)."""
+    assert chip_smoke.ssd_backward_work(1, 10, 2, 4, 8, 4, 2) == (10256,
+                                                                   1568)
+    ms, by = chip_smoke.ssd_backward_bound(1, 10, 2, 4, 8, 4, 2)
+    assert by == "bytes" and abs(ms - 1e3 * 1568 / 3.35e12) < 1e-15
+    flops, nbytes = chip_smoke.ssd_backward_work(
+        *chip_smoke.SSD_TRAIN_CASE, 2, dfinal=False)
+    assert nbytes == 222298624
+    assert flops == 2 * 8 * (32 * (6 * 2048 * 64 * 128 + 2 * 66560 * 64
+                                   + 2 * 66560 * 128) + 66560 * 128)
+    ms, by = chip_smoke.ssd_backward_bound(*chip_smoke.SSD_TRAIN_CASE, 2,
+                                           dfinal=False)
+    assert by == "bytes" and abs(ms - 1e3 * nbytes / 3.35e12) < 1e-12
+    # fp32 inputs: the fp32 peak, no tensor cores
+    ms, by = chip_smoke.ssd_backward_bound(*chip_smoke.SSD_TRAIN_CASE, 4)
+    assert by == "operations"
+
+
+def test_chip_smoke_lists_the_ssd_backward_kernel():
+    """The kernels line names the new kernel, its source and what it
+    replaces (no Pallas kernel: XLA autodiff of ssd_chunked), and every
+    kernel of ``ops.KERNELS`` has both entries."""
+    assert chip_smoke.REPLACES["ssd_scan_backward"] == (
+        "no Pallas kernel: XLA autodiff of repro.models.ssm.ssd_chunked "
+        "(src/repro/models/ssm.py:53-106)")
+    assert chip_smoke.SOURCES["ssd_scan_backward"] == \
+        "src/repro_torch/kernels/csrc/ssd_backward.cu"
+    assert set(chip_smoke.REPLACES) == set(chip_smoke.SOURCES) == set(
+        ops.KERNELS)
+    assert all((chip_smoke.ROOT / path).exists()
+               for path in chip_smoke.SOURCES.values())
+    assert chip_smoke.SSD_BACKWARD_CASES[-1] == (8, 2048, 32, 64, 128, 64)
+    assert set(chip_smoke.SSD_GRADS) == {"dx", "ddt", "dA", "dB", "dC",
+                                         "dD"}
+
+
+def test_chip_smoke_counts_the_plain_scans(monkeypatch):
+    """``counted_plain_scan`` counts every call of a plain scan inside its
+    block (on the CPU the wrapper and the model reach them) and restores
+    them after; ``autograd_ssd`` is ``ssd_chunked`` at JAX's chunk."""
+    from repro_torch.models import ssm
+    cfg = configs.get_reduced("mamba2_370m")
+    args = _torch(_inputs((1, 46, 2, 8, 16, 16), "tests", seed=1))
+    kept = (ref.ssd_scan, ref.ssd_scan_backward, ssm.ssd_chunked)
+    with chip_smoke.counted_plain_scan(ref, ssm) as calls:
+        ops.ssd_scan(*args, chunk=16)
+        y, f = ssm.ssd(*args, cfg)
+        ops.ssd_scan_backward(*args, torch.ones_like(args[0]), chunk=16)
+    assert dict(calls) == {"ssd_scan": 1, "ssd_chunked": 1,
+                           "ssd_scan_backward": 1}
+    assert (ref.ssd_scan, ref.ssd_scan_backward, ssm.ssd_chunked) == kept
+    wy, wf = chip_smoke.autograd_ssd(*args, cfg)
+    assert torch.equal(y, wy) and torch.equal(f, wf)
+
+
 def test_profile_ssd_refuses_to_run_without_a_card(monkeypatch):
     """The SSD profiler measures the card only: without one it exits with
     a message instead of timing anything on the CPU."""
