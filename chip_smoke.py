@@ -16,10 +16,12 @@ result lines):
    (``update_stream_kernel``), and the wgmma, its waits and the
    copies (UTMALDG, UBLKCP, LDGSTS) of the tensor-core passes of
    ``ssd_scan``, and the wgmma, TMA loads and waits of the tensor-core
-   kernels of ``flash_attention_backward`` with ptxas's spill report (a
-   count of 0 where the design needs the instruction, a wait after every
-   wgmma of an SSD pass or a backward kernel, or a spill in a backward
-   tensor-core kernel, fails the run);
+   kernels of ``flash_attention_backward`` and of ``ssd_scan_backward``
+   (``bwd_tc_chunk_pass``, ``bwd_tc_grad_pass<NP, PP>``) with ptxas's
+   spill report (a count of 0 where the design needs the instruction, a
+   wait after every wgmma of an SSD pass or a backward kernel, a spill in a
+   backward tensor-core kernel, or a forward SSD pass whose counts moved
+   from ``FORWARD_SSD_SASS``, fails the run);
 3. the CSVM kernels: each against its plain torch version on the card,
    at the paper's design size and at the full size below, in fp32 and
    bf16, with held rounds, ``nact = 0``, lambda vectors and
@@ -219,12 +221,23 @@ result lines):
    among the leaves, a control above the limit; no plain scan reached
    under grad), and so in an fp32 copy cut to 2 layers, ``train_loop``
    for 10 steps at B = 8 x S = 2048 (the
-   counters read around it: 2 ``ssd_scan`` launches a layer a step, all
-   on the tensor-core instance, and one ``ssd_scan_backward``; nothing
+   counters read around it: 2 ``ssd_scan`` launches a layer a step and
+   one ``ssd_scan_backward``, all on their tensor-core instances; nothing
    else; finite losses; step ms, tokens/s, peak memory) and a checkpoint
    resume at the reduced config (bit for bit) — the ``check
    ssd_scan_backward``, ``time ssd_scan_backward`` and ``train ...``
-   lines.
+   lines;
+18. mamba2-370m's step in an fp32 copy at all 48 layers (B = 2 x 2048)
+   against the plain-scan step under phase 17's fp32 limits (on a failure
+   also at 2, 8 and 24 layers); both instances of ``ssd_scan_backward``
+   forced by name on the same bf16 inputs at every ``SSD_BACKWARD_CASES``
+   shape the tensor-core one takes (chunk 64), each within phase 17's
+   limits with the control above them, relaunches bit for bit, timed in
+   turns beside the bound and split by kernel (the tensor-core one no
+   slower at the training shape: ``time ssd_scan_backward instances``
+   lines); one forward + backward of mamba2-370m (bf16, 48 layers, B = 8
+   x 2048) split by kernel with each instance forced (``split ...``
+   lines).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -556,6 +569,10 @@ MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 8, 2048
 MAMBA_STEP_TOL = {"bfloat16": dict(loss=7.5e-4, grad=0.4),
                   "float32": dict(loss=1e-4, grad=1.7e-4)}
 MAMBA_FP32_LAYERS = 2
+# phase 18: the same fp32 check on all 48 layers (B = 2 x 2048, the limits
+# above), which holds the fma kernel sound through the whole depth; on a
+# failure the layer counts of MAMBA_DEPTH_BISECT are read too.
+MAMBA_DEPTH_BISECT = (2, 8, 24)
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -739,6 +756,76 @@ def ssd_tensor_core_sass(build):
     check(all(c["WARPGROUP.DEPBAR"] < c["HGMMA"] for c in found.values()),
           f"ptxas serialized the wgmmas of a tensor-core ssd_scan pass (a "
           f"wait after each): {found}")
+    return found
+
+
+def forward_sass_unchanged(found):
+    """The forward's tensor-core passes (``ssd_tensor_core_sass``'s
+    counts) against FORWARD_SSD_SASS: the move of their helpers into
+    csrc/hopper.cuh must leave the compiled passes as they were."""
+    changed = {name: c for name, c in found.items()
+               if tuple(c.values()) != FORWARD_SSD_SASS.get(name)}
+    log(f"sass ssd_scan passes: {len(found) - len(changed)} of {len(found)} "
+        "with the counts of the build before csrc/hopper.cuh took their "
+        "helpers")
+    check(not changed and len(found) == len(FORWARD_SSD_SASS),
+          f"the forward's SASS counts changed: {changed}, expected "
+          f"{FORWARD_SSD_SASS}")
+
+
+# The forward's tensor-core passes as the H100's toolkit compiled them
+# before their helpers moved into csrc/hopper.cuh (NVIDIA H100 80GB HBM3,
+# 700.00 W; SSD_OPCODES counts: HGMMA, WARPGROUP.DEPBAR, UTMALDG, UBLKCP,
+# LDGSTS): the move must leave them as they were.
+FORWARD_SSD_SASS = {
+    "ssd_output_pass<128, 4>": (105, 4, 0, 0, 29),
+    "ssd_output_pass<128, 3>": (85, 4, 0, 0, 29),
+    "ssd_output_pass<128, 2>": (65, 4, 0, 0, 29),
+    "ssd_output_pass<128, 1>": (45, 4, 0, 0, 29),
+    "ssd_chunk_pass<128>": (24, 2, 0, 0, 17),
+    "ssd_output_pass<64, 4>": (77, 2, 0, 0, 29),
+    "ssd_output_pass<64, 3>": (61, 2, 0, 0, 29),
+    "ssd_output_pass<64, 2>": (45, 2, 0, 0, 29),
+    "ssd_output_pass<64, 1>": (29, 2, 0, 0, 29),
+    "ssd_chunk_pass<64>": (12, 1, 0, 0, 17),
+}
+SSD_BACKWARD_OPCODES = ("HGMMA", "WARPGROUP.DEPBAR", "LDGSTS")
+
+
+def ssd_backward_tensor_core_sass(build):
+    """Disassemble the SSD backward library and check its tensor-core
+    kernels (``bwd_tc_chunk_pass`` and ``bwd_tc_grad_pass<NP, PP>``, NP
+    and PP the 64-row panels of n and p, 1 to 4 each): they issue wgmma,
+    their wgmmas are pipelined (fewer waits than wgmmas), and ptxas
+    reports no spill for them.  Returns {kernel: {opcode: count,
+    "registers": n, "spills": ptxas's line}}."""
+    found = {}
+    for fn, counts in sass_counts(disassemble(build, "ssd_backward"),
+                                  SSD_BACKWARD_OPCODES).items():
+        inst = re.search(r"(bwd_tc_(?:chunk|grad)_pass)(?:I((?:Li\d+E)+)E)?",
+                         fn)
+        if inst:
+            args = re.findall(r"Li(\d+)E", inst.group(2) or "")
+            name = inst.group(1) + (f"<{', '.join(args)}>" if args else "")
+            found[name] = dict(zip(SSD_BACKWARD_OPCODES, counts))
+    for name, regs, spills in ptxas_report(build.build_log("ssd_backward")):
+        if name in found:
+            found[name].update(registers=regs, spills=spills)
+    for name, c in found.items():
+        log(f"sass {name}: " + ", ".join(
+            f"{c[op]} {op}" for op in SSD_BACKWARD_OPCODES)
+            + f"; ptxas {c.get('registers')} registers, {c.get('spills')}")
+    want = {"bwd_tc_chunk_pass"} | {f"bwd_tc_grad_pass<{n}, {p}>"
+                                    for n in range(1, 5) for p in range(1, 5)}
+    check(set(found) == want and all(
+        c["HGMMA"] > 0 for c in found.values()),
+        f"a tensor-core ssd_scan_backward kernel issues no wgmma: {found}")
+    check(all(c["WARPGROUP.DEPBAR"] < c["HGMMA"] for c in found.values()),
+          f"ptxas serialized the wgmmas of a tensor-core ssd_scan_backward "
+          f"kernel: {found}")
+    check(all(re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                        c.get("spills", "")) for c in found.values()),
+          f"ptxas spills in a tensor-core ssd_scan_backward kernel: {found}")
     return found
 
 
@@ -3749,7 +3836,9 @@ def timed_train_loop(torch, ops, train, cfg, batch: int, seq: int,
     return dict(launches=dict(ops.launches),
                 flash_instances=dict(ops.flash_launches),
                 backward_instances=dict(ops.flash_backward_launches),
-                ssd_instances=dict(ops.ssd_launches), median_step_ms=med,
+                ssd_instances=dict(ops.ssd_launches),
+                ssd_backward_instances=dict(ops.ssd_backward_launches),
+                median_step_ms=med,
                 fwd_bwd_ms=median("fwd_bwd_ms"), opt_ms=median("opt_ms"),
                 tokens_per_s=batch * seq / med * 1e3, peak_bytes=peak,
                 wall_s=wall, steps=history, losses=losses)
@@ -4062,8 +4151,8 @@ def mamba_step_vs_plain(torch, ops, ref, model, cfg, batch, other):
     from the same weights and batch, within ``MAMBA_STEP_TOL`` of the
     config's dtype; the control is the kernel step's gradients of
     ``other``.  The kernel step must launch ``ssd_scan`` twice a layer (the
-    pass and its remat; bf16 on the tensor-core instance, fp32 on the
-    fp32-FMA one) and ``ssd_scan_backward`` once, and call no plain
+    pass and its remat) and ``ssd_scan_backward`` once, bf16 on their
+    tensor-core instances and fp32 on the fp32-FMA ones, and call no plain
     scan."""
     from repro_torch.models import ssm
     lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
@@ -4093,6 +4182,10 @@ def mamba_step_vs_plain(torch, ops, ref, model, cfg, batch, other):
     check(ops.ssd_launches == {k: 2 * L * (k == instance)
                                for k in ops.SSD_INSTANCES},
           f"mamba train step: ssd_scan by instance {ops.ssd_launches}")
+    check(ops.ssd_backward_launches == {
+        k: L * (k == instance) for k in ops.SSD_BACKWARD_INSTANCES},
+        f"mamba train step: ssd_scan_backward by instance "
+        f"{ops.ssd_backward_launches}")
     kernel_ssd = ssm.ssd
     ssm.ssd = autograd_ssd
     try:
@@ -4150,8 +4243,8 @@ def mamba_step_vs_plain(torch, ops, ref, model, cfg, batch, other):
 def mamba_train_run(torch, ops, train, cfg):
     """``timed_train_loop`` for TRAIN_STEPS steps at MAMBA_TRAIN_BATCH x
     MAMBA_TRAIN_SEQ: each step 2 ``ssd_scan`` launches a layer (pass and
-    remat), every one on the tensor-core instance, and one
-    ``ssd_scan_backward``, nothing else launched.  Returns the launches and
+    remat) and one ``ssd_scan_backward``, every one on its tensor-core
+    instance, nothing else launched.  Returns the launches and
     the times."""
     L = cfg.num_layers
     run = timed_train_loop(torch, ops, train, cfg, MAMBA_TRAIN_BATCH,
@@ -4166,6 +4259,11 @@ def mamba_train_run(torch, ops, train, cfg):
           f"train_loop: ssd_scan launches by instance "
           f"{run['ssd_instances']}, expected every one on the tensor-core "
           "instance")
+    check(run["ssd_backward_instances"] == {"wgmma": L * TRAIN_STEPS,
+                                            "fma": 0},
+          f"train_loop: ssd_scan_backward launches by instance "
+          f"{run['ssd_backward_instances']}, expected every one on the "
+          "tensor-core instance")
     losses = run.pop("losses")
     log(f"train {cfg.name} {L} layers, B={MAMBA_TRAIN_BATCH} "
         f"S={MAMBA_TRAIN_SEQ}: {TRAIN_STEPS} steps in {run['wall_s']:.2f} s,"
@@ -4176,9 +4274,227 @@ def mamba_train_run(torch, ops, train, cfg):
         f"(torch.cuda.max_memory_allocated); launches "
         f"{launches['ssd_scan']} ssd_scan ({L} + {L} remat a step, "
         f"{json.dumps(run['ssd_instances'])}), "
-        f"{launches['ssd_scan_backward']} ssd_scan_backward; loss "
+        f"{launches['ssd_scan_backward']} ssd_scan_backward "
+        f"({json.dumps(run['ssd_backward_instances'])}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}")
     return run
+
+
+# --------------------------------------------------------------------------
+# phase 18: the backward's two instances, mamba2's fp32 step at full depth,
+# and its training step split by kernel
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def forced_backward_instance(ops, instance):
+    """Inside the block every ``ssd_scan_backward`` call, the model's
+    included, runs ``instance``: ``ops.ssd_backward_instance`` answers it."""
+    chooser = ops.ssd_backward_instance
+    ops.ssd_backward_instance = lambda *a, **k: instance
+    try:
+        yield
+    finally:
+        ops.ssd_backward_instance = chooser
+
+
+def mamba_depth_check(torch, ops, ref, model, cfg, batch, other):
+    """An fp32 copy of ``cfg`` at all its layers: ``mamba_step_vs_plain``
+    under MAMBA_STEP_TOL["float32"].  If it fails, the same at
+    MAMBA_DEPTH_BISECT layers is logged before the failure is raised, so
+    the run shows where the deviation grows."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    try:
+        return mamba_step_vs_plain(torch, ops, ref, model, cfg32, batch,
+                                   other)
+    except SmokeFailure:
+        for layers in MAMBA_DEPTH_BISECT:
+            try:
+                mamba_step_vs_plain(torch, ops, ref, model, dataclasses.replace(
+                    cfg32, num_layers=layers), batch, other)
+            except SmokeFailure as err:
+                log(f"mamba depth bisection, {layers} layers: {err}")
+        raise
+
+
+def backward_kernels_ms(split) -> float:
+    """Device ms of ``ssd_scan_backward``'s kernels in a ``kernel_split``."""
+    return sum(ms for name, ms in split.items() if "bwd_" in name)
+
+
+def mamba_step_split(torch, ops, model, data, cfg, instance):
+    """One forward + backward of ``cfg`` at MAMBA_TRAIN_BATCH x
+    MAMBA_TRAIN_SEQ (a ``train_loop`` step without the optimizer) split by
+    kernel (``kernel_split``, device ms a step), with every
+    ``ssd_scan_backward`` on ``instance``; logs the 12 largest items and
+    the backward kernel's share.  Returns the split and its sums."""
+    batch, seq = MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ
+    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
+    tokens = next(data.token_stream(cfg, batch, seq, seed=0, device="cuda"))
+
+    def step():
+        lm.zero_grad(set_to_none=True)
+        model.loss_fn(lm, tokens, cfg).backward()
+    ops.reset_launches()
+    with forced_backward_instance(ops, instance):
+        split = kernel_split(torch, step, reps=2)
+    launched = ops.ssd_backward_launches[instance]
+    check(launched == 3 * cfg.num_layers, f"mamba step split [{instance}]: "
+          f"{launched} ssd_scan_backward launches on it, expected "
+          f"{3 * cfg.num_layers} (a warm-up and two profiled steps)")
+    total = sum(split.values())
+    back = backward_kernels_ms(split)
+    items = sorted(split.items(), key=lambda kv: -kv[1])
+    log(f"split {cfg.name} {cfg.num_layers} layers B={batch} S={seq} "
+        f"forward + backward, ssd_scan_backward on [{instance}] "
+        f"(torch.profiler, device ms a step): total {total:.2f}, "
+        f"ssd_scan_backward {back:.2f} ({back / total:.4f} of it); largest: "
+        + "; ".join(f"{name} {ms:.2f}" for name, ms in items[:12]))
+    del lm
+    torch.cuda.empty_cache()
+    return dict(instance=instance, total_ms=total, backward_ms=back,
+                backward_share=back / total,
+                largest={name: ms for name, ms in items[:12]},
+                split=split)
+
+
+def ssd_backward_instance_checks(torch, ops, ref, device, devs: dict,
+                                 cases=SSD_BACKWARD_CASES):
+    """At every case the tensor-core instance takes (bf16, chunk 64, p and
+    n multiples of 16), dfinal drawn: both instances of
+    ``ssd_scan_backward`` forced by name on the same inputs against
+    ``ref.ssd_scan_backward``, each gradient within phase 17's limit, the
+    control (dy one row later) above each fp32 limit, two launches equal
+    bit for bit and counted on their instance; on the card then the two
+    timed in turns (wgmma, fma, fma, wgmma; CUDA events) beside the bound
+    (``ssd_backward_bound``), each split by kernel (``kernel_split``), the
+    tensor-core one no slower at the training shape.  On CPU tensors (a
+    rehearsal) both names run the wrapper's plain version and nothing is
+    timed.  Returns a row a case."""
+    cuda = torch.device(device).type == "cuda"
+    rows = []
+    for i, case in enumerate(cases):
+        b, s, h, p, n, chunk = case
+        if ops.ssd_backward_instance(torch.bfloat16, p, n, chunk) != "wgmma":
+            continue
+        args = ssd_backward_inputs(torch, case, "bfloat16", device,
+                                   seed=500 + i, dfinal=True)
+        want = ref.ssd_scan_backward(*args, chunk=chunk)
+        shifted = ref.ssd_scan_backward(*args[:6], args[6].roll(1, dims=1),
+                                        args[7], chunk=chunk)
+        runs = {inst: (lambda inst=inst: ops._ssd_backward_launch(
+                    *args, chunk, inst) if cuda
+                    else ops.ssd_scan_backward(*args, chunk=chunk))
+                for inst in ops.SSD_BACKWARD_INSTANCES}
+        row = dict(case=list(case), shape=f"x (b={b}, s={s}, h={h}, p={p}), "
+                   f"B/C (n={n}) bf16 strided, chunk {chunk}, dfinal drawn")
+        for inst, run in runs.items():
+            what = f"ssd_scan_backward {row['shape']} [{inst}, forced]"
+            before = dict(ops.ssd_backward_launches)
+            got, again = run(), run()
+            if cuda:
+                ran = {k: v - before[k]
+                       for k, v in ops.ssd_backward_launches.items()}
+                check(ran == {k: 2 * (k == inst)
+                              for k in ops.SSD_BACKWARD_INSTANCES},
+                      f"{what}: launched {ran}, expected two on {inst}")
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"{what}: two launches on the same inputs differ")
+            reading = {name: ssd_backward_deviation(torch, name, g, w,
+                                                    "bfloat16")
+                       for name, g, w in zip(SSD_GRADS, got, want)}
+            control = {name: float((g.float() - c.float()).abs().max())
+                       / max(float(c.float().abs().max()), 1e-30)
+                       for name, g, c in zip(SSD_GRADS, got, shifted)}
+            log(f"check {what}: " + ", ".join(
+                f"{nm} {r:.2e} of max ({sh:.3f} of the limit)"
+                for nm, (_, r, sh) in reading.items())
+                + "; control " + ", ".join(
+                    f"{nm} {c:.2e}" for nm, c in control.items()))
+            for name, (_, _, share) in reading.items():
+                check(bool(torch.isfinite(got[SSD_GRADS.index(name)]
+                                          .float()).all()),
+                      f"{what}: non-finite {name}")
+                check(share <= 1.0, f"{what}: {name} at {share:.3f}x its "
+                      "limit")
+                check(control[name] > SSD_BACKWARD_TOL[name],
+                      f"{what}: the control of {name} {control[name]:.3e} "
+                      "is within its limit")
+            record(devs, "ssd_scan_backward", "bfloat16",
+                   max(d for d, _, _ in reading.values()))
+            row[inst] = dict(control=control, **{
+                nm: dict(max_abs_dev=d, rel=r, share=sh)
+                for nm, (d, r, sh) in reading.items()})
+            del got, again
+        if cuda:
+            big = b * s >= 8192
+            reps = {"wgmma": 5 if big else 20, "fma": 2 if big else 10}
+            w1 = cuda_ms(torch, runs["wgmma"], reps["wgmma"])
+            f1 = cuda_ms(torch, runs["fma"], reps["fma"])
+            f2 = cuda_ms(torch, runs["fma"], reps["fma"])
+            w2 = cuda_ms(torch, runs["wgmma"], reps["wgmma"])
+            bms, by = ssd_backward_bound(*case, 2)
+            flops, _ = ssd_backward_work(*case, 2)
+            for inst, (t1, t2) in (("wgmma", (w1, w2)), ("fma", (f1, f2))):
+                ms = (t1 + t2) / 2
+                row[inst].update(ms=ms, ms_samples=[t1, t2],
+                                 tflops=flops / ms / 1e9,
+                                 kernels_ms=kernel_split(torch, runs[inst]))
+            row.update(bound_ms=bms, bound_by=by,
+                       ratio=row["wgmma"]["ms"] / row["fma"]["ms"])
+            log(f"time ssd_scan_backward instances [{row['shape']}]: wgmma "
+                f"{row['wgmma']['ms']:.4f} ms (samples {w1:.4f}, {w2:.4f}; "
+                f"{row['wgmma']['tflops']:.2f} TFLOP/s, "
+                f"{bms / row['wgmma']['ms']:.4f} of the bound), fma "
+                f"{row['fma']['ms']:.4f} ms (samples {f1:.4f}, {f2:.4f}), "
+                f"bound {bms:.4f} ms ({by}); wgmma / fma {row['ratio']:.4f}; "
+                "device ms a call by kernel (torch.profiler): " + "; ".join(
+                    f"{inst} " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in
+                        row[inst]["kernels_ms"].items())
+                    for inst in runs))
+            if case == SSD_TRAIN_CASE:
+                check(row["wgmma"]["ms"] <= row["fma"]["ms"],
+                      f"ssd_scan_backward {row['shape']}: the tensor-core "
+                      f"instance ({row['wgmma']['ms']:.4f} ms) is slower "
+                      f"than the fp32-FMA one ({row['fma']['ms']:.4f} ms)")
+        rows.append(row)
+        del args, want, shifted, runs
+        if cuda:
+            torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_backward_phase(torch, ops, ref, devs: dict):
+    """Phase 18: mamba2-370m's fp32 step at all 48 layers against the
+    plain-scan step (``mamba_depth_check``); both instances of
+    ``ssd_scan_backward`` forced on the same inputs, checked and timed
+    (``ssd_backward_instance_checks``); one forward + backward of
+    mamba2-370m (bf16, 48 layers, B = 8 x 2048) split by kernel with each
+    instance forced (``mamba_step_split``).  Returns the phase's numbers."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic as data
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    cfg = configs.get(MAMBA_TRAIN_ARCH)
+    stream = data.token_stream(cfg, MAMBA_STEP_BATCH, MAMBA_TRAIN_SEQ,
+                               seed=1, device="cuda")
+    batch, other = next(stream), next(stream)
+    depth = mamba_depth_check(torch, ops, ref, model, cfg, batch, other)
+    del batch, other, stream
+    torch.cuda.empty_cache()
+    instances = ssd_backward_instance_checks(torch, ops, ref, "cuda", devs)
+    splits = {inst: mamba_step_split(torch, ops, model, data, cfg, inst)
+              for inst in ("fma", "wgmma")}
+    saved = splits["fma"]["backward_ms"] - splits["wgmma"]["backward_ms"]
+    log(f"split {cfg.name}: ssd_scan_backward {splits['fma']['backward_ms']:.2f}"
+        f" ms a step on fma, {splits['wgmma']['backward_ms']:.2f} on wgmma "
+        f"({saved:.2f} ms less); forward + backward on the device "
+        f"{splits['fma']['total_ms']:.2f} -> {splits['wgmma']['total_ms']:.2f}"
+        " ms")
+    seconds = time.perf_counter() - t0
+    log(f"phase 18: {seconds:.1f} s")
+    return dict(depth=depth, instances=instances, splits=splits,
+                seconds=seconds)
 
 
 def mamba_training_phase(torch, ops, ref, devs: dict):
@@ -4265,7 +4581,19 @@ def main() -> int:
             log(f"ptxas {kernel}: {regs} registers, {spills}{extra}")
     sass = tensor_core_sass(build)
     ssd_sass = ssd_tensor_core_sass(build)
+    forward_sass_unchanged(ssd_sass)
     backward_sass = backward_tensor_core_sass(build)
+    ssd_backward_sass = ssd_backward_tensor_core_sass(build)
+    # the gradient pass's shared memory is sized so that two blocks share
+    # an SM at mamba2-370m's p 64, n 128
+    ssd_backward_sass["blocks_per_sm"] = ops.ssd_backward_occupancy(0, 64,
+                                                                    128)
+    log(f"ssd_scan_backward gradient pass: "
+        f"{ssd_backward_sass['blocks_per_sm']} resident blocks per SM at p "
+        f"64, n 128 ({ops.ssd_backward_smem_bytes(64, 64, 128, 'wgmma')} "
+        "bytes of shared memory a block)")
+    check(ssd_backward_sass["blocks_per_sm"] >= 2, "the tensor-core "
+          "gradient pass fits fewer than two blocks an SM at p 64, n 128")
     bulk = bulk_copy_sass(build)
     for bf16 in (False, True):
         per_sm, sms = ops.round_block_occupancy(0, bf16)
@@ -4593,6 +4921,10 @@ def main() -> int:
     # read around it); the checkpoint resume at the reduced config
     mamba_training = mamba_training_phase(torch, ops, ref, devs)
     rows["ssd_scan_backward"] = mamba_training["timing"]
+    # phase 18: mamba2's fp32 step at full depth; the backward's two
+    # instances on the same inputs, and their times; mamba2's step split
+    # by kernel with each
+    ssd_backward = ssd_backward_phase(torch, ops, ref, devs)
     mamba_launches = mamba_training["run"]["launches"]
     launches["ssd_scan"] += mamba_launches["ssd_scan"]
     launches["ssd_scan_backward"] = mamba_launches["ssd_scan_backward"]
@@ -4702,12 +5034,20 @@ def main() -> int:
             run = mamba_training["run"]
             extra = dict(
                 checks=mamba_training["readings"],
+                instance_launches=run["ssd_backward_instances"],
+                instances=ssd_backward["instances"], sass=ssd_backward_sass,
                 train_step_vs_plain=mamba_training["step_check"],
+                train_step_fp32_full_depth=ssd_backward["depth"],
+                train_step_split={
+                    inst: {k: v for k, v in sp.items() if k != "split"}
+                    for inst, sp in ssd_backward["splits"].items()},
                 train_loop={k: run[k] for k in (
                     "median_step_ms", "fwd_bwd_ms", "opt_ms", "tokens_per_s",
-                    "peak_bytes", "wall_s", "ssd_instances", "steps")},
+                    "peak_bytes", "wall_s", "ssd_instances",
+                    "ssd_backward_instances", "steps")},
                 checkpoint_resume=mamba_training["resume"],
-                phase_s=mamba_training["seconds"])
+                phase_s=mamba_training["seconds"],
+                phase_18_s=ssd_backward["seconds"])
         elif name == "ssd_scan":
             tol = ssd_tol
             extra = dict(serve=dict(

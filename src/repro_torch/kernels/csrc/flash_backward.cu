@@ -782,13 +782,6 @@ __device__ __forceinline__ void split2(const float (&x)[32],
     }
 }
 
-// The thread's warpgroup, broadcast from lane 0 so that the compiler knows
-// it is warp-uniform: a wgmma under a branch it takes for divergent makes
-// ptxas serialize every wgmma of the kernel.
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
-}
-
 __device__ __forceinline__ uint32_t align1024(const unsigned char* raw) {
   const uint32_t at = smem_u32(raw);
   return at + ((1024u - (at & 1023u)) & 1023u);

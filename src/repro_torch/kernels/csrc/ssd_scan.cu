@@ -93,6 +93,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -396,12 +398,9 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
 namespace tc {
 
 constexpr int kMaxGroup = 4;         // heads per block of passes (a), (c)
-constexpr int kRow = 128;            // bytes of one swizzled row: 64 bf16
 constexpr int kStageRows = 128;      // rows of state_in pass (c) prefetches
 constexpr int kStateThreads = 256;   // threads per block of pass (b)
 constexpr int kAhead = 8;            // chunks pass (b) loads ahead
-
-__host__ __device__ constexpr int panels(int cols) { return (cols + 63) / 64; }
 
 // Shared memory of pass (a), in bytes: the B tile (n/64 panels of Q rows of
 // 128 bytes), two 64-column panels of x (the next head's loads while this
@@ -449,151 +448,6 @@ struct Args {
   long long xb, xs, xh, db, ds, dh, Bb, Bs, Cb, Cs;   // elements
   int H, S, P, N, NC, group, groups;   // heads per block, blocks per chunk
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without registers; bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-// Makes this thread's shared-memory writes (stores and cp.async) visible
-// to the tensor cores' reads (the async proxy); a barrier follows.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// Byte offset of (row r, column col) in a 128-byte-swizzled panel of 64
-// bf16 columns: the 16-byte chunk of the row is XORed with r mod 8.
-__device__ __forceinline__ int swz(int r, int col) {
-  return r * kRow + ((((col & 63) >> 3) ^ (r & 7)) << 4) + ((col & 7) << 1);
-}
-
-// Rows [0, Q) and columns [0, 64 * npanels) of a bf16 matrix (row stride
-// ld elements, unit column stride) into npanels swizzled panels of Q rows
-// at dst; rows >= rows_ok and columns >= cols_ok are zero-filled.
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long ld, int Q, int npanels,
-                                          int rows_ok, int cols_ok, int tid,
-                                          int nthreads) {
-  const int per_panel = Q * 8;
-  for (int idx = tid; idx < npanels * per_panel; idx += nthreads) {
-    const int panel = idx / per_panel, rem = idx % per_panel;
-    const int r = rem / 8, ch = rem % 8;
-    const int col = 64 * panel + 8 * ch;
-    const bool ok = r < rows_ok && col < cols_ok;
-    cp_async16(dst + panel * Q * kRow + r * kRow + ((ch ^ (r & 7)) << 4),
-               ok ? src + r * ld + col : src, ok ? 16 : 0);
-  }
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-// K-major operand: rows of the M (or N) dimension, K across the panel.
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
-}
-// MN-major operand: rows of the K dimension, 64 columns of N per panel.
-__device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
-  return sw128_desc(addr, 1024, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define SSD_ACC32                                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-      "+f"(d[31])
-#define SSD_D32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31}"
-
-// d (64 x 64, fp32) += A (64 x 16) . B; A K-major in shared memory, B
-// K-major (tnsp_b = 0) or MN-major (tnsp_b = 1) in shared memory.
-template <int kTnspB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %35, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SSD_D32
-      ", %32, %33, p, 1, 1, 0, %34;\n\t}"
-      : SSD_ACC32
-      : "l"(da), "l"(db), "n"(kTnspB), "n"(1));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 in registers) . B, B MN-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SSD_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
-      : SSD_ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 t) {
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// Two fp32 values as three bf16x2 terms, hi + mid + lo, each the rounding
-// of what the earlier ones leave (the subtractions are exact).
-__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(v0, v1);
-  hi = bits(t);
-  v0 -= __low2float(t);
-  v1 -= __high2float(t);
-  t = __floats2bfloat162_rn(v0, v1);
-  mid = bits(t);
-  v0 -= __low2float(t);
-  v1 -= __high2float(t);
-  lo = bits(__floats2bfloat162_rn(v0, v1));
-}
-
-__device__ __forceinline__ float bf_at(const unsigned char* p) {
-  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
-}
-
-// The thread's warpgroup, broadcast from lane 0 so that the compiler knows
-// it is the same across the warp: a branch on threadIdx.x / 128 itself
-// counts as divergent, and a wgmma under a divergent branch makes ptxas
-// serialize every wgmma of the kernel (C7520).
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
-}
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
   return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);

@@ -24,8 +24,9 @@ show that its path went through the kernels; ``flash_launches``,
 ``launches["flash_attention"]``, ``launches["csvm_round_block"]`` and
 ``launches["ssd_scan"]`` by the instance that ran (``flash_instance``,
 ``round_block_instance``, ``ssd_instance``), ``flash_backward_launches``
-splits ``launches["flash_attention_backward"]``
-(``flash_backward_instance``), and ``two_pass_launches``
+and ``ssd_backward_launches`` split ``launches["flash_attention_backward"]``
+and ``launches["ssd_scan_backward"]`` (``flash_backward_instance``,
+``ssd_backward_instance``), and ``two_pass_launches``
 splits ``launches["csvm_block_update"]`` plus
 ``launches["csvm_local_update"]`` (``two_pass_instance``).
 """
@@ -64,6 +65,12 @@ round_block_launches: Dict[str, int] = {name: 0 for name in ROUND_INSTANCES}
 # passes) and the chunk walk in fp32 FMAs on the CUDA cores
 SSD_INSTANCES = ("wgmma", "fma")
 ssd_launches: Dict[str, int] = {name: 0 for name in SSD_INSTANCES}
+# ssd_scan_backward's two instances: the products on the bf16 tensor cores
+# (wgmma, the fp32 operands in three bf16 terms) and fp32 FMAs on the CUDA
+# cores; four kernels each
+SSD_BACKWARD_INSTANCES = ("wgmma", "fma")
+ssd_backward_launches: Dict[str, int] = {
+    name: 0 for name in SSD_BACKWARD_INSTANCES}
 # the two-pass update's two instances (csvm_block_update and
 # csvm_local_update): X read once through the round kernel's stream ring,
 # then a reduction launch; and X read twice with plain loads
@@ -101,6 +108,8 @@ def reset_launches() -> None:
         round_block_launches[name] = 0
     for name in SSD_INSTANCES:
         ssd_launches[name] = 0
+    for name in SSD_BACKWARD_INSTANCES:
+        ssd_backward_launches[name] = 0
     for name in TWO_PASS_INSTANCES:
         two_pass_launches[name] = 0
 
@@ -163,6 +172,11 @@ def _ssd_backward_lib() -> ctypes.CDLL:
     lib.ssd_scan_backward.argtypes = [_P] * 21 + [_I] * 8 + [_LL] * 13 + [
         _P]
     lib.ssd_scan_backward.restype = ctypes.c_int
+    lib.ssd_scan_backward_tc.argtypes = [_P] * 21 + [_I] * 7 + [
+        _LL] * 13 + [_P]
+    lib.ssd_scan_backward_tc.restype = ctypes.c_int
+    lib.ssd_backward_tc_occupancy.argtypes = [_I, _I]
+    lib.ssd_backward_tc_occupancy.restype = ctypes.c_int
     lib.ssd_scan_backward_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_backward_error_string.restype = ctypes.c_char_p
     return lib
@@ -1205,17 +1219,41 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):
 
 
 _SSD_BACKWARD_THREADS = 512   # csrc/ssd_backward.cu kGradThreads
+_SSD_BACKWARD_TC_CHUNK = 64   # csrc/ssd_backward.cu tc::kQ
+_PANEL = 64 * 128             # bytes of one swizzled 64 x 64 bf16 panel
 
 
-def ssd_backward_smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory of the larger block kernel of ``ssd_scan_backward``
-    (``ssd_backward_smem_bytes`` of ``csrc/ssd_backward.cu``), fp32: the
-    chunk pass holds B and C (Q x (n+4)) and the decayed x dt and exp(cum)
-    dy (Q x (p4+4), p4 = p rounded up to 4) and four Q-vectors; the
-    gradient pass holds B, C, g or state_in (p4 x (n+4)), S and M (Q x
-    (Q+4)), x dt and dy, eight Q-vectors, the tiles' partial sums (Q x
-    (Q/4) twice, Q x (p4/4) twice, Q x (n/4)) and two reduction buffers of
-    its 512 threads."""
+def _ssd_backward_tc_smem(p: int, n: int) -> int:
+    """Bytes of the larger block of the tensor-core instance
+    (``ssd_backward_tc_smem_bytes`` of ``csrc/ssd_backward.cu``): the chunk
+    pass holds the B and C tiles (np panels of 64 x 64 bf16 each), one
+    panel of x and one of dy, and four group x 64 fp32 vectors; the
+    gradient pass the C and B tiles, x and dy (pp panels each), three
+    bf16 terms of a 64 x 64 block of a state and three of S, S^T or M^T,
+    two group vectors, five row vectors and four warps' column sums; each
+    1,024 bytes of alignment slack."""
+    np_, pp = -(-int(n) // 64), -(-int(p) // 64)
+    vec = 4 * _SSD_TC_MAX_GROUP * 64
+    chunk_pass = 2 * np_ * _PANEL + 2 * _PANEL + 4 * vec + 1024
+    grad_pass = ((2 * np_ + 2 * pp + 6) * _PANEL + 2 * vec + 5 * 4 * 64
+                 + 32 + 4 * 4 * 64 + 1024)
+    return max(chunk_pass, grad_pass)
+
+
+def ssd_backward_smem_bytes(chunk: int, p: int, n: int,
+                            instance: str = "fma") -> int:
+    """Shared memory of the larger block kernel of ``ssd_scan_backward``'s
+    ``instance``.  ``"fma"`` (``ssd_backward_smem_bytes`` of
+    ``csrc/ssd_backward.cu``), fp32: the chunk pass holds B and C (Q x
+    (n+4)) and the decayed x dt and exp(cum) dy (Q x (p4+4), p4 = p
+    rounded up to 4) and four Q-vectors; the gradient pass holds B, C, g
+    or state_in (p4 x (n+4)), S and M (Q x (Q+4)), x dt and dy, eight
+    Q-vectors, the tiles' partial sums (Q x (Q/4) twice, Q x (p4/4) twice,
+    Q x (n/4)) and two reduction buffers of its 512 threads.  ``"wgmma"``:
+    ``_ssd_backward_tc_smem`` (chunk 64; 103,712 bytes at mamba2-370m's p
+    64, n 128, so two blocks share an SM)."""
+    if instance == "wgmma":
+        return _ssd_backward_tc_smem(p, n)
     Q, p4 = int(chunk), -(-int(p) // 4) * 4
     NS, QS, PS = n + 4, Q + 4, p4 + 4
     chunk_pass = 2 * Q * NS + 2 * Q * PS + 4 * Q
@@ -1225,11 +1263,53 @@ def ssd_backward_smem_bytes(chunk: int, p: int, n: int) -> int:
     return 4 * max(chunk_pass, grad_pass)
 
 
-def _check_ssd_backward(x, dt, A, B, C, D, dy, dfinal, chunk):
+def _ssd_backward_tc_shape(dtype, p: int, n: int, chunk: int) -> bool:
+    return (dtype == torch.bfloat16 and chunk == _SSD_BACKWARD_TC_CHUNK
+            and p % 16 == 0 and 16 <= p <= 256
+            and n % 16 == 0 and 16 <= n <= 256
+            and _ssd_backward_tc_smem(p, n) <= _SMEM_LIMIT)
+
+
+def ssd_backward_instance(dtype: torch.dtype, p: int, n: int, chunk: int,
+                          *operands) -> str:
+    """The instance of ``ssd_scan_backward`` that a CUDA call runs:
+    ``"wgmma"`` (the products on the bf16 tensor cores) for bf16 at chunk
+    64 with p and n multiples of 16 in [16, 256], ``"fma"``
+    (fp32 FMAs, any dtype) otherwise.  Given the operands (x, B, C, dy), a
+    bf16 call whose bases or strides the 16-byte copies cannot take
+    (``_copies_aligned``) goes to ``"fma"`` too.  The forward's rule
+    (``ssd_instance``) but for chunk 128, which the tensor-core backward
+    does not take: its two row blocks' G and G^T do not fit the registers
+    beside the products."""
+    if _ssd_backward_tc_shape(dtype, p, n, int(chunk)) and _copies_aligned(
+            *operands):
+        return "wgmma"
+    return "fma"
+
+
+def ssd_backward_occupancy(device_index: int, p: int, n: int) -> int:
+    """Resident blocks per SM of the tensor-core instance's gradient pass
+    at (p, n) on a card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    with its shared memory): 2 at mamba2-370m's p 64, n 128 is the
+    design."""
+    with torch.cuda.device(device_index):
+        blocks = _ssd_backward_lib().ssd_backward_tc_occupancy(int(p), int(n))
+    if blocks < 0:
+        raise RuntimeError(f"ssd_scan_backward: no occupancy for p={p}, "
+                           f"n={n}")
+    return blocks
+
+
+def _check_ssd_backward(x, dt, A, B, C, D, dy, dfinal, chunk,
+                        instance=None):
     """The forward's operand rules, dy shaped, typed and placed as x with
     a unit stride over p, dfinal None or a dense (b, h, p, n) fp32 tensor,
-    and the blocks within a block's shared memory; raises ValueError or
-    TypeError before any launch."""
+    and for ``instance`` (default: the one ``ssd_backward_instance`` names
+    by dtype and shape alone) its rules: ``"fma"``, the blocks within a
+    block's shared memory; ``"wgmma"``, bf16 at chunk 64 with p and n
+    multiples of 16 in [16, 256] within shared memory, and 16-byte-aligned
+    bases and strides of x, B, C and dy.  Raises ValueError or TypeError
+    before any launch."""
     name = "ssd_scan_backward"
     _check_ssd_operands(name, x, dt, A, B, C, D, chunk)
     b, s, h, p = x.shape
@@ -1250,7 +1330,26 @@ def _check_ssd_backward(x, dt, A, B, C, D, dy, dfinal, chunk):
             raise TypeError(f"{name}: dfinal must be float32 on {x.device}")
         if not dfinal.is_contiguous():
             raise ValueError(f"{name}: dfinal must be contiguous")
-    if ssd_backward_smem_bytes(chunk, p, n) > _SMEM_LIMIT:
+    if instance not in (None,) + SSD_BACKWARD_INSTANCES:
+        raise ValueError(f"{name}: unknown instance {instance!r}")
+    instance = instance or ssd_backward_instance(x.dtype, p, n, chunk)
+    if instance == "wgmma":
+        if not _ssd_backward_tc_shape(x.dtype, p, n, chunk):
+            raise ValueError(
+                f"{name}: the tensor-core instance takes bf16 at chunk "
+                f"{_SSD_BACKWARD_TC_CHUNK} with p and n multiples of 16 in "
+                f"[16, 256] within {_SMEM_LIMIT} bytes of shared memory, got "
+                f"{x.dtype}, p={p}, n={n}, chunk={chunk}")
+        for what, t in (("x", x), ("B", B), ("C", C), ("dy", dy)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: {what}'s base is not 16-byte "
+                                 "aligned, as the bf16 kernel's copies need")
+            if any(size > 1 and st % 8 for size, st in zip(t.shape[:-1],
+                                                          t.stride()[:-1])):
+                raise ValueError(f"{name}: {what}'s strides {t.stride()} "
+                                 "are not multiples of 16 bytes, as the bf16"
+                                 " kernel's copies need")
+    elif ssd_backward_smem_bytes(chunk, p, n) > _SMEM_LIMIT:
         raise ValueError(f"{name}: chunk={chunk}, p={p}, n={n} need "
                          f"{ssd_backward_smem_bytes(chunk, p, n)} bytes of "
                          f"shared memory, over {_SMEM_LIMIT}")
@@ -1259,29 +1358,17 @@ def _check_ssd_backward(x, dt, A, B, C, D, dy, dfinal, chunk):
         raise ValueError(f"{name}: x {tuple(x.shape)} exceeds the grid")
 
 
-def ssd_scan_backward(x, dt, A, B, C, D, dy, dfinal=None, *,
-                      chunk: int = 64):
-    """dx, ddt, dA, dB, dC, dD of ``(y, final) = ssd_scan(x, dt, A, B, C,
-    D, chunk=chunk)`` given dy = dL/dy (b, s, h, p) in x's dtype and
-    dfinal = dL/dfinal (b, h, p, n) fp32 or None (zeros).  Operands and
-    rules as ``ssd_scan`` (the model's strided slices of one conv output
-    go in without a copy; dy needs a unit stride over p).  Returns dx
-    (b, s, h, p) and dB, dC (b, s, n) in x's dtype, ddt (b, s, h) and dA,
-    dD (h,) fp32, all dense.
-
-    On the card: the four kernels of ``csrc/ssd_backward.cu`` (the chunk
-    pass, the state walk both ways, the gradient pass, the reduction) at
-    any chunk the blocks' shared memory takes (``ssd_backward_smem_bytes``:
-    mamba2-370m's chunk 64 at p = 64, n = 128 takes 201,728 bytes), with
-    ``ssd_head_group`` heads a block and an fp32 scratch of two (b, nc, h,
-    p, n) arrays and two per-group (b, nc·chunk, n) partials; no atomics,
-    so two launches on the same inputs agree bit for bit.  On the CPU:
-    ``ref.ssd_scan_backward``."""
-    if not _is_cuda(x, "ssd_scan_backward"):
-        return ref.ssd_scan_backward(x, dt, A, B, C, D, dy, dfinal,
-                                     chunk=chunk)
+def _ssd_backward_launch(x, dt, A, B, C, D, dy, dfinal, chunk: int,
+                         instance: str):
+    """One call of ``instance`` on CUDA operands (checked here first:
+    nothing is launched on operands it does not take); returns (dx, ddt,
+    dA, dB, dC, dD).  ``ssd_scan_backward`` calls it with
+    ``ssd_backward_instance``'s choice; the fp32-FMA instance also takes
+    bf16."""
+    if instance not in SSD_BACKWARD_INSTANCES:
+        raise ValueError(f"ssd_scan_backward: unknown instance {instance!r}")
     chunk = int(chunk)
-    _check_ssd_backward(x, dt, A, B, C, D, dy, dfinal, chunk)
+    _check_ssd_backward(x, dt, A, B, C, D, dy, dfinal, chunk, instance)
     b, s, h, p = x.shape
     n = B.shape[2]
     nc = -(-s // chunk)
@@ -1308,17 +1395,64 @@ def ssd_scan_backward(x, dt, A, B, C, D, dy, dfinal=None, *,
     strides = (*x.stride()[:3], *dy.stride()[:3], *dt.stride(),
                B.stride(0), B.stride(1), C.stride(0), C.stride(1))
     with torch.cuda.device(dev):
-        err = lib.ssd_scan_backward(
-            *ptrs, int(x.dtype == torch.bfloat16), b, s, h, p, n, chunk,
-            group, *strides, _stream(dev))
+        if instance == "wgmma":
+            err = lib.ssd_scan_backward_tc(*ptrs, b, s, h, p, n, chunk,
+                                           group, *strides, _stream(dev))
+        else:
+            err = lib.ssd_scan_backward(
+                *ptrs, int(x.dtype == torch.bfloat16), b, s, h, p, n, chunk,
+                group, *strides, _stream(dev))
     _check_call("ssd_scan_backward", err, lib.ssd_scan_backward_error_string)
+    ssd_backward_launches[instance] += 1
     return dx, ddt, dA, dB, dC, dD
+
+
+def ssd_scan_backward(x, dt, A, B, C, D, dy, dfinal=None, *,
+                      chunk: int = 64):
+    """dx, ddt, dA, dB, dC, dD of ``(y, final) = ssd_scan(x, dt, A, B, C,
+    D, chunk=chunk)`` given dy = dL/dy (b, s, h, p) in x's dtype and
+    dfinal = dL/dfinal (b, h, p, n) fp32 or None (zeros).  Operands and
+    rules as ``ssd_scan`` (the model's strided slices of one conv output
+    go in without a copy; dy needs a unit stride over p).  Returns dx
+    (b, s, h, p) and dB, dC (b, s, n) in x's dtype, ddt (b, s, h) and dA,
+    dD (h,) fp32, all dense.
+
+    On the card, the instance ``ssd_backward_instance`` names from the
+    operands runs four kernels of ``csrc/ssd_backward.cu`` (the chunk
+    pass, the state walk both ways, the gradient pass, the reduction),
+    ``ssd_head_group`` heads a block:
+      * ``"wgmma"`` — bf16 at chunk 64, p and n multiples of 16 in [16,
+        256], 16-byte-aligned x, B, C, dy (every mamba2 layer in training):
+        the products on the bf16 tensor cores, the fp32 operands in three
+        bf16 terms; one warpgroup a block, two blocks an SM (103,712 bytes
+        of shared memory at mamba2-370m's p 64, n 128).  Bound by the fp32
+        scratch's traffic, then the products.
+      * ``"fma"`` — the rest (fp32, misaligned bf16, other chunks within
+        ``ssd_backward_smem_bytes``: mamba2-370m's chunk 64 at p = 64,
+        n = 128 takes 201,728 bytes): fp32 FMAs on the CUDA cores, which
+        bound it.
+    Both allocate the same fp32 scratch: two (b, nc, h, p·n) arrays (268
+    MB each at mamba2-370m's training shape, b 8 × s 2048), two per-group
+    (b, nc·chunk, n) partials and three (b, nc, h) vectors; neither uses
+    atomics, so two launches on the same inputs agree bit for bit.  On the
+    CPU: ``ref.ssd_scan_backward``."""
+    if not _is_cuda(x, "ssd_scan_backward"):
+        return ref.ssd_scan_backward(x, dt, A, B, C, D, dy, dfinal,
+                                     chunk=chunk)
+    p = x.shape[-1] if x.dim() == 4 else 0
+    n = B.shape[-1] if isinstance(B, torch.Tensor) and B.dim() == 3 else 0
+    instance = ssd_backward_instance(x.dtype, p, n, int(chunk), x, B, C, dy)
+    return _ssd_backward_launch(x, dt, A, B, C, D, dy, dfinal, chunk,
+                                instance)
 
 
 class SSDScan(torch.autograd.Function):
     """``ssd_scan`` with its gradient: the forward runs the scan (the
     kernel on the card) and keeps x, dt, A, B, C and D; the backward runs
-    ``ssd_scan_backward`` on them.  ``SSDScan.apply(x, dt, A, B, C, D,
+    ``ssd_scan_backward`` on them, on the card the instance
+    ``ssd_backward_instance`` names (mamba2's bf16 layers: ``"wgmma"``,
+    the tensor cores; fp32 copies: ``"fma"``), each with the fp32 scratch
+    that docstring lists.  ``SSDScan.apply(x, dt, A, B, C, D,
     chunk)`` returns (y, final state); either cotangent may be None (the
     model's loss reads y only), and none gives no gradient."""
 

@@ -1375,6 +1375,69 @@ def test_ssd_backward_matches_plain(cuda, case, dtype, dfinal):
                                                  dtype)[2] <= 1.0
 
 
+@pytest.mark.parametrize("instance", ["wgmma", "fma"])
+@pytest.mark.parametrize("dfinal", [False, True])
+@pytest.mark.parametrize("case", [
+    c for c in chip_smoke.SSD_BACKWARD_CASES
+    if c[5] == 64 and c[3] % 16 == 0 and c[4] % 16 == 0
+    and c[0] * c[1] <= 4096])
+def test_ssd_backward_instances_match_plain(cuda, case, dfinal, instance):
+    """Each instance of ``ssd_scan_backward`` forced by name on bf16
+    inputs the tensor-core one takes (chip_smoke's cases at chunk 64, the
+    model's strided slices) against ``ref.ssd_scan_backward`` within
+    phase 17's limits; two launches equal bit for bit, counted on the
+    instance."""
+    assert ops.ssd_backward_instance(torch.bfloat16, *case[3:]) == "wgmma"
+    args = chip_smoke.ssd_backward_inputs(torch, case, "bfloat16", cuda,
+                                          seed=8, dfinal=dfinal)
+    assert ops.ssd_backward_instance(torch.bfloat16, *case[3:], args[0],
+                                     args[3], args[4], args[6]) == "wgmma"
+    ops.reset_launches()
+    got = ops._ssd_backward_launch(*args, case[5], instance)
+    again = ops._ssd_backward_launch(*args, case[5], instance)
+    assert ops.ssd_backward_launches == {
+        k: 2 * (k == instance) for k in ops.SSD_BACKWARD_INSTANCES}
+    assert ops.launches["ssd_scan_backward"] == 2
+    want = ref.ssd_scan_backward(*args, chunk=case[5])
+    for name, g, a, w in zip(chip_smoke.SSD_GRADS, got, again, want):
+        assert torch.equal(g, a), name
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert chip_smoke.ssd_backward_deviation(torch, name, g, w,
+                                                 "bfloat16")[2] <= 1.0, name
+
+
+def test_ssd_backward_wrapper_takes_the_tensor_core_instance(cuda):
+    """mamba2-370m's bf16 slices at chunk 64: the wrapper launches
+    ``"wgmma"``; fp32 inputs and chunk 32 take ``"fma"``."""
+    case = (1, 130, 32, 64, 128, 64)
+    ops.reset_launches()
+    for dtype, chunk, inst in (("bfloat16", 64, "wgmma"),
+                               ("float32", 64, "fma"),
+                               ("bfloat16", 32, "fma")):
+        args = chip_smoke.ssd_backward_inputs(
+            torch, case[:5] + (chunk,), dtype, cuda, seed=9, dfinal=False)
+        before = dict(ops.ssd_backward_launches)
+        ops.ssd_scan_backward(*args, chunk=chunk)
+        assert ops.ssd_backward_launches[inst] == before[inst] + 1
+
+
+def test_ssd_backward_forced_tensor_core_raises_before_a_launch(cuda):
+    """A forced ``"wgmma"`` on operands it does not take raises ValueError
+    before any launch: fp32, chunk 128, a base off 16 bytes."""
+    case = (1, 256, 2, 16, 32, 64)
+    f32 = chip_smoke.ssd_backward_inputs(torch, case, "float32", cuda,
+                                         seed=4, dfinal=False)
+    bf = list(chip_smoke.ssd_backward_inputs(torch, case, "bfloat16", cuda,
+                                             seed=4, dfinal=False))
+    flat = torch.zeros(bf[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(bf[0].shape)
+    before = (dict(ops.launches), dict(ops.ssd_backward_launches))
+    for args, chunk in ((f32, 64), (bf, 128), ([shifted] + bf[1:], 64)):
+        with pytest.raises(ValueError):
+            ops._ssd_backward_launch(*args, chunk, "wgmma")
+    assert (dict(ops.launches), dict(ops.ssd_backward_launches)) == before
+
+
 def test_ssd_scan_under_grad_on_the_card_has_a_gradient(cuda):
     """ops.ssd_scan with an input that requires grad goes through SSDScan:
     the output carries a graph, and its backward is one kernel launch;
