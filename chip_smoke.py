@@ -237,7 +237,20 @@ result lines):
    slower at the training shape: ``time ssd_scan_backward instances``
    lines); one forward + backward of mamba2-370m (bf16, 48 layers, B = 8
    x 2048) split by kernel with each instance forced (``split ...``
-   lines).
+   lines);
+19. the remat policies and the sharded train step: qwen3-14b at full
+   width cut to 4 layers (phase 15's configuration, B = 2 x 4096), one
+   step's loss and every gradient under "dots" and "names" equal to
+   "full"'s bit for bit, 2 flash forward launches a layer and 1 backward
+   under each, all on "wgmma", then each policy's step time and peak
+   memory (``remat ...`` lines); qwen3-14b at full width cut to 2 layers
+   on four ranks of mesh (2, 2), placed as ``launch.ranks.spawn`` places
+   them (gloo on card 0 with one card), one step of
+   ``make_jitted_train_step`` against the one-rank ``make_train_step``
+   run first here from the same seed and batch (B = 4 x 1024): every
+   rank's loss and gnorm, and its block of every weight and moment,
+   within ``SHARD_TOL`` with the controls above it; each rank's peak
+   memory, collective ms and flash launches (``sharded ...`` lines).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -261,6 +274,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -573,6 +587,44 @@ MAMBA_FP32_LAYERS = 2
 # above), which holds the fma kernel sound through the whole depth; on a
 # failure the layer counts of MAMBA_DEPTH_BISECT are read too.
 MAMBA_DEPTH_BISECT = (2, 8, 24)
+
+# phase 19: (a) the remat policies on phase 15's configuration (qwen3-14b
+# at full width, 4 layers, B = 2 x 4096): one step's loss and every
+# gradient under "dots" and "names" against "full" — the same products,
+# saved or recomputed, so the same bits are expected (REMAT_TOL 0) — then
+# REMAT_STEPS timed steps of each policy (after one warm-up) with their
+# peak memory.  (b) the sharded train step on four ranks placed as
+# ``launch.ranks.spawn`` places them (NCCL with four cards, else gloo on
+# card 0): qwen3-14b at full width, 2 layers, mesh (2, 2), B = 4 x 1024,
+# one step from ``init_sharded``'s blocks of ``init_params``' weights,
+# against the one-rank ``make_train_step`` run first in this process from
+# the same seed and batch (saved whole under build/, read back by mmap,
+# block by block).  SHARD_LR makes the first step's update (lr x 1/20 of
+# warm-up = 5e-4) about four bf16 ulps of a 0.02 weight, so the weights'
+# check sees it.
+REMAT_POLICIES = ("full", "dots", "names")
+REMAT_STEPS = 3
+REMAT_TOL = 0.0
+SHARD_ARCH = "qwen3_14b"
+SHARD_LAYERS = 2
+SHARD_MESH = (2, 2)
+SHARD_BATCH, SHARD_SEQ = 4, 1024
+SHARD_LR = 1e-2
+# The sharded step against the one-rank step, bf16: |loss dev| and |gnorm
+# dev| / gnorm; each weight by |w_sharded - w_one| / |w_one - w_before|
+# (L2: Adam's first step is about lr x sign(g), so a gradient near 0 that
+# rounds to the other sign moves one entry by twice the update, which a
+# max would read as a failure); each moment by max |dev| / max |m_one|.
+# The sharded gradients differ from the one-rank ones by bf16 rounding
+# (each rank's product is rounded before the fp32 reduce-scatter).
+# The first H100 reading (NVIDIA H100 80GB HBM3, 700.00 W; gloo, four
+# ranks on card 0): loss 0, gnorm 6.81e-6, weights 0.199
+# (layers.1.attn.k_norm, 128 entries: one entry's flip is a large share;
+# median 2.4e-2), m 7.64e-3, v 1.53e-2.  Limits: about three of it (the
+# loss's, read 0, the fp32 tier).  Controls: the loss and gnorm of another
+# batch from the same weights (the first reading 1.97e-2 and 9.37e-4);
+# the weights before the step and zero moments (1 by construction).
+SHARD_TOL = dict(loss=1e-4, gnorm=2e-5, params=0.6, m=2.3e-2, v=4.6e-2)
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -4534,6 +4586,237 @@ def mamba_training_phase(torch, ops, ref, devs: dict):
                 run=run, resume=resume, seconds=seconds)
 
 
+# --------------------------------------------------------------------------
+# phase 19: the remat policies and the sharded train step
+# --------------------------------------------------------------------------
+
+def remat_policies(torch, ops, model, train, cfg, batch):
+    """Phase 19 (a): one step's loss and gradients under each policy of
+    REMAT_POLICIES from the same weights and batch, "dots" and "names"
+    against "full" (each leaf by ``leaf_deviation``), every flash launch
+    on "wgmma" (2 forward a layer, pass and remat, and 1 backward); then
+    REMAT_STEPS timed steps of each (CUDA events around each step after
+    one warm-up) and its peak memory."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    L = cfg.num_layers
+    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
+    got, out = {}, dict(policies={})
+    for policy in REMAT_POLICIES:
+        pcfg = dataclasses.replace(cfg, remat_policy=policy)
+        lm.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        loss = model.loss_fn(lm, batch, pcfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        check(ops.flash_launches == {"wgmma": 2 * L, "fma": 0}
+              and ops.flash_backward_launches == {"wgmma": L, "fma": 0},
+              f"remat {policy}: flash launches {ops.flash_launches}, "
+              f"backward {ops.flash_backward_launches}, expected {2 * L} "
+              f"and {L} on wgmma")
+        got[policy] = (loss.detach(), {n: p.grad
+                                       for n, p in lm.named_parameters()})
+        out["policies"][policy] = dict(
+            loss=float(loss.detach()), flash=dict(ops.flash_launches),
+            flash_backward=dict(ops.flash_backward_launches))
+        lm.zero_grad(set_to_none=True)
+    loss_f, grads_f = got.pop("full")
+    for policy, (loss, grads) in got.items():
+        devs = {n: leaf_deviation(torch, g, grads_f[n])
+                for n, g in grads.items()}
+        worst = max(devs, key=devs.get)
+        loss_dev = abs(float(loss) - float(loss_f))
+        log(f"remat {policy} {cfg.name} {L} layers B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}: loss {float(loss):.6f} against full's "
+            f"{float(loss_f):.6f} (|dev| {loss_dev:.4e}); gradients, max "
+            f"over {len(devs)} parameters of max|g - g_full| / "
+            f"max|g_full|: {devs[worst]:.4e} at {worst} (limit "
+            f"{REMAT_TOL:g})")
+        check(loss_dev <= REMAT_TOL and devs[worst] <= REMAT_TOL,
+              f"remat {policy}: loss |dev| {loss_dev:.4e}, gradient "
+              f"{devs[worst]:.4e} at {worst}, limit {REMAT_TOL:g}")
+        out["policies"][policy].update(loss_dev=loss_dev,
+                                       grad_dev_max=devs[worst],
+                                       grad_dev_leaf=worst)
+    del got, grads_f, grads
+    torch.cuda.empty_cache()
+    state = adamw_init(lm)
+    for policy in REMAT_POLICIES:
+        pcfg = dataclasses.replace(cfg, remat_policy=policy)
+        step = train.make_train_step(pcfg, AdamWConfig(), total_steps=10)
+        lm, state, _ = step(lm, state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(REMAT_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lm, state, m = step(lm, state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            check(math.isfinite(float(m["loss"])), f"remat {policy}: a "
+                  "non-finite loss")
+        med = float(sorted(times)[len(times) // 2])
+        peak = torch.cuda.max_memory_allocated()
+        out["policies"][policy].update(step_ms=times, median_step_ms=med,
+                                       peak_bytes=peak)
+        log(f"remat {policy} {cfg.name} {L} layers B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}: step {', '.join(f'{t:.2f}' for t in times)} "
+            f"ms (median {med:.2f}, {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f}"
+            f" tokens/s), peak memory {peak / 1e9:.2f} GB")
+    del lm, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_reference(torch, model, train, cfg, batch, other, ref_dir):
+    """Phase 19 (b)'s one-rank run: ``make_train_step`` from
+    ``init_params(cfg, seed=0)`` on ``batch``; its weights and moments
+    saved whole in ``ref_dir``; the control's loss and gnorm, another
+    batch's from the same weights.  Frees the card."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import global_norm
+    torch.cuda.reset_peak_memory_stats()
+    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
+    loss_o = model.loss_fn(lm, other, cfg)
+    loss_o.backward()
+    gnorm_o = global_norm({n: p.grad for n, p in lm.named_parameters()})
+    lm.zero_grad(set_to_none=True)
+    state = adamw_init(lm)
+    step = train.make_train_step(cfg, AdamWConfig(lr=SHARD_LR),
+                                 total_steps=10)
+    lm, state, m = step(lm, state, batch)
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    torch.save({n: p.detach() for n, p in lm.named_parameters()},
+               ref_dir / "params.pt")
+    for key in ("m", "v"):
+        torch.save(state[key], ref_dir / f"{key}.pt")
+    out = dict(loss=float(m["loss"]), gnorm=float(m["gnorm"]),
+               control_loss=float(loss_o.detach()),
+               control_gnorm=float(gnorm_o),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del lm, state, loss_o
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_step(torch, ops, model, train, cfg, batch, other):
+    """Phase 19 (b): the one-rank reference (``sharded_reference``), then
+    four ranks of ``train.check_rank`` on SHARD_MESH; every rank's loss
+    and gnorm equal and within SHARD_TOL of the reference's, each weight
+    and moment block within its limit and each control above it, every
+    flash launch on "wgmma" (per rank 2 forward a layer and 1 backward)."""
+    import shutil
+    from repro_torch.launch import ranks
+    ref_dir = ROOT / "build" / "phase19_reference"
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        one = sharded_reference(torch, model, train, cfg, batch, other,
+                                ref_dir)
+        ref_s = time.perf_counter() - t0
+        n = math.prod(SHARD_MESH)
+        backend, cards = ranks.placement(n)
+        log(f"sharded {cfg.name} {cfg.num_layers} layers, mesh {SHARD_MESH},"
+            f" B={SHARD_BATCH} S={SHARD_SEQ}: the one-rank step {ref_s:.1f} s"
+            f" (loss {one['loss']:.6f}, gnorm {one['gnorm']:.6f}, peak "
+            f"{one['peak_bytes'] / 1e9:.2f} GB); {n} ranks, backend "
+            f"{backend}, cards {cards}; before the ranks this process holds "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        t1 = time.perf_counter()
+        # four ranks share card 0 under gloo: the ranks' allocators grow
+        # their segments rather than cut new ones (less fragmentation)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        recs = ranks.spawn(train.check_rank, n, (
+            cfg, SHARD_MESH, {k: v.cpu() for k, v in batch.items()},
+            SHARD_LR, 0, str(ref_dir), "cuda"), deadline_s=900.0,
+            timeout_s=600.0)
+        spawn_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    L = cfg.num_layers
+    for r in recs:
+        log(f"sharded rank {r['rank']} ({r['backend']}, {r['card']}): loss "
+            f"{r['loss']:.6f} gnorm {r['gnorm']:.6f}; step {r['step_ms']:.1f}"
+            f" ms, collectives {sum(r['comm_ms'].values()):.1f} ms (CUDA "
+            f"events; the host clock where gloo sums in host memory; by op "
+            f"{json.dumps(r['comm_ms'])}), peak "
+            f"{r['peak_gb'] or 0:.2f} GB; flash forward {r['flash']} backward "
+            f"{r['flash_backward']}; weights max {r['params']['max']:.4e} "
+            f"at {r['params']['leaf']} (median {r['params']['median']:.4e}),"
+            f" m max {r['m']['max']:.4e} at {r['m']['leaf']}, v max "
+            f"{r['v']['max']:.4e} at {r['v']['leaf']}")
+        check(r["flash"] == {"wgmma": 2 * L, "fma": 0}
+              and r["flash_backward"] == {"wgmma": L, "fma": 0},
+              f"sharded rank {r['rank']}: flash launches {r['flash']}, "
+              f"backward {r['flash_backward']}, expected {2 * L} and {L} on "
+              "wgmma")
+        check(r["loss"] == recs[0]["loss"] and r["gnorm"] == recs[0]["gnorm"],
+              f"sharded rank {r['rank']}: loss {r['loss']} gnorm "
+              f"{r['gnorm']} differ from rank 0's")
+    loss_dev = abs(recs[0]["loss"] - one["loss"])
+    gnorm_dev = abs(recs[0]["gnorm"] - one["gnorm"]) / one["gnorm"]
+    ctl_loss = abs(one["control_loss"] - one["loss"])
+    ctl_gnorm = abs(one["control_gnorm"] - one["gnorm"]) / one["gnorm"]
+    worst = {key: max(r[key]["max"] for r in recs)
+             for key in ("params", "m", "v")}
+    log(f"sharded against one rank: loss |dev| {loss_dev:.4e} (limit "
+        f"{SHARD_TOL['loss']:g}, control {ctl_loss:.4e}), gnorm |dev| / "
+        f"gnorm {gnorm_dev:.4e} (limit {SHARD_TOL['gnorm']:g}, control "
+        f"{ctl_gnorm:.4e}), weights {worst['params']:.4e} (limit "
+        f"{SHARD_TOL['params']:g}, control 1), m {worst['m']:.4e} (limit "
+        f"{SHARD_TOL['m']:g}, control 1), v {worst['v']:.4e} (limit "
+        f"{SHARD_TOL['v']:g}, control 1); {spawn_s:.1f} s in the ranks")
+    check(loss_dev <= SHARD_TOL["loss"] < ctl_loss,
+          f"sharded: loss |dev| {loss_dev:.4e}, control {ctl_loss:.4e}, "
+          f"limit {SHARD_TOL['loss']:g}")
+    check(gnorm_dev <= SHARD_TOL["gnorm"] < ctl_gnorm,
+          f"sharded: gnorm dev {gnorm_dev:.4e}, control {ctl_gnorm:.4e}, "
+          f"limit {SHARD_TOL['gnorm']:g}")
+    for key, dev in worst.items():
+        check(dev <= SHARD_TOL[key] < 1.0,
+              f"sharded: {key} {dev:.4e} over the limit {SHARD_TOL[key]:g}")
+    return dict(one=one, ranks=recs, backend=backend, cards=cards,
+                loss_dev=loss_dev, gnorm_dev=gnorm_dev,
+                control_loss_dev=ctl_loss, control_gnorm_dev=ctl_gnorm,
+                worst=worst, tol=SHARD_TOL, reference_s=ref_s,
+                spawn_s=spawn_s)
+
+
+def sharded_phase(torch, ops):
+    """Phase 19: the remat policies (a), then the sharded step on four
+    ranks (b).  Returns both records and the flash launches of each."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic as data
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH, num_layers=TRAIN_LAYERS)
+    batch = next(data.token_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1,
+                                   device="cuda"))
+    remat = remat_policies(torch, ops, model, train, cfg, batch)
+    scfg = configs.get(SHARD_ARCH, num_layers=SHARD_LAYERS)
+    stream = data.token_stream(scfg, SHARD_BATCH, SHARD_SEQ, seed=3,
+                               device="cuda")
+    sharded = sharded_step(torch, ops, model, train, scfg, next(stream),
+                           next(stream))
+    seconds = time.perf_counter() - t0
+    log(f"phase 19: {seconds:.1f} s")
+    launches = {
+        "flash_attention": sum(p["flash"]["wgmma"] + p["flash"]["fma"]
+                               for p in remat["policies"].values())
+        + sum(sum(r["flash"].values()) for r in sharded["ranks"]),
+        "flash_attention_backward": sum(
+            sum(p["flash_backward"].values())
+            for p in remat["policies"].values())
+        + sum(sum(r["flash_backward"].values()) for r in sharded["ranks"])}
+    return dict(remat=remat, sharded=sharded, launches=launches,
+                seconds=seconds)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4925,13 +5208,19 @@ def main() -> int:
     # instances on the same inputs, and their times; mamba2's step split
     # by kernel with each
     ssd_backward = ssd_backward_phase(torch, ops, ref, devs)
+    # phase 19: the remat policies "dots" and "names" against "full" on
+    # phase 15's configuration, and the sharded train step on four ranks
+    # against the one-rank step (qwen3-14b at full width, 2 layers)
+    phase19 = sharded_phase(torch, ops)
     mamba_launches = mamba_training["run"]["launches"]
     launches["ssd_scan"] += mamba_launches["ssd_scan"]
     launches["ssd_scan_backward"] = mamba_launches["ssd_scan_backward"]
     train_launches = training["run"]["launches"]
     launches["flash_attention_backward"] = \
-        train_launches["flash_attention_backward"]
-    launches["flash_attention"] += train_launches["flash_attention"]
+        train_launches["flash_attention_backward"] \
+        + phase19["launches"]["flash_attention_backward"]
+    launches["flash_attention"] += train_launches["flash_attention"] \
+        + phase19["launches"]["flash_attention"]
     for h in heads.values():
         launches["flash_attention"] += h["flash_launches"]
         for name in FIT_KERNELS:
@@ -4987,6 +5276,14 @@ def main() -> int:
                     f"train_loop {TRAIN_ARCH} ({TRAIN_LAYERS} layers, "
                     f"{TRAIN_STEPS} steps: pass + remat)":
                         train_launches["flash_attention"],
+                    **{f"train step {TRAIN_ARCH} remat {policy}":
+                       sum(rec["flash"].values())
+                       for policy, rec in
+                       phase19["remat"]["policies"].items()},
+                    f"sharded train step {SHARD_ARCH} ({SHARD_LAYERS} "
+                    f"layers, mesh {SHARD_MESH}), all ranks": sum(
+                        sum(r["flash"].values())
+                        for r in phase19["sharded"]["ranks"]),
                     **{f"seamless-m4t-large-v2 {path} (B={run['B']}, "
                        f"S={run['S']})": n
                        for run in encdec["runs"]
@@ -5024,7 +5321,10 @@ def main() -> int:
                     "peak_bytes", "wall_s", "flash_instances",
                     "backward_instances", "steps")},
                 checkpoint_resume=training["resume"],
-                phase_s=training["seconds"])
+                phase_s=training["seconds"],
+                remat_policies=phase19["remat"],
+                sharded_train_step=phase19["sharded"],
+                phase_19_s=phase19["seconds"])
         elif name == "ssd_scan_backward":
             tol = {"float32": {k: f"{v:g} max|grad|"
                                for k, v in SSD_BACKWARD_TOL.items()},

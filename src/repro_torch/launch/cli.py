@@ -1,6 +1,7 @@
 """Unified launcher, on the port's modules.
 
     PYTHONPATH=src python -m repro_torch.launch.cli train  --arch qwen3-14b --reduced --steps 50
+    PYTHONPATH=src python -m repro_torch.launch.cli train  --arch qwen3-14b --ranks 4 --mesh 2x2 --batch 4 --seq 4096 --steps 10
     PYTHONPATH=src python -m repro_torch.launch.cli serve  --arch mamba2-370m --reduced
     PYTHONPATH=src python -m repro_torch.launch.cli decsvm --p 100 --m 10
 
@@ -21,10 +22,15 @@ def _cfg(args):
             else configs.get(args.arch))
 
 
+def _mesh_arg(text: str):
+    return tuple(int(x) for x in text.lower().split("x"))
+
+
 def cmd_train(args) -> None:
     from repro_torch.launch.train import train_loop
     train_loop(_cfg(args), steps=args.steps, batch=args.batch, seq=args.seq,
-               lr=args.lr, device=args.device)
+               lr=args.lr, device=args.device, ranks=args.ranks,
+               mesh=args.mesh)
 
 
 def cmd_serve(args) -> None:
@@ -79,6 +85,11 @@ def main(argv=None) -> None:
     t = sub.add_parser("train")
     t.add_argument("--arch", default="qwen3-14b")
     t.add_argument("--reduced", action="store_true")
+    t.add_argument("--full", dest="reduced", action="store_false",
+                   help="the registry's configuration (the default)")
+    t.add_argument("--ranks", type=int, default=1)
+    t.add_argument("--mesh", type=_mesh_arg, default=None,
+                   help="(data)x(model) sizes, e.g. 2x2")
     t.add_argument("--steps", type=int, default=50)
     t.add_argument("--batch", type=int, default=8)
     t.add_argument("--seq", type=int, default=128)

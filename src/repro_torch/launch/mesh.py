@@ -33,9 +33,16 @@ the CPU.  Under gloo a CUDA tensor is staged through host memory (copied
 to the CPU, reduced or exchanged there, copied back).  ``comm`` counts
 the calls over more than one rank and the host seconds spent in them.
 
-The LM stack's meshes (``make_production_mesh``, ``make_host_mesh``,
-``data_axes``, ``use_mesh``) belong to ROADMAP Queue 1 item 13.5 and are
-not here.
+The LM stack's meshes: ``make_host_mesh`` and ``data_axes`` as JAX's,
+``use_mesh`` is ``bound``.  ``make_production_mesh`` differs by design:
+JAX's 16 x 16 (or 2 x 16 x 16) is a TPU pod with no H100 counterpart, so
+the port lays ("data", "model") over the group it finds (see
+``make_production_mesh``).  ``AbstractMesh`` is a mesh description that
+no group backs (``launch.sharding`` computes the specs of a 16 x 16 mesh
+in one process on it, as JAX's rules read only ``mesh.shape``).
+``collective("psum_scatter", ...)`` is the reduce-scatter of the ZeRO-3
+train step (``launch.train.make_jitted_train_step``); ``time_collectives``
+records each collective's span on the card's stream with CUDA events.
 """
 from __future__ import annotations
 
@@ -64,11 +71,45 @@ _world = [None]
 # collectives over more than one rank since the last ``reset_comm``:
 # calls, and host seconds spent in them (staging included)
 comm: Dict[str, float] = {"calls": 0, "seconds": 0.0}
+# under ``time_collectives``: (op, start, end, host ms) — CUDA events on the
+# current stream around each collective of a CUDA tensor; for a host
+# tensor (gloo's widened gradients) no events and the host milliseconds
+_spans: List[tuple] = []
+_timing = [False]
 
 
 def reset_comm() -> None:
     comm["calls"] = 0
     comm["seconds"] = 0.0
+    _spans.clear()
+
+
+@contextlib.contextmanager
+def time_collectives():
+    """Within: each collective of a CUDA tensor over more than one rank
+    records CUDA events on the current stream before and after it, so
+    ``collective_ms`` reads the time the stream spent in collectives (the
+    collective's own time where nothing overlaps it, as in the train
+    step, whose compute waits on each one); a collective of a host tensor
+    records its host time."""
+    _timing[0] = True
+    try:
+        yield
+    finally:
+        _timing[0] = False
+
+
+def collective_ms(by_op: bool = False):
+    """Milliseconds in collectives recorded under ``time_collectives``
+    since the last ``reset_comm`` (synchronizes the card); with ``by_op``
+    a dict of them by collective."""
+    out: Dict[str, float] = {}
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for op, a, b, host_ms in _spans:
+        ms = host_ms if a is None else a.elapsed_time(b)
+        out[op] = out.get(op, 0.0) + ms
+    return out if by_op else float(sum(out.values()))
 
 
 def _in_group() -> bool:
@@ -87,19 +128,10 @@ def rank() -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class Mesh:
-    """Named mesh axes and their sizes, in order (hashable: the engines'
-    builders are cached on it).  Checked against the group at
-    construction."""
+class AbstractMesh:
+    """Named mesh axes and their sizes, in order, with no group behind
+    them: what the placement rules read (``shape``, ``axis_names``)."""
     axes: Tuple[Tuple[str, int], ...]
-
-    def __post_init__(self):
-        n, have = self.size, device_count()
-        if min(self.shape.values(), default=1) < 1:
-            raise ValueError(f"mesh {self.shape}: an axis of size < 1")
-        if n > have or have % n:
-            raise ValueError(f"mesh {self.shape} needs {n} ranks; the group "
-                             f"has {have} ranks (a mesh must divide it)")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -112,6 +144,26 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(n for _, n in self.axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh(AbstractMesh):
+    """Named mesh axes and their sizes, in order (hashable: the engines
+    cache what they build on it).  Checked against the group at
+    construction."""
+
+    def __post_init__(self):
+        n, have = self.size, device_count()
+        if min(self.shape.values(), default=1) < 1:
+            raise ValueError(f"mesh {self.shape}: an axis of size < 1")
+        if n > have or have % n:
+            raise ValueError(f"mesh {self.shape} needs {n} ranks; the group "
+                             f"has {have} ranks (a mesh must divide it)")
+
+
+def abstract_mesh(sizes, names) -> AbstractMesh:
+    """A mesh description of any size, checked against no group."""
+    return AbstractMesh(tuple(zip(names, (int(s) for s in sizes))))
 
 
 def _make(sizes, names) -> Mesh:
@@ -143,6 +195,39 @@ def make_chunk_lam_mesh(n_chunk: int, n_lam: Optional[int] = None) -> Mesh:
     analogue of ``make_node_lam_mesh``."""
     n_lam = device_count() // n_chunk if n_lam is None else n_lam
     return _make((n_chunk, n_lam), ("node_chunk", "lam"))
+
+
+def make_host_mesh(model_axis: int = 1) -> Mesh:
+    """("data", "model") over every rank of the group (tests, CPU runs)."""
+    n = device_count()
+    if n % model_axis:
+        raise ValueError(f"model axis {model_axis} does not divide {n} ranks")
+    return _make((n // model_axis, model_axis), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The LM stack's mesh over the group, a declared difference from
+    JAX: its 16 x 16 ("data", "model") and 2 x 16 x 16 ("pod", "data",
+    "model") are TPU pod slices with no H100 counterpart.  Here "model" is
+    2 where the ranks it splits are an even count above 2, else 1, and
+    "data" takes the rest; with ``multi_pod`` a leading "pod" axis of 2
+    splits the group first (four cards: (2, 2), or (2, 2, 1) over two
+    pods)."""
+    n = device_count()
+    pods = 2 if multi_pod else 1
+    if n % pods:
+        raise ValueError(f"{n} ranks do not split into {pods} pods")
+    per = n // pods
+    model_axis = 2 if per % 2 == 0 and per > 2 else 1
+    sizes = (per // model_axis, model_axis)
+    if multi_pod:
+        return _make((pods, *sizes), ("pod", "data", "model"))
+    return _make(sizes, ("data", "model"))
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's batch axes, in order: "pod" and "data" where present."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
 def _coords(mesh: Mesh, r: int) -> Dict[str, int]:
@@ -212,6 +297,11 @@ def bound(mesh: Mesh):
         stack.pop()
 
 
+def use_mesh(mesh: Mesh):
+    """JAX's ``use_mesh``: the port binds a mesh with ``bound``."""
+    return bound(mesh)
+
+
 def _mesh() -> Mesh:
     stack = getattr(_bound, "stack", None)
     if not stack:
@@ -258,6 +348,12 @@ def _line(axis_name: AxisName):
     return line
 
 
+def comm_device(axis_name: AxisName) -> torch.device:
+    """The device the backend of this rank's line along the named axes
+    reduces on: host memory under gloo, this rank's card under NCCL."""
+    return _line(axis_name)[2]
+
+
 def _to_comm(x, dev, copy: bool):
     """``x`` contiguous on ``dev`` (a copy where ``copy``: the
     reductions work in place)."""
@@ -268,7 +364,8 @@ def _to_comm(x, dev, copy: bool):
         copy or not t.is_contiguous()) else t
 
 
-COLLECTIVES = ("psum", "pmax", "pmean", "all_gather", "ppermute")
+COLLECTIVES = ("psum", "pmax", "pmean", "all_gather", "ppermute",
+               "psum_scatter")
 
 
 def collective(op: str, x, axis_name: AxisName, perm=None):
@@ -278,8 +375,11 @@ def collective(op: str, x, axis_name: AxisName, perm=None):
     the axis size, ``all_gather`` concatenates the line's blocks along
     dim 0 in axis-index order, and ``ppermute`` sends ``x`` along
     ``perm`` ((source, destination) axis indices): a rank that no pair
-    addresses receives zeros, as in JAX.  Over axes of size 1 every op is
-    the identity.  The result is on ``x``'s device.
+    addresses receives zeros, as in JAX.  ``psum_scatter`` is the sum over
+    the line split along dim 0 (which the axis size divides): the rank
+    of axis index i keeps block i (gloo has no reduce-scatter: it sums,
+    then slices).  Over axes of size 1 every op is the identity.  The
+    result is on ``x``'s device.
     """
     if op not in COLLECTIVES:
         raise ValueError(f"collective {op!r} not in {COLLECTIVES}")
@@ -287,6 +387,13 @@ def collective(op: str, x, axis_name: AxisName, perm=None):
     if n == 1:
         return x
     t0 = time.perf_counter()
+    span = None
+    if _timing[0] and x.device.type == "cuda":
+        span = (op, torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[1].record()
+    elif _timing[0]:
+        span = (op, None, None)
     members, group, dev = _line(axis_name)
     if op in ("psum", "pmax", "pmean"):
         t = _to_comm(x, dev, copy=True)
@@ -301,6 +408,22 @@ def collective(op: str, x, axis_name: AxisName, perm=None):
         dist.all_gather(parts, t, group=group)
         order = sorted(members)        # the group's ranks are sorted
         out = torch.cat([parts[order.index(q)] for q in members]).to(x.device)
+    elif op == "psum_scatter":
+        me, k = members.index(rank()), x.shape[0] // n
+        if dist.get_backend(group) == "gloo":
+            t = _to_comm(x, dev, copy=True)
+            dist.all_reduce(t, group=group)
+            out = t[me * k:(me + 1) * k].to(x.device)
+        else:
+            # the group's rank i receives chunk i; ours is axis index me
+            order = sorted(members)
+            t = _to_comm(x, dev, copy=False)
+            if members != order:
+                t = torch.cat([t[members.index(q) * k:
+                                 (members.index(q) + 1) * k] for q in order])
+            out = torch.empty_like(t[:k])
+            dist.reduce_scatter_tensor(out, t, group=group)
+            out = out.to(x.device)
     else:
         me = members.index(rank())
         t = _to_comm(x, dev, copy=False)
@@ -315,6 +438,11 @@ def collective(op: str, x, axis_name: AxisName, perm=None):
         for work in (dist.batch_isend_irecv(p2p) if p2p else ()):
             work.wait()
         out = buf.to(x.device)
+    if span is not None and span[1] is not None:
+        span[2].record()
+        _spans.append(span + (None,))
+    elif span is not None:
+        _spans.append(span + (1e3 * (time.perf_counter() - t0),))
     comm["calls"] += 1
     comm["seconds"] += time.perf_counter() - t0
     return out
@@ -326,6 +454,12 @@ class P(tuple):
 
     def __new__(cls, *axes):
         return super().__new__(cls, axes)
+
+    def __getnewargs__(self):          # pickles as P(*axes)
+        return tuple(self)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
 
 
 def block(a, spec):

@@ -1,8 +1,10 @@
 """Serving: batched one-token decode (serve_step) and a tiny greedy loop.
 
 Counterpart of ``repro.launch.serve``.  ``make_jitted_serve_step`` places
-the step on a device mesh and waits for the LM half of the meshes (ROADMAP
-Queue 1 item 13.5); torch runs the step eagerly.
+the step on a device mesh with tensor-parallel decode over "model", which
+waits for ROADMAP Queue 1 item 13.5, sub-step 3 (the meshes and placements
+it needs are ``launch.mesh`` and ``launch.sharding``); torch runs the step
+eagerly on one card.
 """
 from __future__ import annotations
 

@@ -23,9 +23,9 @@ and ``cross_attend`` go through ``ops.FlashAttention``, whose backward
 is the hand-written ``flash_attention_backward`` kernel; on the CPU
 autograd differentiates ``_attend``.
 
-``repro.models.shardctx.constrain`` has no counterpart: it pins activation
-layouts on a mesh and is a no-op off one, and the port's LM stack runs
-on one card until its meshes come (ROADMAP Queue 1 item 13.5).
+JAX's attention pins no activation layout here either; the port's
+``models.shardctx.constrain`` is the identity, since its sharded train
+step gives each rank whole rows (``launch.train``).
 """
 from __future__ import annotations
 

@@ -8,9 +8,17 @@ mixer, mamba2) and ``"rec"`` (pre-norm RG-LRU block + MLP, the recurrent
 layers of recurrentgemma).  A decoder block of an encoder-decoder model
 also holds ``cross`` and ``ln_cross``: cross-attention over the encoder's
 output between its mixer and its MLP.
+
+``block_forward`` names the mixer's output "mixer_out" and the MLP's (or
+MoE's) "mlp_out", where JAX's ``checkpoint_name`` does.  A selective
+checkpoint policy sees aten ops, not names, so under the "names" remat
+policy (``naming``) each of the two passes through ``NAMED_OP``, an
+identity op of its own (a copy) that the policy saves; otherwise
+``checkpoint_name`` returns its tensor as it is.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -18,6 +26,34 @@ from torch import nn
 
 from repro_torch.models import attention, layers, mlp, moe, rglru, ssm
 from repro_torch.models.config import ModelConfig
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _named(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+_named.register_fake(lambda x, name: torch.empty_like(x))
+_named.register_autograd(lambda ctx, grad: (grad, None))
+NAMED_OP = torch.ops.repro_torch.checkpoint_name.default
+_naming = [False]
+
+
+@contextlib.contextmanager
+def naming(on: bool):
+    """Within (when ``on``): ``checkpoint_name`` passes its tensor through
+    ``NAMED_OP``."""
+    old, _naming[0] = _naming[0], on
+    try:
+        yield
+    finally:
+        _naming[0] = old
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x``, named ``name`` for the "names" remat policy (module
+    docstring)."""
+    return _named(x, name) if _naming[0] else x
 
 
 def block_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -75,8 +111,9 @@ def feed_forward(params: Block, x, cfg: ModelConfig, kind: str):
     h = layers.apply_norm(x, params.ln2, cfg.norm)
     if kind == "moe":
         y, aux = moe.moe_forward(params.moe, h, cfg)
-        return x + y, aux
-    return x + mlp.mlp_forward(params.mlp, h, cfg), None
+        return x + checkpoint_name(y, "mlp_out"), aux
+    return x + checkpoint_name(mlp.mlp_forward(params.mlp, h, cfg),
+                               "mlp_out"), None
 
 
 def cross_residual(params: Block, x, cfg: ModelConfig, cross_kv: dict):
@@ -95,12 +132,14 @@ def block_forward(params: Block, x, cfg: ModelConfig, kind: str, *,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(x, params.ln1, cfg.norm)
     if kind == "ssm":
-        return x + ssm.mamba_forward(params.mixer, h, cfg), zero
+        return x + checkpoint_name(ssm.mamba_forward(params.mixer, h, cfg),
+                                   "mixer_out"), zero
     if kind == "rec":
-        x = x + rglru.rglru_block_forward(params.mixer, h, cfg)
+        y = rglru.rglru_block_forward(params.mixer, h, cfg)
     else:
-        x = x + attention.attention_forward(params.attn, h, cfg,
-                                            causal=causal, window=window)
+        y = attention.attention_forward(params.attn, h, cfg, causal=causal,
+                                        window=window)
+    x = x + checkpoint_name(y, "mixer_out")
     if enc_out is not None:
         k, v = attention.project_kv(params.cross, enc_out, cfg, rope=False)
         x = cross_residual(params, x, cfg, {"k": k, "v": v})

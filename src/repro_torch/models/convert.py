@@ -119,6 +119,30 @@ def flat_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     return flat
 
 
+def jax_path(name: str, cfg: ModelConfig):
+    """(JAX's tree path of the port's parameter ``name``, as
+    ``repro.launch.sharding`` spells it — keys and list indices joined by
+    "/" —, the depth of the stack whose leading axis JAX's leaf adds, or
+    0): the mapping ``flat_from_jax`` inverts.  ``layers.3.attn.wq`` ->
+    ("layers/attn/wq", L); a hybrid's layer l -> ("pattern_layers/{l mod
+    len(pattern)}/...", n_rep) or, past the pattern's repeats,
+    ("tail_layers/{t}/...", 0): tail layers are not stacked."""
+    head, _, tail = name.partition(".")
+    if head not in ("layers", "enc_layers"):
+        return name.replace(".", "/"), 0
+    idx, _, key = tail.partition(".")
+    key = key.replace(".", "/")
+    if head == "enc_layers":
+        return f"enc_layers/{key}", cfg.num_encoder_layers
+    if len(set(blocks.block_kinds(cfg))) == 1:
+        return f"layers/{key}", cfg.num_layers
+    pat, n_rep, _ = M.hybrid_layout(cfg)
+    i = int(idx)
+    if i < n_rep * len(pat):
+        return f"pattern_layers/{i % len(pat)}/{key}", n_rep
+    return f"tail_layers/{i - n_rep * len(pat)}/{key}", 0
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> M.LM:
     """The port's model holding the weights of a JAX parameter tree.

@@ -6,6 +6,8 @@ package's names; every function here is a plain function on tensors.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -19,15 +21,43 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+# the functions ``placing`` installs, innermost last
+_placing: list = []
+
+
+@contextlib.contextmanager
+def placing(fn):
+    """Within: every parameter a model's init makes passes through ``fn``
+    (the whole parameter -> the parameter to keep), in the order of the
+    init's draws (``launch.sharding.init_sharded`` keeps a rank's block
+    of each)."""
+    _placing.append(fn)
+    try:
+        yield
+    finally:
+        _placing.pop()
+
+
 def frozen(t: Tensor) -> nn.Parameter:
     """A parameter that autograd does not track, as serving wants it;
     ``model.trainable_`` unfreezes a model for training."""
-    return nn.Parameter(t, requires_grad=False)
+    p = nn.Parameter(t, requires_grad=False)
+    return _placing[-1](p) if _placing else p
+
+
+class ShapeOnly:
+    """Stands in for the generator of a model's init on the meta device:
+    the parameters' names, shapes and dtypes, and no draw
+    (``model.abstract_params``)."""
+    device = torch.device("meta")
 
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: float = 0.02):
     """N(0, scale^2) drawn in fp32 from ``gen`` on its device, then cast to
-    ``dtype`` (as ``repro.models.layers.dense_init`` casts)."""
+    ``dtype`` (as ``repro.models.layers.dense_init`` casts); on the meta
+    device an empty tensor."""
+    if gen.device.type == "meta":
+        return frozen(torch.empty(shape, dtype=dtype, device="meta"))
     draw = torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32)
     return frozen((draw * scale).to(dtype))

@@ -36,18 +36,29 @@ passed through ``trainable_``) has parameters that require grad; serving
 keeps them frozen.  In ``mode="train"`` with grad on and a trainable
 model, each layer of ``hidden`` and ``encode`` runs under
 ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
-layer, the counterpart of JAX's per-layer ``jax.checkpoint`` with
-``remat_policy="full"`` (save nothing).  JAX's "dots" and "names"
-policies keep chosen products across the boundary; the port has no
-counterpart yet and raises (ROADMAP Queue 1 item 13.5).
+layer, the counterpart of JAX's per-layer ``jax.checkpoint``.  Its
+policy is ``cfg.remat_policy``: "full" saves nothing; "dots" and "names"
+go through ``torch.utils.checkpoint.create_selective_checkpoint_contexts``,
+whose policy sees aten ops: "dots" saves the outputs of ``aten.mm`` and
+``aten.addmm`` — the 2-D products of the projections, as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves dot
+products without batch dims; not ``bmm``, nor the flash kernel's output —
+and "names" saves the two tensors that pass through
+``blocks.checkpoint_name`` as "mixer_out" and "mlp_out" (JAX's
+``save_only_these_names``); everything else is recomputed.  The
+gradients are "full"'s.  ``loss_terms`` gives the loss's parts (the sum
+of the masked cross entropy, its count, the aux loss), from which the
+sharded train step forms the global mean.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.admm import resolve_device
 from repro_torch.models import attention, blocks, layers
@@ -67,6 +78,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         dtype = layers.torch_dtype(cfg)
+        self.cfg, self.param_dtype = cfg, dtype
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = layers.dense_init(gen, (V, d), dtype)
         self.final_norm = layers.init_norm(d, cfg.norm, dtype, gen.device)
@@ -87,7 +99,9 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        # a parameter, not ``embed``: in a sharded model reading ``embed``
+        # gathers it (``launch.sharding``)
+        return next(self.parameters()).device
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -103,6 +117,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     gen.manual_seed(seed)
     lm = LM(cfg, gen)
     return trainable_(lm) if trainable else lm
+
+
+def abstract_params(cfg: ModelConfig) -> LM:
+    """The model on the meta device: every parameter's name, shape and
+    dtype, nothing allocated or drawn (the port's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return LM(cfg, layers.ShapeOnly())
 
 
 def trainable_(params: LM) -> LM:
@@ -146,31 +167,57 @@ def _decoder_window(cfg: ModelConfig, mode: str) -> Optional[int]:
 
 def _on_model(a, params: LM) -> Tensor:
     """An array (numpy or tensor) on the model's device in its dtype."""
-    return torch.as_tensor(a, device=params.device).to(params.embed.dtype)
+    return torch.as_tensor(a, device=params.device).to(params.param_dtype)
 
 
 def _remat(params: LM, cfg: ModelConfig, mode: str) -> bool:
     """Whether ``hidden`` checkpoints its layers: ``mode="train"``, grad
-    on, and a trainable model.  Only JAX's "full" policy has a
-    counterpart."""
-    if mode != "train" or not torch.is_grad_enabled() or not any(
-            p.requires_grad for p in params.parameters()):
-        return False
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
-            "layers only (\"full\"); saving chosen products across the "
-            "boundary waits for ROADMAP Queue 1 item 13.5")
-    return True
+    on, and a trainable model."""
+    return mode == "train" and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_names(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op is blocks.NAMED_OP
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_POLICIES = {"full": None, "dots": _save_dots, "names": _save_names}
+
+
+def remat_policy(cfg: ModelConfig):
+    """The selective-checkpoint policy of ``cfg.remat_policy`` (an aten op
+    -> save or recompute), None for "full" (module docstring)."""
+    if cfg.remat_policy not in _POLICIES:
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: one of "
+                         f"{tuple(_POLICIES)}")
+    return _POLICIES[cfg.remat_policy]
 
 
 def _layer(lp, x, cfg: ModelConfig, kind: str, remat: bool, **kw):
-    """One block, under ``torch.utils.checkpoint`` when ``remat``."""
+    """One block, under ``torch.utils.checkpoint`` when ``remat``, with
+    ``cfg.remat_policy``."""
     if not remat:
         return blocks.block_forward(lp, x, cfg, kind, **kw)
-    return checkpoint(lambda h, enc: blocks.block_forward(
-        lp, h, cfg, kind, **{**kw, "enc_out": enc}), x, kw.get("enc_out"),
-        use_reentrant=False)
+    policy = remat_policy(cfg)
+
+    def run(h, enc):
+        with blocks.naming(cfg.remat_policy == "names"):
+            return blocks.block_forward(lp, h, cfg, kind,
+                                        **{**kw, "enc_out": enc})
+
+    extra = {} if policy is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, policy)}
+    return checkpoint(run, x, kw.get("enc_out"), use_reentrant=False,
+                      **extra)
 
 
 def encode(params: LM, enc_media, cfg: ModelConfig, *,
@@ -222,23 +269,34 @@ def forward(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
     return x @ _head(params, cfg), aux
 
 
-def loss_fn(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
-            mode: str = "train", aux_weight: float = 0.01) -> Tensor:
-    """Next-token cross entropy (+ ``aux_weight`` x the MoE load-balance
-    loss), as ``repro.models.model.loss_fn``: fp32 logits, labels below 0
-    masked, the mean over the unmasked positions (at least 1).  The gold
-    logit is a ``gather``: the value of JAX's iota-mask sum (one nonzero
-    term) without one more fp32 (B, S, V) buffer; JAX avoids the gather
-    only for the vocab-sharded layout of its meshes."""
+def loss_terms(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
+               mode: str = "train"):
+    """(the sum of the masked next-token cross entropy, the number of
+    unmasked positions, aux_loss) of ``batch``: fp32 logits, labels below
+    0 masked.  The gold logit is a ``gather``: the value of JAX's
+    iota-mask sum (one nonzero term) without one more fp32 (B, S, V)
+    buffer; JAX avoids the gather only for the vocab-sharded layout of its
+    meshes."""
     logits, aux = forward(params, batch, cfg, mode=mode)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     mask = (labels >= 0).to(torch.float32)
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-    ce = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                       min=1.0)
-    return ce + aux_weight * aux
+    return torch.sum((logz - gold) * mask), torch.sum(mask), aux
+
+
+# the MoE load-balance loss's weight in the loss (JAX's default)
+AUX_WEIGHT = 0.01
+
+
+def loss_fn(params: LM, batch: Dict[str, Any], cfg: ModelConfig, *,
+            mode: str = "train", aux_weight: float = AUX_WEIGHT) -> Tensor:
+    """Next-token cross entropy (+ ``aux_weight`` x the MoE load-balance
+    loss), as ``repro.models.model.loss_fn``: the mean over the unmasked
+    positions (at least 1) of ``loss_terms``' sum."""
+    ce_sum, count, aux = loss_terms(params, batch, cfg, mode=mode)
+    return ce_sum / torch.clamp(count, min=1.0) + aux_weight * aux
 
 
 def hybrid_layout(cfg: ModelConfig):

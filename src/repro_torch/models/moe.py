@@ -21,8 +21,18 @@ atomic add is involved and a bf16 run repeats bit for bit.
 ``torch.topk`` and ``lax.top_k`` may break exact ties of router
 probabilities differently; with random fp32 router logits a tie has
 probability 0, and the tests rely on that.
+
+Under ``rows_split(sum_rows)`` — the sharded train step, whose ranks each
+run a share of the global batch's rows — the aux loss is not linear in
+the rows: the first-choice counts and the token count are summed over
+the ranks by ``sum_rows`` before the product, and each rank returns its
+share, E · Σ_e frac_e · (its sum of probs_e) / T, whose sum over the
+ranks is the global aux loss.  The scatter route's capacity and slot
+order depend on the global T, so it raises there.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -50,6 +60,22 @@ def init_moe(cfg: ModelConfig, dtype, gen: torch.Generator) -> MoE:
     return MoE(cfg, dtype, gen)
 
 
+# the sum over the ranks that split the rows, under ``rows_split``
+_sum_rows: list = []
+
+
+@contextlib.contextmanager
+def rows_split(sum_rows):
+    """Within: the router's aux loss is each rank's share of the global
+    one, ``sum_rows`` (tensor -> its sum over the ranks that split the
+    batch's rows) summing the counts (module docstring)."""
+    _sum_rows.append(sum_rows)
+    try:
+        yield
+    finally:
+        _sum_rows.pop()
+
+
 def _route(params: MoE, x2: Tensor, cfg: ModelConfig):
     """x2: (T, d) -> (gates (T, k) fp32, idx (T, k), aux_loss scalar)."""
     E, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -59,6 +85,11 @@ def _route(params: MoE, x2: Tensor, cfg: ModelConfig):
     # Switch aux loss: E * sum_e (share of first choices to e) * (mean
     # router probability of e)
     onehot = torch.nn.functional.one_hot(idx[:, 0], E).to(torch.float32)
+    if _sum_rows:
+        total = _sum_rows[-1](probs.new_tensor(float(x2.shape[0])))
+        frac = _sum_rows[-1](torch.sum(onehot, dim=0)) / total
+        aux = E * torch.sum(frac * torch.sum(probs, dim=0)) / total
+        return gates, idx, aux
     frac = torch.mean(onehot, dim=0)
     aux = E * torch.sum(frac * torch.mean(probs, dim=0))
     return gates, idx, aux
@@ -98,6 +129,11 @@ def moe_forward_scatter(params: MoE, x: Tensor, cfg: ModelConfig):
     """Capacity dispatch: token t's j-th choice e takes slot = the number
     of earlier assignments (in (token, choice) order) to e, and is dropped
     when slot >= C.  x: (B, S, d) -> ((B, S, d), aux)."""
+    if _sum_rows:
+        raise NotImplementedError(
+            "the scatter route's capacity and slot order depend on the "
+            "global token count: a step that splits the rows over ranks "
+            "runs the dense route (ROADMAP Queue 1 item 13.7)")
     B, S, d = x.shape
     T, k, E = B * S, cfg.num_experts_per_tok, cfg.num_experts
     C = capacity(cfg, T)

@@ -63,14 +63,46 @@ def global_norm(grads: Mapping[str, Optional[Tensor]]) -> Tensor:
     return torch.sqrt(sum(sq[1:], sq[0]))
 
 
+# the largest piece of a leaf that one pass of ``_update`` takes: its fp32
+# temporaries stay at a few times 256 MB however large the leaf
+PIECE = 1 << 26
+
+
+def _pieces(p, g, m, v):
+    """(p, g, m, v) of a leaf in pieces of at most about PIECE entries:
+    views of consecutive rows (dim 0), each updated by the same
+    elementwise arithmetic as the whole."""
+    if p.dim() == 0 or p.numel() <= PIECE:
+        return [(p, g, m, v)]
+    rows = max(1, PIECE * p.shape[0] // p.numel())
+    return [(p[i:i + rows], None if g is None else g[i:i + rows],
+             m[i:i + rows], v[i:i + rows])
+            for i in range(0, p.shape[0], rows)]
+
+
+def _update(p, g, m, v, cfg: AdamWConfig, clip, bc1, bc2, lr) -> None:
+    """JAX's AdamW arithmetic on one piece, in place."""
+    g32 = (torch.zeros_like(m) if g is None
+           else g.to(torch.float32) * clip)
+    m.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
+    v.mul_(cfg.b2).add_((g32 * (1 - cfg.b2)) * g32)
+    del g32
+    delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
+    p32 = p.to(torch.float32)
+    delta.add_(cfg.weight_decay * p32)
+    p.copy_(p32 - lr * delta)
+
+
 @torch.no_grad()
 def adamw_update(params, grads: Mapping[str, Optional[Tensor]], state: dict,
-                 cfg: AdamWConfig, lr_scale=1.0):
+                 cfg: AdamWConfig, lr_scale=1.0, norm=global_norm):
     """One AdamW step on every parameter; returns (params, state, gnorm)
     with ``params`` and ``state["m"]``, ``state["v"]`` updated in place
-    and a new ``state["step"]``."""
+    and a new ``state["step"]``.  ``norm(grads)`` gives the global norm
+    (a sharded step passes one that sums each block once across ranks,
+    ``launch.train.make_jitted_train_step``)."""
     p_all = named(params)
-    gnorm = global_norm(grads)
+    gnorm = norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     t = step.to(torch.float32)
@@ -81,13 +113,6 @@ def adamw_update(params, grads: Mapping[str, Optional[Tensor]], state: dict,
     for name, p in p_all.items():
         g = grads.get(name)
         m, v = state["m"][name], state["v"][name]
-        g32 = (torch.zeros_like(m) if g is None
-               else g.to(torch.float32) * clip)
-        m.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
-        v.mul_(cfg.b2).add_((g32 * (1 - cfg.b2)) * g32)
-        del g32
-        delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
-        p32 = p.to(torch.float32)
-        delta.add_(cfg.weight_decay * p32)
-        p.copy_(p32 - lr * delta)
+        for piece in _pieces(p, g, m, v):
+            _update(*piece, cfg, clip, bc1, bc2, lr)
     return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm

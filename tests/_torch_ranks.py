@@ -212,3 +212,59 @@ def fit_on_card(rank, X, y, W, max_iter):
     return dict(B=B.cpu(), launches=ops.launches["csvm_block_update"],
                 instances=dict(ops.two_pass_launches),
                 backend=dist.get_backend())
+
+
+def sharded_train(rank, cases):
+    """``spawn``'s ``fn`` of ``tests/test_torch_sharded_train.py``: each
+    case's one step of ``launch.train.make_jitted_train_step`` on its
+    (data, model) mesh of the group, from the JAX parameter tree it
+    carries (numpy) and its global batch.  Returns, by case, the metrics,
+    every whole weight after the step (``gather_params``), this rank's
+    moment blocks, and the step's specs; a case that raises returns its
+    error's type and message instead."""
+    import dataclasses
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+    from repro_torch.optim import AdamWConfig
+    out = {}
+    for key, c in cases.items():
+        cfg = dataclasses.replace(tconfigs.get_reduced(c["arch"]),
+                                  param_dtype="float32", **c.get("cfg", {}))
+        m = mesh._make(c["shape"], ("data", "model"))
+        lm = shd.shard_params(convert.params_from_jax(c["tree"], cfg, "cpu"),
+                              m, fsdp=c["fsdp"])
+        for p in lm.parameters():
+            p.requires_grad_(True)
+        state = shd.init_opt_state(cfg, m, "cpu")
+        step, specs = train.make_jitted_train_step(
+            cfg, AdamWConfig(lr=c["lr"]), m, c["batch"], total_steps=10,
+            fsdp=c["fsdp"])
+        try:
+            with mesh.bound(m):
+                _, state, metrics = step(lm, state, c["batch"])
+        except NotImplementedError as err:
+            out[key] = dict(error=f"{type(err).__name__}: {err}")
+            continue
+        out[key] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                        params=shd.gather_params(lm),
+                        m=state["m"], v=state["v"], step=int(state["step"]),
+                        specs=specs)
+    return out
+
+
+def init_blocks(rank, arch, shape, seed, over):
+    """``spawn``'s ``fn``: ``sharding.init_sharded``'s whole weights
+    (``gather_params``) and this rank's blocks, bf16 as configured (with
+    the config overrides ``over``)."""
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch import sharding as shd
+    cfg = tconfigs.get_reduced(arch, **over)
+    m = mesh._make(shape, ("data", "model"))
+    lm = shd.init_sharded(cfg, m, seed=seed, device="cpu")
+    return dict(whole=shd.gather_params(lm),
+                blocks={k: v.detach().clone()
+                        for k, v in shd.blocks(lm).items()},
+                specs=dict(lm.specs))

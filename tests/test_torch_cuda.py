@@ -1516,3 +1516,76 @@ def test_ssd_backward_raises_without_its_library(cuda, monkeypatch,
     finally:
         ops._ssd_backward_lib.cache_clear()
     assert ops.launches == before
+
+
+def test_sharded_step_at_one_rank_on_the_card(cuda):
+    """The sharded train step on a mesh of one rank on the card (reduced
+    qwen3-14b in fp32, the kernels' fp32 instances) against
+    ``make_train_step`` from the same weights and batches: two steps,
+    loss, gnorm, weights and moments within 1e-5."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = dataclasses.replace(configs.get_reduced("qwen3_14b"),
+                              param_dtype="float32")
+    mesh = M.make_host_mesh()
+    ref = model.init_params(cfg, seed=2, device=cuda, trainable=True)
+    state = adamw_init(ref)
+    lm = shd.init_sharded(cfg, mesh, seed=2, device=cuda)
+    ostate = shd.init_opt_state(cfg, mesh, cuda)
+    stream = token_stream(cfg, 2, 64, seed=1, device=cuda)
+    first = next(stream)
+    one = train.make_train_step(cfg, AdamWConfig(lr=1e-3), total_steps=10)
+    step, _ = train.make_jitted_train_step(cfg, AdamWConfig(lr=1e-3), mesh,
+                                           first, total_steps=10)
+    ops.reset_launches()
+    for b in (first, next(stream)):
+        _, state, m1 = one(ref, state, b)
+        with M.bound(mesh):
+            _, ostate, m2 = step(lm, ostate, b)
+        for k in ("loss", "gnorm"):
+            assert abs(float(m1[k]) - float(m2[k])) <= 1e-5 * max(
+                1.0, float(m1[k]))
+    assert ops.launches["flash_attention_backward"] == 4 * cfg.num_layers
+    whole = shd.gather_params(lm)
+    for name, p in ref.named_parameters():
+        assert (whole[name] - p).abs().max() <= 1e-5, name
+        for key in ("m", "v"):
+            assert (ostate[key][name] - state[key][name]).abs().max() \
+                <= 1e-5, (key, name)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "mamba2_370m"])
+def test_remat_policies_on_the_card(cuda, arch):
+    """"dots" and "names" give "full"'s loss and gradients bit for bit on
+    the card (bf16, the kernels' tensor-core instances), and launch the
+    flash (or SSD) forward twice a layer: its output is recomputed."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import model
+    cfg = configs.get_reduced(arch)
+    batch = next(token_stream(cfg, 2, 128, seed=5, device=cuda))
+    lm = model.init_params(cfg, seed=0, device=cuda, trainable=True)
+    runs = {}
+    for policy in ("full", "dots", "names"):
+        pcfg = dataclasses.replace(cfg, remat_policy=policy)
+        lm.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        loss = model.loss_fn(lm, batch, pcfg)
+        loss.backward()
+        kernel = "ssd_scan" if arch == "mamba2_370m" else "flash_attention"
+        assert ops.launches[kernel] == 2 * cfg.num_layers, ops.launches
+        runs[policy] = (loss.detach(), {n: p.grad.clone() for n, p in
+                                        lm.named_parameters()
+                                        if p.grad is not None})
+    for policy in ("dots", "names"):
+        assert torch.equal(runs[policy][0], runs["full"][0])
+        assert runs[policy][1].keys() == runs["full"][1].keys()
+        for name, g in runs["full"][1].items():
+            assert torch.equal(runs[policy][1][name], g), (policy, name)

@@ -119,17 +119,24 @@ def test_remat_gives_the_same_loss_and_grads(arch, monkeypatch):
 
 def test_frozen_model_and_other_remat_policies():
     """A serving model is frozen (no remat, no graph); a trainable one
-    under the "dots" or "names" policy raises, naming the ROADMAP item."""
+    under the "dots" or "names" policy gives "full"'s loss and gradients
+    (``tests/test_torch_remat.py`` holds them to JAX's)."""
     cfg = tconfigs.get_reduced("qwen3_14b")
     batch = _batch(cfg, seed=0)
     lm = model.init_params(cfg, seed=0, device="cpu")
     assert not any(p.requires_grad for p in lm.parameters())
     assert not model.loss_fn(lm, batch, cfg).requires_grad
-    for policy in ("dots", "names"):
+    runs = {}
+    for policy in ("full", "dots", "names"):
         pcfg = dataclasses.replace(cfg, remat_policy=policy)
         lm = model.init_params(pcfg, seed=0, device="cpu", trainable=True)
-        with pytest.raises(NotImplementedError, match="13.5"):
-            model.loss_fn(lm, batch, pcfg)
+        loss = model.loss_fn(lm, batch, pcfg)
+        loss.backward()
+        runs[policy] = (loss.detach(), _grads(lm))
+    for policy in ("dots", "names"):
+        assert torch.equal(runs[policy][0], runs["full"][0])
+        for name, g in runs["full"][1].items():
+            assert torch.equal(runs[policy][1][name], g), (policy, name)
 
 
 @pytest.mark.parametrize("arch", ["qwen3_14b", "granite_moe_1b_a400m"])
@@ -166,7 +173,23 @@ def test_train_step_matches_jax(arch):
                                    atol=STEP_TOL, rtol=0)
 
 
-def test_make_jitted_train_step_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="13.5"):
-        train.make_jitted_train_step(tconfigs.get_reduced("qwen3_14b"),
-                                     AdamWConfig(), None, None)
+def test_make_jitted_train_step_names_the_roadmap_item(monkeypatch):
+    """The sharded step runs (``tests/test_torch_sharded_train.py``); what
+    still raises is MoE's scatter route under a split of the rows, whose
+    capacity depends on the global token count: it names its ROADMAP
+    item.  (A mesh of one rank splits no rows, so the split is forced.)"""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    cfg = dataclasses.replace(tconfigs.get_reduced("granite_moe_1b_a400m"),
+                              moe_routing="scatter")
+    mesh = M.make_host_mesh()
+    batch = _batch(cfg, seed=0)
+    step, (p_specs, o_specs, b_specs) = train.make_jitted_train_step(
+        cfg, AdamWConfig(), mesh, batch)
+    assert set(p_specs) == set(o_specs["m"]) and b_specs["tokens"] == M.P(
+        "data")
+    lm = shd.init_sharded(cfg, mesh, seed=0, device="cpu")
+    state = shd.init_opt_state(cfg, mesh, "cpu")
+    monkeypatch.setattr(train, "row_axes", lambda rows, mesh: ("data",))
+    with pytest.raises(NotImplementedError, match="13.7"):
+        step(lm, state, batch)
