@@ -250,7 +250,15 @@ result lines):
    run first here from the same seed and batch (B = 4 x 1024): every
    rank's loss and gnorm, and its block of every weight and moment,
    within ``SHARD_TOL`` with the controls above it; each rank's peak
-   memory, collective ms and flash launches (``sharded ...`` lines).
+   memory, collective ms and flash launches (``sharded ...`` lines);
+20. the sharded serve step: qwen3-32b at full width cut to 4 layers on
+   four ranks of mesh (1, 4) (gloo on card 0 with one card), B = 8, 16
+   steps, against the one-rank eager step run first here from the same
+   seed (``SERVE_*``): an fp32 copy's predictions equal at every step and
+   its logits within 1e-4, bf16 fed the reference's tokens within
+   ``SERVE_TOL`` with the control above it, no ``Gather`` forward and no
+   kernel launch in the steps; ms, collective ms and bytes a step
+   (``serve-sharded ...`` lines).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -625,6 +633,27 @@ SHARD_LR = 1e-2
 # batch from the same weights (the first reading 1.97e-2 and 9.37e-4);
 # the weights before the step and zero moments (1 by construction).
 SHARD_TOL = dict(loss=1e-4, gnorm=2e-5, params=0.6, m=2.3e-2, v=4.6e-2)
+
+# phase 20: the sharded serve step (tensor-parallel decode over "model", a
+# sequence-sharded cache) on four ranks placed as ``launch.ranks.spawn``
+# places them (gloo on card 0 with one card): qwen3-32b at full width,
+# depth cut 64 -> 4 (3.5 B parameters, 14 GB in fp32), mesh (1, 4), B = 8,
+# a cache of SERVE_MAX_LEN (16 slots a rank), SERVE_STEPS steps from an
+# 8-token prompt (stepped in, then greedy), against the one-rank eager
+# ``make_serve_step`` run first here from the same seed and saved under
+# build/ (``serve.reference_run``).  An fp32 copy on its own tokens: the
+# same predictions at every step, logits within SERVE_TOL["float32"] (the
+# fp32 tier).  bf16 fed the reference's tokens: logits within
+# SERVE_TOL["bfloat16"], with the control — the reference one position
+# earlier — above it.  No ``Gather`` forward in the timed steps.  The
+# first H100 reading (NVIDIA H100 80GB HBM3, 700.00 W; gloo, four ranks on
+# card 0): fp32 2.55e-5 with equal predictions; bf16 0.113, the control
+# 7.75.  The bf16 limit is about three of it.
+SERVE_ARCH = "qwen3_32b"
+SERVE_LAYERS = 4
+SERVE_MESH = (1, 4)
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 8, 8, 16, 64
+SERVE_TOL = {"float32": 1e-4, "bfloat16": 0.34}
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -4817,6 +4846,95 @@ def sharded_phase(torch, ops):
                 seconds=seconds)
 
 
+# --------------------------------------------------------------------------
+# phase 20: the sharded serve step
+# --------------------------------------------------------------------------
+
+def serve_sharded_phase(torch, device="cuda", arch=SERVE_ARCH,
+                        layers=SERVE_LAYERS, reduced=False):
+    """Phase 20: the one-rank references (fp32 and bf16, saved under
+    build/), then four ranks of ``serve.serve_rank`` on SERVE_MESH: the
+    fp32 copy on its own tokens and bf16 fed the reference's, each held
+    to SERVE_TOL (the bf16 control above it), no ``Gather`` forward in
+    the steps, no kernel launched (decode runs none, as in JAX).  Returns
+    the phase's records.  ``reduced`` (the CPU rehearsal) takes the
+    registry's reduced config."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.launch import ranks
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    get = configs.get_reduced if reduced else configs.get
+    cfgs = {dt: get(arch, num_layers=layers, param_dtype=dt)
+            for dt in ("float32", "bfloat16")}
+    ref_dir = ROOT / "build" / "phase20_reference"
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    n = math.prod(SERVE_MESH)
+    new = SERVE_STEPS - SERVE_PROMPT + 1
+    try:
+        one = {dt: serve.reference_run(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                       SERVE_STEPS, 0, str(ref_dir / dt),
+                                       device)
+               for dt, cfg in cfgs.items()}
+        ref_s = time.perf_counter() - t0
+        backend, cards = ranks.placement(n, device)
+        runs = [dict(cfg=cfgs[dt], shape=SERVE_MESH, batch=SERVE_BATCH,
+                     prompt_len=SERVE_PROMPT, max_new=new,
+                     max_len=SERVE_MAX_LEN, seed=0, device=device,
+                     ref_path=str(ref_dir / dt), teacher=dt == "bfloat16")
+                for dt in cfgs]
+        if device == "cuda":
+            os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                                  "expandable_segments:True")
+        t1 = time.perf_counter()
+        recs = ranks.spawn(serve.serve_rank_runs, n, (runs,), device=device,
+                           deadline_s=600.0, timeout_s=300.0)
+        spawn_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    cfg = cfgs["bfloat16"]
+    log(f"serve-sharded {cfg.name} {cfg.num_layers} layers, mesh "
+        f"{SERVE_MESH}, B={SERVE_BATCH}, {SERVE_STEPS} steps, cache "
+        f"{SERVE_MAX_LEN}: {n} ranks, backend {backend}, cards {cards}; the "
+        f"one-rank references {ref_s:.1f} s (eager step fp32 "
+        f"{one['float32']['ms']:.2f} ms, bf16 {one['bfloat16']['ms']:.2f} "
+        f"ms), the ranks {spawn_s:.1f} s")
+    out = dict(one=one, ranks={}, backend=backend, cards=cards,
+               tol=SERVE_TOL, reference_s=ref_s, spawn_s=spawn_s)
+    for rank_recs in recs:
+        for rec in rank_recs:
+            s = serve.summary(rec)
+            log("serve-sharded " + serve.rank_line(rec))
+            dt = rec["dtype"]
+            out["ranks"].setdefault(dt, []).append(dict(
+                s, launches=rec["launches"], teacher=rec["teacher"]))
+            check(s["gather_forwards"] == 0, f"serve-sharded rank "
+                  f"{rec['rank']} {dt}: {s['gather_forwards']} Gather "
+                  "forwards in the steps")
+            check(sum(rec["launches"].values()) == 0, f"serve-sharded rank "
+                  f"{rec['rank']} {dt}: kernel launches {rec['launches']}")
+            tol = SERVE_TOL[dt]
+            check(s["dev"] <= tol, f"serve-sharded rank {rec['rank']} {dt}: "
+                  f"logits max|dev| {s['dev']:.4e} over the limit {tol:g}")
+            if dt == "float32":
+                check(s["next_equal"], f"serve-sharded rank {rec['rank']} "
+                      "fp32: predictions differ from the one-rank step's")
+            else:
+                check(s["control"] > tol, f"serve-sharded rank "
+                      f"{rec['rank']} bf16: the control {s['control']:.4e} "
+                      f"is within the limit {tol:g}")
+    seconds = time.perf_counter() - t0
+    per = out["ranks"]["bfloat16"][0]
+    log(f"serve-sharded: bf16 {per['ms']:.2f} ms a step on rank 0, "
+        f"collectives {per['comm_ms']:.2f} ms and "
+        f"{per['comm_bytes'] / 1e6:.4f} MB a step (one token a row), the "
+        f"small leaves gathered once {per['leaf_bytes'] / 1e6:.4f} MB; "
+        f"phase 20: {seconds:.1f} s")
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5212,6 +5330,9 @@ def main() -> int:
     # phase 15's configuration, and the sharded train step on four ranks
     # against the one-rank step (qwen3-14b at full width, 2 layers)
     phase19 = sharded_phase(torch, ops)
+    # phase 20: the sharded serve step on four ranks against the one-rank
+    # step (qwen3-32b at full width, 4 layers); it launches no kernel
+    phase20 = serve_sharded_phase(torch)
     mamba_launches = mamba_training["run"]["launches"]
     launches["ssd_scan"] += mamba_launches["ssd_scan"]
     launches["ssd_scan_backward"] = mamba_launches["ssd_scan_backward"]

@@ -3,12 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.cli train  --arch qwen3-14b --reduced --steps 50
     PYTHONPATH=src python -m repro_torch.launch.cli train  --arch qwen3-14b --ranks 4 --mesh 2x2 --batch 4 --seq 4096 --steps 10
     PYTHONPATH=src python -m repro_torch.launch.cli serve  --arch mamba2-370m --reduced
+    PYTHONPATH=src python -m repro_torch.launch.cli serve  --arch qwen3-32b --ranks 4 --mesh 1x4,2x2 --batch 8 --prompt-len 64 --max-new 64 --max-len 4096 --check
     PYTHONPATH=src python -m repro_torch.launch.cli decsvm --p 100 --m 10
 
 Counterpart of ``repro.launch.cli``; every subcommand takes ``--device``
-(the card unless ``--device cpu``).  ``dryrun`` lowers JAX programs
-against a TPU mesh and has no counterpart yet (ROADMAP Queue 1 item
-15): it exits non-zero.
+(the card unless ``--device cpu``).  ``serve`` runs ``ServeEngine`` on
+one card, or with ``--ranks`` the sharded serve step on that many ranks
+(``launch.serve.serve_ranks``: tensor-parallel decode over "model", a
+lockstep greedy loop, a line a rank; ``--check`` holds the logits
+against the one-card step).  ``dryrun`` lowers JAX programs against a
+TPU mesh and has no counterpart yet (ROADMAP Queue 1 item 15): it exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -26,6 +31,11 @@ def _mesh_arg(text: str):
     return tuple(int(x) for x in text.lower().split("x"))
 
 
+def _serve_meshes(text: str):
+    from repro_torch.launch.serve import mesh_arg
+    return mesh_arg(text)
+
+
 def cmd_train(args) -> None:
     from repro_torch.launch.train import train_loop
     train_loop(_cfg(args), steps=args.steps, batch=args.batch, seq=args.seq,
@@ -38,6 +48,13 @@ def cmd_serve(args) -> None:
     from repro_torch.models import model
     from repro_torch.serving import Request, ServeEngine
     cfg = _cfg(args)
+    if args.ranks > 1 or args.mesh is not None:
+        from repro_torch.launch.serve import serve_ranks
+        serve_ranks(cfg, ranks=args.ranks, mesh=args.mesh, batch=args.batch,
+                    prompt_len=args.prompt_len, max_new=args.max_new,
+                    max_len=args.max_len, device=args.device,
+                    check=args.check, profile=args.profile, tol=args.tol)
+        return
     params = model.init_params(cfg, seed=0, device=args.device)
     eng = ServeEngine(cfg, params, max_batch=args.batch,
                       max_len=args.max_len, device=args.device)
@@ -104,6 +121,16 @@ def main(argv=None) -> None:
     s.add_argument("--requests", type=int, default=8)
     s.add_argument("--prompt-len", dest="prompt_len", type=int, default=8)
     s.add_argument("--max-new", dest="max_new", type=int, default=8)
+    s.add_argument("--ranks", type=int, default=1)
+    s.add_argument("--mesh", type=_serve_meshes, default=None,
+                   help="(data)x(model) sizes, e.g. 1x4, or several: "
+                        "1x4,2x2 (with --ranks)")
+    s.add_argument("--check", action="store_true",
+                   help="with --ranks: the logits against the one-card step")
+    s.add_argument("--profile", type=int, default=0,
+                   help="with --ranks: profile the last N steps")
+    s.add_argument("--tol", type=float, default=None,
+                   help="with --check: the limit of the logits' max|dev|")
     s.set_defaults(fn=cmd_serve)
 
     d = sub.add_parser("decsvm")

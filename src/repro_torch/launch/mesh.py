@@ -31,7 +31,10 @@ The backend follows the placement of the ranks (``launch.ranks``): NCCL
 when each rank has its own card, gloo when ranks share a card or run on
 the CPU.  Under gloo a CUDA tensor is staged through host memory (copied
 to the CPU, reduced or exchanged there, copied back).  ``comm`` counts
-the calls over more than one rank and the host seconds spent in them.
+the calls over more than one rank and the host seconds spent in them,
+``comm_bytes`` the bytes of each by op, as nccl-tests sizes them: the
+operand of a reduction or a ``ppermute`` and the input of a
+``psum_scatter``, the gathered result of an ``all_gather``.
 
 The LM stack's meshes: ``make_host_mesh`` and ``data_axes`` as JAX's,
 ``use_mesh`` is ``bound``.  ``make_production_mesh`` differs by design:
@@ -71,6 +74,8 @@ _world = [None]
 # collectives over more than one rank since the last ``reset_comm``:
 # calls, and host seconds spent in them (staging included)
 comm: Dict[str, float] = {"calls": 0, "seconds": 0.0}
+# the same collectives' bytes by op (module docstring)
+comm_bytes: Dict[str, int] = {}
 # under ``time_collectives``: (op, start, end, host ms) — CUDA events on the
 # current stream around each collective of a CUDA tensor; for a host
 # tensor (gloo's widened gradients) no events and the host milliseconds
@@ -81,6 +86,7 @@ _timing = [False]
 def reset_comm() -> None:
     comm["calls"] = 0
     comm["seconds"] = 0.0
+    comm_bytes.clear()
     _spans.clear()
 
 
@@ -445,6 +451,8 @@ def collective(op: str, x, axis_name: AxisName, perm=None):
         _spans.append(span + (1e3 * (time.perf_counter() - t0),))
     comm["calls"] += 1
     comm["seconds"] += time.perf_counter() - t0
+    comm_bytes[op] = comm_bytes.get(op, 0) + (
+        out if op == "all_gather" else x).numel() * x.element_size()
     return out
 
 

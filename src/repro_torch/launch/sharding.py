@@ -37,6 +37,10 @@ once to the block's dtype.  So ``model.loss_fn`` runs unchanged on a
 sharded model, ZeRO-3 style (``launch.train.make_jitted_train_step``);
 under remat each layer's weights are gathered again when the backward
 recomputes it.  ``gather_params`` is the inverse: every whole weight.
+The serve step (``launch.serve.make_jitted_serve_step``) reads the blocks
+themselves (``blocks``) and never a parametrization: ``gathers`` counts
+the ``Gather`` forwards.  ``init_cache_blocks`` and ``shard_cache`` make
+a rank's blocks of the decode cache under ``cache_pspecs``.
 """
 from __future__ import annotations
 
@@ -206,6 +210,45 @@ def cache_pspecs(cache, cfg: ModelConfig, mesh):
     return _tree_map(one, cache)
 
 
+def _zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a cache and its specs (the same nesting)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   mode: str = "decode"):
+    """``model.init_cache``'s layout on the meta device: every leaf's
+    shape and dtype, nothing allocated (the port's ``jax.eval_shape`` of
+    it)."""
+    return model.init_cache(cfg, batch, max_len, mode, device="meta")
+
+
+def init_cache_blocks(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                      mode: str = "decode", device="cuda"):
+    """This rank's blocks of ``model.init_cache(cfg, batch, max_len,
+    mode)`` under ``cache_pspecs``: zeros, the whole cache built on no
+    rank."""
+    from repro_torch.core.admm import resolve_device
+    device = resolve_device(None, device)
+    meta = abstract_cache(cfg, batch, max_len, mode)
+    return _zip_map(lambda t, s: torch.zeros(
+        block_shape(t.shape, s, mesh), dtype=t.dtype, device=device),
+        meta, cache_pspecs(meta, cfg, mesh))
+
+
+def shard_cache(cache, cfg: ModelConfig, mesh):
+    """This rank's blocks of a whole decode cache (e.g. the one-rank
+    ``prefill``'s, an encoder-decoder's ``cross_kv`` filled) under
+    ``cache_pspecs``.  Called on every rank."""
+    with M.bound(mesh):
+        return _zip_map(lambda t, s: M.block(t, s).clone(), cache,
+                        cache_pspecs(cache, cfg, mesh))
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec and the mesh it splits (JAX's ``NamedSharding``)."""
@@ -242,6 +285,15 @@ def _other_axes(mesh, spec: P) -> Tuple[str, ...]:
     named = set(spec_axes(spec))
     return tuple(a for a in mesh.axis_names
                  if a not in named and mesh.shape[a] > 1)
+
+
+# forward calls of ``Gather`` (whole weights assembled from blocks) since
+# the last ``reset_gathers``: the serve step reads blocks and makes none
+gathers: Dict[str, int] = {"forward": 0}
+
+
+def reset_gathers() -> None:
+    gathers["forward"] = 0
 
 
 class _GatherFn(torch.autograd.Function):
@@ -289,6 +341,7 @@ class Gather(nn.Module):
         self.others = _other_axes(mesh, spec)
 
     def forward(self, block):
+        gathers["forward"] += 1
         if not spec_axes(self.spec) and not self.others:
             return block
         return _GatherFn.apply(block, self.spec, self.others, self.mesh)

@@ -23,8 +23,9 @@ remat recomputes it; each whole-layer gradient is reduce-scattered back
 to the blocks in fp32 and cast once; AdamW's arithmetic then runs on the
 blocks.  The loss is the global mean: each rank's sum of masked cross
 entropy over the global count, summed over the ranks; MoE's aux loss
-sums the router's counts over the ranks first (``moe.rows_split``);
-ranks that computed the same rows average their gradients; ``gnorm``
+sums the router's counts over the ranks first, and its scatter route
+slots the tokens in global order (``moe.rows_split``); ranks that
+computed the same rows average their gradients; ``gnorm``
 counts each block once.  No family's model code changes for it.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
@@ -132,6 +133,13 @@ def _psum(mesh, axes, t):
         return M.collective("psum", t, axes)
 
 
+def _gather(mesh, axes, t):
+    """The ranks' ``t`` along ``axes`` of ``mesh`` concatenated on dim 0,
+    bound here as ``_psum`` is."""
+    with M.bound(mesh):
+        return M.collective("all_gather", t, axes)
+
+
 def make_jitted_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
                            batch_struct, total_steps: int = 1000,
                            mode: str = "train", fsdp: bool = True,
@@ -170,7 +178,9 @@ def make_jitted_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
             local = {k: M.block(v, P(axes)) if axes and len(v) == rows else v
                      for k, v in batch.items()}
             params.zero_grad(set_to_none=True)
-            split = (moe.rows_split(functools.partial(_psum, mesh, axes))
+            split = (moe.rows_split(functools.partial(_psum, mesh, axes),
+                                    functools.partial(_gather, mesh, axes),
+                                    M.axis_index(axes))
                      if axes else contextlib.nullcontext())
             with split:
                 ce_sum, count, aux = model.loss_terms(params, local, cfg,

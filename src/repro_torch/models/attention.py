@@ -257,18 +257,42 @@ def attention_decode(params: Attention, x1, cache: dict, pos,
         cache["k"][rows, slot] = k1[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v1[:, 0].to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]
-    slots = torch.arange(Smax, device=x1.device)
+    mask = slot_mask(pos_b, torch.arange(Smax, device=x1.device), Smax,
+                     window)
+    out = decode_attend(q, k, v, mask).to(x1.dtype)
+    return out @ params.wo, cache
+
+
+def slot_mask(pos_b: Tensor, slots: Tensor, Smax: int,
+              window: Optional[int]) -> Tensor:
+    """(B, len(slots)) bool: whether each cache slot of a ring of Smax
+    holds a position the query at ``pos_b`` (B,) attends."""
     # absolute position held by each slot: the largest p <= pos with
     # p = slot (mod Smax); negative => slot not yet written
     k_pos = pos_b[:, None] - ((pos_b[:, None] - slots[None, :]) % Smax)
-    f32 = torch.float32
-    qg = q.reshape(B, 1, KV, H // KV, D).to(f32)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(f32)) * (D ** -0.5)
     mask = (k_pos >= 0) & (k_pos <= pos_b[:, None])                # (B, S)
     if window is not None:
         mask &= k_pos > pos_b[:, None] - window
-    logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(f32))
-    out = out.reshape(B, 1, H * D).to(x1.dtype)
-    return out @ params.wo, cache
+    return mask
+
+
+def decode_logits(q, k, mask: Optional[Tensor]) -> Tensor:
+    """One query a row against the keys k (B, S, KV, D): fp32 logits
+    (B, KV, g, 1, S), the masked slots (``mask`` (B, S)) at NEG_INF."""
+    B, _, H, D = q.shape
+    KV = k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(B, 1, KV, H // KV, D).to(f32)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(f32)) * (D ** -0.5)
+    if mask is None:
+        return logits
+    return torch.where(mask[:, None, None, None, :], logits, NEG_INF)
+
+
+def decode_attend(q, k, v, mask: Optional[Tensor]) -> Tensor:
+    """One-token attention: q (B, 1, H, D) over k, v (B, S, KV, D), the
+    slots of ``mask`` (B, S) or all -> fp32 (B, 1, H * D)."""
+    B, _, H, D = q.shape
+    probs = torch.softmax(decode_logits(q, k, mask), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    return out.reshape(B, 1, H * D)

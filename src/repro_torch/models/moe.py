@@ -28,7 +28,13 @@ the rows: the first-choice counts and the token count are summed over
 the ranks by ``sum_rows`` before the product, and each rank returns its
 share, E · Σ_e frac_e · (its sum of probs_e) / T, whose sum over the
 ranks is the global aux loss.  The scatter route's capacity and slot
-order depend on the global T, so it raises there.
+order depend on the global T: there the router's choices are
+all-gathered over the ranks (``gather_rows``, in row order), each
+assignment takes its slot in global (token, choice) order under the
+global capacity C(T_global), and each rank dispatches and combines its
+own rows (ROADMAP Queue 1 item 13.7).  An expert's rows never mix, so a
+rank's experts see the same kept tokens in the same slots as one rank
+with the whole batch.
 """
 from __future__ import annotations
 
@@ -60,16 +66,20 @@ def init_moe(cfg: ModelConfig, dtype, gen: torch.Generator) -> MoE:
     return MoE(cfg, dtype, gen)
 
 
-# the sum over the ranks that split the rows, under ``rows_split``
+# the row splits in force, innermost last: (sum_rows, gather_rows, index)
 _sum_rows: list = []
 
 
 @contextlib.contextmanager
-def rows_split(sum_rows):
-    """Within: the router's aux loss is each rank's share of the global
-    one, ``sum_rows`` (tensor -> its sum over the ranks that split the
-    batch's rows) summing the counts (module docstring)."""
-    _sum_rows.append(sum_rows)
+def rows_split(sum_rows, gather_rows=None, index: int = 0):
+    """Within: the batch's rows are split over ranks (module docstring).
+    ``sum_rows``: tensor -> its sum over those ranks, for the router's
+    aux loss (each rank returns its share of the global one).
+    ``gather_rows``: tensor -> the ranks' tensors concatenated on dim 0
+    in row order, and ``index``: this rank's block of rows in it, for
+    the scatter route's global slots; without them the scatter route
+    raises ValueError."""
+    _sum_rows.append((sum_rows, gather_rows, index))
     try:
         yield
     finally:
@@ -86,8 +96,9 @@ def _route(params: MoE, x2: Tensor, cfg: ModelConfig):
     # router probability of e)
     onehot = torch.nn.functional.one_hot(idx[:, 0], E).to(torch.float32)
     if _sum_rows:
-        total = _sum_rows[-1](probs.new_tensor(float(x2.shape[0])))
-        frac = _sum_rows[-1](torch.sum(onehot, dim=0)) / total
+        sum_rows = _sum_rows[-1][0]
+        total = sum_rows(probs.new_tensor(float(x2.shape[0])))
+        frac = sum_rows(torch.sum(onehot, dim=0)) / total
         aux = E * torch.sum(frac * torch.sum(probs, dim=0)) / total
         return gates, idx, aux
     frac = torch.mean(onehot, dim=0)
@@ -106,7 +117,8 @@ def moe_forward_dense(params: MoE, x: Tensor, cfg: ModelConfig):
     """Every expert on every token; the gates combine them.  x: (B, S, d)
     -> ((B, S, d), aux)."""
     B, S, d = x.shape
-    T, E, f = B * S, cfg.num_experts, cfg.d_ff
+    # f of the expert tensors held: d_ff, or a tensor-parallel block of it
+    T, E, f = B * S, cfg.num_experts, params.w_down.shape[1]
     x2 = x.reshape(T, d)
     gates, idx, aux = _route(params, x2, cfg)
     comb = torch.zeros((T, E), dtype=torch.float32, device=x.device)
@@ -125,24 +137,37 @@ def capacity(cfg: ModelConfig, T: int) -> int:
     return int(cfg.moe_capacity_factor * T * k / E) + 1
 
 
+def _slots(idx: Tensor, cfg: ModelConfig):
+    """(capacity C, slot of each of this rank's T·k assignments): the
+    number of earlier assignments to the same expert in (token, choice)
+    order, over the global batch under ``rows_split`` (module
+    docstring)."""
+    T, k = idx.shape
+    every, first = idx, 0
+    if _sum_rows:
+        _, gather_rows, index = _sum_rows[-1]
+        if gather_rows is None:
+            raise ValueError("the scatter route under rows_split needs "
+                             "gather_rows: its slots are global")
+        every, first = gather_rows(idx), index * T * k
+    flat = every.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, cfg.num_experts)
+    slot = torch.sum((torch.cumsum(onehot, dim=0) - onehot) * onehot,
+                     dim=-1)                                       # (Tg*k,)
+    return capacity(cfg, every.shape[0]), slot[first:first + T * k]
+
+
 def moe_forward_scatter(params: MoE, x: Tensor, cfg: ModelConfig):
     """Capacity dispatch: token t's j-th choice e takes slot = the number
     of earlier assignments (in (token, choice) order) to e, and is dropped
-    when slot >= C.  x: (B, S, d) -> ((B, S, d), aux)."""
-    if _sum_rows:
-        raise NotImplementedError(
-            "the scatter route's capacity and slot order depend on the "
-            "global token count: a step that splits the rows over ranks "
-            "runs the dense route (ROADMAP Queue 1 item 13.7)")
+    when slot >= C; under ``rows_split`` both over the global batch.
+    x: (B, S, d) -> ((B, S, d), aux)."""
     B, S, d = x.shape
     T, k, E = B * S, cfg.num_experts_per_tok, cfg.num_experts
-    C = capacity(cfg, T)
     x2 = x.reshape(T, d)
     gates, idx, aux = _route(params, x2, cfg)
     flat_e = idx.reshape(T * k)
-    onehot = torch.nn.functional.one_hot(flat_e, E)               # (T*k, E)
-    slot = torch.sum((torch.cumsum(onehot, dim=0) - onehot) * onehot,
-                     dim=-1)                                       # (T*k,)
+    C, slot = _slots(idx, cfg)
     keep = slot < C
     tok_id = torch.arange(T, device=x.device).repeat_interleave(k)
     # kept (expert, slot) pairs are distinct; dropped ones go to slot C,

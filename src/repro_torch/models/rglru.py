@@ -62,15 +62,19 @@ def init_rglru_block(cfg: ModelConfig, dtype, gen: torch.Generator) -> RGLRU:
     return RGLRU(cfg, dtype, gen)
 
 
-def _gates(params: RGLRU, x: Tensor):
-    """x: (..., w) -> (log_a < 0, the gated input b), both fp32."""
+def _gates(params: RGLRU, x: Tensor, cols: Optional[Tensor] = None):
+    """x: (..., w) -> (log_a < 0, the gated input b), both fp32.  With
+    ``cols``, a block of x's columns, the gates of those columns alone:
+    ``params`` then holds the matching column blocks of wa and wx and
+    slices of ba, bx and lam (the tensor-parallel decode)."""
     f32 = torch.float32
     xf = x.to(f32)
     r = torch.sigmoid(xf @ params.wa.to(f32) + params.ba)
     i = torch.sigmoid(xf @ params.wx.to(f32) + params.bx)
     log_a = -_C * softplus(params.lam) * r
     a2 = torch.exp(2.0 * log_a)
-    b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * xf)
+    xc = xf if cols is None else cols.to(f32)
+    b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * xc)
     return log_a, b
 
 

@@ -268,3 +268,69 @@ def init_blocks(rank, arch, shape, seed, over):
                 blocks={k: v.detach().clone()
                         for k, v in shd.blocks(lm).items()},
                 specs=dict(lm.specs))
+
+
+def sharded_serve(rank, cases):
+    """``spawn``'s ``fn`` of ``tests/test_torch_sharded_serve.py``: each
+    case's greedy loop through ``launch.serve.make_jitted_serve_step`` on
+    its (data, model) mesh of the group, from the JAX parameter tree it
+    carries (numpy, fp32): the prompt stepped in, then the rank's own
+    predictions; an encoder-decoder case first runs the one-rank
+    ``prefill`` with its frames and splits that cache into blocks.
+    Returns, by case: each step's predictions and logits for this rank's
+    rows, the collective bytes of each step, the ``Gather`` forwards
+    during the steps and after reading one parametrized leaf (the
+    control), the cache's blocks after the steps, and the step's
+    specs."""
+    import dataclasses
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import convert
+    from repro_torch.models.prefill import prefill
+    out = {}
+    for key, c in cases.items():
+        cfg = dataclasses.replace(tconfigs.get_reduced(c["arch"]),
+                                  param_dtype="float32", **c["cfg"])
+        m = mesh._make(c["shape"], ("data", "model"))
+        B, max_len = len(c["prompt"]), c["max_len"]
+        lm = convert.params_from_jax(c["tree"], cfg, "cpu")
+        prompt = torch.as_tensor(c["prompt"])
+        p0 = 0
+        if cfg.is_encoder_decoder:
+            logits, whole, p0 = prefill(lm, {"tokens": prompt,
+                                             "enc_media": c["enc_media"]},
+                                        cfg, max_len)
+            first = torch.argmax(logits[:, -1], dim=-1)
+            cache = shd.shard_cache(whole, cfg, m)
+            prompt = first[:, None]
+        else:
+            cache = shd.init_cache_blocks(cfg, m, B, max_len, device="cpu")
+        lm = shd.shard_params(lm, m, fsdp=False)
+        step, specs = serve.make_jitted_serve_step(cfg, m, B, max_len)
+        offsets = torch.as_tensor(c["offsets"]) if c["offsets"] is not None \
+            else 0
+        spec = serve.token_spec(m, B)
+        with mesh.bound(m):
+            prompt = mesh.block(prompt, spec)
+        shd.reset_gathers()
+        rec = dict(next=[], logits=[], comm_bytes=[], specs=specs)
+        tok = prompt[:, 0]
+        for t in range(c["steps"]):
+            mesh.reset_comm()
+            with mesh.bound(m):
+                nxt, logits, cache = step(lm, cache, tok, p0 + t + offsets)
+            rec["comm_bytes"].append(dict(mesh.comm_bytes))
+            rec["next"].append(nxt)
+            rec["logits"].append(logits)
+            tok = prompt[:, t + 1] if t + 1 < prompt.shape[1] else nxt
+        rec["gathers"] = shd.gathers["forward"]
+        with mesh.bound(m):
+            lm.embed                      # the control: one parametrized read
+        rec["gathers_after_a_read"] = shd.gathers["forward"]
+        rec["next"] = torch.stack(rec["next"])
+        rec["logits"] = torch.stack(rec["logits"])
+        rec["cache"] = cache
+        out[key] = rec
+    return out

@@ -1589,3 +1589,70 @@ def test_remat_policies_on_the_card(cuda, arch):
         assert runs[policy][1].keys() == runs["full"][1].keys()
         for name, g in runs["full"][1].items():
             assert torch.equal(runs[policy][1][name], g), (policy, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,over", [
+    ("qwen3_14b", {}), ("qwen3_14b", {"kv_cache_dtype": "int8"}),
+    ("command_r_35b", {}), ("granite_moe_1b_a400m", {}),
+    ("granite_moe_1b_a400m", {"moe_routing": "scatter"}),
+    ("mamba2_370m", {}),
+    ("recurrentgemma_2b", {"num_layers": 3, "sliding_window": 8}),
+    ("seamless_m4t_large_v2", {})])
+def test_tensor_parallel_decode_at_model_1_is_the_one_card_decode(
+        cuda, arch, over, dtype):
+    """At a model axis of 1 the tensor-parallel block functions
+    (``models.tp``) and the sharded serve step do the one-card decode's
+    arithmetic on the card: every layer's output and cache, and each
+    step's logits, equal ``blocks.block_decode`` and ``make_serve_step``
+    bit for bit over 10 steps (the ring of the windowed cache wraps)."""
+    import copy
+    from repro_torch import configs
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import blocks, layers, model, tp
+    from repro_torch.models.prefill import prefill
+    cfg = configs.get_reduced(arch, param_dtype=dtype, **over)
+    lm = model.init_params(cfg, seed=3, device=cuda)
+    B, L = 3, 16
+    tok = torch.tensor([3, 11, 7], device=cuda)
+    if cfg.is_encoder_decoder:
+        media = torch.randn(B, cfg.frontend_len, cfg.d_model, device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(4))
+        _, cache, p0 = prefill(lm, {"tokens": tok[:, None].repeat(1, 2),
+                                    "enc_media": media}, cfg, L)
+    else:
+        cache, p0 = model.init_cache(cfg, B, L, device=cuda), 0
+    mesh = M.make_host_mesh()
+    step, _ = serve.make_jitted_serve_step(cfg, mesh, B, L)
+    one = serve.make_serve_step(cfg)
+    mine = copy.deepcopy(cache)
+    leaves, _ = serve.serve_leaves(lm, mesh)
+    kinds = blocks.block_kinds(cfg)
+    for t in range(10):
+        # each layer alone, from the same input and copies of its cache
+        x = layers.apply_norm(lm.embed[tok][:, None], lm.final_norm,
+                              cfg.norm)
+        with M.bound(mesh), torch.no_grad():
+            for i, kind in enumerate(kinds):
+                want_c = {n: v.clone() for n, v in
+                          model.layer_cache(cache, i, cfg).items()}
+                got_c = {n: v.clone() for n, v in want_c.items()}
+                kv = (None if "cross_kv" not in cache else
+                      {n: v[i] for n, v in cache["cross_kv"].items()})
+                want, _ = blocks.block_decode(
+                    lm.layers[i], x, want_c, p0 + t, cfg, kind,
+                    window=cfg.sliding_window, cross_kv=kv)
+                got, _ = tp.block_decode(
+                    leaves.layers[i], x, got_c, p0 + t, cfg, kind,
+                    {n: False for n in list(got_c) + ["cross"]},
+                    window=cfg.sliding_window, cross_kv=kv)
+                assert torch.equal(got, want), (t, i)
+                for n in want_c:
+                    assert torch.equal(got_c[n], want_c[n]), (t, i, n)
+        with M.bound(mesh), torch.no_grad():
+            a, la, mine = step(lm, mine, tok, p0 + t)
+        b, lb, cache = one(lm, cache, tok, p0 + t)
+        assert torch.equal(la, lb) and torch.equal(a, b), t
+        tok = b.long()

@@ -5,7 +5,9 @@
 (``repro_torch.launch.ranks.spawn``; workers in ``tests/_torch_ranks.py``,
 no jax) against JAX's ``make_train_step`` for one step from the same
 JAX-initialised weights and global batch: reduced qwen3, mamba2 and
-granite-moe (dense route) in fp32 on meshes (2, 1), (1, 2) and (2, 2),
+granite-moe (dense route, and the scatter route with its rows split over
+"data" at (2, 1) and over both axes at (2, 2): ROADMAP Queue 1 item
+13.7) in fp32 on meshes (2, 1), (1, 2) and (2, 2),
 ``fsdp=False``, a batch whose rows do not divide the mesh (every rank
 takes every row), one that divides only "data", and the "dots" remat
 policy across the ranks.  Loss, gnorm, every whole weight after the step
@@ -60,10 +62,13 @@ CASES = {
     "granite 2x2": ("granite_moe_1b_a400m", (2, 2), 4, True, {}),
     "qwen3 2x2 dots": ("qwen3_14b", (2, 2), 4, True,
                        {"remat_policy": "dots"}),
+    # the scatter route with its rows split: global capacity and slots
+    "granite scatter 2x1": ("granite_moe_1b_a400m", (2, 1), 2, True,
+                            {"moe_routing": "scatter"}),
+    "granite scatter 2x2": ("granite_moe_1b_a400m", (2, 2), 4, True,
+                            {"moe_routing": "scatter"}),
 }
-# the scatter route under a row split raises (its capacity depends on the
-# global token count); with the rows replicated it runs
-SCATTER = ("granite_moe_1b_a400m", (2, 2), 4, True, {"moe_routing": "scatter"})
+SCATTER = [k for k, c in CASES.items() if c[4].get("moe_routing") == "scatter"]
 # recurrentgemma at 3 layers of a (rec, attn) pattern: layer 2 is a tail
 # layer
 INIT = {"qwen3_14b": ((2, 1), {}),
@@ -112,7 +117,6 @@ def _reference(case):
 @pytest.fixture(scope="module")
 def runs():
     cases = {k: _case(k, v) for k, v in CASES.items()}
-    cases["scatter"] = _case("scatter", SCATTER)
     by_size = {}
     for key, c in cases.items():
         by_size.setdefault(c["shape"][0] * c["shape"][1], {})[key] = c
@@ -126,7 +130,7 @@ def runs():
                                     device="cpu", deadline_s=200.0)
                  for arch in INIT})
     futs["check"] = pool.submit(_check_ranks)
-    refs = {k: _reference(c) for k, c in cases.items() if k != "scatter"}
+    refs = {k: _reference(c) for k, c in cases.items()}
     yield cases, futs, refs
     pool.shutdown(wait=True)
 
@@ -211,12 +215,18 @@ def test_sharded_step_matches_jax(runs, key):
 
 def test_scatter_route_under_a_row_split_raises(runs):
     """The MoE scatter route's capacity and slot order depend on the
-    global T: under a row split the step raises, naming the ROADMAP
-    item."""
+    global T.  Until ROADMAP Queue 1 item 13.7 the step raised under a
+    row split; now it raises no longer: each case runs with its rows
+    split (``row_axes``) on every rank, each rank slotting its tokens in
+    global order (JAX's numbers: ``test_sharded_step_matches_jax``)."""
     cases, futs, _ = runs
-    for out in futs[4].result(timeout=600):
-        assert out["scatter"]["error"].startswith("NotImplementedError")
-        assert "13.7" in out["scatter"]["error"]
+    for key in SCATTER:
+        c = cases[key]
+        mesh = M.abstract_mesh(c["shape"], ("data", "model"))
+        assert train.row_axes(len(c["batch"]["tokens"]), mesh)
+        for out in futs[c["shape"][0] * c["shape"][1]].result(timeout=600):
+            assert "error" not in out[key], out[key]
+            assert out[key]["step"] == 1
 
 
 @pytest.mark.parametrize("arch", list(INIT))

@@ -174,10 +174,12 @@ def test_train_step_matches_jax(arch):
 
 
 def test_make_jitted_train_step_names_the_roadmap_item(monkeypatch):
-    """The sharded step runs (``tests/test_torch_sharded_train.py``); what
-    still raises is MoE's scatter route under a split of the rows, whose
-    capacity depends on the global token count: it names its ROADMAP
-    item.  (A mesh of one rank splits no rows, so the split is forced.)"""
+    """The sharded step runs (``tests/test_torch_sharded_train.py``).  MoE's
+    scatter route under a split of the rows, whose capacity depends on the
+    global token count, raised naming ROADMAP Queue 1 item 13.7 until that
+    item; now it slots its tokens in global order and the step runs: under
+    a forced split (a mesh of one rank splits no rows) its loss and gnorm
+    are the one-rank step's."""
     from repro_torch.launch import mesh as M
     from repro_torch.launch import sharding as shd
     cfg = dataclasses.replace(tconfigs.get_reduced("granite_moe_1b_a400m"),
@@ -190,6 +192,12 @@ def test_make_jitted_train_step_names_the_roadmap_item(monkeypatch):
         "data")
     lm = shd.init_sharded(cfg, mesh, seed=0, device="cpu")
     state = shd.init_opt_state(cfg, mesh, "cpu")
+    ref = model.init_params(cfg, seed=0, device="cpu", trainable=True)
+    _, _, want = train.make_train_step(cfg, AdamWConfig())(
+        ref, adamw_init(ref), batch)
     monkeypatch.setattr(train, "row_axes", lambda rows, mesh: ("data",))
-    with pytest.raises(NotImplementedError, match="13.7"):
-        step(lm, state, batch)
+    with M.bound(mesh):
+        _, _, got = step(lm, state, batch)
+    for k in ("loss", "gnorm"):
+        assert abs(float(got[k]) - float(want[k])) <= 1e-6 * max(
+            1.0, float(want[k])), k
