@@ -258,7 +258,25 @@ result lines):
    its logits within 1e-4, bf16 fed the reference's tokens within
    ``SERVE_TOL`` with the control above it, no ``Gather`` forward and no
    kernel launch in the steps; ms, collective ms and bytes a step
-   (``serve-sharded ...`` lines).
+   (``serve-sharded ...`` lines);
+21. fit serving across four ranks (gloo on card 0 with one card;
+   ``repro_torch.launch.ranks.run_fit_serving``): each rank makes every
+   exchange once, untimed, then rank 0 serves through
+   ``DecsvmFitServer`` — the full-size chunked request of phase 4c
+   (problem 0 drawn on the card, ``erdos_renyi(16, 0.5, seed=0)``,
+   ``megakernel``, batched, 300 rounds) on the first 4 points of phase
+   4c's shared grid and a dense request of m = 4 by ``run()``, then at
+   the design size a chunked warm request (KKT stop) and a chunked SCAD
+   LLA + threshold request through ``start()`` / ``result()`` /
+   ``stop()`` — broadcasting each chunked bucket, while the other ranks
+   follow; the same requests at one rank in this process with the same
+   kernels and plain: each result within 1e-5 of both, the same best
+   lambda, table lambdas and stops, support flips only within 1e-5; the
+   followers' results equal rank 0's bit for bit; the bucket tags, every
+   two-pass launch on "stream", no collective in the dense bucket; wall
+   a bucket a rank, launches by kernel and instance, host ms in
+   ``collective`` a round, the broadcasts' bytes and ms
+   (``fitserve-ranks ...`` lines).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -654,6 +672,15 @@ SERVE_LAYERS = 4
 SERVE_MESH = (1, 4)
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 8, 8, 16, 64
 SERVE_TOL = {"float32": 1e-4, "bfloat16": 0.34}
+
+# phase 21: fit serving across four ranks (``ranks.run_fit_serving``) on the
+# first FIT_RANKS_NUM points of phase 4c's shared grid: gloo on one card
+# exchanges every round through the host, so the full 12-point request is
+# left to the four-card run (``python3 -m repro_torch.launch.ranks
+# --fit-serving --ranks 4``).  Each result is held to the one-rank server's
+# at ``ranks.TOL``, which is FIT_TOL["float32"].
+FIT_RANKS = 4
+FIT_RANKS_NUM = 4
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -4935,6 +4962,42 @@ def serve_sharded_phase(torch, device="cuda", arch=SERVE_ARCH,
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 21: fit serving across ranks
+# --------------------------------------------------------------------------
+
+def fit_serving_ranks_phase(torch, device="cuda", small=False):
+    """Phase 21: ``DecsvmFitServer`` on FIT_RANKS ranks placed as
+    ``ranks.spawn`` places them (gloo on card 0 with one card, NCCL with a
+    card a rank), through ``ranks.run_fit_serving``: rank 0 serves the
+    full-size chunked request on FIT_RANKS_NUM points of phase 4c's grid
+    and a dense one (m <= 4) by ``run()``, then a warm (KKT) and an LLA +
+    threshold request at the design size through ``start()`` /
+    ``result()`` / ``stop()``, while the others follow.  Every result is
+    held to the one-rank server's on the same requests and to plain
+    (1e-5, the same best lambda, table lambdas and stops, support flips
+    only within the tolerance), each follower's to rank 0's bit for bit,
+    the buckets' engine tags, every two-pass launch on "stream", no
+    collective in the dense bucket.  A ``RankFailure`` or a failed gate
+    fails the run.  Returns the records (the ranks' launches by kernel
+    and instance, summed over the ranks).  ``small`` (the CPU rehearsal)
+    shrinks the full-size problem to X (16, 64, 64)."""
+    from repro_torch.launch import ranks
+    t0 = time.perf_counter()
+    check(ranks.TOL == FIT_TOL["float32"], "fitserve-ranks: the gate's "
+          f"tolerance {ranks.TOL} is not FIT_TOL {FIT_TOL['float32']}")
+    try:
+        rec = ranks.run_fit_serving(FIT_RANKS, log=log, num=FIT_RANKS_NUM,
+                                    device=device, small=small)
+    except ranks.RankFailure as err:
+        check(False, f"fitserve-ranks: {err}")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"fitserve-ranks phase: launches {json.dumps(rec['launches'])}, "
+        f"by instance {json.dumps(rec['instances'])}; phase 21: "
+        f"{rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5333,6 +5396,14 @@ def main() -> int:
     # phase 20: the sharded serve step on four ranks against the one-rank
     # step (qwen3-32b at full width, 4 layers); it launches no kernel
     phase20 = serve_sharded_phase(torch)
+    # phase 21: fit serving across four ranks against the one-rank server
+    phase21 = fit_serving_ranks_phase(torch)
+    for name in FIT_KERNELS:
+        launches[name] += phase21["launches"][name]
+    for inst, n in phase21["instances"]["round"].items():
+        round_instances[inst] += n
+    for inst, n in phase21["instances"]["two_pass"].items():
+        two_pass_instances["csvm_block_update"][inst] += n
     mamba_launches = mamba_training["run"]["launches"]
     launches["ssd_scan"] += mamba_launches["ssd_scan"]
     launches["ssd_scan_backward"] = mamba_launches["ssd_scan_backward"]
@@ -5504,6 +5575,9 @@ def main() -> int:
                                           "warm_bf16_iters", "lla_launches")}
             if name != "csvm_local_update":
                 extra["fit_serving"] = fitserve["times"]
+                extra["fit_serving_ranks"] = {k: phase21[k] for k in (
+                    "buckets", "ranks", "backend", "cards", "grid",
+                    "spawn_s", "reference_s", "seconds")}
             if name != "csvm_round_block":
                 extra["ranks"] = {k: v for k, v in ranks["cases"].items()
                                   if v["kernel"] == name}

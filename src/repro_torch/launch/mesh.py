@@ -46,6 +46,14 @@ in one process on it, as JAX's rules read only ``mesh.shape``).
 ``collective("psum_scatter", ...)`` is the reduce-scatter of the ZeRO-3
 train step (``launch.train.make_jitted_train_step``); ``time_collectives``
 records each collective's span on the card's stream with CUDA events.
+
+Two exchanges span the whole group, outside any mesh: ``broadcast_from``
+sends one rank's object and tensors to every rank (fit serving's front
+end hands each chunked bucket to the followers), and
+``same_on_every_rank`` tells every rank whether all of them hold the same
+integer (the followers and the front end agree on a bucket's outcome).
+``warm`` makes one exchange on every line of a mesh, so that a backend's
+set-up on its first use falls outside a timed run.
 """
 from __future__ import annotations
 
@@ -110,12 +118,23 @@ def collective_ms(by_op: bool = False):
     since the last ``reset_comm`` (synchronizes the card); with ``by_op``
     a dict of them by collective."""
     out: Dict[str, float] = {}
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    for op, a, b, host_ms in _spans:
-        ms = host_ms if a is None else a.elapsed_time(b)
+    for op, ms in _span_ms():
         out[op] = out.get(op, 0.0) + ms
     return out if by_op else float(sum(out.values()))
+
+
+def span_ms(op: str) -> List[float]:
+    """The milliseconds of each ``op`` recorded under
+    ``time_collectives`` since the last ``reset_comm``, in order
+    (synchronizes the card)."""
+    return [ms for name, ms in _span_ms() if name == op]
+
+
+def _span_ms():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return [(op, host_ms if a is None else a.elapsed_time(b))
+            for op, a, b, host_ms in _spans]
 
 
 def _in_group() -> bool:
@@ -348,10 +367,15 @@ def _line(axis_name: AxisName):
             (ms, g) for ms, g in _groups[(mesh.axes, frozenset(names))]
             if r in ms)
         members = sorted(members, key=lambda q: _index(mesh, names, q))
-        dev = (torch.device("cpu") if dist.get_backend(group) == "gloo"
-               else torch.device("cuda", torch.cuda.current_device()))
-        line = _lines[key] = (members, group, dev)
+        line = _lines[key] = (members, group, _backend_device(group))
     return line
+
+
+def _backend_device(group=None) -> torch.device:
+    """Where ``group``'s backend (the whole group's by default) exchanges
+    tensors: host memory under gloo, this rank's card under NCCL."""
+    return (torch.device("cpu") if dist.get_backend(group) == "gloo"
+            else torch.device("cuda", torch.cuda.current_device()))
 
 
 def comm_device(axis_name: AxisName) -> torch.device:
@@ -368,6 +392,71 @@ def _to_comm(x, dev, copy: bool):
         return t.to(dev).contiguous()
     return t.clone(memory_format=torch.contiguous_format) if (
         copy or not t.is_contiguous()) else t
+
+
+@contextlib.contextmanager
+def _accounted(op: str, cuda: bool):
+    """One exchange over more than one rank: its call and host seconds in
+    ``comm``, and under ``time_collectives`` its span (CUDA events on the
+    current stream around it where ``cuda``, else its host ms).  The
+    caller adds its bytes to ``comm_bytes``."""
+    t0 = time.perf_counter()
+    span = None
+    if _timing[0] and cuda:
+        span = (op, torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[1].record()
+    yield
+    if span is not None:
+        span[2].record()
+        _spans.append(span + (None,))
+    elif _timing[0]:
+        _spans.append((op, None, None, 1e3 * (time.perf_counter() - t0)))
+    comm["calls"] += 1
+    comm["seconds"] += time.perf_counter() - t0
+
+
+def broadcast_from(src: int, obj=None, tensors=()):
+    """Rank ``src``'s ``obj`` (any picklable object) and ``tensors`` on
+    every rank of the group; returns (obj, tensors).  The other ranks pass
+    nothing: the object carries the tensors' shapes and dtypes, and each
+    tensor travels on its own through the backend's device — the card
+    under NCCL, host memory under gloo — where the receivers get theirs;
+    ``src`` gets its own tensors back.  Counted as one call under
+    "broadcast", with the tensors' bytes (not the object's pickle).
+    Outside a group, the identity."""
+    tensors = list(tensors)
+    if device_count() == 1:
+        return obj, tensors
+    me, dev = rank(), _backend_device()
+    with _accounted("broadcast", dev.type == "cuda"):
+        meta = [(obj, [(tuple(t.shape), t.dtype) for t in tensors])
+                if me == src else None]
+        dist.broadcast_object_list(meta, src=src)
+        obj, shapes = meta[0]
+        out = []
+        for i, (shape, dtype) in enumerate(shapes):
+            t = (_to_comm(tensors[i], dev, copy=False) if me == src
+                 else torch.empty(shape, dtype=dtype, device=dev))
+            dist.broadcast(t, src=src)
+            out.append(tensors[i] if me == src else t)
+    comm_bytes["broadcast"] = comm_bytes.get("broadcast", 0) + sum(
+        t.numel() * t.element_size() for t in out)
+    return obj, out
+
+
+def same_on_every_rank(value: int) -> bool:
+    """Whether every rank of the group passed the same ``value`` (one
+    all-reduce of (value, -value) by max over the whole group, counted
+    under "pmax").  True outside a group."""
+    if device_count() == 1:
+        return True
+    dev = _backend_device()
+    t = torch.tensor([value, -value], dtype=torch.int64, device=dev)
+    with _accounted("pmax", dev.type == "cuda"):
+        dist.all_reduce(t, dist.ReduceOp.MAX)
+    comm_bytes["pmax"] = comm_bytes.get("pmax", 0) + t.numel() * 8
+    return int(t[0]) == -int(t[1])
 
 
 COLLECTIVES = ("psum", "pmax", "pmean", "all_gather", "ppermute",
@@ -392,14 +481,15 @@ def collective(op: str, x, axis_name: AxisName, perm=None):
     n = axis_size(axis_name)
     if n == 1:
         return x
-    t0 = time.perf_counter()
-    span = None
-    if _timing[0] and x.device.type == "cuda":
-        span = (op, torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        span[1].record()
-    elif _timing[0]:
-        span = (op, None, None)
+    with _accounted(op, x.device.type == "cuda"):
+        out = _exchange(op, x, axis_name, n, perm)
+    comm_bytes[op] = comm_bytes.get(op, 0) + (
+        out if op == "all_gather" else x).numel() * x.element_size()
+    return out
+
+
+def _exchange(op, x, axis_name, n, perm):
+    """``collective``'s exchange itself, over this rank's line."""
     members, group, dev = _line(axis_name)
     if op in ("psum", "pmax", "pmean"):
         t = _to_comm(x, dev, copy=True)
@@ -444,15 +534,6 @@ def collective(op: str, x, axis_name: AxisName, perm=None):
         for work in (dist.batch_isend_irecv(p2p) if p2p else ()):
             work.wait()
         out = buf.to(x.device)
-    if span is not None and span[1] is not None:
-        span[2].record()
-        _spans.append(span + (None,))
-    elif span is not None:
-        _spans.append(span + (1e3 * (time.perf_counter() - t0),))
-    comm["calls"] += 1
-    comm["seconds"] += time.perf_counter() - t0
-    comm_bytes[op] = comm_bytes.get(op, 0) + (
-        out if op == "all_gather" else x).numel() * x.element_size()
     return out
 
 
@@ -502,3 +583,21 @@ def assemble(out, spec):
         if ax is not None and axis_size(ax) > 1:
             out = collective("all_gather", out.movedim(d, 0), ax).movedim(0, d)
     return out
+
+
+def warm(mesh: Mesh) -> float:
+    """One exchange (a one-element ``psum``) on every line of ``mesh``,
+    each set of its axes in mesh order, on every rank, so that a
+    backend's set-up on a line's first use (NCCL makes its communicator
+    then) falls here and not in a timed run (``reset_comm`` after it).
+    Returns the host seconds it took (the card synchronized)."""
+    t0 = time.perf_counter()
+    if mesh.size > 1:
+        x = torch.zeros(1, device=_backend_device())
+        with bound(mesh):
+            for k in range(1, len(mesh.axes) + 1):
+                for subset in itertools.combinations(mesh.axis_names, k):
+                    collective("psum", x, subset)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+    return time.perf_counter() - t0

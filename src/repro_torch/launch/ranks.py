@@ -1,7 +1,8 @@
 """Ranks of one ``torch.distributed`` group on one host, and the
-decentralized engines driven across them.
+decentralized engines and fit serving driven across them.
 
     python3 -m repro_torch.launch.ranks --ranks 4            # on the card(s)
+    python3 -m repro_torch.launch.ranks --fit-serving --ranks 4
 
 ``spawn(fn, ranks, args)`` starts ``ranks`` processes (``torch.
 multiprocessing``, the spawn start method), joins them in one group and
@@ -24,6 +25,18 @@ kernel backend and with the plain ``"jnp"`` update (``run_cases``,
 ``check_cases``).  ``chip_smoke.py`` runs them as its phase 4d.  The rank
 workers import nothing of JAX; the kernels are built in the parent before
 the ranks start, so the ranks only load the libraries.
+
+Fit serving across the ranks (``--fit-serving``; ``run_fit_serving``):
+every rank first makes each exchange the run will use once, untimed
+(``warm_exchanges``: NCCL sets up a communicator at its first use), then
+rank 0 serves ``fit_requests`` through ``serving.DecsvmFitServer`` — a
+full-size chunked request and a dense one by ``run()``, two design-size
+chunked requests through the worker — while the other ranks follow
+(``serve_requests``); each bucket is recorded on each rank
+(``BucketRecorder``).  The parent serves the same requests at one rank,
+with the same kernels and plain, and holds rank 0's results to both and
+every follower's to rank 0's, bit for bit (``check_fit_serving``).
+``chip_smoke.py`` runs it as its phase 21 on the first points of the grid.
 """
 from __future__ import annotations
 
@@ -695,9 +708,489 @@ def run_cases(ranks: int = 4, log=print) -> dict:
     return records
 
 
+# --------------------------------------------------------------------------
+# Fit serving across the ranks
+# --------------------------------------------------------------------------
+
+# the full-size draws (seeds 0, 1, ...) over which chip_smoke.py's fit
+# serving (phase 4c) makes its shared grid; the warm request's grid points:
+# an odd count, which no "lam" axis of 2 or 4 divides, so its (node_chunk,
+# lam) mesh is (ranks, 1) and the ranks traverse its path as one rank does
+# (a "lam" axis would hand the path off between shards: another traversal)
+SERVE_DRAWS = 4
+WARM_NUM = 5
+SERVE_KERNELS = TWO_PASS + ("csvm_round_block",)
+
+
+def fit_serving_setup(ranks: int, num: int = PATH_NUM, device: str = "cuda",
+                      small: bool = False) -> Setup:
+    """``setup``'s sizes with the grid of ``chip_smoke.py``'s fit serving
+    (phase 4c): ``shared_lambda_grid`` of ``PATH_NUM`` points over the
+    full-size draws of seeds 0 .. ``SERVE_DRAWS`` - 1, its first ``num``.
+    Here problem 0 is ``device_problem``'s draw, as the ranks draw it
+    (phase 4c's is ``core.generate``'s)."""
+    from repro_torch import core
+    s = setup(ranks, device, small)
+    draws = [device_problem(s.full, seed, device)
+             for seed in range(SERVE_DRAWS)]
+    grid = core.tuning.shared_lambda_grid(
+        np.stack([X.cpu().numpy() for X, _ in draws]),
+        np.stack([y.cpu().numpy() for _, y in draws]), num=PATH_NUM)
+    return dataclasses.replace(s, grid=tuple(grid[:num].tolist()))
+
+
+def fit_requests(s: Setup, backend: str):
+    """The requests of fit serving across ``s.ranks`` ranks, as (drained
+    by ``run()``, given to the worker), each of ``MAX_ITER`` rounds under
+    ``backend``:
+
+    - rid 0: the full-size problem (``device_problem``, seed 0) on
+      ``erdos_renyi(16, 0.5, seed=0)`` over ``s.grid``, batched: m > the
+      ranks, so ``engine="auto"`` makes it chunked;
+    - rid 1: the design-size problem's first ``s.ranks`` nodes on a ring,
+      over ``s.design_grid``, batched: m <= the ranks, so dense;
+    - rid 2: the design-size problem on ``erdos_renyi(10, 0.5, seed=0)``,
+      warm with the KKT stop at ``CHUNK_TOL`` (at 1e-3 four of its five
+      points run all ``MAX_ITER`` rounds) over ``lambda_grid`` of
+      ``WARM_NUM`` points, resolved at submit;
+    - rid 3: the same problem with SCAD LLA and the Theorem-4 threshold
+      over ``s.design_grid``, batched.
+    """
+    from repro_torch import core
+    from repro_torch.serving import FitRequest
+
+    def cfg(h):
+        return core.ADMMConfig(lam=0.0, h=h, max_iter=MAX_ITER,
+                               backend=backend)
+    X, y = device_problem(s.full, 0, s.device)
+    Xd, yd, _ = core.generate(s.design, seed=0)
+    k = s.ranks
+    design = dict(X=Xd, y=yd, W=core.graph.erdos_renyi(s.design.m, 0.5,
+                                                       seed=0),
+                  cfg=cfg(s.design_h))
+    sync = [FitRequest(rid=0, X=X, y=y,
+                       W=core.graph.erdos_renyi(s.full.m, 0.5, seed=0),
+                       cfg=cfg(s.h), lams=s.grid, mode="batched"),
+            FitRequest(rid=1, X=Xd[:k], y=yd[:k], W=core.graph.ring(k),
+                       cfg=cfg(s.design_h), lams=s.design_grid,
+                       mode="batched")]
+    later = [FitRequest(rid=2, **design, num=WARM_NUM, mode="warm",
+                        tol=CHUNK_TOL),
+             FitRequest(rid=3, **design, lams=s.design_grid, mode="batched",
+                        penalty="scad", threshold=True)]
+    return sync, later
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+class BucketRecorder:
+    """While active, each bucket that a ``DecsvmFitServer`` of this
+    process runs, on any thread, leaves a record in ``buckets``: its
+    engine, its rids, its wall seconds (the card synchronized around it),
+    the CSVM kernels' calls and their launches by kernel and by instance
+    and device ms (``LaunchTimer``), and the collectives' calls, host
+    seconds and bytes by op inside it; ``paths`` holds each request's
+    lambda path and stops (the ``PathResult`` of
+    ``tuning.select_lambda_path`` or ``select_lambda_path_many``), by
+    rid.  A chunked bucket's broadcast and agreement lie outside it."""
+
+    def __init__(self, device):
+        self.device = device
+        self.buckets: List[dict] = []
+        self.paths: Dict[int, tuple] = {}
+        self._found: List[tuple] = []
+
+    def __enter__(self):
+        from repro_torch.core import tuning
+        from repro_torch.kernels import ops
+        from repro_torch.serving import fit
+        server = fit.DecsvmFitServer
+        self.timer = LaunchTimer(ops, *SERVE_KERNELS).__enter__()
+        self._orig = [(owner, name, getattr(owner, name)) for owner, name in (
+            (server, "_run_bucket_dense"), (server, "_run_bucket_chunked"),
+            (tuning, "select_lambda_path"), (tuning, "select_lambda_path_many"))]
+        for owner, name, fn in self._orig:
+            setattr(owner, name, self._bucket(name.rsplit("_", 1)[1], fn)
+                    if owner is server else self._path(fn, name.endswith("many")))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
+        self.timer.__exit__(*exc)
+
+    def _path(self, fn, many: bool):
+        def kept(*args, **kw):
+            out = fn(*args, **kw)
+            res = out[3]
+            self._found += (list(zip(res.path, res.iters)) if many
+                            else [(res.path, res.iters)])
+            return out
+        return kept
+
+    def _bucket(self, engine: str, fn):
+        from repro_torch.kernels import ops
+        from repro_torch.launch import mesh
+        timer = self.timer
+
+        def counters():
+            return (dict(timer.calls), dict(ops.launches),
+                    dict(ops.two_pass_launches),
+                    dict(ops.round_block_launches), dict(mesh.comm),
+                    dict(mesh.comm_bytes))
+
+        def recorded(srv, reqs, lams):
+            before, e0, f0 = counters(), len(timer.events), len(self._found)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            out = fn(srv, reqs, lams)
+            _sync(self.device)
+            wall = time.perf_counter() - t0
+            calls, launches, two_pass, rounds, comm, nbytes = (
+                _diff(a, b) for a, b in zip(counters(), before))
+            events = timer.events[e0:]
+            self.buckets.append(dict(
+                engine=engine, rids=[r.rid for r in reqs], wall_s=wall,
+                calls=calls, launches={k: launches.get(k, 0)
+                                       for k in SERVE_KERNELS},
+                two_pass_instances=two_pass, round_instances=rounds,
+                kernel_ms=(sum(a.elapsed_time(b) for a, b in events)
+                           if events else None),
+                comm_calls=int(comm.get("calls", 0)),
+                comm_s=float(comm.get("seconds", 0.0)), comm_bytes=nbytes))
+            for req, (path, iters) in zip(reqs, self._found[f0:]):
+                self.paths[req.rid] = (_host(path), _host(iters))
+            return out
+        return recorded
+
+
+def serve_requests(sync, later, device, timeout_s: float = 900.0) -> dict:
+    """One ``DecsvmFitServer`` on ``device``: at one rank outside a group,
+    or as rank 0 of one, ``sync`` through ``run()`` and then ``later``
+    through the worker (``start``, ``FitHandle.result``, ``stop``); on
+    another rank of a group, ``follow()`` (the requests are rank 0's).
+    The launch and collective counters are set to 0 just before, the
+    buckets recorded (``BucketRecorder``) and the collectives timed
+    (``mesh.time_collectives``).  Returns this rank's results by rid, its
+    bucket log's keys, the buckets and paths, its wall, its collectives'
+    calls, host seconds, bytes and ms by op, and its peak device memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.serving import fit
+    on_card = torch.device(device).type == "cuda"
+    srv = fit.DecsvmFitServer(device=device)
+    ops.reset_launches()
+    mesh.reset_comm()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with BucketRecorder(device) as rec, mesh.time_collectives():
+        _sync(device)
+        t0 = time.perf_counter()
+        if mesh.rank() == 0:
+            for req in sync:
+                srv.submit(req)
+            results = srv.run()
+            srv.start()
+            try:
+                handles = [srv.submit(req) for req in later]
+                results.update((h.rid, h.result(timeout_s)) for h in handles)
+            finally:
+                srv.stop()
+        else:
+            results = srv.follow()
+        _sync(device)
+        wall = time.perf_counter() - t0
+    return dict(results=results, keys=[key for key, _ in srv.bucket_log],
+                buckets=rec.buckets, paths=rec.paths, wall_s=wall,
+                comm_calls=int(mesh.comm["calls"]),
+                comm_s=float(mesh.comm["seconds"]),
+                comm_bytes=dict(mesh.comm_bytes),
+                collective_ms=mesh.collective_ms(by_op=True),
+                broadcast_ms=mesh.span_ms("broadcast"),
+                peak_bytes=(torch.cuda.max_memory_allocated() if on_card
+                            else None))
+
+
+def warm_exchanges(s: Setup) -> Dict[str, float]:
+    """Each exchange of fit serving across the group once, before the
+    timed run: the whole group's (a broadcast and an agreement), then
+    every line of each mesh the chunked buckets of ``fit_requests`` bind
+    (the (node_chunk, lam) mesh each path picks, the node_chunk mesh of
+    the LLA re-fit).  Returns the seconds of each, by mesh; the counters
+    are set to 0 after."""
+    from repro_torch.core import decentral as dec
+    from repro_torch.launch import mesh
+    k = mesh.device_count()
+    t0 = time.perf_counter()
+    mesh.broadcast_from(0, None, [torch.zeros(1, device=s.device)]
+                        if mesh.rank() == 0 else ())
+    mesh.same_on_every_rank(0)
+    _sync(s.device)
+    out = {"group": time.perf_counter() - t0}
+    meshes = [mesh.make_node_chunk_mesh()] + [
+        mesh.make_chunk_lam_mesh(*dec._choose_mesh_shape(m, C, k,
+                                                         chunked=True))
+        for m, C in ((s.full.m, len(s.grid)), (s.design.m, WARM_NUM),
+                     (s.design.m, len(s.design_grid)))]
+    for m in dict.fromkeys(meshes):
+        out[json.dumps(m.shape)] = mesh.warm(m)
+    mesh.reset_comm()
+    return out
+
+
+def rank_fit_serving(rank: int, s: Setup) -> dict:
+    """``spawn``'s ``fn``: the exchanges warmed, then rank 0 serves
+    ``fit_requests`` under ``megakernel`` and the other ranks follow."""
+    import torch.distributed as dist
+    warm = warm_exchanges(s)
+    reqs = fit_requests(s, "megakernel") if rank == 0 else ((), ())
+    out = serve_requests(*reqs, s.device)
+    out.update(rank=rank, backend=dist.get_backend(), warm_s=warm)
+    return out
+
+
+def _same_fit(name, got, want, paths, N, p, tol, fail):
+    """A ``FitResult`` against another run's of the same request, as
+    ``chip_smoke.py``'s fit serving holds them: the same best lambda and
+    table lambdas, the same stops; B, beta, the LLA weights and the
+    criterion less its support term (BIC) within ``tol``; every support
+    flip of the two paths (``paths``: each run's (path, iters)) at |b| <=
+    ``tol``; the table's support column its path's.  Returns (max|dev|,
+    flips)."""
+    (pg, ig), (pw, iw) = paths
+    if not bool(np.isfinite(got.B).all()):
+        fail(f"{name}: non-finite B")
+    if got.best_lam != want.best_lam:
+        fail(f"{name}: best lambda {got.best_lam} vs {want.best_lam}")
+    tg, tw = np.array(got.table), np.array(want.table)
+    if not np.array_equal(tg[:, 0], tw[:, 0]):
+        fail(f"{name}: the table's lambdas differ")
+    if ig.tolist() != iw.tolist():
+        fail(f"{name}: stops {ig.tolist()} vs {iw.tolist()}")
+    pen = bic_support_weight(N, p) if got.criterion == "bic" else 0.0
+    parts = [np.abs(got.B - want.B).max(), np.abs(got.beta - want.beta).max(),
+             np.abs((tg[:, 1] - pen * tg[:, 2])
+                    - (tw[:, 1] - pen * tw[:, 2])).max()]
+    if want.lam_weights is not None:
+        parts.append(np.abs(got.lam_weights - want.lam_weights).max())
+    dev = float(max(parts))
+    flips, near = support_flips(pg, pw)
+    if near > tol:
+        fail(f"{name}: a support flip at |b| = {near:.3e} > {tol}")
+    support = (pg.abs() > 1e-8).sum(-1).double().mean(-1).numpy()
+    if not np.array_equal(support, tg[:, 2]):
+        fail(f"{name}: the table's support is not its path's")
+    if dev > tol:
+        fail(f"{name}: max|dev| {dev:.3e} > {tol}")
+    return dev, flips
+
+
+def _identical(a, b) -> bool:
+    """Two ``FitResult``s equal bit for bit (their bucket walls aside)."""
+    if type(a) is not type(b):
+        return False
+    fa, fb = (dataclasses.asdict(x) for x in (a, b))
+    return all(k == "wall_s" or (np.array_equal(fa[k], fb[k])
+                                 if isinstance(fa[k], np.ndarray)
+                                 else fa[k] == fb[k]) for k in fa)
+
+
+# the buckets of fit_requests in the group: run() drains rid 0 (chunked)
+# and rid 1 (dense); the worker takes rid 2, then rid 3 (two keys)
+SERVE_BUCKETS = (("chunked", [0]), ("dense", [1]), ("chunked", [2]),
+                 ("chunked", [3]))
+
+
+def check_fit_serving(s: Setup, ranks: List[dict], one: dict, plain: dict,
+                      log=print) -> dict:
+    """Hold fit serving across the ranks to one rank: rank 0's buckets
+    as ``SERVE_BUCKETS`` (the same keys on every follower, which ran the
+    chunked ones only and rank 0's dense bucket not at all: no collective
+    in it); each follower's results equal rank 0's bit for bit; every
+    result of rank 0 against the same request at one rank with the same
+    kernels (``one``) and plain (``plain``), at ``TOL`` (``_same_fit``);
+    the full-size request's two-pass launches a rank its cells on the
+    rank's lam shard times ``MAX_ITER``, the dense bucket's round launches
+    one a grid point; on the card every launch on the stream instance.
+    Returns the records; raises ``RankFailure`` on the first gate that
+    fails."""
+    from repro_torch.core import decentral as dec
+
+    def fail(msg):
+        raise RankFailure(f"fit serving: {msg}")
+
+    on_card = torch.device(s.device).type == "cuda"
+    counted = "launches" if on_card else "calls"
+    k, r0 = len(ranks), ranks[0]
+    got = [(b["engine"], b["rids"]) for b in r0["buckets"]]
+    if got != list(SERVE_BUCKETS):
+        fail(f"rank 0's buckets {got}, expected {list(SERVE_BUCKETS)}")
+    tags = [key[-1] for key in r0["keys"]]
+    if tags != [e for e, _ in SERVE_BUCKETS]:
+        fail(f"rank 0's bucket log tags {tags}")
+    chunked_keys = [key for key in r0["keys"] if key[-1] == "chunked"]
+    chunked_rids = [r for e, rids in SERVE_BUCKETS if e == "chunked"
+                    for r in rids]
+    for q, f in enumerate(ranks[1:], 1):
+        if f["keys"] != chunked_keys or [b["engine"] for b in f["buckets"]] \
+                != ["chunked"] * len(chunked_keys):
+            fail(f"rank {q} ran buckets {[b['rids'] for b in f['buckets']]}"
+                 f" of keys {f['keys']}, expected rank 0's chunked ones")
+        if sorted(f["results"]) != sorted(chunked_rids):
+            fail(f"rank {q}'s results {sorted(f['results'])}")
+        for rid in chunked_rids:
+            if not _identical(f["results"][rid], r0["results"][rid]):
+                fail(f"rid {rid}: rank {q}'s result differs from rank 0's")
+    dense = r0["buckets"][1]
+    if dense["comm_calls"] or dense["comm_bytes"]:
+        fail(f"the dense bucket issued collectives: {dense['comm_calls']} "
+             f"calls, bytes {dense['comm_bytes']}")
+    nl = dec._choose_mesh_shape(s.full.m, len(s.grid), k, chunked=True)[1]
+    totals = {name: 0 for name in SERVE_KERNELS}
+    instances = {"two_pass": {"stream": 0, "direct": 0},
+                 "round": {"stream": 0, "direct": 0}}
+    for r in ranks:
+        for b in r["buckets"]:
+            n2 = sum(b[counted].get(t, 0) for t in TWO_PASS)
+            nr = b[counted].get("csvm_round_block", 0)
+            if b["engine"] == "chunked" and (nr or not n2):
+                fail(f"rank {r['rank']} rids {b['rids']}: {counted} "
+                     f"{b[counted]}, expected two-pass launches only")
+            if on_card and (b["two_pass_instances"].get("direct")
+                            or b["round_instances"].get("direct")):
+                fail(f"rank {r['rank']} rids {b['rids']}: instances "
+                     f"{b['two_pass_instances']} {b['round_instances']}, "
+                     "expected every launch on the stream instance")
+            for name in SERVE_KERNELS:
+                totals[name] += b["launches"][name]
+            for i in ("stream", "direct"):
+                instances["two_pass"][i] += b["two_pass_instances"].get(i, 0)
+                instances["round"][i] += b["round_instances"].get(i, 0)
+        full = r["buckets"][0]
+        want_n = len(s.grid) // nl * MAX_ITER
+        if full[counted].get("csvm_block_update", 0) != want_n:
+            fail(f"rank {r['rank']}: {full[counted]} for the full-size "
+                 f"request, expected {want_n} csvm_block_update "
+                 f"({len(s.grid) // nl} cells x {MAX_ITER})")
+    if dense[counted].get("csvm_round_block", 0) != len(s.design_grid):
+        fail(f"the dense bucket: {dense[counted]}, expected "
+             f"{len(s.design_grid)} csvm_round_block")
+    sizes = {0: s.full, 1: s.design, 2: s.design, 3: s.design}
+    fits = {}
+    for rid, sim in sizes.items():
+        g = r0["results"][rid]
+        N, p = sim.m * sim.n, sim.p + 1
+        if rid == 1:
+            N = k * sim.n
+        dev, flips = _same_fit(f"rid {rid} vs one rank", g,
+                               one["results"][rid],
+                               (r0["paths"][rid], one["paths"][rid]), N, p,
+                               TOL, fail)
+        pdev, pflips = _same_fit(f"rid {rid} vs plain", g,
+                                 plain["results"][rid],
+                                 (r0["paths"][rid], plain["paths"][rid]), N,
+                                 p, TOL, fail)
+        fits[rid] = dict(max_abs_dev=dev, max_abs_dev_plain=pdev,
+                         flips=flips, flips_plain=pflips,
+                         best_lam=g.best_lam,
+                         stops=r0["paths"][rid][1].tolist())
+    recs, ci = [], 0
+    for i, (engine, rids) in enumerate(SERVE_BUCKETS):
+        runs = [r0["buckets"][i]]              # rank 0's, then the followers'
+        if engine == "chunked":
+            runs += [f["buckets"][ci] for f in ranks[1:]]
+            ci += 1
+        rounds = [max(1, sum(b[counted].get(t, 0) for t in TWO_PASS))
+                  for b in runs]
+        recs.append(dict(
+            engine=engine, rids=rids,
+            wall_s=[b["wall_s"] for b in runs],
+            one_rank_wall_s=one["buckets"][i]["wall_s"],
+            plain_wall_s=plain["buckets"][i]["wall_s"],
+            launches=[b[counted] for b in runs],
+            instances=[(b["two_pass_instances"], b["round_instances"])
+                       for b in runs],
+            kernel_ms=[b["kernel_ms"] for b in runs],
+            comm_ms_per_round=[1e3 * b["comm_s"] / n
+                               for b, n in zip(runs, rounds)],
+            comm_bytes=[b["comm_bytes"] for b in runs],
+            fits={rid: fits[rid] for rid in rids}))
+        rec = recs[-1]
+        log(f"fitserve-ranks rids {rids} {engine}: wall "
+            f"{json.dumps([round(w, 4) for w in rec['wall_s']])} s a rank "
+            f"(one rank {rec['one_rank_wall_s']:.4f}, plain "
+            f"{rec['plain_wall_s']:.4f}); {counted} a rank "
+            f"{json.dumps(rec['launches'])}, instances "
+            f"{json.dumps(rec['instances'])}; collectives "
+            f"{json.dumps([round(c, 4) for c in rec['comm_ms_per_round']])} "
+            f"host ms a round, bytes {json.dumps(rec['comm_bytes'])}; "
+            + "; ".join(f"rid {rid}: best lambda {f['best_lam']:.6g}, stops "
+                        f"{f['stops']}, max|dev| vs one rank "
+                        f"{f['max_abs_dev']:.3e} ({f['flips']} support "
+                        f"flips), vs plain {f['max_abs_dev_plain']:.3e}"
+                        for rid, f in rec["fits"].items()))
+    # a follower's broadcast spans also hold its wait for rank 0
+    broadcast = [dict(bytes=r["comm_bytes"].get("broadcast", 0),
+                      ms=r["broadcast_ms"], peak_bytes=r["peak_bytes"],
+                      warm_s=r["warm_s"], wall_s=r["wall_s"])
+                 for r in ranks]
+    for r, b in zip(ranks, broadcast):
+        log(f"fitserve-ranks rank {r['rank']} ({r['backend']}): the "
+            f"broadcasts {b['bytes'] / 2**20:.2f} MiB, "
+            f"{json.dumps([round(t, 3) for t in b['ms']])} ms (the "
+            f"buckets', then the stop; on a follower its wait for rank 0 "
+            f"too); the first exchanges (untimed) "
+            f"{json.dumps({m: round(t, 4) for m, t in b['warm_s'].items()})}"
+            f" s; wall {b['wall_s']:.3f} s, peak "
+            + (f"{b['peak_bytes'] / 1e9:.2f} GB" if b["peak_bytes"] is not None
+               else "(no card)"))
+    return dict(buckets=recs, ranks=broadcast, launches=totals,
+                instances=instances)
+
+
+def run_fit_serving(ranks: int = 4, log=print, num: int = PATH_NUM,
+                    device: str = "cuda", small: bool = False) -> dict:
+    """Build the kernels, serve ``fit_requests`` (on ``num`` points of the
+    grid) across ``ranks`` ranks placed by ``placement``, then the same
+    requests at one rank with the same kernels and plain, and hold them to
+    each other (``check_fit_serving``); returns the records."""
+    if torch.device(device).type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all(("csvm_update",))      # the path's only source
+    backend, cards = placement(ranks, device)
+    t0 = time.perf_counter()
+    s = fit_serving_setup(ranks, num, device, small)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = spawn(rank_fit_serving, ranks, (s,), device=device,
+                deadline_s=900.0)
+    spawn_s = time.perf_counter() - t0
+    log(f"fitserve-ranks: {ranks} ranks on cards {cards}, backend {backend},"
+        f" X {(s.full.m, s.full.n, s.full.p + 1)}, {len(s.grid)} grid "
+        f"points: set-up {setup_s:.1f} s, {spawn_s:.1f} s to start the "
+        "ranks, serve and return")
+    t0 = time.perf_counter()
+    one = serve_requests(*fit_requests(s, "megakernel"), device)
+    plain = serve_requests(*fit_requests(s, "jnp"), device)
+    reference_s = time.perf_counter() - t0
+    log(f"fitserve-ranks references: the requests at one rank with the "
+        f"kernels and plain, {reference_s:.1f} s")
+    records = check_fit_serving(s, got, one, plain, log)
+    records.update(backend=backend, ranks_n=ranks, cards=cards,
+                   spawn_s=spawn_s, reference_s=reference_s,
+                   grid=list(s.grid))
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--fit-serving", action="store_true",
+                    help="fit serving across the ranks (run_fit_serving) "
+                         "in place of the engine cases")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ranks: no CUDA device", file=sys.stderr)
@@ -708,10 +1201,17 @@ def main(argv=None) -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    rec = run_cases(a.ranks, log=lambda *x: print(*x, flush=True))
-    print(json.dumps({k: v for k, v in rec.items()
-                      if k in ("launches", "instances", "backend", "ranks",
-                               "spawn_s", "reference_s")}), flush=True)
+    say = lambda *x: print(*x, flush=True)  # noqa: E731
+    if a.fit_serving:
+        rec = run_fit_serving(a.ranks, log=say)
+        keys = ("launches", "instances", "backend", "ranks_n", "spawn_s",
+                "reference_s", "buckets", "ranks")
+    else:
+        rec = run_cases(a.ranks, log=say)
+        keys = ("launches", "instances", "backend", "ranks", "spawn_s",
+                "reference_s")
+    print(json.dumps({k: v for k, v in rec.items() if k in keys},
+                     default=str), flush=True)
     return 0
 
 

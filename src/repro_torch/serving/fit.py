@@ -21,8 +21,25 @@ resolves in one call:
   its stage 2 through ``decentral.decsvm_path_chunked``; every round
   there is one two-pass kernel launch.
 
-The server runs at one rank: inside a ``torch.distributed`` group every
-rank would have to drive it in lockstep (ROADMAP Queue 1 item 12).
+Inside a ``torch.distributed`` group (``launch.ranks.spawn`` starts one)
+every rank makes a server with the same arguments.  Rank 0 is the front
+end, as JAX's single controller is: only it takes ``submit()``, resolves
+``lams=None`` grids, forms buckets and delivers results; the other ranks
+call ``follow()``, which returns when rank 0 calls ``stop()``.  Before
+each chunked bucket rank 0 broadcasts the bucket — its key, its resolved
+grid, its requests with their X and y as tensors
+(``launch.mesh.broadcast_from``) — and every rank then runs the same
+``_run_bucket_chunked`` on the same inputs, so the engine calls and their
+collectives cannot diverge; after it the ranks agree on its outcome
+(``launch.mesh.same_on_every_rank``).  A bucket that raises the same
+error on every rank is delivered to rank 0's handles and the ranks go on
+serving; a bucket whose outcome differs between ranks raises
+``RanksDiverged`` on every rank, so that the group's call fails and rank
+0 never hands out a result that some rank did not reach.  A dense bucket
+runs on rank 0 alone, as JAX's dense program runs on one device: the
+followers are not told of it and it issues no collective.  The buckets of
+rank 0 run one at a time (a lock around ``step``), in the order of its
+broadcasts.
 
 The server shares the ``FifoEngine`` surface with the token engine
 (submit / step / run / pending / utilization) and adds an async mode:
@@ -45,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import zlib
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -160,6 +178,28 @@ def _shape(a) -> tuple:
     return tuple(a.shape) if hasattr(a, "shape") else np.shape(a)
 
 
+class RanksDiverged(RuntimeError):
+    """The ranks of a group disagree on a chunked bucket's outcome: some
+    raised and some did not, or they raised different errors."""
+
+
+def _outcome(error: Optional[BaseException]) -> int:
+    """0 for a bucket that ran, else a code of the error's type and text
+    (the same on every rank for the same error)."""
+    if error is None:
+        return 0
+    return 1 + zlib.crc32(f"{type(error).__name__}: {error}".encode())
+
+
+def _stub(req: FitRequest) -> FitRequest:
+    """``req`` as broadcast: X and y travel as tensors, and the small
+    arrays as numpy (a ``BlockTopology`` W as it is)."""
+    def host(a):
+        return _host(a) if isinstance(a, torch.Tensor) else a
+    return dataclasses.replace(req, X=None, y=None, W=host(req.W),
+                               rho=host(req.rho), cv_rho=host(req.cv_rho))
+
+
 class DecsvmFitServer(FifoEngine):
     """Batched, optionally asynchronous fit server.
 
@@ -176,16 +216,30 @@ class DecsvmFitServer(FifoEngine):
         res = h.result()        # blocks until this request resolves
         srv.stop()
 
+    Inside a group of k ranks, every rank makes the server; rank 0
+    serves as above and ends with ``stop()``, and the others run::
+
+        srv.follow()            # each chunked bucket, until rank 0 stops
+
     ``max_batch`` caps how many same-key requests co-batch into one
-    bucket.  ``bucket_log`` records (key, size) per executed bucket.
-    ``device`` is where the buckets run (default CUDA; raises without a
-    card).
+    bucket.  ``bucket_log`` records (key, size) per executed bucket (on a
+    follower, per chunked bucket it ran).  ``device`` is where the
+    buckets run (default CUDA, this rank's card; raises without one).
     """
 
     def __init__(self, max_batch: int = 16, device=None) -> None:
         super().__init__()
         self.max_batch = max_batch
         self.device = resolve_device(None, device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the worker thread sets it: a thread starts on card 0
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._rank = mesh_mod.rank()
+        # rank 0 in a group: set once stop() released the followers, or
+        # once the ranks diverged (the error, raised from then on)
+        self._released = False
+        self._diverged: Optional[RanksDiverged] = None
+        self._step_lock = threading.Lock()
         # rolling (key, size) of recent buckets, bounded
         self.bucket_log: deque = deque(maxlen=256)
         # rid -> (request, handle, bucket key, resolved lambda grid)
@@ -210,6 +264,15 @@ class DecsvmFitServer(FifoEngine):
         completed-but-undelivered.  The request object is not mutated: a
         ``lams=None`` grid is resolved into the server's own record."""
         from repro_torch.core import sanitize
+        if self._rank != 0:
+            raise RuntimeError(
+                f"submit() on rank {self._rank}: rank 0 is the front end of "
+                f"the group and takes the requests; call follow() here")
+        if self._diverged is not None:
+            raise self._diverged
+        if self._released:
+            raise RuntimeError("the server has stopped: stop() released "
+                               "the followers of the group")
         sanitize.reject_unsupported(req.cfg, "DecsvmFitServer.submit")
         lams = (tuning.lambda_grid(_host(req.X), _host(req.y), num=req.num)
                 if req.lams is None else np.asarray(req.lams))
@@ -231,8 +294,11 @@ class DecsvmFitServer(FifoEngine):
         drain, removing them from the server.  If any bucket failed since
         the last drain, the first failure is re-raised here (after the
         queue drains; the affected handles carry the same exception, and
-        buffered results stay for the next ``run()``)."""
+        buffered results stay for the next ``run()``).  After the ranks
+        of a group diverged it raises ``RanksDiverged``."""
         while True:
+            if self._diverged is not None:
+                raise self._diverged
             if self._worker is None:
                 while self.step():
                     pass
@@ -258,15 +324,31 @@ class DecsvmFitServer(FifoEngine):
         sharing the queue head's bucket key and run them.  Returns the
         bucket size (0 if the queue was empty).  A bucket failure is
         recorded (re-raised by ``run()``) and delivered to the affected
-        handles, not raised here."""
+        handles, not raised here — except ``RanksDiverged``, which is
+        delivered to every handle still waiting and raised."""
+        with self._step_lock:
+            return self._step_locked()
+
+    def _step_locked(self) -> int:
         with self._cv:
             batch = self._pop_bucket_locked()
         if not batch:
             return 0
         try:
             results = self._run_bucket([req for req, _, _, _ in batch],
-                                       batch[0][3])
+                                       batch[0][2], batch[0][3])
             error = None
+        except RanksDiverged as e:
+            with self._cv:
+                self._diverged = e
+                for req, handle, _, _ in batch:
+                    handle._set(None, e)
+                    self._inflight.discard(req.rid)
+                for rid in self.queue:
+                    self._reqs.pop(rid)[1]._set(None, e)
+                self.queue.clear()
+                self._cv.notify_all()
+            raise
         except Exception as e:              # deliver failure to every handle
             results, error = None, e
         with self._cv:
@@ -293,14 +375,46 @@ class DecsvmFitServer(FifoEngine):
         self._worker.start()
 
     def stop(self) -> None:
-        """Stop the worker after the queue drains."""
-        if self._worker is None:
-            return
-        with self._cv:
-            self._stop = True
-            self._cv.notify_all()
-        self._worker.join()
-        self._worker = None
+        """Stop the worker after the queue drains.  On rank 0 of a group,
+        then release the followers: their ``follow()`` returns, and this
+        server takes no more requests."""
+        if self._worker is not None:
+            with self._cv:
+                self._stop = True
+                self._cv.notify_all()
+            self._worker.join()
+            self._worker = None
+        if (mesh_mod.device_count() > 1 and self._rank == 0
+                and not self._released and self._diverged is None):
+            mesh_mod.broadcast_from(0, None)
+            self._released = True
+
+    def follow(self) -> Dict[int, object]:
+        """On a rank other than 0 of a group: run each chunked bucket that
+        rank 0 broadcasts, as rank 0 runs it, until rank 0 stops.  Returns,
+        by rid, each chunked request's ``FitResult`` — or the exception
+        its bucket raised on every rank, after which it went on following.
+        Raises ``RanksDiverged`` when the ranks disagree on a bucket's
+        outcome."""
+        if self._rank == 0:
+            raise RuntimeError("follow() on rank 0: rank 0 is the front end "
+                               "(submit / run / start / stop)")
+        out: Dict[int, object] = {}
+        while True:
+            msg, tensors = mesh_mod.broadcast_from(0)
+            if msg is None:
+                return out
+            key, lams, stubs = msg
+            reqs = self._filled(stubs, tensors)
+            self.bucket_log.append((key, len(reqs)))
+            try:
+                for res in self._lockstep(reqs, lams):
+                    out[res.rid] = res
+            except RanksDiverged:
+                raise
+            except Exception as e:          # the same on every rank
+                for req in reqs:
+                    out[req.rid] = e
 
     @property
     def utilization(self) -> float:
@@ -359,13 +473,18 @@ class DecsvmFitServer(FifoEngine):
         return batch
 
     def _worker_loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         while True:
             with self._cv:
                 while not self.queue and not self._stop:
                     self._cv.wait()
                 if self._stop and not self.queue:
                     return
-            self.step()         # bucket failures are recorded, not raised
+            try:
+                self.step()     # bucket failures are recorded, not raised
+            except RanksDiverged:
+                return          # delivered to every handle; run() raises
 
     def _drive(self, handle: FitHandle, timeout: Optional[float]) -> None:
         """Resolve buckets inline until ``handle`` is done (sync mode);
@@ -412,10 +531,43 @@ class DecsvmFitServer(FifoEngine):
             consensus_gap=metrics.consensus_gap(B), wall_s=wall,
             batch_size=size)
 
-    def _run_bucket(self, reqs: List[FitRequest],
+    def _run_bucket(self, reqs: List[FitRequest], key: tuple,
                     lams: np.ndarray) -> List[FitResult]:
-        if self._resolve_engine(reqs[0]) == "chunked":
-            return self._run_bucket_chunked(reqs, lams)
+        if key[-1] == "chunked":
+            # every rank runs the bucket: the followers get it first
+            tensors = [t for r in reqs for t in (as_f32(r.X, self.device),
+                                                 as_f32(r.y, self.device))]
+            stubs = [_stub(r) for r in reqs]
+            mesh_mod.broadcast_from(0, (key, lams, stubs), tensors)
+            return self._lockstep(self._filled(stubs, tensors), lams)
+        return self._run_bucket_dense(reqs, lams)
+
+    @staticmethod
+    def _filled(stubs, tensors) -> List[FitRequest]:
+        """The broadcast requests with their X and y tensors."""
+        return [dataclasses.replace(s, X=tensors[2 * i], y=tensors[2 * i + 1])
+                for i, s in enumerate(stubs)]
+
+    def _lockstep(self, reqs: List[FitRequest],
+                  lams: np.ndarray) -> List[FitResult]:
+        """``_run_bucket_chunked`` on this rank, then the group's agreement
+        on its outcome: its results, or the error every rank raised, or
+        ``RanksDiverged``."""
+        try:
+            out, error = self._run_bucket_chunked(reqs, lams), None
+        except Exception as e:
+            out, error = None, e
+        if not mesh_mod.same_on_every_rank(_outcome(error)):
+            raise RanksDiverged(
+                f"rank {self._rank}: the ranks disagree on the chunked bucket "
+                f"of rids {[r.rid for r in reqs]} (here: "
+                f"{'ran' if error is None else repr(error)})") from error
+        if error is not None:
+            raise error
+        return out
+
+    def _run_bucket_dense(self, reqs: List[FitRequest],
+                          lams: np.ndarray) -> List[FitResult]:
         t0 = time.perf_counter()
         r0 = reqs[0]
         dev = self.device
@@ -462,7 +614,8 @@ class DecsvmFitServer(FifoEngine):
                             lams: np.ndarray) -> List[FitResult]:
         """Chunked bucket: one problem already spans every rank through the
         node-chunk mesh, so the requests resolve one after another, each
-        moved to the card once."""
+        moved to the card once.  In a group every rank runs it on the same
+        requests."""
         from repro_torch.core import decentral   # keep serving light
 
         t0 = time.perf_counter()

@@ -334,3 +334,107 @@ def sharded_serve(rank, cases):
         rec["cache"] = cache
         out[key] = rec
     return out
+
+
+def _fit_request(d, rid, key, **kw):
+    """A fit request of ``tests/test_torch_fit_serving_ranks.py`` on the
+    inputs ``d[key]`` = (X, y, W, rho), with JAX's rho."""
+    from repro_torch.serving import FitRequest
+    X, y, W, rho = d[key]
+    return FitRequest(rid=rid, X=X, y=y, W=W, rho=rho, **kw)
+
+
+def fit_serving(rank, d):
+    """``spawn``'s ``fn`` of ``tests/test_torch_fit_serving_ranks.py``:
+    one ``DecsvmFitServer`` a rank on the CPU.  Rank 0 serves, in order:
+    the chunked request and the dense one by ``run()`` (JAX's
+    auto-routing test), a bucket that raises on every rank (an unknown
+    penalty, found after the path) and the next request, then a warm and
+    an LLA request through the worker, and stops.  The others try
+    ``submit`` (it raises), then follow.  Each rank returns its results,
+    bucket log keys, bucket records (``ranks.BucketRecorder``) and what
+    raised; rank 0 also its state after ``stop()``."""
+    from repro_torch.launch import ranks
+    from repro_torch.serving import DecsvmFitServer
+    srv = DecsvmFitServer(device="cpu")
+    out = dict(rank=rank, errors={})
+    cfg = core.ADMMConfig(lam=0.0, max_iter=30)
+    base = dict(cfg=cfg, lams=d["lams"], mode="batched")
+    with ranks.BucketRecorder("cpu") as rec:
+        if rank == 0:
+            srv.submit(_fit_request(d, 1, "ring", **base))
+            srv.submit(_fit_request(d, 2, "head", **base))
+            results = srv.run()
+            h = srv.submit(_fit_request(d, 5, "ring", **base,
+                                        penalty="not-a-penalty"))
+            for what, call in (("run", srv.run), ("handle", h.result)):
+                try:
+                    call()
+                except KeyError as err:
+                    out["errors"][what] = repr(err)
+            srv.submit(_fit_request(d, 6, "ring", **base))
+            results.update(srv.run())
+            srv.start()
+            hs = [srv.submit(_fit_request(
+                      d, 3, "ring", cfg=core.ADMMConfig(lam=0.0, max_iter=60),
+                      lams=d["lams_warm"], mode="warm", tol=d["warm_tol"])),
+                  srv.submit(_fit_request(d, 4, "ring", **base,
+                                          penalty="scad", threshold=True))]
+            results.update((h.rid, h.result(timeout=120)) for h in hs)
+            srv.stop()
+            out.update(pending=srv.pending, utilization=srv.utilization)
+        else:
+            try:
+                srv.submit(_fit_request(d, 0, "head", **base))
+            except RuntimeError as err:
+                out["errors"]["submit"] = str(err)
+            results = srv.follow()
+    out.update(results=results, keys=[key for key, _ in srv.bucket_log],
+               buckets=rec.buckets)
+    return out
+
+
+def _one_chunked_request(rank, d):
+    from repro_torch.serving import DecsvmFitServer
+    srv = DecsvmFitServer(device="cpu")
+    if rank:
+        return srv.follow()
+    srv.submit(_fit_request(d, 1, "ring", cfg=core.ADMMConfig(
+        lam=0.0, max_iter=30), lams=d["lams"], mode="batched"))
+    try:
+        return srv.run()
+    finally:
+        srv.stop()
+
+
+def fit_serving_hang(rank, d):
+    """``spawn``'s ``fn``: rank 0 serves a chunked request while rank 1
+    never follows."""
+    if rank == 1:
+        import time
+        time.sleep(3600)
+    return _one_chunked_request(rank, d)
+
+
+def fit_serving_alone(rank, d):
+    """``spawn``'s ``fn``: rank 1 alone fails a chunked bucket after its
+    last exchange (building its results); rank 0 prints what it raised."""
+    from repro_torch.serving import fit
+    if rank == 1:
+        def fails(*args, **kw):
+            raise ValueError("rank 1 fails alone")
+        fit.DecsvmFitServer._result = fails
+    try:
+        return _one_chunked_request(rank, d)
+    except fit.RanksDiverged as err:
+        print(f"rank {rank} refused: {err}", flush=True)
+        raise
+
+
+def fit_serving_on_card(rank, s):
+    """``spawn``'s ``fn`` on the card: rank 0 serves the chunked request
+    of ``ranks.fit_requests(s)`` under ``megakernel``, the other ranks
+    follow (``ranks.serve_requests``)."""
+    from repro_torch.launch import ranks
+    sync = ranks.fit_requests(s, "megakernel")[0][:1] if rank == 0 else ()
+    return ranks.serve_requests(sync, (), s.device)

@@ -1087,6 +1087,35 @@ def test_two_ranks_on_the_card_match_one_rank(cuda):
         torch.testing.assert_close(out["B"], one.cpu(), atol=ATOL, rtol=0)
 
 
+def test_fit_serving_across_two_ranks_on_the_card(cuda):
+    """Fit serving across two ranks of one group on the card (gloo when
+    they share card 0, NCCL with a card each): rank 0 serves the chunked
+    request of ``ranks.fit_requests`` (X (16, 64, 64) on 2 grid points,
+    ``megakernel``), the other follows; the result within 1e-5 of the
+    one-rank server's on the card (the same best lambda, table lambdas
+    and stops), the follower's bit for bit, every two-pass launch on the
+    stream instance on both ranks."""
+    from _torch_ranks import fit_serving_on_card
+    from repro_torch.kernels import build
+    from repro_torch.launch import ranks
+    build.build_all(("csvm_update",))
+    s = ranks.fit_serving_setup(2, num=2, small=True)
+    got = ranks.spawn(fit_serving_on_card, 2, (s,), deadline_s=300.0)
+    one = ranks.serve_requests(ranks.fit_requests(s, "megakernel")[0][:1],
+                               (), "cuda")
+    for out in got:
+        assert [b["engine"] for b in out["buckets"]] == ["chunked"]
+        launches = out["buckets"][0]["launches"]["csvm_block_update"]
+        assert launches > 0
+        assert out["buckets"][0]["two_pass_instances"] == {"stream": launches}
+        assert ranks._identical(out["results"][0], got[0]["results"][0])
+    g, w = got[0]["results"][0], one["results"][0]
+    dev, _ = ranks._same_fit("rid 0", g, w, (got[0]["paths"][0],
+                                             one["paths"][0]),
+                             16 * 64, 64, ATOL, pytest.fail)
+    assert dev <= ATOL
+
+
 def test_moe_routes_on_the_card(cuda):
     """Reduced granite-moe in bf16 on the card: the scatter route at a
     capacity that drops nothing within chip_smoke's relative limit of the

@@ -15,6 +15,7 @@ Everything runs on the CPU (``device="cpu"``).
 """
 import dataclasses as dc
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -585,3 +586,113 @@ def test_chip_smoke_fit_serving_phase_on_the_cpu(monkeypatch):
         L * 30 + 2 * out["warm_launches"] + 30)
     assert set(out["times"]) >= {"dense", "chunked", "warm", "cv", "async",
                                  "sanitize", "gossip"}
+
+
+@pytest.fixture(scope="module")
+def phase21():
+    """chip_smoke.py's phase 21 on the CPU: four gloo ranks, the full-size
+    problem shrunk to X (16, 64, 64), the design size as on the card (plain
+    versions; the bucket records count the wrappers' calls).  Returns the
+    phase's records and the inputs its gate was given (setup, the ranks'
+    records, the one-rank run, the plain run)."""
+    import chip_smoke
+    from repro_torch.launch import ranks
+    kept, gate = [], ranks.check_fit_serving
+
+    def keep(*args, **kw):
+        kept.append(args[:4])
+        return gate(*args, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ranks, "check_fit_serving", keep)
+        rec = chip_smoke.fit_serving_ranks_phase(torch, device="cpu",
+                                                 small=True)
+    return rec, kept[0]
+
+
+def test_chip_smoke_fit_serving_ranks_phase_on_the_cpu(phase21):
+    """The chip run's phase 21 at a small size on the CPU: the group's
+    buckets as the phase expects them, each result within 1e-5 of the
+    one-rank server's and of plain, the broadcasts counted, and the calls
+    a rank that the card's launches will count."""
+    from repro_torch.launch import ranks
+    rec, (s, got, _, _) = phase21
+    assert rec["backend"] == "gloo" and len(rec["ranks"]) == 4
+    assert [(b["engine"], b["rids"]) for b in rec["buckets"]] == \
+        list(ranks.SERVE_BUCKETS)
+    full, dense = rec["buckets"][0], rec["buckets"][1]
+    # the full request on a (node_chunk 2, lam 2) mesh: 2 cells a rank
+    assert [c["csvm_block_update"] for c in full["launches"]] == \
+        [2 * ranks.MAX_ITER] * 4
+    assert dense["launches"] == [{"csvm_round_block": len(s.design_grid)}]
+    assert dense["comm_bytes"] == [{}]
+    for b in rec["buckets"]:
+        for f in b["fits"].values():
+            assert max(f["max_abs_dev"], f["max_abs_dev_plain"]) <= ranks.TOL
+    sent = [r["bytes"] for r in rec["ranks"]]
+    xs = 4 * (16 * 64 * 64 + 16 * 64 + 2 * (10 * 200 * 101 + 10 * 200))
+    assert sent == [xs] * 4
+    assert got[0]["results"][2].best_lam > 0
+
+
+def _bump(a, by=1e-3):
+    a = a.copy()
+    a.flat[0] += by
+    return a
+
+
+def _follower_result(s, got, one, plain):
+    r = got[2]["results"][0]
+    got[2]["results"][0] = dc.replace(r, B=_bump(r.B, 1e-7))
+
+
+def _dense_collective(s, got, one, plain):
+    got[0]["buckets"][1]["comm_calls"] = 1
+
+
+def _follower_ran_dense(s, got, one, plain):
+    got[1]["buckets"].insert(1, dict(got[0]["buckets"][1]))
+
+
+def _one_rank_B(s, got, one, plain):
+    r = one["results"][3]
+    one["results"][3] = dc.replace(r, B=_bump(r.B))
+
+
+def _plain_best_lam(s, got, one, plain):
+    r = plain["results"][0]
+    plain["results"][0] = dc.replace(r, best_lam=0.5 * r.best_lam)
+
+
+def _one_rank_stops(s, got, one, plain):
+    path, iters = one["paths"][2]
+    one["paths"][2] = (path, iters - 4)
+
+
+def _lost_launch(s, got, one, plain):
+    got[3]["buckets"][0]["calls"]["csvm_block_update"] -= 1
+
+
+def _bucket_order(s, got, one, plain):
+    b = got[0]["buckets"]
+    b[2], b[3] = b[3], b[2]
+
+
+@pytest.mark.parametrize("change, match", [
+    (_follower_result, "rank 2's result differs"),
+    (_dense_collective, "dense bucket issued collectives"),
+    (_follower_ran_dense, "rank 1 ran buckets"),
+    (_one_rank_B, "max|dev|"),
+    (_plain_best_lam, "best lambda"),
+    (_one_rank_stops, "stops"),
+    (_lost_launch, "expected 600 csvm_block_update"),
+    (_bucket_order, "rank 0's buckets"),
+])
+def test_phase21_gate_fails_a_result_past_its_tolerance(phase21, change,
+                                                        match):
+    """Each of phase 21's gates fails on a record moved past it."""
+    import copy
+    from repro_torch.launch import ranks
+    args = copy.deepcopy(phase21[1])
+    change(*args)
+    with pytest.raises(ranks.RankFailure, match=re.escape(match)):
+        ranks.check_fit_serving(*args, log=lambda *a: None)
