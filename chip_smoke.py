@@ -276,7 +276,20 @@ result lines):
    two-pass launch on "stream", no collective in the dense bucket; wall
    a bucket a rank, launches by kernel and instance, host ms in
    ``collective`` a round, the broadcasts' bytes and ms
-   (``fitserve-ranks ...`` lines).
+   (``fitserve-ranks ...`` lines);
+22. the dry runs (``repro_torch.launch.dryrun``: one rank's step on meta
+   tensors, every kernel on its meta route) against the card: phase 15's
+   training step and one decode step of phase 6's serving configuration
+   (qwen3-14b, 4 slots, a cache of 2048), each dry-run on mesh (1, 1) and
+   then run once on the card — the dry run's argument bytes equal to the
+   bytes of the step's input tensors on the card, its predicted peak
+   beside ``torch.cuda.max_memory_allocated`` and their ratio (not gated);
+   the full-size four-card runs of ``PERF.md`` §5 (qwen3-14b's 40-layer
+   train step on (2, 2), qwen3-32b's decode on (1, 4) and (2, 2))
+   predicted beside their measurements; ``dryrun.main --all --mesh
+   both`` in processes of its own (every record ok) and
+   ``dryrun_decsvm`` on both schedules at 256 and 512 nodes (``dry ...``
+   lines, each with the card's name and power limit).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -681,6 +694,32 @@ SERVE_TOL = {"float32": 1e-4, "bfloat16": 0.34}
 # at ``ranks.TOL``, which is FIT_TOL["float32"].
 FIT_RANKS = 4
 FIT_RANKS_NUM = 4
+
+# phase 22: the dry runs (``launch.dryrun``: one rank's step on meta
+# tensors) against the card.  (a) phase 15's training step (TRAIN_ARCH
+# cut to TRAIN_LAYERS, B = TRAIN_BATCH x TRAIN_SEQ) and (b) one decode
+# step of phase 6's serving configuration (qwen3-14b as configured, 4
+# slots, a cache of 2048), each on mesh (1, 1): dry-run, then run once on
+# the card from the same shapes; the dry run's argument bytes must equal
+# the bytes of the step's input tensors on the card; its predicted peak
+# (argument + temp) is printed beside ``torch.cuda.max_memory_allocated``
+# and not gated.  (c) the full-size four-card runs of the sharded train
+# and serve steps predicted beside ``PERF.md`` §5's measurements (four
+# NVIDIA H100 80GB HBM3, 700.00 W).  (d) ``dryrun.main --all --mesh both`` (DRY_JOBS processes) and
+# ``dryrun_decsvm.main --schedule both --multi``, each record ok.
+DRY_SERVE_ARCH = "qwen3_14b"
+DRY_SERVE_BATCH, DRY_SERVE_LEN = 4, 2048
+DRY_FOUR_CARD = (
+    ("train", "qwen3_14b", (2, 2), 4, 4096,
+     "PERF.md §5: 2.10400-3.62004 s a step, peak 56.79 GB a card"),
+    ("decode", "qwen3_32b", (1, 4), 8, 4096,
+     "PERF.md §5: 359.62-560.90 ms a token, peak 18.64 GB a card, "
+     "51.01 MB of collectives a step"),
+    ("decode", "qwen3_32b", (2, 2), 8, 4096,
+     "PERF.md §5: 363.61-478.99 ms a token, peak 35.02 GB a card, "
+     "25.51 MB of collectives a step"))
+DRY_JOBS = 7
+DRY_DEADLINE_S = 300.0
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -1206,8 +1245,8 @@ def kernel_timings(torch, ops, cu, d: Data, max_iter: int, graph_ms=None):
     update's ``ms`` is the device's time, by ``graph_ms`` (replays of a
     CUDA graph of one call), and ``call_ms`` that of back-to-back calls
     (host time included, as a fit's loop pays it)."""
+    from repro_torch.kernels import cost
     m, n, p = d.X.shape
-    f = 4
     on_card = d.device.type == "cuda"
     two_pass = {}
     rest = (d.y, d.B, d.P, d.neigh, d.rho, d.omega, d.lam_vec)
@@ -1231,12 +1270,11 @@ def kernel_timings(torch, ops, cu, d: Data, max_iter: int, graph_ms=None):
         calls = in_turns(torch, *fns, 20, 20)
         row.update({f"call_{k}": v for k, v in calls.items()})
         # each input read once, B+ written once; 4 flops per element of X
-        # (the margin dot and X^T w)
+        # (the margin dot and X^T w): ``kernels.cost.two_pass_work``
         isz = X.element_size()
         x_bytes = m * n * p * isz
-        nbytes = (x_bytes + m * n * f + 3 * m * p * f + 2 * m * f + p * f
-                  + m * p * f)
-        bms, by = bound(4 * m * n * p, nbytes,
+        flops, nbytes = cost.two_pass_work(m, n, p, isz)
+        bms, by = bound(flops, nbytes,
                         PEAK_FP32 if dtype == "float32" else PEAK_BF16)
         row.update(bound_ms=bms, bound_by=by,
                    floor_ms=1e3 * x_bytes / PEAK_BYTES,
@@ -1268,12 +1306,11 @@ def kernel_timings(torch, ops, cu, d: Data, max_iter: int, graph_ms=None):
                          lambda: cu.csvm_round_block_plain(*args, R, **kw),
                          reps, max(1, reps // 3))
         isz = 4 if dtype == "float32" else 2
-        nbytes = (ops.round_block_bytes(m, n, p, isz, R)
-                  - 4 * ops.round_block_scratch_floats(m, n, p, R))
         # the margins and X^T w of each round, and once more at beta_bar
-        # for the KKT epilogue; the W@B sums (2 m^2 p a round) are left out
+        # for the KKT epilogue; the W@B sums (2 m^2 p a round) are left
+        # out: ``kernels.cost.round_block_work``
         passes = R + (1 if kkt else 0)
-        flops = 4 * m * n * p * passes
+        flops, nbytes = cost.round_block_work(m, n, p, isz, R, kkt)
         bms, by = bound(flops, nbytes,
                         PEAK_FP32 if dtype == "float32" else PEAK_BF16)
         # X must come from device memory once a pass: it does not fit on
@@ -2133,23 +2170,22 @@ def flash_checks(torch, ops, ref, device, devs: dict):
 
 
 def attention_pairs(S: int, window=None) -> int:
-    """(query, key) pairs a causal attention over S tokens computes: key j
-    for query i when 0 <= i - j < window (every j <= i without one)."""
-    if window is None or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+    """(query, key) pairs a causal attention over S tokens computes
+    (``kernels.cost.attention_pairs``)."""
+    from repro_torch.kernels import cost
+    return cost.attention_pairs(S, window)
 
 
 def attention_bound(B, H, KV, S, D, itemsize, window=None, Sk=None,
                     causal=True):
     """Causal attention: 4*B*H*D flops a (query, key) pair inside the
     window against the bf16 tensor peak, or q, k, v read and o written once
-    against the memory rate.  With ``causal=False`` every query sees all
-    Sk keys (Sk defaults to S)."""
-    Sk = S if Sk is None else Sk
-    pairs = attention_pairs(S, window) if causal else S * Sk
-    flops = 4 * B * H * D * pairs
-    nbytes = (2 * B * H * S + 2 * B * KV * Sk) * D * itemsize
+    against the memory rate (``kernels.cost.attention_work``, the count
+    the kernel's meta route adds to a dry run).  With ``causal=False``
+    every query sees all Sk keys (Sk defaults to S)."""
+    from repro_torch.kernels import cost
+    flops, nbytes = cost.attention_work(B, H, KV, S, D, itemsize, window,
+                                        Sk, causal)
     return bound(flops, nbytes, PEAK_BF16)
 
 
@@ -2449,10 +2485,9 @@ def ssd_bound(b, s, h, p, n, chunk, itemsize):
     with x·dt over full Q x Q tiles, the carry-in and the state update)
     against the peak of the input type, or x read and y written (itemsize),
     B and C read (itemsize), dt read and the final state written (fp32)
-    against the memory rate."""
-    flops = 2 * b * h * s * (chunk * n + chunk * p + 2 * p * n)
-    nbytes = ((2 * b * s * h * p + 2 * b * s * n) * itemsize
-              + b * s * h * 4 + 2 * h * 4 + b * h * p * n * 4)
+    against the memory rate (``kernels.cost.ssd_work``)."""
+    from repro_torch.kernels import cost
+    flops, nbytes = cost.ssd_work(b, s, h, p, n, chunk, itemsize)
     return bound(flops, nbytes, PEAK_BF16 if itemsize == 2 else PEAK_FP32)
 
 
@@ -3539,11 +3574,11 @@ BACKWARD_EXECUTED = {"fma": 16, "wgmma": 22}
 def backward_bound(case, itemsize=2):
     """The least time of one backward: 10 D flops a visible (query, key)
     pair (s, dP, dV, dK, dQ: two each) at the bf16 tensor peak, or q, k,
-    v, o, do read and dq, dk, dv written once at the memory rate."""
-    B, H, KV, S, Sk, D, causal, window = case
-    pairs = attention_pairs(S, window) if causal else S * Sk
-    nbytes = (4 * B * H * S + 4 * B * KV * Sk) * D * itemsize
-    return bound(10 * B * H * pairs * D, nbytes, PEAK_BF16), pairs
+    v, o, do read and dq, dk, dv written once at the memory rate
+    (``kernels.cost.attention_backward_work``)."""
+    from repro_torch.kernels import cost
+    flops, nbytes, pairs = cost.attention_backward_work(*case, itemsize)
+    return bound(flops, nbytes, PEAK_BF16), pairs
 
 
 def sdpa_backward_ms(torch, q, k, v, do, causal, window):
@@ -4165,25 +4200,10 @@ def ssd_backward_checks(torch, ops, ref, device, devs: dict,
 
 
 def ssd_backward_work(b, s, h, p, n, chunk, itemsize, dfinal=True):
-    """(flops, bytes) of one ``ssd_scan_backward`` call.  Flops: two a
-    multiply-add of the closed form, per (b, head) and chunk of v valid
-    rows with t = v(v+1)/2 pairs j <= i: six v·p·n products (the chunk's
-    local state and dy (x) C sum for the state walk, g B, state_in^T dy,
-    g^T xdt and the carry-in's C . (state_in^T dy) share folded into
-    them) and four t-pair products (M^T dy, dy . xdt, S B, S C: two over
-    p, two over n), and per (b, chunk) G = C B^T over its t pairs.  Bytes:
-    x, dy, dx (itemsize), B, C, dB, dC (itemsize), dt, ddt (fp32), A, D,
-    dA, dD (fp32) and dfinal (fp32) once each; the fp32 state scratch is
-    the kernel's choice, not the function's."""
-    full, tail = divmod(s, chunk)
-    rows = [chunk] * full + ([tail] if tail else [])
-    pairs = sum(v * (v + 1) // 2 for v in rows)
-    flops = 2 * b * (h * (6 * s * p * n + 2 * pairs * p + 2 * pairs * n)
-                     + pairs * n)
-    nbytes = ((3 * b * s * h * p + 4 * b * s * n) * itemsize
-              + 2 * b * s * h * 4 + 4 * h * 4
-              + (b * h * p * n * 4 if dfinal else 0))
-    return flops, nbytes
+    """(flops, bytes) of one ``ssd_scan_backward`` call
+    (``kernels.cost.ssd_backward_work``, which states the count)."""
+    from repro_torch.kernels import cost
+    return cost.ssd_backward_work(b, s, h, p, n, chunk, itemsize, dfinal)
 
 
 def ssd_backward_bound(b, s, h, p, n, chunk, itemsize, dfinal=True):
@@ -4998,6 +5018,256 @@ def fit_serving_ranks_phase(torch, device="cuda", small=False):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 22: the dry runs against the card
+# --------------------------------------------------------------------------
+
+def _card_line(device: str = "cuda") -> str:
+    if device != "cuda":
+        return "the CPU (a rehearsal)"
+    return subprocess.run(["nvidia-smi", "-i", "0",
+                           "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dry_against_card(torch, ops, kind: str, card: str, device="cuda",
+                     reduced=False):
+    """(a) or (b) of phase 22 (``kind`` "train" or "decode"): the dry run
+    of the step on mesh (1, 1), then the same step once on the card; the
+    argument bytes gated, the peaks printed.  Returns the record.
+    ``device="cpu"`` with ``reduced`` (the CPU rehearsal) takes the
+    reduced configs and reads no peak."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import InputShape
+    from repro_torch.launch import dryrun, serve, train
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model
+    from repro_torch.optim import AdamWConfig
+    t0 = time.perf_counter()
+    names = ("data", "model")
+    get = configs.get_reduced if reduced else configs.get
+    if kind == "train":
+        cfg = get(TRAIN_ARCH, num_layers=TRAIN_LAYERS)
+        sh = InputShape("train", TRAIN_SEQ // (64 if reduced else 1),
+                        TRAIN_BATCH, "train")
+    else:
+        cfg = get(DRY_SERVE_ARCH)
+        sh = InputShape("decode", DRY_SERVE_LEN // (32 if reduced else 1),
+                        DRY_SERVE_BATCH, "decode")
+    rec = dryrun.run_one(cfg, sh, M.abstract_mesh((1, 1), names),
+                         verbose=False)
+    dry_s = time.perf_counter() - t0
+    mesh = M._make((1, 1), names)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    if kind == "train":
+        params = shd.init_sharded(cfg, mesh, seed=0, device=dev)
+        opt = shd.init_opt_state(cfg, mesh, dev)
+        batch = {k: torch.randint(0, cfg.vocab_size, (sh.global_batch,
+                                                     sh.seq_len),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        step, _ = train.make_jitted_train_step(cfg, AdamWConfig(), mesh,
+                                               batch)
+        inputs = (list(shd.blocks(params).values())
+                  + list(opt["m"].values()) + list(opt["v"].values())
+                  + [opt["step"]] + list(batch.values()))
+        call = lambda: step(params, opt, batch)  # noqa: E731
+    else:
+        params = shd.init_sharded(cfg, mesh, seed=0, device=dev, fsdp=False,
+                                  trainable=False)
+        cache = shd.init_cache_blocks(cfg, mesh, sh.global_batch,
+                                      sh.seq_len, device=dev)
+        step, _ = serve.make_jitted_serve_step(cfg, mesh, sh.global_batch,
+                                               sh.seq_len)
+        token = torch.randint(0, cfg.vocab_size, (sh.global_batch,),
+                              generator=gen, device=dev, dtype=torch.int32)
+        pos = torch.tensor(sh.seq_len // 2, dtype=torch.int32, device=dev)
+        inputs = (list(shd.blocks(params).values())
+                  + [t for t, _ in model.cache_leaves(cache)] + [token, pos])
+        serve.serve_leaves(params, mesh)      # its one-off, as the dry run's
+        call = lambda: step(params, cache, token, pos)  # noqa: E731
+    arg_bytes = _tensor_bytes(inputs)
+    before = peak = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    with M.bound(mesh):
+        out = call()
+    if on_card:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    step_s = time.perf_counter() - t1
+    launches = dict(ops.launches)
+    if kind == "train":
+        check(bool(torch.isfinite(out[2]["loss"])), f"dry {kind}: the real "
+              "step's loss is not finite")
+    else:
+        check(bool(torch.isfinite(out[1]).all()), f"dry {kind}: the real "
+              "step's logits are not finite")
+    del out, call, params, inputs
+    if on_card:
+        torch.cuda.empty_cache()
+    mem = rec["memory_analysis"]
+    what = (f"dry {kind} {cfg.name} {cfg.num_layers} layers "
+            f"{cfg.param_dtype}, B={sh.global_batch}, "
+            f"{'S' if kind == 'train' else 'cache'}={sh.seq_len}, mesh (1, 1)")
+    check(mem["argument_bytes"] == arg_bytes, f"{what}: dry argument bytes "
+          f"{mem['argument_bytes']} against {arg_bytes} of the step's input "
+          "tensors on the card")
+    temp = peak - before
+    out = dict(kind=kind, arch=cfg.name, layers=cfg.num_layers,
+               batch=sh.global_batch, seq=sh.seq_len, card=card,
+               argument_bytes=mem["argument_bytes"], input_bytes=arg_bytes,
+               predicted_peak_bytes=mem["peak_bytes"],
+               measured_peak_bytes=peak,
+               peak_ratio=mem["peak_bytes"] / max(peak, 1),
+               predicted_temp_bytes=mem["temp_bytes"],
+               measured_temp_bytes=temp,
+               temp_ratio=mem["temp_bytes"] / max(temp, 1),
+               allocated_before=before, roofline=rec["roofline"],
+               comm_bytes=rec["comm_bytes"], kernels=rec["kernels"],
+               launches=launches, dry_s=dry_s, step_s=step_s,
+               seconds=time.perf_counter() - t0)
+    log(f"{what} [{card}]: argument bytes {mem['argument_bytes']} = the "
+        f"inputs' {arg_bytes} on the card; predicted peak "
+        f"{mem['peak_bytes'] / 1e9:.3f} GB (argument + temp "
+        f"{mem['temp_bytes'] / 1e9:.3f}) against "
+        f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB (ratio "
+        f"{out['peak_ratio']:.4f}; above the {before / 1e9:.3f} GB allocated "
+        f"before the step {temp / 1e9:.3f} GB, ratio "
+        f"{out['temp_ratio']:.4f}); roofline least time "
+        f"{1e3 * max(rec['roofline'][k] for k in ('compute_s', 'memory_s', 'collective_s')):.3f}"
+        f" ms ({rec['roofline']['dominant']}) against the real step's "
+        f"{1e3 * step_s:.3f} ms (one call, the first); kernels on meta "
+        f"{ {k: v['instances'] for k, v in rec['kernels'].items()} }, "
+        f"launched on the card { {k: v for k, v in launches.items() if v} }")
+    return out
+
+
+def dryrun_phase(torch, ops, device="cuda", reduced=False):
+    """Phase 22: the dry runs (``launch.dryrun``, ``launch.dryrun_decsvm``)
+    against the card (see DRY_*).  (d) starts first in processes of its
+    own (the dry runs need no card), (a)-(c) run meanwhile.  Returns the
+    records.  ``device="cpu"`` with ``reduced`` (the CPU rehearsal): the
+    reduced configs, and (d) on qwen3-14b's decode shape alone."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.data.synthetic import InputShape
+    from repro_torch.launch import dryrun, dryrun_decsvm
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    card = _card_line(device)
+    out_dir = ROOT / "build" / "phase22_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = max(1, min(DRY_JOBS, (os.cpu_count() or 2) - 1))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    all_log = out_dir / "dryrun_all.log"
+    which = (["--arch", "qwen3_14b", "--shape", "decode_32k"] if reduced
+             else ["--all"])
+    with open(all_log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *which,
+             "--mesh", "both", "--out", str(out_dir / "lm"), "--jobs",
+             str(jobs)], stdout=fh, stderr=subprocess.STDOUT, env=env,
+            cwd=str(ROOT))
+    get = configs.get_reduced if reduced else configs.get
+    try:
+        rec = dict(card=card, jobs=jobs)
+        rec["train"] = dry_against_card(torch, ops, "train", card, device,
+                                        reduced)
+        rec["decode"] = dry_against_card(torch, ops, "decode", card, device,
+                                         reduced)
+        four = []
+        for kind, arch, shape, batch, seq, measured in DRY_FOUR_CARD:
+            sh = InputShape(kind, seq, batch, kind)
+            r = dryrun.run_one(get(arch), sh, M.abstract_mesh(
+                shape, ("data", "model")), verbose=False)
+            roof = r["roofline"]
+            least = max(roof[k] for k in ("compute_s", "memory_s",
+                                          "collective_s"))
+            comm = sum(r["comm_bytes"].values())
+            four.append(dict(kind=kind, arch=arch, mesh=list(shape),
+                             batch=batch, seq=seq, roofline=roof,
+                             least_s=least,
+                             peak_bytes=r["memory_analysis"]["peak_bytes"],
+                             comm_bytes=r["comm_bytes"],
+                             leaf_gather_bytes=r["leaf_gather_bytes"],
+                             measured=measured))
+            log(f"dry four-card {kind} {arch} mesh {shape} B={batch} "
+                f"{'S' if kind == 'train' else 'max_len'}={seq} [{card}; "
+                f"predictions for four such cards]: least time "
+                f"{1e3 * least:.3f} ms a step ({roof['dominant']}: compute "
+                f"{1e3 * roof['compute_s']:.3f}, memory "
+                f"{1e3 * roof['memory_s']:.3f}, collectives "
+                f"{1e3 * roof['collective_s']:.3f} at NVLink's rate), peak "
+                f"{r['memory_analysis']['peak_bytes'] / 1e9:.3f} GB a card, "
+                f"collectives {comm / 1e6:.6f} MB a step "
+                f"{r['comm_bytes']} (small leaves gathered once "
+                f"{sum(r['leaf_gather_bytes'].values()) / 1e6:.4f} MB); "
+                f"measured ({measured})")
+        rec["four_card"] = four
+        t1 = time.perf_counter()
+        decsvm = []
+        n, p = (16, 127) if reduced else (2048, 131072)
+        with contextlib.redirect_stdout(sys.stderr):
+            for sched in ("gather", "ring"):
+                for multi in (False, True):
+                    decsvm.append(dryrun_decsvm.run_one(
+                        256, n, p, sched, multi, out_dir / "decsvm"))
+        for r in decsvm:
+            log(f"dry decsvm {r['shape']} {r['mesh']} [{card}; a round, one "
+                f"node a card]: argument {r['memory_analysis']['argument_bytes']}"
+                f" bytes, collectives {r['collective_bytes']}, final gather "
+                f"{r['final_gather_bytes']['hlo']}, least time "
+                f"{1e3 * max(r['roofline'][k] for k in ('compute_s', 'memory_s', 'collective_s')):.4f}"
+                f" ms ({r['roofline']['dominant']})")
+        rec["decsvm"] = dict(wall_s=time.perf_counter() - t1,
+                             records=len(decsvm))
+        try:
+            rc = proc.wait(timeout=max(1.0, DRY_DEADLINE_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = all_log.read_text()
+    failures = [ln for ln in text.splitlines() if ln.startswith("FAILURES")]
+    records = sorted((out_dir / "lm").glob("*.json"))
+    bad = [p.stem for p in records
+           if not json.loads(p.read_text()).get("ok")]
+    rec["all"] = dict(rc=rc, records=len(records), failures=bad,
+                      wall_s=time.perf_counter() - t0)
+    log(f"dry --all --mesh both: rc {rc}, {len(records)} records, failures "
+        f"{bad or failures}, {jobs} processes, done "
+        f"{rec['all']['wall_s']:.1f} s into the phase; dryrun_decsvm: "
+        f"{rec['decsvm']['records']} records in "
+        f"{rec['decsvm']['wall_s']:.2f} s [{card}]")
+    check(rc == 0 and not bad and len(records) == (2 if reduced else 80),
+          f"dry --all --mesh both: rc {rc}, {len(records)} records, "
+          f"failures {bad or failures} (log {all_log})")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 22: {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5398,6 +5668,10 @@ def main() -> int:
     phase20 = serve_sharded_phase(torch)
     # phase 21: fit serving across four ranks against the one-rank server
     phase21 = fit_serving_ranks_phase(torch)
+    # phase 22: the dry runs against the card: phase 15's step and phase
+    # 6's decode step dry-run and run, the four-card runs predicted, every
+    # combination of JAX's dry runs
+    phase22 = dryrun_phase(torch, ops)
     for name in FIT_KERNELS:
         launches[name] += phase21["launches"][name]
     for inst, n in phase21["instances"]["round"].items():
@@ -5412,7 +5686,10 @@ def main() -> int:
         train_launches["flash_attention_backward"] \
         + phase19["launches"]["flash_attention_backward"]
     launches["flash_attention"] += train_launches["flash_attention"] \
-        + phase19["launches"]["flash_attention"]
+        + phase19["launches"]["flash_attention"] \
+        + phase22["train"]["launches"]["flash_attention"]
+    launches["flash_attention_backward"] += \
+        phase22["train"]["launches"]["flash_attention_backward"]
     for h in heads.values():
         launches["flash_attention"] += h["flash_launches"]
         for name in FIT_KERNELS:
@@ -5476,6 +5753,8 @@ def main() -> int:
                     f"layers, mesh {SHARD_MESH}), all ranks": sum(
                         sum(r["flash"].values())
                         for r in phase19["sharded"]["ranks"]),
+                    f"phase 22: {TRAIN_ARCH}'s step once against its dry "
+                    "run": phase22["train"]["launches"]["flash_attention"],
                     **{f"seamless-m4t-large-v2 {path} (B={run['B']}, "
                        f"S={run['S']})": n
                        for run in encdec["runs"]

@@ -6,7 +6,16 @@ version (``csvm_update.*_plain``, ``ref.mha``, ``ref.mha_backward``,
 the CUDA kernel of ``csrc/csvm_update.cu``, ``csrc/flash_attention.cu``,
 ``csrc/flash_backward.cu``, ``csrc/ssd_scan.cu`` or
 ``csrc/ssd_backward.cu`` on ``torch.cuda.current_stream()`` or raises —
-there is no fallback from one to the other.  Operands must be on one
+there is no fallback from one to the other.  For tensors on
+``torch.device("meta")`` (the dry runs, ``launch.dryrun``) each wrapper
+takes its meta route: the checks and the instance a card would run
+(``flash_instance``, ``ssd_instance``, ``round_block_instance``,
+``two_pass_instance``, ``flash_backward_instance``,
+``ssd_backward_instance``; a stream instance's grid at an H100's
+occupancy, ``cost.H100_SMS``), that instance's outputs and scratch
+allocated on meta, and the kernel's flops and bytes added to
+``cost.counts`` (``kernels.cost``) — no launch, no count in
+``launches``.  Operands must be on one
 device with the documented shapes and dtypes: the CSVM kernels take
 contiguous fp32 (X may be bf16 where stated), ``flash_attention`` fp32 or
 bf16 views with a unit stride over D (``flash_attention_backward``
@@ -39,7 +48,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core.losses import KERNEL_IDS
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.csvm_update import (csvm_block_update_plain,
                                              csvm_local_update_plain,
                                              csvm_round_block_plain)
@@ -190,12 +199,27 @@ def _check_call(name: str, err: int, error_string=None) -> None:
     launches[name] += 1
 
 
+# the devices whose tensors take the card's route through the models: the
+# card, and meta (a dry run, which takes each kernel's meta route)
+CARD_ROUTE = ("cuda", "meta")
+
+
 def _is_cuda(X: torch.Tensor, name: str) -> bool:
+    """True on the card or on meta (the card's route, ``_launch`` or the
+    meta route), False on the CPU (the plain version)."""
     if X.device.type == "cpu":
         return False
-    if X.device.type != "cuda":
+    if X.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: tensors on {X.device} are not supported")
     return True
+
+
+def _meta_stream_grid(m: int, n: int, p: int, dtype) -> int:
+    """A stream instance's grid on meta: ``round_stream_grid`` at an
+    H100's occupancy (``cost.STREAM_BLOCKS_PER_SM`` blocks on each of its
+    ``cost.H100_SMS`` SMs)."""
+    return round_stream_grid(m, n, p, 2 if dtype == torch.bfloat16 else 4,
+                             cost.STREAM_BLOCKS_PER_SM, cost.H100_SMS)
 
 
 def _expect(name: str, what: str, t, shape, dtypes, device):
@@ -501,10 +525,16 @@ def _round_block_launch(X, y, B, P, W, deg, rho, omega, lam_vec, nact,
             raise ValueError(f"{name}: X's base is not 16-byte aligned, as "
                              "the stream instance's bulk copies need")
         if grid is None:
-            grid = round_block_grid(X.device, m, n, p, X.dtype)
+            grid = (_meta_stream_grid(m, n, p, X.dtype) if X.is_meta
+                    else round_block_grid(X.device, m, n, p, X.dtype))
     bufs = _round_block_buffers(X, y, B, P, W, deg, rho, omega, lam_vec,
                                 nact, num_rounds, instance, grid or 1)
     Bout, Pout, stat, scratch = bufs[:4]
+    if X.is_meta:
+        cost.record(name, *cost.round_block_work(
+            m, n, p, X.element_size(), num_rounds, want_kkt), instance,
+            (X, y, B, P, W, deg, rho, omega, lam_vec, nact))
+        return Bout, Pout, stat
     head = (X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
             B.data_ptr(), P.data_ptr(), W.data_ptr(), deg.data_ptr(),
             rho.data_ptr(), omega.data_ptr(), lam_vec.data_ptr(),
@@ -688,9 +718,14 @@ def _two_pass_launch(name, X, y, B, P, neigh, rho, omega, lam_vec, instance,
             raise ValueError(f"{name}: X's base is not 16-byte aligned, as "
                              "the stream instance's bulk copies need")
         if grid is None:
-            grid = two_pass_grid(X.device, m, n, p, X.dtype)
+            grid = (_meta_stream_grid(m, n, p, X.dtype) if X.is_meta
+                    else two_pass_grid(X.device, m, n, p, X.dtype))
     bufs = _two_pass_buffers(X, instance, grid or 1)
     out, scratch = bufs[:2]
+    if X.is_meta:
+        cost.record(name, *cost.two_pass_work(m, n, p, X.element_size()),
+                    instance, (X, y, B, P, neigh, rho, omega, lam_vec))
+        return out
     bf16 = int(X.dtype == torch.bfloat16)
     operands = (y.data_ptr(), B.data_ptr(), P.data_ptr(), neigh.data_ptr(),
                 rho.data_ptr(), omega.data_ptr(), lam_vec.data_ptr())
@@ -822,6 +857,11 @@ def _flash_launch(q, k, v, instance, *, causal, window, sm_scale):
     _check_attention(q, k, v, window, instance, causal=causal)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
+    if q.is_meta:
+        cost.record("flash_attention", *cost.attention_work(
+            B, H, k.shape[1], S, D, q.element_size(), window, k.shape[2],
+            causal), instance, (q, k, v))
+        return out
     scale = float(sm_scale) if sm_scale is not None else D ** -0.5
     lib = _flash_lib()
     shape = (B, H, k.shape[1], S, k.shape[2], D)
@@ -928,6 +968,11 @@ def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     stats = torch.empty(backward_stats_floats(B, H, S, instance),
                         dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        cost.record("flash_attention_backward", *cost.attention_backward_work(
+            B, H, KV, S, Sk, D, causal, window, q.element_size())[:2],
+            instance, (q, k, v, o, do))
+        return dq, dk, dv
     scale = float(sm_scale) if sm_scale is not None else D ** -0.5
     lib = _flash_backward_lib()
     ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, stats)]
@@ -1153,14 +1198,20 @@ def _ssd_launch(x, dt, A, B, C, D, chunk: int, instance: str,
     n = B.shape[2]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = (torch.empty(ssd_scratch_floats(b, s, h, p, n, chunk),
+                           dtype=torch.float32, device=x.device)
+               if instance == "wgmma" else None)
+    if x.is_meta:
+        cost.record("ssd_scan", *cost.ssd_work(b, s, h, p, n, chunk,
+                                               x.element_size()), instance,
+                    (x, dt, A, B, C, D))
+        return y, final
     lib = _ssd_lib()
     strides = (x.stride(0), x.stride(1), x.stride(2), *dt.stride(),
                B.stride(0), B.stride(1), C.stride(0), C.stride(1),
                _stream(x.device))
     with torch.cuda.device(x.device):
         if instance == "wgmma":
-            scratch = torch.empty(ssd_scratch_floats(b, s, h, p, n, chunk),
-                                  dtype=torch.float32, device=x.device)
             states = scratch[:b * -(-s // chunk) * h * n * p]
             cum_last = scratch[states.numel():]
             err = lib.ssd_scan_tc(
@@ -1387,6 +1438,11 @@ def _ssd_backward_launch(x, dt, A, B, C, D, dy, dfinal, chunk: int,
                               for _ in range(3))
     partB, partC = (torch.empty(groups * b * nc * chunk * n, dtype=f32,
                                 device=dev) for _ in range(2))
+    if dev.type == "meta":
+        cost.record("ssd_scan_backward", *cost.ssd_backward_work(
+            b, s, h, p, n, chunk, x.element_size(), dfinal is not None),
+            instance, (x, dt, A, B, C, D, dy, dfinal))
+        return dx, ddt, dA, dB, dC, dD
     lib = _ssd_backward_lib()
     ptrs = [t.data_ptr() for t in (x, dt, A, B, C, D, dy)]
     ptrs.append(dfinal.data_ptr() if dfinal is not None else None)

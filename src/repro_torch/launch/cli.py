@@ -5,20 +5,21 @@
     PYTHONPATH=src python -m repro_torch.launch.cli serve  --arch mamba2-370m --reduced
     PYTHONPATH=src python -m repro_torch.launch.cli serve  --arch qwen3-32b --ranks 4 --mesh 1x4,2x2 --batch 8 --prompt-len 64 --max-new 64 --max-len 4096 --check
     PYTHONPATH=src python -m repro_torch.launch.cli decsvm --p 100 --m 10
+    PYTHONPATH=src python -m repro_torch.launch.cli dryrun --arch qwen3-14b --shape decode_32k --mesh single
 
 Counterpart of ``repro.launch.cli``; every subcommand takes ``--device``
 (the card unless ``--device cpu``).  ``serve`` runs ``ServeEngine`` on
 one card, or with ``--ranks`` the sharded serve step on that many ranks
 (``launch.serve.serve_ranks``: tensor-parallel decode over "model", a
 lockstep greedy loop, a line a rank; ``--check`` holds the logits
-against the one-card step).  ``dryrun`` lowers JAX programs against a
-TPU mesh and has no counterpart yet (ROADMAP Queue 1 item 15): it exits
-non-zero.
+against the one-card step).  ``dryrun`` runs ``launch.dryrun.main``
+in this process (JAX's launcher starts a subprocess for its XLA flag;
+the port has none): one rank's step of each combination on meta
+tensors, no card needed, a JSON record each under ``--out``.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 
 
 def _cfg(args):
@@ -89,10 +90,15 @@ def cmd_decsvm(args) -> None:
 
 
 def cmd_dryrun(args) -> None:
-    print("dryrun: lowering against the TPU production mesh has no "
-          "counterpart in the port yet (ROADMAP Queue 1 item 15)",
-          file=sys.stderr)
-    sys.exit(2)
+    from repro_torch.launch import dryrun
+    argv = []
+    for flag in ("arch", "shape", "mesh", "variant", "out"):
+        v = getattr(args, flag, None)
+        if v:
+            argv += [f"--{flag}", str(v)]
+    if args.all:
+        argv.append("--all")
+    dryrun.main(argv)
 
 
 def main(argv=None) -> None:

@@ -54,6 +54,16 @@ end hands each chunked bucket to the followers), and
 integer (the followers and the front end agree on a bucket's outcome).
 ``warm`` makes one exchange on every line of a mesh, so that a backend's
 set-up on its first use falls outside a timed run.
+
+``dry(mesh, rank)`` binds a mesh of any size to one virtual rank with no
+group behind it (``launch.dryrun``): ``rank``, ``axis_size``,
+``axis_index`` and ``block`` resolve against it, ``bound`` makes no
+subgroup, and ``collective`` returns a tensor of its result's shape and
+dtype on the operand's device (meta in a dry run) without a ``dist``
+call, recording each call twice in the ``DryRecord`` it yields: under
+the port's names and sizing, as ``comm_bytes`` counts, and under the
+names XLA's HLO gives the collective, sized by its result as
+``repro.launch.dryrun.collective_bytes`` sizes it.
 """
 from __future__ import annotations
 
@@ -89,6 +99,10 @@ comm_bytes: Dict[str, int] = {}
 # tensor (gloo's widened gradients) no events and the host milliseconds
 _spans: List[tuple] = []
 _timing = [False]
+# the ``DryRecord`` of the dry run in progress (``dry``), else None: one
+# for the process, not the thread, as autograd may run a backward on a
+# thread of its own
+_dry: list = [None]
 
 
 def reset_comm() -> None:
@@ -143,12 +157,17 @@ def _in_group() -> bool:
 
 def device_count() -> int:
     """Ranks the engines can use: the size of the initialised
-    ``torch.distributed`` group, else 1."""
+    ``torch.distributed`` group, else 1; in a dry run the dry mesh's."""
+    if _dry[0] is not None:
+        return _dry[0].mesh.size
     return dist.get_world_size() if _in_group() else 1
 
 
 def rank() -> int:
-    """This process's rank in the group (0 without one)."""
+    """This process's rank in the group (0 without one); in a dry run the
+    virtual rank."""
+    if _dry[0] is not None:
+        return _dry[0].rank
     return dist.get_rank() if _in_group() else 0
 
 
@@ -309,8 +328,9 @@ def _make_groups(mesh: Mesh) -> None:
 def bound(mesh: Mesh):
     """Bind ``mesh`` for the collectives of the calling thread (the
     counterpart of the body of a ``shard_map``); a mesh of more than one
-    rank gets its subgroups here, the first time it is bound."""
-    if mesh.size > 1:
+    rank gets its subgroups here, the first time it is bound (in a dry run
+    none)."""
+    if mesh.size > 1 and _dry[0] is None:
         _make_groups(mesh)
     stack = getattr(_bound, "stack", None)
     if stack is None:
@@ -380,7 +400,10 @@ def _backend_device(group=None) -> torch.device:
 
 def comm_device(axis_name: AxisName) -> torch.device:
     """The device the backend of this rank's line along the named axes
-    reduces on: host memory under gloo, this rank's card under NCCL."""
+    reduces on: host memory under gloo, this rank's card under NCCL; in a
+    dry run the dry run's device (meta: one card a rank, as NCCL's)."""
+    if _dry[0] is not None:
+        return torch.device("meta")
     return _line(axis_name)[2]
 
 
@@ -481,6 +504,8 @@ def collective(op: str, x, axis_name: AxisName, perm=None):
     n = axis_size(axis_name)
     if n == 1:
         return x
+    if _dry[0] is not None:
+        return _dry[0].collective(op, x, n)
     with _accounted(op, x.device.type == "cuda"):
         out = _exchange(op, x, axis_name, n, perm)
     comm_bytes[op] = comm_bytes.get(op, 0) + (
@@ -535,6 +560,75 @@ def _exchange(op, x, axis_name, n, perm):
             work.wait()
         out = buf.to(x.device)
     return out
+
+
+# JAX's HLO names of the port's collectives (``dry``)
+HLO_NAMES = {"psum": "all-reduce", "pmax": "all-reduce", "pmean": "all-reduce",
+             "all_gather": "all-gather", "psum_scatter": "reduce-scatter",
+             "ppermute": "collective-permute"}
+
+
+@dataclasses.dataclass
+class DryRecord:
+    """The collectives of a dry run (``dry``): ``calls`` holds one (op, the
+    port's bytes, HLO name, HLO bytes) a call, in order; ``moved``, where
+    set, is called with each operand and its result (``launch.dryrun``
+    follows which arguments a result holds)."""
+    mesh: AbstractMesh
+    rank: int
+    calls: List[tuple] = dataclasses.field(default_factory=list)
+    moved: Optional[object] = None
+
+    def collective(self, op: str, x, n: int):
+        """``op``'s result over a line of ``n`` ranks, shaped as the real
+        one (``_exchange``) and allocated on ``x``'s device, unfilled."""
+        shape = list(x.shape)
+        if op == "all_gather":
+            shape[0] *= n
+        elif op == "psum_scatter":
+            shape[0] //= n
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        if self.moved is not None:
+            self.moved(x, out)
+        size = x.element_size()
+        self.calls.append((op, (out if op == "all_gather" else x).numel()
+                           * size, HLO_NAMES[op], out.numel() * size))
+        return out
+
+    @staticmethod
+    def comm_of(calls) -> Dict[str, int]:
+        """{op: bytes} of ``calls``, as ``comm_bytes`` counts."""
+        out: Dict[str, int] = {}
+        for op, nbytes, _, _ in calls:
+            out[op] = out.get(op, 0) + nbytes
+        return out
+
+    @staticmethod
+    def hlo_of(calls) -> Dict[str, int]:
+        """{HLO name: result bytes} of ``calls``, and "total", as
+        ``repro.launch.dryrun.collective_bytes`` reads an HLO module."""
+        out: Dict[str, int] = {}
+        for _, _, name, nbytes in calls:
+            out[name] = out.get(name, 0) + nbytes
+        out["total"] = sum(out.values())
+        return out
+
+
+@contextlib.contextmanager
+def dry(mesh, rank: int = 0):
+    """Within: a dry run of one rank of ``mesh`` (any size: an
+    ``AbstractMesh`` of 16 x 16 as well as a ``Mesh``), rank ``rank``,
+    with no group (module docstring).  Yields the ``DryRecord``.  Outside
+    it nothing here changes behaviour."""
+    if _dry[0] is not None:
+        raise RuntimeError("a dry run is in progress")
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} is not on mesh {mesh.shape}")
+    rec = _dry[0] = DryRecord(mesh, rank)
+    try:
+        yield rec
+    finally:
+        _dry[0] = None
 
 
 class P(tuple):

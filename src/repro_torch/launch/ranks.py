@@ -952,6 +952,23 @@ def rank_fit_serving(rank: int, s: Setup) -> dict:
     return out
 
 
+def fit_terms(got, want, N: int, p: int) -> Dict[str, float]:
+    """The max |dev| of each term ``_same_fit`` holds of two
+    ``FitResult``s of one request: B, beta, the criterion less its support
+    term (BIC) over the table, and the LLA weights where the request has
+    them."""
+    tg, tw = np.array(got.table), np.array(want.table)
+    pen = bic_support_weight(N, p) if got.criterion == "bic" else 0.0
+    out = {"B": float(np.abs(got.B - want.B).max()),
+           "beta": float(np.abs(got.beta - want.beta).max()),
+           "criterion": float(np.abs((tg[:, 1] - pen * tg[:, 2])
+                                     - (tw[:, 1] - pen * tw[:, 2])).max())}
+    if want.lam_weights is not None:
+        out["lam_weights"] = float(np.abs(got.lam_weights
+                                          - want.lam_weights).max())
+    return out
+
+
 def _same_fit(name, got, want, paths, N, p, tol, fail):
     """A ``FitResult`` against another run's of the same request, as
     ``chip_smoke.py``'s fit serving holds them: the same best lambda and
@@ -970,13 +987,7 @@ def _same_fit(name, got, want, paths, N, p, tol, fail):
         fail(f"{name}: the table's lambdas differ")
     if ig.tolist() != iw.tolist():
         fail(f"{name}: stops {ig.tolist()} vs {iw.tolist()}")
-    pen = bic_support_weight(N, p) if got.criterion == "bic" else 0.0
-    parts = [np.abs(got.B - want.B).max(), np.abs(got.beta - want.beta).max(),
-             np.abs((tg[:, 1] - pen * tg[:, 2])
-                    - (tw[:, 1] - pen * tw[:, 2])).max()]
-    if want.lam_weights is not None:
-        parts.append(np.abs(got.lam_weights - want.lam_weights).max())
-    dev = float(max(parts))
+    dev = max(fit_terms(got, want, N, p).values())
     flips, near = support_flips(pg, pw)
     if near > tol:
         fail(f"{name}: a support flip at |b| = {near:.3e} > {tol}")
@@ -1002,6 +1013,17 @@ def _identical(a, b) -> bool:
 # and rid 1 (dense); the worker takes rid 2, then rid 3 (two keys)
 SERVE_BUCKETS = (("chunked", [0]), ("dense", [1]), ("chunked", [2]),
                  ("chunked", [3]))
+
+
+def request_sizes(s: Setup, k: int) -> Dict[int, tuple]:
+    """{rid: (N, p)} of ``fit_requests`` across ``k`` ranks, as their
+    criteria count samples and features (the dense request's m = k
+    nodes)."""
+    out = {}
+    for rid, sim in {0: s.full, 1: s.design, 2: s.design,
+                     3: s.design}.items():
+        out[rid] = (k * sim.n if rid == 1 else sim.m * sim.n, sim.p + 1)
+    return out
 
 
 def check_fit_serving(s: Setup, ranks: List[dict], one: dict, plain: dict,
@@ -1078,13 +1100,9 @@ def check_fit_serving(s: Setup, ranks: List[dict], one: dict, plain: dict,
     if dense[counted].get("csvm_round_block", 0) != len(s.design_grid):
         fail(f"the dense bucket: {dense[counted]}, expected "
              f"{len(s.design_grid)} csvm_round_block")
-    sizes = {0: s.full, 1: s.design, 2: s.design, 3: s.design}
     fits = {}
-    for rid, sim in sizes.items():
+    for rid, (N, p) in request_sizes(s, k).items():
         g = r0["results"][rid]
-        N, p = sim.m * sim.n, sim.p + 1
-        if rid == 1:
-            N = k * sim.n
         dev, flips = _same_fit(f"rid {rid} vs one rank", g,
                                one["results"][rid],
                                (r0["paths"][rid], one["paths"][rid]), N, p,

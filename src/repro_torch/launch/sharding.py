@@ -377,13 +377,7 @@ def init_sharded(cfg: ModelConfig, mesh, seed: int = 0, device="cuda", *,
     every rank of ``mesh``'s group."""
     from repro_torch.core.admm import resolve_device
     device = resolve_device(None, device)
-    made = []
-    with layers.placing(lambda t: made.append(t) or t):
-        abstract = model.abstract_params(cfg)
-    by_id = {id(p): name for name, p in abstract.named_parameters()}
-    order = [by_id[id(t)] for t in made]
-    specs = param_pspecs(abstract, mesh, fsdp=fsdp,
-                         expert_parallel=expert_parallel)
+    order, specs = _draw_order(cfg, mesh, fsdp, expert_parallel)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     drawn = iter(order)
@@ -394,6 +388,39 @@ def init_sharded(cfg: ModelConfig, mesh, seed: int = 0, device="cuda", *,
 
     with M.bound(mesh), layers.placing(keep):
         lm = model.LM(cfg, gen)
+    lm = _shard(lm, specs, mesh)
+    return model.trainable_(lm) if trainable else lm
+
+
+def _draw_order(cfg: ModelConfig, mesh, fsdp: bool, expert_parallel: bool):
+    """(the parameter names in ``LM.__init__``'s order of draws, {name:
+    spec})."""
+    made = []
+    with layers.placing(lambda t: made.append(t) or t):
+        abstract = model.abstract_params(cfg)
+    by_id = {id(p): name for name, p in abstract.named_parameters()}
+    return ([by_id[id(t)] for t in made],
+            param_pspecs(abstract, mesh, fsdp=fsdp,
+                         expert_parallel=expert_parallel))
+
+
+def abstract_sharded(cfg: ModelConfig, mesh, *, fsdp: bool = True,
+                     expert_parallel: bool = False,
+                     trainable: bool = True) -> model.LM:
+    """``init_sharded``'s model on the meta device: each leaf an unfilled
+    block of its shape under the specs, nothing drawn (a dry run's
+    weights, ``launch.dryrun``).  Needs no group: ``mesh`` may be any
+    mesh description."""
+    order, specs = _draw_order(cfg, mesh, fsdp, expert_parallel)
+    drawn = iter(order)
+
+    def keep(p):
+        shape = block_shape(p.shape, specs[next(drawn)], mesh)
+        return nn.Parameter(torch.empty(shape, dtype=p.dtype, device="meta"),
+                            requires_grad=False)
+
+    with layers.placing(keep):
+        lm = model.LM(cfg, layers.ShapeOnly())
     lm = _shard(lm, specs, mesh)
     return model.trainable_(lm) if trainable else lm
 

@@ -136,11 +136,12 @@ def _attend(q, k, v, q_pos, k_pos, *, causal: bool,
 
 def self_attend(q, k, v, *, causal: bool, window: Optional[int]):
     """Self-attention over positions 0..S-1: q (B, S, H, D), k and v
-    (B, S, KV, D) -> (B, S, H, D).  On the card: the CUDA flash kernel,
-    fed the (B, S, H, D) tensors as strided (B, H, S, D) views (no copy),
-    and under grad its backward kernel (``ops.FlashAttention``); on
-    the CPU: the plain ``_attend``, which autograd differentiates."""
-    if q.device.type == "cuda":
+    (B, S, KV, D) -> (B, S, H, D).  On the card (and on meta, a dry run:
+    the kernel's meta route): the CUDA flash kernel, fed the (B, S, H, D)
+    tensors as strided (B, H, S, D) views (no copy), and under grad its
+    backward kernel (``ops.FlashAttention``); on the CPU: the plain
+    ``_attend``, which autograd differentiates."""
+    if q.device.type in ops.CARD_ROUTE:
         out = ops.FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), causal, window,
                                        None)
@@ -151,11 +152,12 @@ def self_attend(q, k, v, *, causal: bool, window: Optional[int]):
 
 def cross_attend(q, k, v):
     """Cross-attention, every query against every key: q (B, S, H, D), k
-    and v (B, F, KV, D) -> (B, S, H, D).  On the card: the CUDA flash
-    kernel, non-causal, with keys of their own length F, fed strided
-    (B, heads, rows, D) views as ``self_attend`` feeds it, differentiated
-    by its backward kernel under grad; on the CPU: the plain ``_attend``."""
-    if q.device.type == "cuda":
+    and v (B, F, KV, D) -> (B, S, H, D).  On the card (and on meta): the
+    CUDA flash kernel, non-causal, with keys of their own length F, fed
+    strided (B, heads, rows, D) views as ``self_attend`` feeds it,
+    differentiated by its backward kernel under grad; on the CPU: the
+    plain ``_attend``."""
+    if q.device.type in ops.CARD_ROUTE:
         out = ops.FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), False, None, None)
         return out.transpose(1, 2)

@@ -168,12 +168,12 @@ def jax_chunk(chunk: int, S: int) -> int:
 
 def ssd(x, dt, A, B, C, D, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """The SSD scan of one layer: (y (b, s, h, p), final state (b, h, p, n)
-    fp32).  On the card: the CUDA ``ssd_scan`` kernel at ``cfg.ssm_chunk``,
-    fed the model's strided slices of the conv output (no copy), through
-    ``ops.SSDScan`` (the ``ssd_scan_backward`` kernel) when an input
-    requires grad; on the CPU: the plain ``ssd_chunked`` at the JAX
-    package's chunk."""
-    if x.device.type == "cuda":
+    fp32).  On the card (and on meta, a dry run: the kernel's meta route):
+    the CUDA ``ssd_scan`` kernel at ``cfg.ssm_chunk``, fed the model's
+    strided slices of the conv output (no copy), through ``ops.SSDScan``
+    (the ``ssd_scan_backward`` kernel) when an input requires grad; on the
+    CPU: the plain ``ssd_chunked`` at the JAX package's chunk."""
+    if x.device.type in ops.CARD_ROUTE:
         return ops.ssd_scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
     return ssd_chunked(x, dt, A, B, C, jax_chunk(cfg.ssm_chunk, x.shape[1]),
                        D=D)

@@ -220,8 +220,9 @@ def sharded_train(rank, cases):
     (data, model) mesh of the group, from the JAX parameter tree it
     carries (numpy) and its global batch.  Returns, by case, the metrics,
     every whole weight after the step (``gather_params``), this rank's
-    moment blocks, and the step's specs; a case that raises returns its
-    error's type and message instead."""
+    moment blocks, the step's specs and its collective bytes
+    (``mesh.comm_bytes``); a case that raises returns its error's type
+    and message instead."""
     import dataclasses
 
     import repro_torch.configs as tconfigs
@@ -242,16 +243,18 @@ def sharded_train(rank, cases):
         step, specs = train.make_jitted_train_step(
             cfg, AdamWConfig(lr=c["lr"]), m, c["batch"], total_steps=10,
             fsdp=c["fsdp"])
+        mesh.reset_comm()
         try:
             with mesh.bound(m):
                 _, state, metrics = step(lm, state, c["batch"])
         except NotImplementedError as err:
             out[key] = dict(error=f"{type(err).__name__}: {err}")
             continue
+        comm_bytes = dict(mesh.comm_bytes)
         out[key] = dict(metrics={k: float(v) for k, v in metrics.items()},
                         params=shd.gather_params(lm),
                         m=state["m"], v=state["v"], step=int(state["step"]),
-                        specs=specs)
+                        specs=specs, comm_bytes=comm_bytes)
     return out
 
 
@@ -334,6 +337,33 @@ def sharded_serve(rank, cases):
         rec["cache"] = cache
         out[key] = rec
     return out
+
+
+def admm_comm(rank, cases):
+    """Each case's fit through ``decentral.build_sharded_admm`` on the
+    ("node",) mesh of the group, one node a rank: {case: the fit's
+    collective bytes by op (``mesh.comm_bytes``)}."""
+    from repro_torch.core.admm import ADMMConfig
+    out = {}
+    for key, c in cases.items():
+        X, y, W = (torch.as_tensor(c[k]) for k in ("X", "y", "W"))
+        m, _, p = X.shape
+        cfg = ADMMConfig(lam=0.01, h=0.1, max_iter=c["max_iter"])
+        fitted = dec.build_sharded_admm(m, p, cfg, mesh.make_node_mesh(),
+                                        c["schedule"])
+        mesh.reset_comm()
+        fitted(X, y, W, W.sum(1), torch.ones(m), torch.ones(p))
+        out[key] = dict(mesh.comm_bytes)
+    return out
+
+
+def dry_cases(rank, train, serve, admm):
+    """``spawn``'s ``fn`` of ``tests/test_torch_dryrun.py``: the real steps
+    whose collective bytes the dry runs are held to, in one group —
+    ``sharded_train``'s ``train`` cases, ``sharded_serve``'s ``serve``
+    cases and ``admm_comm``'s ``admm`` cases."""
+    return dict(train=sharded_train(rank, train),
+                serve=sharded_serve(rank, serve), admm=admm_comm(rank, admm))
 
 
 def _fit_request(d, rid, key, **kw):

@@ -1116,6 +1116,37 @@ def test_fit_serving_across_two_ranks_on_the_card(cuda):
     assert dev <= ATOL
 
 
+def test_fit_serving_terms_across_two_ranks_on_the_card(cuda):
+    """``ranks.run_fit_serving(2, num=2, small=True)``'s requests on the
+    card (two ranks on card 0 under gloo, or a card each under NCCL), each
+    term that ``ranks._same_fit`` holds (``ranks.fit_terms``: B, beta, the
+    criterion less its support term, the LLA weights) printed for every
+    request, rank 0's result against the one-rank server's, the one-rank
+    server's against plain and rank 0's against plain (the readings of
+    ROADMAP's Queue 3 item 6); rank 0's within 1e-5 of the one-rank
+    server's on every term, the gate of ``check_fit_serving``."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import ranks
+    build.build_all(("csvm_update",))
+    s = ranks.fit_serving_setup(2, num=2, small=True)
+    got = ranks.spawn(ranks.rank_fit_serving, 2, (s,), deadline_s=600.0)
+    one = ranks.serve_requests(*ranks.fit_requests(s, "megakernel"), "cuda")
+    plain = ranks.serve_requests(*ranks.fit_requests(s, "jnp"), "cuda")
+    r0 = got[0]["results"]
+    for rid, (N, p) in ranks.request_sizes(s, 2).items():
+        pairs = {"two ranks vs one rank": (r0[rid], one["results"][rid]),
+                 "one rank vs plain": (one["results"][rid],
+                                       plain["results"][rid]),
+                 "two ranks vs plain": (r0[rid], plain["results"][rid])}
+        terms = {name: ranks.fit_terms(g, w, N, p)
+                 for name, (g, w) in pairs.items()}
+        for name, t in terms.items():
+            print(f"fitserve-terms rid {rid} {name}: "
+                  + ", ".join(f"{k} {v:.4e}" for k, v in t.items()),
+                  flush=True)
+        assert max(terms["two ranks vs one rank"].values()) <= ATOL
+
+
 def test_moe_routes_on_the_card(cuda):
     """Reduced granite-moe in bf16 on the card: the scatter route at a
     capacity that drops nothing within chip_smoke's relative limit of the

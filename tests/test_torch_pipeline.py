@@ -2,8 +2,10 @@
 synthetic batches and input shapes (``data.synthetic``), the packed
 document pipeline (``data.packing``), the schedules, AdamW, checkpoints
 (interchangeable with JAX's for fp32 trees, both ways) and the ``cli``'s
-``train`` lines, each against the JAX package on the same seeds."""
+``train`` lines, each against the JAX package on the same seeds; the
+``cli``'s ``dryrun``."""
 import dataclasses
+import json
 import re
 
 import jax
@@ -306,8 +308,24 @@ def test_cli_train_prints_jax_lines(capsys, monkeypatch):
         assert pattern.fullmatch(g).group(1) == pattern.fullmatch(w).group(1)
 
 
-def test_cli_dryrun_names_the_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as err:
-        cli.main(["dryrun"])
-    assert err.value.code != 0
-    assert "item 15" in capsys.readouterr().err
+def test_cli_dryrun_writes_a_record_and_skips_it_after(tmp_path, capsys,
+                                                      monkeypatch):
+    """``cli dryrun`` runs ``launch.dryrun.main`` in this process (reduced
+    configs by the registry patched, meta tensors, no card): a record with
+    JAX's keys and ``ok: true``, and a second call skips the file."""
+    import repro_torch.configs as tconfigs
+    monkeypatch.setattr(tconfigs, "get", tconfigs.get_reduced)
+    args = ["dryrun", "--arch", "qwen3-14b", "--shape", "decode_32k",
+            "--mesh", "single", "--out", str(tmp_path)]
+    cli.main(args)
+    assert "all dry-runs OK" in capsys.readouterr().out
+    rec = json.loads((tmp_path / "qwen3_14b__decode_32k__single.json")
+                     .read_text())
+    assert rec["ok"] and rec["chips"] == 256
+    assert {"arch", "shape", "mesh", "variant", "chips", "ok", "lower_s",
+            "compile_s", "memory_analysis", "cost_analysis",
+            "collective_bytes", "collective_bytes_raw", "roofline",
+            "comm_bytes"} <= set(rec)
+    cli.main(args)
+    assert "[skip existing] qwen3_14b__decode_32k__single" in \
+        capsys.readouterr().out
