@@ -11,7 +11,8 @@ result lines):
    per source, all at once; ptxas's registers and spills per kernel (and
    shared memory of the round kernel's stream instance), the wgmma (HGMMA)
    and TMA-load (UTMALDG) instructions ``cuobjdump -sass`` finds in the
-   tensor-core flash instance, the bulk copies (UBLKCP) in the stream
+   tensor-core flash instance (``flash_tc_kernel<64|128|256>``, none of
+   which may spill), the bulk copies (UBLKCP) in the stream
    instances of ``csvm_round_block`` and of the two-pass update
    (``update_stream_kernel``), and the wgmma, its waits and the
    copies (UTMALDG, UBLKCP, LDGSTS) of the tensor-core passes of
@@ -146,13 +147,15 @@ result lines):
    2 tail rec layers, D = 256, window 2048, bf16): a 2,100-token prompt
    (the attention layers' ring caches wrap) and two short ones through the
    engine with block prefill (8 flash launches each, every one on the
-   fp32-FMA instance), the shortest again on one slot with block prefill
-   and token by token (the first generated token's logits within the
-   bf16 limit; then, in an fp32 copy of the model, the same greedy
-   tokens); the kernel against the plain attention inside the model; the
-   fp32-FMA flash at D = 256, S = 2048 beside plain, its bound and
-   ``scaled_dot_product_attention``; one RG-LRU layer's scan; the head on
-   its features;
+   tensor-core instance at D = 256), the shortest again on one slot with
+   block prefill and token by token (the first generated token's logits
+   within the bf16 limit; then, in an fp32 copy of the model, the same
+   greedy tokens); the kernel against the plain attention inside the
+   model; the flash at D = 256, S = 2048 and at the long prompt's S =
+   2099 (the window active) beside plain, its bound, both instances
+   forced in turns (the tensor-core one no slower) and
+   ``scaled_dot_product_attention`` (causal; at S = 2099 with a boolean
+   window mask); one RG-LRU layer's scan; the head on its features;
 13. ``flash_attention`` with keys of their own length (``CROSS_CASES``:
    16 heads of 64 over 1024 frames at 1, 77 and 1000 queries, a ragged Sk
    of 1000, a GQA case at D = 128) and at the encoder's shape
@@ -184,10 +187,11 @@ result lines):
 15. training: ``flash_attention_backward`` (``csrc/flash_backward.cu``)
    against ``ref.mha_backward`` at the shapes the families' training
    gives it (``BACKWARD_CASES``: qwen3-14b, internvl2-1b, seamless's
-   encoder and cross-attention, recurrentgemma-2b's window), fp32 and
-   bf16 on the model's transposed buffers, each on the instance
-   ``ops.flash_backward_instance`` names (bf16 at D = 64/128: tensor
-   cores; fp32 and D = 256: fp32 FMAs), each gradient within its limit
+   encoder and cross-attention, recurrentgemma-2b's window at its long
+   prompt's and its training shape), fp32 and bf16 on the model's
+   transposed buffers, each on the instance
+   ``ops.flash_backward_instance`` names (bf16 at D = 64/128/256: tensor
+   cores; fp32: fp32 FMAs), each gradient within its limit
    with a control above it, two launches equal bit for bit; its times
    beside plain, the bound and the backward of
    ``scaled_dot_product_attention``; then qwen3-14b at full width, depth
@@ -201,12 +205,14 @@ result lines):
    finite losses; step ms, tokens/s, peak memory, forward plus backward
    against the optimizer), and a checkpoint resume at the reduced config
    (bit for bit);
-16. the two instances of ``flash_attention_backward`` on the same bf16
-   inputs at every ``BACKWARD_CASES`` shape the tensor-core one takes
-   (D = 64/128), each forced by name against ``ref.mha_backward`` within
-   the bf16 limit with a control above it, relaunches bit for bit; then
-   the two timed in turns beside the bound, the tensor-core one no slower
-   (``time flash_attention_backward instances`` lines);
+16. the two instances of ``flash_attention`` and of
+   ``flash_attention_backward`` on the same bf16 inputs at every
+   ``BACKWARD_CASES`` shape (D = 64/128/256), each forced by name against
+   ``ref.mha`` (one bf16 ulp) or ``ref.mha_backward`` (the bf16 limit
+   with a control above it), relaunches bit for bit; then the two timed
+   in turns beside the bound, the tensor-core one no slower (``time
+   flash_attention instances`` and ``time flash_attention_backward
+   instances`` lines);
 17. mamba2 training: ``ssd_scan_backward`` (``csrc/ssd_backward.cu``)
    against ``ref.ssd_scan_backward`` at ``SSD_CASES`` and at mamba2-370m's
    training shape (b 8, s 2048, 32 heads of 64, n 128, chunk 64), fp32
@@ -289,7 +295,19 @@ result lines):
    predicted beside their measurements; ``dryrun.main --all --mesh
    both`` in processes of its own (every record ok) and
    ``dryrun_decsvm`` on both schedules at 256 and 512 nodes (``dry ...``
-   lines, each with the card's name and power limit).
+   lines, each with the card's name and power limit);
+23. recurrentgemma-2b trains on the card, as configured (26 layers, 8 of
+   them attention at D = 256 with window 2048, bf16; no cut): one step's
+   loss and gradients through the kernels against the same step with the
+   plain attention (B = 1 x S = 4096, the window active; RG_STEP_TOL from
+   readings, a control above the gradients' limit; no plain attention
+   reached under grad; every launch on the tensor-core instances),
+   ``train_loop`` for 10 steps at B = 2 x S = 4096 on ``token_stream``
+   (AdamW, lr 3e-4; the counters read around it: 16 flash forward and 8
+   backward launches a step, all on ``"wgmma"``, nothing else; finite
+   losses; step ms, forward + backward against the optimizer, tokens/s,
+   peak memory on ``train recurrentgemma-2b ...`` lines) and a checkpoint
+   resume at the reduced config (bit for bit).
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -311,6 +329,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -543,6 +562,7 @@ BACKWARD_CASES = [
     ("seamless encoder", (4, 16, 16, 1024, 1024, 64, False, None)),
     ("seamless cross", (4, 16, 16, 1000, 1024, 64, False, None)),
     ("recurrentgemma-2b", (1, 10, 1, 2099, 2099, 256, True, 2048)),
+    ("recurrentgemma-2b training", (2, 10, 1, 4096, 4096, 256, True, 2048)),
 ]
 # The kernel against ref.mha_backward on the same inputs, each of dq, dk,
 # dv.  fp32: max |dev| within BACKWARD_TOL_F32 of max |grad| (the same
@@ -721,6 +741,27 @@ DRY_FOUR_CARD = (
 DRY_JOBS = 7
 DRY_DEADLINE_S = 300.0
 
+# phase 23: recurrentgemma-2b trains on the card, as configured (26
+# layers: 8 x (rec, rec, attn) and 2 tail rec layers, d_model 2560, 10
+# heads over 1 of D = 256, window 2048, bf16; no cut): the kernel step
+# against the plain-attention step at B = 1 x S = 4096 (the window
+# active), then ``train_loop`` for TRAIN_STEPS steps at B = 2 x S = 4096
+# (16 flash forward and 8 backward launches a step, all on "wgmma"), and a
+# checkpoint resume at the reduced config.
+RG_TRAIN_ARCH = "recurrentgemma_2b"
+RG_STEP_BATCH = 1
+RG_TRAIN_BATCH, RG_TRAIN_SEQ = 2, 4096
+# The kernel step against the plain-attention step (bf16 weights and
+# grads): |loss_k - loss_p| and, for each parameter, max |g_k - g_p| over
+# max |g_p|, as phase 15's.  The first H100 reading (NVIDIA H100 80GB
+# HBM3, 700.00 W): loss 1.74e-4 (of 12.991), gradients 5.83e-2 at most
+# (layers.10.mixer.lam, an RG-LRU gate; median 1.25e-2): the bf16 one-ulp
+# differences of the two attentions carried through 26 layers and the
+# recurrences after them.  The limits are about three of it.  The control,
+# another batch's kernel gradients against this batch's plain ones, read
+# 0.428 at its smallest leaf; every leaf's must exceed the gradient limit.
+RG_STEP_TOL = dict(loss=5e-4, grad=0.18)
+
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
     "csvm_local_update": "src/repro/kernels/csvm_update.py:83",
@@ -822,10 +863,14 @@ def disassemble(build, name: str) -> str:
     return sass.stdout
 
 
+FLASH_TC_HEAD_DIMS = (64, 128, 256)
+
+
 def tensor_core_sass(build):
     """Disassemble the flash library and check that the tensor-core
-    instance (``flash_tc_kernel`` at D = 64 and 128) issues wgmma and TMA
-    loads; returns {D: (HGMMA, UTMALDG)}."""
+    instance (``flash_tc_kernel`` at D = 64, 128 and 256) issues wgmma and
+    TMA loads, and that ptxas reports no spill for it; returns {D:
+    (HGMMA, UTMALDG)}."""
     found = {}
     for fn, (hgmma, utmaldg) in sass_counts(
             disassemble(build, "flash_attention")).items():
@@ -834,10 +879,17 @@ def tensor_core_sass(build):
             found[int(inst.group(1))] = (hgmma, utmaldg)
             log(f"sass flash_tc_kernel<{inst.group(1)}>: {hgmma} HGMMA, "
                 f"{utmaldg} UTMALDG")
-    check(set(found) == {64, 128} and all(
+    spills = {name: line for name, _, line in ptxas_report(
+        build.build_log("flash_attention"))
+        if name.startswith("flash_tc_kernel")}
+    check(set(found) == set(FLASH_TC_HEAD_DIMS) and all(
         h > 0 and u > 0 for h, u in found.values()),
         f"the tensor-core flash instance issues no wgmma or TMA load: "
         f"{found}")
+    check(len(spills) == len(FLASH_TC_HEAD_DIMS) and all(
+        re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)
+        for line in spills.values()),
+        f"ptxas spills in the tensor-core flash instance: {spills}")
     return found
 
 
@@ -982,7 +1034,7 @@ BACKWARD_TC_KERNELS = ("dq_tc_kernel", "dkdv_tc_kernel")
 
 def backward_tensor_core_sass(build):
     """Disassemble the backward library and check its tensor-core kernels
-    (``dq_tc_kernel`` and ``dkdv_tc_kernel`` at D = 64 and 128): they issue
+    (``dq_tc_kernel`` and ``dkdv_tc_kernel`` at D = 64, 128 and 256): they issue
     wgmma and TMA loads, their wgmmas are pipelined (fewer waits than
     wgmmas, where ptxas, when it serializes them, puts a wait after each),
     and ptxas reports no spill for them.  Returns {kernel<D>: {opcode:
@@ -1001,7 +1053,8 @@ def backward_tensor_core_sass(build):
         log(f"sass {name}: " + ", ".join(
             f"{c[op]} {op}" for op in BACKWARD_OPCODES)
             + f"; ptxas {c.get('registers')} registers, {c.get('spills')}")
-    want = {f"{k}<{D}>" for k in BACKWARD_TC_KERNELS for D in (64, 128)}
+    want = {f"{k}<{D}>" for k in BACKWARD_TC_KERNELS
+            for D in FLASH_TC_HEAD_DIMS}
     check(set(found) == want and all(
         c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in found.values()),
         f"a tensor-core backward kernel issues no wgmma or TMA load: {found}")
@@ -2937,43 +2990,76 @@ def in_model_instances(torch, ops, cfg, params, *, label, instance,
     return dev, scale
 
 
+def window_mask(torch, S, Sk, window, device):
+    """The causal sliding-window mask as a boolean (S, Sk) ``attn_mask``
+    for ``scaled_dot_product_attention``: key j visible to query i when
+    i - window < j <= i."""
+    qi = torch.arange(S, device=device)[:, None]
+    ki = torch.arange(Sk, device=device)[None, :]
+    return (ki <= qi) & (ki > qi - window)
+
+
 def flash_d256_timing(torch, ops, ref, device, S=2048, window=2048):
     """recurrentgemma-2b's attention at S (q (1, 10, S, 256), kv (1, 1, S,
-    256) bf16, causal, window 2048): the fp32-FMA instance (the wrapper's
-    choice at D = 256) against plain, beside the bound and
-    ``scaled_dot_product_attention`` on the same inputs (causal without
-    the window: SDPA takes no window, so its time is given for S <=
-    window only).  At S = 2048 the window masks nothing; the served
-    2,100-token prompt's prefill (S = 2099) runs it with the window
-    active."""
+    256) bf16, causal, window 2048): the tensor-core instance (the
+    wrapper's choice at D = 256) against plain, then both instances forced
+    by name and timed in turns (wgmma, fma, fma, wgmma), the tensor-core
+    one no slower, beside the bound and ``scaled_dot_product_attention``
+    on the same inputs: causal alone where the window masks nothing (S <=
+    window), else with the window as a boolean mask.  At S = 2048 the
+    window masks nothing; the served 2,100-token prompt's prefill (S =
+    2099) runs it with the window active.  On CPU tensors (a rehearsal)
+    both names run the wrapper's plain version."""
     F = torch.nn.functional
+    cuda = torch.device(device).type == "cuda"
     case = (1, 10, 1, S, 256, True, window)
     q, k, v = attention_inputs(torch, case, "bfloat16", device, seed=S)
-    check(ops.flash_instance(q.dtype, 256, q, k, v) == "fma",
-          "D = 256 does not take the fp32-FMA instance")
+    check(ops.flash_instance(q.dtype, 256, q, k, v) == "wgmma",
+          "bf16 at D = 256 does not take the tensor-core instance")
     got = ops.flash_attention(q, k, v, causal=True, window=window)
     want = ref.mha(q, k, v, causal=True, window=window)
     dev, share = flash_deviation(torch, got, want, "bfloat16")
     check(share <= 1.0, f"flash D = 256: max|dev| {dev:.3e} is {share:.2f}x "
           "the limit")
+    runs = {inst: (lambda inst=inst: ops._flash_launch(
+        q, k, v, inst, causal=True, window=window, sm_scale=None))
+        if cuda else (lambda: ops.flash_attention(q, k, v, causal=True,
+                                                  window=window))
+        for inst in ops.FLASH_INSTANCES}
     times = paired_ms(
-        torch, lambda: ops.flash_attention(q, k, v, causal=True,
-                                           window=window),
-        lambda: ref.mha(q, k, v, causal=True, window=window), 10, 2)
-    lib = (cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 10)
-        if S <= window else None)
+        torch, runs["wgmma"],
+        lambda: ref.mha(q, k, v, causal=True, window=window), 20, 2)
+    fma = [cuda_ms(torch, runs["fma"], 5) for _ in range(2)]
+    w2 = cuda_ms(torch, runs["wgmma"], 20)
+    if S <= window:
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10)
+        lib_how = "causal"
+    else:
+        mask = window_mask(torch, S, S, window, q.device)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), 10)
+        lib_how = "a boolean window mask"
     bms, by = attention_bound(1, 10, 1, S, 256, 2, window)
     row = dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
-               max_abs_dev=dev, instance="fma",
+               library_how=lib_how, max_abs_dev=dev, instance="wgmma",
+               fma_ms=sum(fma) / 2, fma_ms_samples=fma,
+               wgmma_ms_in_turns=[times["ms_samples"][0], w2],
                shape=f"q (1, 10, {S}, 256), kv (1, 1, {S}, 256) bf16, "
                      f"causal, window {window}")
-    log(f"time flash_attention [{row['shape']}] on the fp32-FMA instance: "
-        f"{row['ms']:.4f} ms (samples {row['ms_samples'][0]:.4f}, "
-        f"{row['ms_samples'][1]:.4f}), plain {row['plain_ms']:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}), scaled_dot_product_attention "
-        f"{'not comparable (window active)' if lib is None else f'{lib:.4f} ms'}"
-        f"; max|dev| {dev:.3e} ({share:.2f}x the limit)")
+    log(f"time flash_attention [{row['shape']}] on the tensor-core "
+        f"instance: {row['ms']:.4f} ms (samples {row['ms_samples'][0]:.4f}, "
+        f"{row['ms_samples'][1]:.4f}; in turns with fma {w2:.4f}; "
+        f"{bms / row['ms']:.3f} of the bound), plain {row['plain_ms']:.4f} "
+        f"ms, bound {bms:.4f} ms ({by}), fp32-FMA instance forced "
+        f"{row['fma_ms']:.4f} ms (samples {fma[0]:.4f}, {fma[1]:.4f}), "
+        f"scaled_dot_product_attention {lib:.4f} ms ({lib_how}); max|dev| "
+        f"{dev:.3e} ({share:.2f}x the limit)")
+    if cuda:
+        check(max(row["ms_samples"][0], w2) <= min(fma),
+              f"flash D = 256 at S = {S}: the tensor-core instance "
+              f"({row['ms_samples'][0]:.4f}, {w2:.4f} ms) is slower than "
+              f"the fp32-FMA one ({fma[0]:.4f}, {fma[1]:.4f} ms)")
     return row
 
 
@@ -3564,11 +3650,15 @@ def backward_checks(torch, ops, ref, device, devs: dict):
     return readings
 
 
-# flops a visible (query, key) pair per D that each backward instance
-# executes: fp32 FMAs 16 (s, dP and dS in passes 2 and 3, dV, dK, dQ);
-# tensor cores 22 (s three times, dP twice, and dV, dK, dQ each with two
-# bf16 terms of P or dS)
-BACKWARD_EXECUTED = {"fma": 16, "wgmma": 22}
+def backward_executed(instance: str, D: int) -> int:
+    """Flops a visible (query, key) pair per D that a backward instance
+    executes: fp32 FMAs 16 (s, dP and dS in passes 2 and 3, dV, dK, dQ);
+    tensor cores 22 at D = 64/128 (s three times, dP twice, and dV, dK, dQ
+    each with two bf16 terms of P or dS) and 26 at D = 256, where the two
+    blocks that split dk and dv over D each compute s and dP again."""
+    if instance == "fma":
+        return 16
+    return 26 if D == 256 else 22
 
 
 def backward_bound(case, itemsize=2):
@@ -3598,9 +3688,7 @@ def sdpa_backward_ms(torch, q, k, v, do, causal, window):
         kw = dict(is_causal=causal)
     else:
         S, Sk = q.shape[2], k.shape[2]
-        qi = torch.arange(S, device=q.device)[:, None]
-        ki = torch.arange(Sk, device=q.device)[None, :]
-        kw = dict(attn_mask=(ki <= qi) & (ki > qi - window))
+        kw = dict(attn_mask=window_mask(torch, S, Sk, window, q.device))
         tries = [("efficient, enable_gqa", SDPBackend.EFFICIENT_ATTENTION,
                   False),
                  ("efficient, k and v repeated to the query heads",
@@ -3655,7 +3743,7 @@ def backward_timings(torch, ops, ref, device):
         lib, backend = sdpa_backward_ms(torch, q, k, v, do, causal, window)
         (bms, by), pairs = backward_bound(case)
         instance = ops.flash_backward_instance(q.dtype, D, q, k, v, o, do)
-        per_pair = BACKWARD_EXECUTED[instance]
+        per_pair = backward_executed(instance, D)
         row = dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
                    library_backend=backend, case=label, instance=instance,
                    tflops=per_pair * B * H * pairs * D / times["ms"] / 1e9,
@@ -3701,9 +3789,76 @@ def kernel_split(torch, fn, reps: int = 3):
     return dict(split)
 
 
+def forward_instance_checks(torch, ops, ref, device, devs: dict):
+    """Phase 16, the forward: at every case of BACKWARD_CASES, in bf16,
+    both instances of ``flash_attention`` forced by name on the same
+    inputs (the model's transposed buffers) against ``ref.mha``: each
+    within one bf16 ulp (plus 1e-6) of the plain output, two launches
+    equal bit for bit and counted on their instance; then the two timed in
+    turns (wgmma, fma, fma, wgmma; CUDA events), the tensor-core one no
+    slower.  On CPU tensors (a rehearsal) both names run the wrapper's
+    plain version and nothing is timed.  Returns a row a case."""
+    cuda = torch.device(device).type == "cuda"
+    rows = []
+    for i, (label, case) in enumerate(BACKWARD_CASES):
+        B, H, KV, S, Sk, D, causal, window = case
+        kw = dict(causal=causal, window=window)
+        q, k, v, _, _ = backward_inputs(torch, ops, case, "bfloat16", device,
+                                        seed=400 + i)
+        want = ref.mha(q, k, v, **kw)
+        runs = {inst: (lambda inst=inst: ops._flash_launch(
+            q, k, v, inst, sm_scale=None, **kw))
+            if cuda else (lambda: ops.flash_attention(q, k, v, **kw))
+            for inst in ops.FLASH_INSTANCES}
+        row = dict(case=label, shape=f"q (B={B}, H={H}, S={S}, D={D}), kv "
+                   f"(KV={KV}, Sk={Sk}) bf16, causal={causal}, "
+                   f"window={window}")
+        for inst, run in runs.items():
+            what = f"flash_attention {label} bf16 [{inst}, forced]"
+            before = dict(ops.flash_launches)
+            got, again = run(), run()
+            if cuda:
+                check(ops.flash_launches[inst] - before[inst] == 2,
+                      f"{what}: did not launch its instance twice")
+            check(torch.equal(got, again),
+                  f"{what}: two launches on the same inputs differ")
+            dev, share = flash_deviation(torch, got, want, "bfloat16")
+            log(f"check {what}: max|dev| {dev:.3e} ({share:.3f} of the "
+                "limit)")
+            check(share <= 1.0, f"{what}: max|dev| {dev:.3e} is "
+                  f"{share:.2f}x the limit")
+            record(devs, "flash_attention", "bfloat16", dev)
+            row[inst] = dict(max_abs_dev=dev, share=share)
+            del got, again
+        if cuda:
+            w1 = cuda_ms(torch, runs["wgmma"], 20)
+            f1 = cuda_ms(torch, runs["fma"], 3)
+            f2 = cuda_ms(torch, runs["fma"], 3)
+            w2 = cuda_ms(torch, runs["wgmma"], 20)
+            for inst, (t1, t2) in (("wgmma", (w1, w2)), ("fma", (f1, f2))):
+                row[inst].update(ms=(t1 + t2) / 2, ms_samples=[t1, t2])
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                B, H, KV, S, D, 2, window, Sk, causal)
+            log(f"time flash_attention instances {label} [{row['shape']}]: "
+                f"wgmma {row['wgmma']['ms']:.4f} ms (samples {w1:.4f}, "
+                f"{w2:.4f}), fma {row['fma']['ms']:.4f} ms (samples "
+                f"{f1:.4f}, {f2:.4f}), bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}); wgmma / fma "
+                f"{row['wgmma']['ms'] / row['fma']['ms']:.4f}")
+            check(row["wgmma"]["ms"] <= row["fma"]["ms"],
+                  f"flash_attention {label}: the tensor-core instance "
+                  f"({row['wgmma']['ms']:.4f} ms) is slower than the "
+                  f"fp32-FMA one ({row['fma']['ms']:.4f} ms)")
+        rows.append(row)
+        del q, k, v, want, runs
+        if cuda:
+            torch.cuda.empty_cache()
+    return rows
+
+
 def backward_instance_checks(torch, ops, ref, device, devs: dict):
-    """Phase 16: at every case of BACKWARD_CASES that the tensor-core
-    instance takes (D = 64 or 128), in bf16, both instances of
+    """Phase 16: at every case of BACKWARD_CASES (D = 64, 128 and 256:
+    the tensor-core instance takes them all), in bf16, both instances of
     ``flash_attention_backward`` forced by name on the same inputs (o the
     plain forward's) against ``ref.mha_backward``: each of dq, dk, dv
     within the bf16 limit, two launches equal bit for bit and counted on
@@ -3716,8 +3871,6 @@ def backward_instance_checks(torch, ops, ref, device, devs: dict):
     rows = []
     for i, (label, case) in enumerate(BACKWARD_CASES):
         B, H, KV, S, Sk, D, causal, window = case
-        if D not in (64, 128):
-            continue
         kw = dict(causal=causal, window=window)
         q, k, v, _, do = backward_inputs(torch, ops, case, "bfloat16", device,
                                          seed=300 + i)
@@ -3774,7 +3927,7 @@ def backward_instance_checks(torch, ops, ref, device, devs: dict):
             for inst, (t1, t2) in (("wgmma", (w1, w2)), ("fma", (f1, f2))):
                 ms = (t1 + t2) / 2
                 row[inst].update(ms=ms, ms_samples=[t1, t2],
-                                 tflops=BACKWARD_EXECUTED[inst] * B * H
+                                 tflops=backward_executed(inst, D) * B * H
                                  * pairs * D / ms / 1e9)
             row.update(bound_ms=bms, bound_by=by)
             for inst, run in runs.items():
@@ -3782,7 +3935,8 @@ def backward_instance_checks(torch, ops, ref, device, devs: dict):
             log(f"time flash_attention_backward instances {label} "
                 f"[{row['shape']}]: wgmma {row['wgmma']['ms']:.4f} ms "
                 f"(samples {w1:.4f}, {w2:.4f}; "
-                f"{row['wgmma']['tflops']:.1f} TFLOP/s at 22 D a pair), fma "
+                f"{row['wgmma']['tflops']:.1f} TFLOP/s at "
+                f"{backward_executed('wgmma', D)} D a pair), fma "
                 f"{row['fma']['ms']:.4f} ms (samples {f1:.4f}, {f2:.4f}; "
                 f"{row['fma']['tflops']:.2f} TFLOP/s at 16 D a pair), bound "
                 f"{bms:.4f} ms ({by}); wgmma / fma "
@@ -3833,15 +3987,17 @@ def leaf_deviation(torch, got, want) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
-def train_step_vs_plain(torch, ops, ref, model, cfg, batch, other):
+def train_step_vs_plain(torch, ops, ref, model, cfg, batch, other, *,
+                        loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL):
     """The step's loss and gradients with the kernels against the same
     step with the plain attention swapped in, from the same weights and
     batch; the control is the kernel step's gradients of ``other``.  The
-    kernel step must launch the flash forward twice a layer (the pass and
-    its remat) and the backward once, and call no plain attention."""
+    kernel step must launch the flash forward twice an attention layer
+    (the pass and its remat) and the backward once, every launch on the
+    tensor-core instances, and call no plain attention."""
     from repro_torch.models import attention
     lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
-    L = cfg.num_layers
+    L = kernel_layers(cfg)
 
     def loss_and_grads(b):
         lm.zero_grad(set_to_none=True)
@@ -3862,6 +4018,10 @@ def train_step_vs_plain(torch, ops, ref, model, cfg, batch, other):
           and ran["flash_attention_backward"] == L,
           f"train step: launches {ran}, expected {2 * L} flash forward "
           f"(pass + remat) and {L} backward")
+    check(ops.flash_launches["wgmma"] == 2 * L
+          and ops.flash_backward_launches["wgmma"] == L,
+          f"train step: forward launches by instance {ops.flash_launches}, "
+          f"backward {ops.flash_backward_launches}, expected all on wgmma")
     kernel_attend = attention.self_attend
     attention.self_attend = plain_self_attend
     try:
@@ -3882,25 +4042,25 @@ def train_step_vs_plain(torch, ops, ref, model, cfg, batch, other):
     log(f"train step {cfg.name} B={batch['tokens'].shape[0]} "
         f"S={batch['tokens'].shape[1]}: loss kernel {float(loss_k):.6f}, "
         f"plain {float(loss_p):.6f}, |dev| {loss_dev:.4e} (limit "
-        f"{TRAIN_LOSS_TOL:g}); gradients, max over {len(devs)} parameters "
+        f"{loss_tol:g}); gradients, max over {len(devs)} parameters "
         f"of max|g_k - g_p| / max|g_p|: {devs[worst]:.4e} at {worst} "
-        f"(limit {TRAIN_GRAD_TOL:g}), median "
+        f"(limit {grad_tol:g}), median "
         f"{sorted(devs.values())[len(devs) // 2]:.4e}; control (another "
         f"batch's kernel gradients) max {max(ctl.values()):.4e}, min "
         f"{min(ctl.values()):.4e}")
     for n in sorted(devs, key=devs.get)[-6:]:
         log(f"train step leaf {n}: {devs[n]:.4e} (control {ctl[n]:.4e})")
-    check(bool(torch.isfinite(loss_k)) and loss_dev <= TRAIN_LOSS_TOL,
-          f"train step: loss |dev| {loss_dev:.4e} > {TRAIN_LOSS_TOL}")
-    check(devs[worst] <= TRAIN_GRAD_TOL, f"train step: {worst} gradient "
-          f"{devs[worst]:.4e} > {TRAIN_GRAD_TOL}")
-    check(min(ctl.values()) > TRAIN_GRAD_TOL, "train step: the control "
+    check(bool(torch.isfinite(loss_k)) and loss_dev <= loss_tol,
+          f"train step: loss |dev| {loss_dev:.4e} > {loss_tol}")
+    check(devs[worst] <= grad_tol, f"train step: {worst} gradient "
+          f"{devs[worst]:.4e} > {grad_tol}")
+    check(min(ctl.values()) > grad_tol, "train step: the control "
           f"{min(ctl.values()):.4e} is within the limit at "
           f"{min(ctl, key=ctl.get)}")
     out = dict(loss_kernel=float(loss_k), loss_plain=float(loss_p),
-               loss_dev=loss_dev, loss_tol=TRAIN_LOSS_TOL,
+               loss_dev=loss_dev, loss_tol=loss_tol,
                grad_dev_max=devs[worst], grad_dev_leaf=worst,
-               grad_tol=TRAIN_GRAD_TOL, control_max=max(ctl.values()),
+               grad_tol=grad_tol, control_max=max(ctl.values()),
                control_min=min(ctl.values()),
                batch=int(batch["tokens"].shape[0]))
     del lm, grads_k, grads_p, grads_c
@@ -3987,14 +4147,13 @@ def timed_train_loop(torch, ops, train, cfg, batch: int, seq: int,
                 wall_s=wall, steps=history, losses=losses)
 
 
-def train_run(torch, ops, train, cfg):
-    """``timed_train_loop`` for TRAIN_STEPS steps at TRAIN_BATCH x
-    TRAIN_SEQ: each step 2 flash forward launches a layer (pass and remat)
-    on the tensor-core instance and one backward, on the tensor-core
-    instance too, nothing else launched.  Returns the launches and the
-    times."""
-    L = cfg.num_layers
-    run = timed_train_loop(torch, ops, train, cfg, TRAIN_BATCH, TRAIN_SEQ)
+def train_run(torch, ops, train, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """``timed_train_loop`` for TRAIN_STEPS steps at batch x seq: each step
+    2 flash forward launches an attention layer (pass and remat) on the
+    tensor-core instance and one backward, on the tensor-core instance
+    too, nothing else launched.  Returns the launches and the times."""
+    L = kernel_layers(cfg)
+    run = timed_train_loop(torch, ops, train, cfg, batch, seq)
     launches, instances = run["launches"], run["flash_instances"]
     backward_instances = run["backward_instances"]
     want = {name: 0 for name in ops.KERNELS}
@@ -4002,13 +4161,15 @@ def train_run(torch, ops, train, cfg):
                 flash_attention_backward=L * TRAIN_STEPS)
     check(launches == want, f"train_loop launches {launches}, expected "
           f"{want}")
-    check(instances["wgmma"] == 2 * L * TRAIN_STEPS,
-          f"train_loop: flash forward launches by instance {instances}")
+    check(instances == {"wgmma": 2 * L * TRAIN_STEPS, "fma": 0},
+          f"train_loop: flash forward launches by instance {instances}, "
+          "expected every one on the tensor-core instance")
     check(backward_instances == {"wgmma": L * TRAIN_STEPS, "fma": 0},
           f"train_loop: backward launches by instance {backward_instances}, "
           "expected every one on the tensor-core instance")
     losses = run.pop("losses")
-    log(f"train {cfg.name} {L} layers, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+    log(f"train {cfg.name} {cfg.num_layers} layers ({L} attention), "
+        f"B={batch} S={seq}: "
         f"{TRAIN_STEPS} steps in {run['wall_s']:.2f} s, median step "
         f"{run['median_step_ms']:.2f} ms ({run['tokens_per_s']:.1f} "
         f"tokens/s; forward + backward {run['fwd_bwd_ms']:.2f} ms, "
@@ -5268,6 +5429,58 @@ def dryrun_phase(torch, ops, device="cuda", reduced=False):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 23: recurrentgemma-2b training
+# --------------------------------------------------------------------------
+
+def rg_training_phase(torch, ops, ref):
+    """Phase 23: recurrentgemma-2b as configured trains on the card — the
+    kernel step against the plain-attention step (``train_step_vs_plain``
+    at RG_STEP_TOL), ``train_loop`` with the counters read around it
+    (``train_run``: every flash launch, forward and backward, on the
+    tensor-core instances), and a checkpoint resume at the reduced config.
+    Returns the phase's numbers."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs
+    from repro_torch.data import synthetic as data
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get(RG_TRAIN_ARCH)
+    log(f"train {cfg.name}: as configured, no cut; {cfg.num_layers} layers "
+        f"({kernel_layers(cfg)} attention), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads}, D {cfg.head_dim}, "
+        f"window {cfg.sliding_window}, lru_width {cfg.lru_width}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.padded_vocab} (padded, tied), "
+        f"{cfg.param_dtype}")
+    stream = data.token_stream(cfg, RG_STEP_BATCH, RG_TRAIN_SEQ, seed=1,
+                               device="cuda")
+    step_check = train_step_vs_plain(
+        torch, ops, ref, model, cfg, next(stream), next(stream),
+        loss_tol=RG_STEP_TOL["loss"], grad_tol=RG_STEP_TOL["grad"])
+    del stream
+    # the earlier steps' models and gradients can outlive them in reference
+    # cycles until the collector runs (phase 22 has read 0.34 or 6.1 GB
+    # held before its decode step from one run to the next); the loop's
+    # ~68 GB peak leaves no room for them
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"train {cfg.name}: {held / 1e9:.3f} GB allocated before train_loop "
+        "(after gc.collect)")
+    run = train_run(torch, ops, train, cfg, RG_TRAIN_BATCH, RG_TRAIN_SEQ)
+    run["held_before_bytes"] = held
+    torch.cuda.empty_cache()
+    resume = checkpoint_resume(torch, configs, model, train, data, ckpt,
+                               arch=RG_TRAIN_ARCH)
+    seconds = time.perf_counter() - t0
+    log(f"phase 23: {seconds:.1f} s")
+    return dict(step_check=step_check, run=run, resume=resume,
+                seconds=seconds)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5540,21 +5753,21 @@ def main() -> int:
 
     # phase 12: recurrentgemma-2b at full width — serving with a prompt
     # longer than the window, the kernel against the plain attention inside
-    # the model (the fp32-FMA instance at D = 256), its flash and RG-LRU
+    # the model (the tensor-core instance at D = 256), its flash and RG-LRU
     # times, and the head on its features
     rcfg, params, _ = new_model(torch, model, configs, "recurrentgemma_2b")
     check(RG_PROMPTS[0] > rcfg.sliding_window and RG_LEN > RG_PROMPTS[0],
           "recurrentgemma: the long prompt does not wrap the ring cache")
     r_served = backbone_serving(torch, ops, engine, rcfg, params,
                                 prompts=RG_PROMPTS, max_len=RG_LEN,
-                                instance="fma")
+                                instance="wgmma")
     short = r_served["prompts"][-1]
     rg_tokenwise = [tokenwise_agreement(torch, engine, rcfg, params, short,
                                         max_len=RG_LEN, tol=RG_TOKENWISE_TOL,
                                         tokens=False)]
     model_devs["bfloat16 recurrentgemma-2b"] = in_model_instances(
         torch, ops, rcfg, params, label=f"{rcfg.name} bf16 26 layers "
-        f"({kernel_layers(rcfg)} attention)", instance="fma")
+        f"({kernel_layers(rcfg)} attention)", instance="wgmma")
     d256 = flash_d256_timing(torch, ops, ref, "cuda")
     rows["flash_attention"]["variants"].append(d256)
     # the long prompt's prefill launch (S = 2099, the window active) held
@@ -5643,9 +5856,11 @@ def main() -> int:
     # checkpoint resume
     training = training_phase(torch, ops, ref, devs)
     rows["flash_attention_backward"] = training["timing"]
-    # phase 16: the backward's two instances on the same inputs at the
-    # cases the tensor-core one takes, and their times
+    # phase 16: the two instances of the forward and of the backward on
+    # the same inputs at every case (D = 64, 128, 256), and their times
     t16 = time.perf_counter()
+    forward_instances = forward_instance_checks(torch, ops, ref, "cuda",
+                                                devs)
     backward_instances = backward_instance_checks(torch, ops, ref, "cuda",
                                                   devs)
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
@@ -5672,6 +5887,11 @@ def main() -> int:
     # 6's decode step dry-run and run, the four-card runs predicted, every
     # combination of JAX's dry runs
     phase22 = dryrun_phase(torch, ops)
+    # phase 23: recurrentgemma-2b as configured trains on the card through
+    # the D = 256 instances: the kernel step against the plain-attention
+    # step, train_loop (counters read around it), a resume
+    phase23 = rg_training_phase(torch, ops, ref)
+    rg_launches = phase23["run"]["launches"]
     for name in FIT_KERNELS:
         launches[name] += phase21["launches"][name]
     for inst, n in phase21["instances"]["round"].items():
@@ -5689,7 +5909,9 @@ def main() -> int:
         + phase19["launches"]["flash_attention"] \
         + phase22["train"]["launches"]["flash_attention"]
     launches["flash_attention_backward"] += \
-        phase22["train"]["launches"]["flash_attention_backward"]
+        phase22["train"]["launches"]["flash_attention_backward"] \
+        + rg_launches["flash_attention_backward"]
+    launches["flash_attention"] += rg_launches["flash_attention"]
     for h in heads.values():
         launches["flash_attention"] += h["flash_launches"]
         for name in FIT_KERNELS:
@@ -5728,6 +5950,7 @@ def main() -> int:
                                  dt, dict(tol=MODEL_TOL[dt.split()[0]])))
                     for dt, (d, m) in model_devs.items()},
                 serve_instances=served["flash_instances"],
+                instances=forward_instances,
                 sass={f"flash_tc_kernel<{D}>": dict(HGMMA=h, UTMALDG=u)
                       for D, (h, u) in sass.items()},
                 launches_by_path={
@@ -5755,6 +5978,8 @@ def main() -> int:
                         for r in phase19["sharded"]["ranks"]),
                     f"phase 22: {TRAIN_ARCH}'s step once against its dry "
                     "run": phase22["train"]["launches"]["flash_attention"],
+                    f"train_loop {RG_TRAIN_ARCH} ({TRAIN_STEPS} steps: pass "
+                    "+ remat)": rg_launches["flash_attention"],
                     **{f"seamless-m4t-large-v2 {path} (B={run['B']}, "
                        f"S={run['S']})": n
                        for run in encdec["runs"]
@@ -5795,7 +6020,17 @@ def main() -> int:
                 phase_s=training["seconds"],
                 remat_policies=phase19["remat"],
                 sharded_train_step=phase19["sharded"],
-                phase_19_s=phase19["seconds"])
+                phase_19_s=phase19["seconds"],
+                train_recurrentgemma={
+                    "train_step_vs_plain": phase23["step_check"],
+                    "train_loop": {k: phase23["run"][k] for k in (
+                        "median_step_ms", "fwd_bwd_ms", "opt_ms",
+                        "tokens_per_s", "peak_bytes", "held_before_bytes",
+                        "wall_s", "flash_instances", "backward_instances",
+                        "steps")},
+                    "launches": rg_launches,
+                    "checkpoint_resume": phase23["resume"],
+                    "phase_s": phase23["seconds"]})
         elif name == "ssd_scan_backward":
             tol = {"float32": {k: f"{v:g} max|grad|"
                                for k, v in SSD_BACKWARD_TOL.items()},

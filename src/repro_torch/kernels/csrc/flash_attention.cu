@@ -24,21 +24,28 @@
 // writing o once; at S = 2048 and D = 128 that is ~500 flops per byte,
 // above the card's ridge, so the bound is the operations.
 //
-// Two instances; the wrapper picks one by dtype and D alone:
+// Two instances; the wrapper picks one by dtype, D and the operands:
 //
-// * flash_attention_tc (bf16, D = 64 or 128: every dense model the port
-//   serves) runs both products on the tensor cores.  One block of three
-//   warpgroups per (b*h, 128-query tile): warpgroups 0 and 1 each own 64
-//   query rows; one thread of warpgroup 2 issues TMA loads of the q tile
+// * flash_attention_tc (bf16, D = 64, 128 or 256: every model the port
+//   serves) runs both products on the tensor cores.  One block per (b*h,
+//   128-query tile): warpgroups 0 and 1 each own 64 query rows; at D = 64
+//   and 128 one thread of a third warpgroup issues TMA loads of the q tile
 //   and of a two-stage ring of (64-key K, V) tiles, guarded by mbarriers,
-//   and gives its registers to the consumers (setmaxnreg).  The tiles land
+//   and gives its registers to the consumers (setmaxnreg).  At D = 256 a
+//   consumer thread holds 128 fp32 registers of O, 32 of s and 48 of the
+//   three-term P, past the 168 that ptxas gives a thread of a 384-thread
+//   block whatever setmaxnreg asks: the block is the two consumers alone
+//   (256 threads, up to 255 registers a thread; 250 used, no spill), and
+//   thread 0 issues the loads, refilling a stage once the eight consumer
+//   warps have released it.  Its 64 KB q tile and two stages of 32 KB K and
+//   V tiles take 192 KB of shared memory, one block an SM.  The tiles land
 //   in shared memory with TMA's 128-byte swizzle, which the wgmma
 //   descriptors read back: q . k^T is one bf16 m64n64k16 wgmma per 16
 //   columns of D with both operands K-major in shared memory (k rows are
 //   keys contiguous in D: no transpose).  The probabilities stay in
 //   registers as the A operand of the second product, against V in shared
-//   memory as an MN-major B operand (m64n128k16 at D = 128: both 64-column
-//   halves of V in one product).  The port's correctness check holds
+//   memory as an MN-major B operand (m64n128k16 at D = 128 and 256: two
+//   64-column halves of V in one product).  The port's correctness check holds
 //   the bf16 output to one bf16 ulp (plus 1e-6) of its fp32-P plain
 //   version.  P rounded once to bf16 before P.V breaks it (~12 % of the
 //   outputs at S = 2048), and so does P split into two bf16 terms (p to
@@ -57,7 +64,8 @@
 //   encoded with cuTensorMapEncodeTiled, fetched through
 //   cudaGetDriverEntryPoint: the library does not link libcuda.
 //
-// * flash_attention (fp32, and bf16 at other D) is the first kernel of the
+// * flash_attention (fp32, bf16 at other D, and bf16 views the tensor maps
+//   cannot take) is the first kernel of the
 //   port: fp32 FMAs on the CUDA cores (67 TFLOP/s peak).  One thread block
 //   (128 threads, 16 x 8) per (b*h, 64-query tile).  The q tile is staged
 //   once in shared memory as fp32; the key tiles (64 keys) stream through
@@ -304,18 +312,32 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The tensor-core instance: bf16, D in {64, 128}
+// The tensor-core instance: bf16, D in {64, 128, 256}
 // ---------------------------------------------------------------------------
 namespace tc {
 
 constexpr int kBQ = 128;         // query rows per block (two consumer warpgroups)
 constexpr int kBK = 64;          // keys per tile
 constexpr int kStages = 2;       // K/V ring depth
-constexpr int kThreads = 384;    // warpgroups 0, 1 consume; warpgroup 2 loads
+
+// Who issues the loads.  At D = 64 and 128 a third warpgroup does (384
+// threads), one of its threads keeping the ring full, and gives its
+// registers to the consumers (setmaxnreg).  At D = 256 a consumer thread
+// holds 128 fp32 registers of O, 32 of s and 48 of the three-term P, more
+// than the 168 a thread of a 384-thread block gets (ptxas caps it there
+// whatever setmaxnreg asks), so the block is the two consumer warpgroups
+// alone (256 threads, up to 255 registers a thread) and thread 0 refills a
+// stage once all eight consumer warps have released it.
+template <int D>
+struct Loads {
+  static constexpr bool kSelf = D == 256;
+  static constexpr int kThreads = kSelf ? 256 : 384;
+};
 
 // Shared memory of one block, in bytes.  Every tile is stored as D / 64
 // "halves" of 64 columns (one TMA box each), rows at 128 bytes, swizzled in
 // 1024-byte atoms of 8 rows; every buffer starts on a 1024-byte boundary.
+// At D = 256: a 64 KB q tile and two stages of 32 KB K and V tiles, 192 KB.
 template <int D>
 struct Layout {
   static constexpr int kHalves = D / 64;
@@ -352,13 +374,14 @@ struct OutArgs {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Loads<D>::kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, OutArgs out, int H,
                 int group, int S, int Sk, float scale_log2, int causal,
                 int window) {
   using L = Layout<D>;
+  constexpr bool kSelf = Loads<D>::kSelf;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = raw + ((1024u - (raw & 1023u)) & 1023u);
@@ -371,7 +394,35 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = bh / H, h = bh % H;
   const int kvh = h / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;    // heaviest first
-  const int wg = threadIdx.x / 128;
+  // the consumers' branches on wg hold wgmmas: at D = 256 wg comes from
+  // lane 0, so that ptxas knows it is uniform across the warp
+  const int wg = kSelf ? warpgroup() : threadIdx.x / 128;
+
+  // The key tiles of the block: those its first to its last row can see.
+  int blk_begin, blk_end;
+  key_tiles(q0, min(q0 + kBQ, S) - 1, Sk, causal, window, blk_begin, blk_end);
+  const int n_tiles = blk_end - blk_begin;
+
+  // the q tile, and key tile i of the block into stage i % kStages
+  auto issue_q = [&]() {
+    mbar_expect_tx(q_full, L::kHalves * L::kQHalf);
+#pragma unroll
+    for (int hf = 0; hf < L::kHalves; ++hf)
+      tma_load(sQ + hf * L::kQHalf, &tq, q_full, 64 * hf, q0, h, b);
+  };
+  auto issue = [&](int i) {
+    const int st = i % kStages;
+    const uint32_t full = kv_full + 8 * st;
+    mbar_expect_tx(full, 2 * L::kTile);
+    const int k0 = (blk_begin + i) * kBK;
+#pragma unroll
+    for (int hf = 0; hf < L::kHalves; ++hf) {
+      tma_load(sK + st * L::kTile + hf * L::kTileHalf, &tk, full, 64 * hf,
+               k0, kvh, b);
+      tma_load(sV + st * L::kTile + hf * L::kTileHalf, &tv, full, 64 * hf,
+               k0, kvh, b);
+    }
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -380,41 +431,29 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(kv_empty + 8 * st, 8);                  // the 8 consumer warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if constexpr (kSelf) {
+      issue_q();
+      for (int i = 0; i < min(n_tiles, kStages); ++i) issue(i);
+    }
   }
   __syncthreads();
 
-  // The key tiles of the block: those its first to its last row can see.
-  int blk_begin, blk_end;
-  key_tiles(q0, min(q0 + kBQ, S) - 1, Sk, causal, window, blk_begin, blk_end);
-  const int n_tiles = blk_end - blk_begin;
-
-  if (wg == 2) {
+  if (!kSelf && wg == 2) {
     // ---- producer: one thread keeps the loads in flight ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, L::kHalves * L::kQHalf);
-#pragma unroll
-      for (int hf = 0; hf < L::kHalves; ++hf)
-        tma_load(sQ + hf * L::kQHalf, &tq, q_full, 64 * hf, q0, h, b);
+      issue_q();
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
         if (i >= kStages)                               // stage released?
           mbar_wait(kv_empty + 8 * st, ((i / kStages) - 1) & 1);
-        const uint32_t full = kv_full + 8 * st;
-        mbar_expect_tx(full, 2 * L::kTile);
-        const int k0 = (blk_begin + i) * kBK;
-#pragma unroll
-        for (int hf = 0; hf < L::kHalves; ++hf) {
-          tma_load(sK + st * L::kTile + hf * L::kTileHalf, &tk, full, 64 * hf,
-                   k0, kvh, b);
-          tma_load(sV + st * L::kTile + hf * L::kTileHalf, &tv, full, 64 * hf,
-                   k0, kvh, b);
-        }
+        issue(i);
       }
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows qa .. qa + 63 ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    if constexpr (!kSelf)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int qa = q0 + 64 * wg;
@@ -523,25 +562,30 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         }
 
         // acc += p_hi . V + p_mid . V + p_lo . V: 16 keys a step, 2048
-        // bytes apart (two 8-row swizzle atoms); each 64-column half of D is
-        // its own product
+        // bytes apart (two 8-row swizzle atoms); at D = 64 one 64-wide
+        // product, else one 128-wide product per two 64-column halves of D
+        // (the second block of 64 columns lies one half-tile, the LBO, past
+        // the first)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          if constexpr (D == 128) {
-            // both halves of D in one 128-wide product: the second block
-            // of 64 columns lies one half-tile (LBO) past the first
-            const uint64_t dv = sw128_desc(vbase + kk * 16 * kRowBytes,
-                                           L::kTileHalf, 1024);
-            wgmma_rs128(acc[0], acc[1], p_hi[kk], dv);
-            wgmma_rs128(acc[0], acc[1], p_mid[kk], dv);
-            wgmma_rs128(acc[0], acc[1], p_lo[kk], dv);
-          } else {
+          if constexpr (D == 64) {
             const uint64_t dv =
                 sw128_desc(vbase + kk * 16 * kRowBytes, 1024, 1024);
             wgmma_rs(acc[0], p_hi[kk], dv);
             wgmma_rs(acc[0], p_mid[kk], dv);
             wgmma_rs(acc[0], p_lo[kk], dv);
+          } else {
+#pragma unroll
+            for (int pr = 0; pr < D / 128; ++pr) {
+              const uint64_t dv =
+                  sw128_desc(vbase + 2 * pr * L::kTileHalf +
+                                 kk * 16 * kRowBytes,
+                             L::kTileHalf, 1024);
+              wgmma_rs128(acc[2 * pr], acc[2 * pr + 1], p_hi[kk], dv);
+              wgmma_rs128(acc[2 * pr], acc[2 * pr + 1], p_mid[kk], dv);
+              wgmma_rs128(acc[2 * pr], acc[2 * pr + 1], p_lo[kk], dv);
+            }
           }
         }
         wgmma_commit();
@@ -551,6 +595,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(kv_empty + 8 * st);    // the stage is free
+      if constexpr (kSelf) {
+        // thread 0 refills the stage once all eight warps have released it
+        if (threadIdx.x == 0 && i + kStages < n_tiles) {
+          mbar_wait(kv_empty + 8 * st, (i / kStages) & 1);
+          issue(i + kStages);
+        }
+        __syncwarp();
+      }
     }
 
     // o = acc / l, rounded once; rows past S are not stored
@@ -594,7 +646,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   const OutArgs out{static_cast<__nv_bfloat16*>(o), os.b, os.h, os.s};
-  flash_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_tc_kernel<D><<<grid, Loads<D>::kThreads, smem, stream>>>(
       tq, tk, tv, out, H, H / KV, S, Sk, scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -632,7 +684,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
 }
 
 // The tensor-core instance: q, o are (B, H, S, D) and k, v (B, KV, Sk, D),
-// all bf16, D = 64 or 128, with element strides over (B, heads, rows) that are
+// all bf16, D = 64, 128 or 256, with element strides over (B, heads, rows) that are
 // multiples of 8 (16 bytes, for the tensor maps; a dimension of size 1 may
 // pass any such stride), a unit stride over D and 16-byte-aligned q, k, v.
 // Same return convention as flash_attention, with the tensor-map errors
@@ -647,7 +699,7 @@ int flash_attention_tc(const void* q, const void* k, const void* v, void* o,
   const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                                 v_sb, v_sh, v_ss};
   bool ok = B >= 1 && H >= 1 && KV >= 1 && H % KV == 0 && S >= 1 &&
-            Sk >= 1 && (D == 64 || D == 128) &&
+            Sk >= 1 && (D == 64 || D == 128 || D == 256) &&
             (S + tc::kBQ - 1) / tc::kBQ <= 65535 &&
             (Sk == S || (!causal && window <= 0));
   for (long long st : strides) ok = ok && st > 0 && st % 8 == 0;
@@ -658,10 +710,14 @@ int flash_attention_tc(const void* q, const void* k, const void* v, void* o,
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? tc::launch<64>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs, os,
-                                  scale, causal, window, st)
-                 : tc::launch<128>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs,
-                                   os, scale, causal, window, st);
+  if (D == 64)
+    return tc::launch<64>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs, os, scale,
+                          causal, window, st);
+  if (D == 128)
+    return tc::launch<128>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs, os,
+                           scale, causal, window, st);
+  return tc::launch<256>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs, os, scale,
+                         causal, window, st);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -35,9 +35,9 @@
 // needed.  Two instances; the wrapper picks one from dtype, D and the
 // operands (ops.flash_backward_instance, the forward's rule):
 //
-// * flash_attention_backward_tc ("wgmma": bf16, D = 64 or 128, 16-byte-
-//   aligned bases and strides of q, k, v, o, do) runs every product on the
-//   tensor cores (bf16 wgmma, fp32 accumulators) in two kernels.  Tiles
+// * flash_attention_backward_tc ("wgmma": bf16, D = 64, 128 or 256,
+//   16-byte-aligned bases and strides of q, k, v, o, do) runs every product
+//   on the tensor cores (bf16 wgmma, fp32 accumulators) in two kernels.  Tiles
 //   arrive by TMA (128-byte swizzle, 64 x 64 boxes of 4-d tensor maps
 //   built from the strides, so the model's transposed (B, S, heads, D)
 //   buffers go in without a copy) in a two-stage ring guarded by
@@ -58,7 +58,11 @@
 //      reads V).  dq is stored times the scale from registers through its
 //      strides.  This folds the stats and dq passes of the fp32 instance
 //      into one launch; the forward writes no logsumexp, so serving keeps
-//      its launches and bits.
+//      its launches and bits.  At D = 256 the block is one consumer
+//      warpgroup of 64 rows whose thread 0 issues the loads (128 threads,
+//      192 KB: two consumers' q and do tiles and the K, V ring would pass
+//      227 KB, and 128 registers of dq with s and dP pass the 168 of a
+//      384-thread block; 224 used, no spill).
 //   B. dkdv_tc_kernel, per (b*kv head, 64-key tile), one warpgroup a block
 //      and two blocks an SM: the dk and dv accumulators (128 registers a
 //      thread at D = 128) with s^T and dP^T need more than the 168
@@ -71,7 +75,15 @@
 //      (1-D bulk copies): s^T = k q^T and dP^T = v do^T (SS), P^T and dS^T
 //      in registers, then dv += P^T do and dk += dS^T q with do and q
 //      MN-major; dk and dv accumulate in registers over the whole GQA
-//      group, and one block writes each of their elements.  (The same
+//      group, and one block writes each of their elements.  At D = 256
+//      dk and dv of 64 keys would be 256 registers a thread, so two blocks
+//      (blockIdx.z) split them into halves of 128 columns of D, each
+//      recomputing s^T and dP^T over all of D (26*D flops a pair in all
+//      instead of 22*D; 192 KB of shared memory, 255 registers, no
+//      spill); and a block takes one query head, not the whole group
+//      (splits_b: a long chain of wgmma accumulations loses the low bits
+//      the bf16 rule's floor needs), storing fp32 sums that
+//      dkdv_reduce_kernel adds in head order, scales and rounds.  (The same
 //      one-warpgroup shape for pass A measured slower at qwen3-14b's shape,
 //      so pass A keeps the shared key stream of two consumers.)
 //   Numerics: the products of bf16 operands are exact in the fp32
@@ -82,13 +94,14 @@
 //   2e-5 of its max) by 16-39x; two hold it, the rest being one-ulp flips
 //   of the final rounding (tests/test_torch_flash_grad.py emulates it).
 //   So the instance runs 22*D flops a pair on the tensor cores: s three
-//   times (pass A twice, pass B), dP twice, dv, dk and dq each 2 x 2D.
+//   times (pass A twice, pass B), dP twice, dv, dk and dq each 2 x 2D;
+//   26*D at D = 256, where pass B's two column blocks each compute s and dP.
 //   Ragged ends: TMA zero-fills rows past S and Sk; keys past Sk are masked
 //   in pass A (and their dk, dv rows never stored in pass B), rows past S
 //   have P = 0 through lse = +inf.  Only tiles that cross a mask edge pay
 //   for the mask; tiles outside it are never loaded.
 //
-// * flash_attention_backward ("fma": fp32, D = 256 and other D, and bf16
+// * flash_attention_backward ("fma": fp32, bf16 at other D, and bf16
 //   views the tensor maps cannot take) is the port's first design, three
 //   passes of fp32 FMAs on the CUDA cores (67 TFLOP/s peak) with every
 //   tile widened to fp32 in shared memory:
@@ -642,15 +655,52 @@ cudaError_t dispatch(const Args& a) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The tensor-core instance: bf16, D in {64, 128}
+// The tensor-core instance: bf16, D in {64, 128, 256}
 // ---------------------------------------------------------------------------
 namespace tc {
 
 constexpr int kBox = 64;          // rows of a TMA box, a panel, a warpgroup's tile
 constexpr int kStages = 2;        // depth of the streamed ring
-constexpr int kRowsA = 128;       // pass A's query rows a block
-constexpr int kThreadsA = 384;    // pass A: warpgroups 0, 1 consume; 2 loads
 constexpr int kThreads = 128;     // pass B: one warpgroup a block
+
+// Pass A's block.  At D = 64 and 128: two consumer warpgroups of 64 query
+// rows and a third whose one thread issues the loads (384 threads).  At
+// D = 256 the q and do tiles of two consumers (128 KB) and a two-stage
+// ring of 32 KB K and V tiles would pass the 227 KB of shared memory, and
+// a consumer's 128 registers of dq with s and dP would pass the 168 a
+// thread of a 384-thread block gets: one consumer warpgroup (128 threads,
+// 192 KB), whose thread 0 refills a stage once its four warps released it.
+template <int D>
+struct PassA {
+  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static constexpr int kRows = kBox * kConsumers;          // query rows a block
+  static constexpr int kThreads = D == 256 ? 128 : 384;
+};
+
+// Pass B's output columns a block: dk and dv of 64 keys at D = 256 are 256
+// fp32 registers a thread of one warpgroup, so two blocks split D in
+// halves of 128 columns, each recomputing s^T and dP^T over the whole D.
+template <int D>
+constexpr int kColsB = D < 128 ? D : 128;
+
+// Pass B's blocks a (b, kv head): at D = 64 and 128 one block sums dk and
+// dv over the whole GQA group in its tensor-core accumulators.  At D = 256
+// one block a query head: the tensor cores' fp32 accumulation drops low
+// bits at each k16 step, and a chain over recurrentgemma's 10 heads x 2048
+// queries (~1,300 steps) carries dk and dv to ~2e-5 of their max from the
+// plain fp32 sums, the bf16 rule's floor, where one head's chain keeps
+// them near the fp32-FMA instance's ~3e-6; each block stores its fp32
+// partial sums and dkdv_reduce_kernel adds them in head order.
+template <int D>
+__host__ __device__ constexpr int splits_b(int group) {
+  return D == 256 ? group : 1;
+}
+
+// rows of the lse | delta scratch a (b, h): S rounded up to 128, whatever
+// pass A's tile
+__host__ __device__ constexpr int stats_rows(int S) {
+  return (S + 127) / 128 * 128;
+}
 
 // A panel of 64 rows of a (rows, D) operand in shared memory: D / 64
 // "halves" of 64 columns, each 64 rows of 128 bytes, swizzled by TMA in
@@ -668,8 +718,8 @@ template <int D>
 struct LayoutA {
   static constexpr int kPanel = Panel<D>::kBytes;
   static constexpr int kQ = 0;
-  static constexpr int kDO = kQ + 2 * kPanel;
-  static constexpr int kK = kDO + 2 * kPanel;
+  static constexpr int kDO = kQ + PassA<D>::kConsumers * kPanel;
+  static constexpr int kK = kDO + PassA<D>::kConsumers * kPanel;
   static constexpr int kV = kK + kStages * kPanel;
   static constexpr int kBar = kV + kStages * kPanel;       // 1 + 2 kStages
   static constexpr int kBytes = kBar + 64 + 1024;           // + alignment slack
@@ -711,23 +761,27 @@ __device__ __forceinline__ void load_panel(uint32_t dst, const CUtensorMap* map,
     tma_load(dst + hf * Panel<D>::kHalf, map, bar, 64 * hf, row0, h, b);
 }
 
-// acc (64 x D) += A . B over 64 rows of K: A as four k16 steps of
-// registers, B a Panel<D> at `panel`, MN-major (its rows are the K
-// dimension, contiguous in D).  At D = 128 both 64-column halves go in one
-// m64n128k16 product, the second half one half-panel (LBO) past the first.
-template <int D>
-__device__ __forceinline__ void product_rs(float (&acc)[D / 64][32],
+// acc (64 x N) += A . B over 64 rows of K: A as four k16 steps of
+// registers, B the N / 64 halves of a panel from `panel` on, MN-major (its
+// rows are the K dimension, contiguous in D).  Every two 64-column halves
+// go in one m64n128k16 product, the second half one half-panel (LBO) past
+// the first.
+template <int N>
+__device__ __forceinline__ void product_rs(float (&acc)[N / 64][32],
                                            const uint32_t (&a)[4][4],
                                            uint32_t panel) {
+  constexpr int kHalf = kBox * kRowBytes;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (D == 128) {
-      wgmma_rs128(acc[0], acc[1], a[kk],
-                  sw128_desc(panel + kk * 16 * kRowBytes,
-                             Panel<D>::kHalf, 1024));
-    } else {
+    if constexpr (N == 64) {
       wgmma_rs(acc[0], a[kk],
                sw128_desc(panel + kk * 16 * kRowBytes, 1024, 1024));
+    } else {
+#pragma unroll
+      for (int pr = 0; pr < N / 128; ++pr)
+        wgmma_rs128(acc[2 * pr], acc[2 * pr + 1], a[kk],
+                    sw128_desc(panel + 2 * pr * kHalf + kk * 16 * kRowBytes,
+                               kHalf, 1024));
     }
   }
 }
@@ -807,16 +861,17 @@ struct ArgsA {
 struct ArgsB {
   const float* stats;
   Out dk, dv;
-  int H, KV, group, S_pad;
+  float* partials;       // fp32 (2, B * H, Sk, D) when splits > 1
+  int H, KV, group, S_pad, splits;
   Mask mk;
   float scale, scale_log2;
 };
 
-// Rows r0 and r0 + 8 of a 64 x D accumulator pair, times `mul`, rounded
-// once to bf16 through `out`'s strides; rows at or past `rows` are not
-// stored.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 64][32],
+// Rows r0 and r0 + 8 of a 64 x N accumulator, times `mul`, rounded once to
+// bf16 through `out`'s strides from column 0 of `base`; rows at or past
+// `rows` are not stored.
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N / 64][32],
                                            __nv_bfloat16* base, long long ss,
                                            int r0, int rows, int c0,
                                            float mul) {
@@ -826,7 +881,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 64][32],
     if (r >= rows) continue;
     __nv_bfloat16* row = base + r * ss;
 #pragma unroll
-    for (int hf = 0; hf < D / 64; ++hf)
+    for (int hf = 0; hf < N / 64; ++hf)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int x = 4 * j + 2 * i2;
@@ -836,16 +891,41 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 64][32],
   }
 }
 
-// ---- pass A: lse, delta and dq per (b*h, 128-query tile) ----
-// Two consumer warpgroups of 64 rows share the stream of key tiles, which
-// one thread of a third warpgroup issues.
+// Rows r0 and r0 + 8 of a 64 x N accumulator as fp32 at `base` (row
+// stride ld floats, from column 0); rows at or past `rows` are not stored.
+template <int N>
+__device__ __forceinline__ void store_partial(const float (&acc)[N / 64][32],
+                                              float* base, int ld, int r0,
+                                              int rows, int c0) {
+#pragma unroll
+  for (int i2 = 0; i2 < 2; ++i2) {
+    const int r = r0 + 8 * i2;
+    if (r >= rows) continue;
+    float* row = base + static_cast<long long>(r) * ld;
+#pragma unroll
+    for (int hf = 0; hf < N / 64; ++hf)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int x = 4 * j + 2 * i2;
+        *reinterpret_cast<float2*>(row + 64 * hf + 8 * j + c0) =
+            make_float2(acc[hf][x], acc[hf][x + 1]);
+      }
+  }
+}
+
+// ---- pass A: lse, delta and dq per (b*h, query tile) ----
+// At D = 64 and 128 two consumer warpgroups of 64 rows share the stream of
+// key tiles, which one thread of a third warpgroup issues; at D = 256 one
+// consumer warpgroup, whose thread 0 issues them (PassA).
 template <int D>
-__global__ void __launch_bounds__(kThreadsA, 1)
+__global__ void __launch_bounds__(PassA<D>::kThreads, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap tdo, const ArgsA a) {
   using L = LayoutA<D>;
+  constexpr int W = PassA<D>::kConsumers;
+  constexpr bool kSelf = W == 1;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = align1024(smem_raw);
   const uint32_t sQ = base + L::kQ, sDO = base + L::kDO;
@@ -856,51 +936,62 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H, kvh = h / a.group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRowsA;  // heaviest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * PassA<D>::kRows;  // heaviest first
   const int S = a.mk.S;
-  const int wg = warpgroup();
+  const int wg = kSelf ? 0 : warpgroup();
+
+  // the key tiles of the block, streamed twice: K alone for the row
+  // statistics, then K and V for dq
+  int blk_begin, blk_end;
+  a.mk.key_tiles(q0, PassA<D>::kRows, kBox, blk_begin, blk_end);  // q0 < S
+  const int n = blk_end - blk_begin;
+
+  // the q and do tiles (a panel a consumer), and load i of the 2 n into
+  // stage i % kStages
+  auto issue_q = [&]() {
+    mbar_expect_tx(q_full, 2 * W * L::kPanel);
+    for (int w = 0; w < W; ++w) {
+      load_panel<D>(sQ + w * L::kPanel, &tq, q_full, q0 + kBox * w, h, b);
+      load_panel<D>(sDO + w * L::kPanel, &tdo, q_full, q0 + kBox * w, h, b);
+    }
+  };
+  auto issue = [&](int i) {
+    const int st = i % kStages;
+    const bool second = i >= n;
+    const int k0 = (blk_begin + (second ? i - n : i)) * kBox;
+    mbar_expect_tx(full + 8 * st, (second ? 2 : 1) * L::kPanel);
+    load_panel<D>(sK + st * L::kPanel, &tk, full + 8 * st, k0, kvh, b);
+    if (second)
+      load_panel<D>(sV + st * L::kPanel, &tv, full + 8 * st, k0, kvh, b);
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(full + 8 * st, 1);
-      mbar_init(empty + 8 * st, 8);                     // the 8 consumer warps
+      mbar_init(empty + 8 * st, 4 * W);                 // the consumer warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if constexpr (kSelf) {
+      issue_q();
+      for (int i = 0; i < min(2 * n, kStages); ++i) issue(i);
+    }
   }
   __syncthreads();
 
-  // the key tiles of the block, streamed twice: K alone for the row
-  // statistics, then K and V for dq
-  int blk_begin, blk_end;
-  a.mk.key_tiles(q0, kRowsA, kBox, blk_begin, blk_end);   // q0 < S
-  const int n = blk_end - blk_begin;
-
-  if (wg == 2) {
+  if (!kSelf && wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, 4 * L::kPanel);
-      for (int w = 0; w < 2; ++w) {                     // a panel a consumer
-        load_panel<D>(sQ + w * L::kPanel, &tq, q_full, q0 + kBox * w, h,
-                      b);
-        load_panel<D>(sDO + w * L::kPanel, &tdo, q_full, q0 + kBox * w,
-                      h, b);
-      }
+      issue_q();
       for (int i = 0; i < 2 * n; ++i) {
         const int st = i % kStages;
         if (i >= kStages) mbar_wait(empty + 8 * st, ((i / kStages) - 1) & 1);
-        const bool second = i >= n;
-        const int k0 = (blk_begin + (second ? i - n : i)) * kBox;
-        mbar_expect_tx(full + 8 * st, (second ? 2 : 1) * L::kPanel);
-        load_panel<D>(sK + st * L::kPanel, &tk, full + 8 * st, k0,
-                            kvh, b);
-        if (second)
-          load_panel<D>(sV + st * L::kPanel, &tv, full + 8 * st, k0,
-                              kvh, b);
+        issue(i);
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    if constexpr (!kSelf)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int qa = q0 + 64 * wg;
@@ -983,8 +1074,12 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int x = 0; x < 32; ++x) l[(x / 2) % 2] += ex2(s[x] - m[(x / 2) % 2]);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * st);
+      if constexpr (kSelf) {
+        release(i, 2 * n, empty, lane, issue);
+      } else {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+      }
     }
 
     // lse = m + log2 l per row; rows past S (and a row that sees no key)
@@ -1006,7 +1101,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // ---- loop 2: P, dP = do v^T, dS = P (dP - delta), dq += dS k ----
-    float dq[D / 64][32];
+    float dq[D / 64][32];   // 128 registers a thread at D = 256
 #pragma unroll
     for (int hf = 0; hf < D / 64; ++hf)
 #pragma unroll
@@ -1052,15 +1147,19 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int hf = 0; hf < D / 64; ++hf) fence_regs(dq[hf]);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * st);
+      if constexpr (kSelf) {
+        release(i, 2 * n, empty, lane, issue);
+      } else {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+      }
     }
     store_rows<D>(dq, a.dq.p + b * a.dq.sb + h * a.dq.sh, a.dq.ss, r0, S, c0,
                   a.scale);
   }
 }
 
-// ---- pass B: dk and dv per (b*kv head, 64-key tile) ----
+// ---- pass B: dk and dv per (b*kv head, 64-key tile, kColsB columns) ----
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1077,24 +1176,28 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t full = kv_full + 8;
   const uint32_t empty = full + 8 * kStages;
 
-  const int bkv = blockIdx.x;
+  const int bkv = blockIdx.x / a.splits, split = blockIdx.x % a.splits;
   const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const int heads = a.group / a.splits;   // the block's query heads
   const int k0 = blockIdx.y * kBox;   // under `causal` the first tiles see most
+  constexpr int N = kColsB<D>;        // the block's columns of dk and dv
+  const int col0 = blockIdx.z * N;
+  const uint32_t cols = (col0 / 64) * Panel<D>::kHalf;   // their first half
   const int Sk = a.mk.Sk;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // the query tiles the block's keys see, for each of the group's heads in
-  // order
+  // the query tiles the block's keys see, for each of its heads in order
   int q_begin, q_end;
   a.mk.query_tiles(k0, kBox, kBox, q_begin, q_end);
   const int per_head = max(q_end - q_begin, 0);
-  const int n = a.group * per_head;
-  const long long BHS = static_cast<long long>(gridDim.x / a.KV) * a.H * a.S_pad;
+  const int n = heads * per_head;
+  const long long BHS =
+      static_cast<long long>(gridDim.x / (a.KV * a.splits)) * a.H * a.S_pad;
 
   // tile i of the block's sequence into its stage (thread 0 only)
   auto issue = [&](int i) {
     const int st = i % kStages;
-    const int h = kvh * a.group + i / per_head;
+    const int h = kvh * a.group + split * heads + i / per_head;
     const int q0 = (q_begin + i % per_head) * kBox;
     const uint32_t bar = full + 8 * st;
     mbar_expect_tx(bar, 2 * L::kPanel + L::kStatsBytes);
@@ -1123,9 +1226,9 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   // this thread's key rows r0 and r0 + 8 and query columns 8 j + c0 + {0, 1}
   const int r0 = k0 + 16 * warp + lane / 4;
   const int c0 = 2 * (lane % 4);
-  float dk[D / 64][32], dv[D / 64][32];
+  float dk[N / 64][32], dv[N / 64][32];
 #pragma unroll
-  for (int hf = 0; hf < D / 64; ++hf)
+  for (int hf = 0; hf < N / 64; ++hf)
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
       dk[hf][x] = 0.0f;
@@ -1177,25 +1280,72 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
     split2(s, p_hi, p_lo);
     split2(dp, ds_hi, ds_lo);
-    // dv += P^T do and dk += dS^T q, do and q MN-major
+    // dv += P^T do and dk += dS^T q over the block's columns, do and q
+    // MN-major
     wgmma_fence();
-    product_rs<D>(dv, p_hi, dobase);
-    product_rs<D>(dv, p_lo, dobase);
-    product_rs<D>(dk, ds_hi, qbase);
-    product_rs<D>(dk, ds_lo, qbase);
+    product_rs<N>(dv, p_hi, dobase + cols);
+    product_rs<N>(dv, p_lo, dobase + cols);
+    product_rs<N>(dk, ds_hi, qbase + cols);
+    product_rs<N>(dk, ds_lo, qbase + cols);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int hf = 0; hf < D / 64; ++hf) {
+    for (int hf = 0; hf < N / 64; ++hf) {
       fence_regs(dk[hf]);
       fence_regs(dv[hf]);
     }
     release(i, n, empty, lane, issue);
   }
-  store_rows<D>(dk, a.dk.p + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, r0, Sk, c0,
-                a.scale);
-  store_rows<D>(dv, a.dv.p + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, r0, Sk, c0,
-                1.0f);
+  if (a.splits == 1) {
+    store_rows<N>(dk, a.dk.p + b * a.dk.sb + kvh * a.dk.sh + col0, a.dk.ss,
+                  r0, Sk, c0, a.scale);
+    store_rows<N>(dv, a.dv.p + b * a.dv.sb + kvh * a.dv.sh + col0, a.dv.ss,
+                  r0, Sk, c0, 1.0f);
+  } else {
+    // this head's fp32 sums, unscaled, at (b * H + h, key, column)
+    const long long slab = static_cast<long long>(Sk) * D;
+    float* pk = a.partials + blockIdx.x * slab + col0;
+    store_partial<N>(dk, pk, D, r0, Sk, c0);
+    store_partial<N>(dv, pk + gridDim.x * slab, D, r0, Sk, c0);
+  }
+}
+
+// dk and dv from pass B's per-head fp32 partial sums (splits > 1): each
+// element of (b * KV + kvh, key, column) the sum over the group's heads in
+// order, dk times the scale, rounded once to bf16 through the outputs'
+// strides; two columns a thread.
+__global__ void __launch_bounds__(256)
+dkdv_reduce_kernel(const float* __restrict__ partials, Out dk, Out dv,
+                   int KV, int splits, int Sk, int D, long long pairs,
+                   float scale) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= pairs) return;
+  const int col = static_cast<int>((2 * i) % D);
+  const long long rest = (2 * i) / D;
+  const int key = static_cast<int>(rest % Sk);
+  const int bkv = static_cast<int>(rest / Sk);
+  const int b = bkv / KV, kvh = bkv % KV;
+  const long long slab = static_cast<long long>(Sk) * D;
+  const long long second = 2 * pairs * splits;   // dv's partials
+  const float* src = partials + static_cast<long long>(bkv) * splits * slab +
+                     static_cast<long long>(key) * D + col;
+  float2 sk = make_float2(0.0f, 0.0f), sv = sk;
+  for (int sp = 0; sp < splits; ++sp) {
+    const float2 pk = *reinterpret_cast<const float2*>(src + sp * slab);
+    const float2 pv =
+        *reinterpret_cast<const float2*>(src + second + sp * slab);
+    sk.x += pk.x;
+    sk.y += pk.y;
+    sv.x += pv.x;
+    sv.y += pv.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dk.p + b * dk.sb + kvh * dk.sh +
+                                     key * dk.ss + col) =
+      __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+  *reinterpret_cast<__nv_bfloat162*>(dv.p + b * dv.sb + kvh * dv.sh +
+                                     key * dv.ss + col) =
+      __floats2bfloat162_rn(sv.x, sv.y);
 }
 
 // The operands of one call: pointers, shapes and element strides over (B,
@@ -1203,7 +1353,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
 struct Call {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  float* stats;
+  float *stats, *partials;
   int B, H, KV, S, Sk;
   long long st[8][3];
   float scale;
@@ -1231,7 +1381,7 @@ int launch(const Call& c) {
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 LayoutB<D>::kBytes);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  const int q_tiles = (c.S + kRowsA - 1) / kRowsA;
+  const int q_tiles = (c.S + PassA<D>::kRows - 1) / PassA<D>::kRows;
   const Mask mk{c.S, c.Sk, c.causal, c.window > 0 ? c.window : 0};
   const float scale_log2 = c.scale * kLog2e;
   auto out = [&](void* p, int i) {
@@ -1242,15 +1392,25 @@ int launch(const Call& c) {
                  c.st[3][1], c.st[3][2],
                  static_cast<const __nv_bfloat16*>(c.dout), c.st[4][0],
                  c.st[4][1], c.st[4][2], out(c.dq, 5), c.stats, c.H,
-                 c.H / c.KV, q_tiles * kRowsA, mk, c.scale, scale_log2};
-  dq_tc_kernel<D><<<dim3(c.B * c.H, q_tiles), kThreadsA, LayoutA<D>::kBytes,
-                    c.stream>>>(tq, tk, tv, tdo, aa);
+                 c.H / c.KV, stats_rows(c.S), mk, c.scale, scale_log2};
+  dq_tc_kernel<D><<<dim3(c.B * c.H, q_tiles), PassA<D>::kThreads,
+                    LayoutA<D>::kBytes, c.stream>>>(tq, tk, tv, tdo, aa);
   cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  const ArgsB ab{c.stats, out(c.dk, 6), out(c.dv, 7), c.H, c.KV, c.H / c.KV,
-                 q_tiles * kRowsA, mk, c.scale, scale_log2};
-  dkdv_tc_kernel<D><<<dim3(c.B * c.KV, (c.Sk + kBox - 1) / kBox), kThreads,
-                      LayoutB<D>::kBytes, c.stream>>>(tq, tk, tv, tdo, ab);
+  const int splits = splits_b<D>(c.H / c.KV);
+  const ArgsB ab{c.stats, out(c.dk, 6), out(c.dv, 7), c.partials, c.H, c.KV,
+                 c.H / c.KV, stats_rows(c.S), splits, mk, c.scale,
+                 scale_log2};
+  dkdv_tc_kernel<D><<<dim3(c.B * c.KV * splits, (c.Sk + kBox - 1) / kBox,
+                           D / kColsB<D>),
+                      kThreads, LayoutB<D>::kBytes, c.stream>>>(tq, tk, tv,
+                                                                 tdo, ab);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess || splits == 1) return static_cast<int>(cerr);
+  const long long pairs = static_cast<long long>(c.B) * c.KV * c.Sk * D / 2;
+  dkdv_reduce_kernel<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0,
+                       c.stream>>>(c.partials, out(c.dk, 6), out(c.dv, 7),
+                                   c.KV, splits, c.Sk, D, pairs, c.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1311,17 +1471,19 @@ int flash_attention_backward(
 }
 
 // The tensor-core instance: q, o, do, dq (B, H, S, D) and k, v, dk, dv
-// (B, KV, Sk, D), all bf16, D = 64 or 128.  q, k, v, o and do need
+// (B, KV, Sk, D), all bf16, D = 64, 128 or 256.  q, k, v, o and do need
 // 16-byte-aligned bases and element strides over (B, heads, rows) that are
 // multiples of 8 (a dimension of size 1 may pass any such stride); dq, dk
 // and dv 4-byte-aligned bases and even strides.  `stats` is an fp32
 // scratch of 2 * B * H * S_pad floats, S_pad = S rounded up to a multiple
-// of 128, 16-byte aligned.  Same return convention as
-// flash_attention_backward, with the tensor-map errors of
-// flash_attention_backward_error_string besides.
+// of 128, 16-byte aligned; `partials`, at D = 256 only, an fp32 scratch of
+// 2 * B * H * Sk * D floats, 16-byte aligned (pass B's per-head sums; null
+// elsewhere).  Same return convention as flash_attention_backward, with the
+// tensor-map errors of flash_attention_backward_error_string besides.
 int flash_attention_backward_tc(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
+    const void* dout, void* dq, void* dk, void* dv, void* stats,
+    void* partials, int B,
     int H, int KV, int S, int Sk, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -1331,15 +1493,15 @@ int flash_attention_backward_tc(
     long long dv_sh, long long dv_ss, float scale, int causal, int window,
     void* stream) {
   tc::Call c{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(stats),
-             B, H, KV, S, Sk,
+             static_cast<float*>(partials), B, H, KV, S, Sk,
              {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
               {o_sb, o_sh, o_ss}, {do_sb, do_sh, do_ss},
               {dq_sb, dq_sh, dq_ss}, {dk_sb, dk_sh, dk_ss},
               {dv_sb, dv_sh, dv_ss}},
              scale, causal, window, static_cast<cudaStream_t>(stream)};
   bool ok = B >= 1 && H >= 1 && KV >= 1 && H % KV == 0 && S >= 1 &&
-            Sk >= 1 && (D == 64 || D == 128) &&
-            (S + tc::kRowsA - 1) / tc::kRowsA <= 65535 &&
+            Sk >= 1 && (D == 64 || D == 128 || D == 256) &&
+            (S + tc::kBox - 1) / tc::kBox <= 65535 &&
             (Sk + tc::kBox - 1) / tc::kBox <= 65535 &&
             (Sk == S || (!causal && window <= 0));
   for (int t = 0; t < 8; ++t)
@@ -1352,8 +1514,12 @@ int flash_attention_backward_tc(
   for (const void* p : stored)
     ok = ok && reinterpret_cast<uintptr_t>(p) % 4 == 0;
   ok = ok && reinterpret_cast<uintptr_t>(stats) % 16 == 0;
+  ok = ok && (D != 256 || (partials != nullptr &&
+                           reinterpret_cast<uintptr_t>(partials) % 16 == 0));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return D == 64 ? tc::launch<64>(c) : tc::launch<128>(c);
+  if (D == 64) return tc::launch<64>(c);
+  if (D == 128) return tc::launch<128>(c);
+  return tc::launch<256>(c);
 }
 
 const char* flash_attention_backward_error_string(int err) {

@@ -155,7 +155,7 @@ def _flash_backward_lib() -> ctypes.CDLL:
     lib.flash_attention_backward.argtypes = [_P] * 9 + [_I] * 7 + [
         _LL] * 24 + [_F, _I, _I, _P]
     lib.flash_attention_backward.restype = ctypes.c_int
-    lib.flash_attention_backward_tc.argtypes = [_P] * 9 + [_I] * 6 + [
+    lib.flash_attention_backward_tc.argtypes = [_P] * 10 + [_I] * 6 + [
         _LL] * 24 + [_F, _I, _I, _P]
     lib.flash_attention_backward_tc.restype = ctypes.c_int
     lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
@@ -757,7 +757,7 @@ def _two_pass_launch(name, X, y, B, P, neigh, rho, omega, lam_vec, instance,
 # --------------------------------------------------------------------------
 
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
-_TC_HEAD_DIMS = (64, 128)   # csrc/flash_attention.cu flash_attention_tc
+_TC_HEAD_DIMS = (64, 128, 256)   # csrc/flash_attention.cu flash_attention_tc
 
 
 def _copies_aligned(*operands) -> bool:
@@ -774,7 +774,7 @@ def _copies_aligned(*operands) -> bool:
 
 def flash_instance(dtype: torch.dtype, head_dim: int, *operands) -> str:
     """The instance of the flash kernel that a CUDA call runs:
-    ``"wgmma"`` (bf16 tensor cores, TMA) for bf16 at D = 64 or 128,
+    ``"wgmma"`` (bf16 tensor cores, TMA) for bf16 at D = 64, 128 or 256,
     ``"fma"`` (fp32 FMAs on the CUDA cores, any dtype) otherwise.  Given
     the operands (q, k, v), a bf16 call whose bases or strides the tensor
     maps cannot take (``_copies_aligned``) goes to ``"fma"`` too."""
@@ -822,13 +822,13 @@ def _check_attention(q, k, v, window, instance=None, *, causal: bool):
 
 
 def _check_tensor_core(name, dtype, D, **operands):
-    """The tensor-core instances' rules: bf16 at D = 64 or 128, and
+    """The tensor-core instances' rules: bf16 at D = 64, 128 or 256, and
     operands that the tensor maps (and 16-byte loads) can take —
     16-byte-aligned bases, strides of 16 bytes over the dimensions of
     size > 1; raises ValueError."""
     if flash_instance(dtype, D) != "wgmma":
         raise ValueError(f"{name}: the tensor-core instance takes bf16 "
-                         f"at D = 64 or 128, got {dtype}, D={D}")
+                         f"at D = 64, 128 or 256, got {dtype}, D={D}")
     for what, t in operands.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what}'s base is not 16-byte "
@@ -914,7 +914,7 @@ def flash_backward_instance(dtype: torch.dtype, head_dim: int,
                             *operands) -> str:
     """The instance of the backward kernel that a CUDA call runs, by the
     forward's rule (``flash_instance``): ``"wgmma"`` (bf16 tensor cores,
-    TMA) for bf16 at D = 64 or 128, ``"fma"`` (fp32 FMAs, any dtype)
+    TMA) for bf16 at D = 64, 128 or 256, ``"fma"`` (fp32 FMAs, any dtype)
     otherwise; given the operands (q, k, v, o, do), a bf16 call whose
     bases or strides the tensor maps cannot take goes to ``"fma"`` too."""
     return flash_instance(dtype, head_dim, *operands)
@@ -949,11 +949,21 @@ def _check_backward(q, k, v, o, do, window, instance=None, *,
 def backward_stats_floats(B: int, H: int, S: int, instance: str) -> int:
     """Floats of the fp32 scratch that one backward call of ``instance``
     needs: m, l and delta per query row for ``"fma"``; lse and delta per
-    row, S rounded up to the tensor-core instance's 128-row query tiles,
+    row, S rounded up to a multiple of 128 (the tensor-core instance's
+    query tiles at D = 64 and 128; two of its 64-row tiles at D = 256),
     for ``"wgmma"``."""
     if instance == "wgmma":
         return 2 * B * H * (-(-S // 128) * 128)
     return 3 * B * H * S
+
+
+def backward_partials_floats(B: int, H: int, Sk: int, D: int,
+                             instance: str) -> int:
+    """Floats of the fp32 scratch that one backward call of ``instance``
+    keeps for dk and dv beside the row statistics: at D = 256 the
+    tensor-core instance's pass B sums each query head apart, (2, B * H,
+    Sk, D), and adds the heads in order after; 0 otherwise."""
+    return 2 * B * H * Sk * D if instance == "wgmma" and D == 256 else 0
 
 
 def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
@@ -968,6 +978,9 @@ def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     stats = torch.empty(backward_stats_floats(B, H, S, instance),
                         dtype=torch.float32, device=q.device)
+    n_partial = backward_partials_floats(B, H, Sk, D, instance)
+    partials = (torch.empty(n_partial, dtype=torch.float32, device=q.device)
+                if n_partial else None)
     if q.is_meta:
         cost.record("flash_attention_backward", *cost.attention_backward_work(
             B, H, KV, S, Sk, D, causal, window, q.element_size())[:2],
@@ -983,7 +996,8 @@ def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
             strides = [st for t in (q, k, v, o, do, dq, dk, dv)
                        for st in _tma_strides(t)]
             err = lib.flash_attention_backward_tc(
-                *ptrs, B, H, KV, S, Sk, D, *strides, *tail)
+                *ptrs, partials.data_ptr() if partials is not None else None,
+                B, H, KV, S, Sk, D, *strides, *tail)
         else:
             strides = [st for t in (q, k, v, o, do, dq, dk, dv)
                        for st in t.stride()[:3]]
@@ -1006,8 +1020,8 @@ def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
     view gets a transposed result).
 
     On the card, the instance ``flash_backward_instance`` names from the
-    operands: bf16 at D = 64 or 128 with 16-byte-aligned bases and strides
-    runs the two tensor-core kernels of ``csrc/flash_backward.cu`` (lse,
+    operands: bf16 at D = 64, 128 or 256 with 16-byte-aligned bases and
+    strides runs the two tensor-core kernels of ``csrc/flash_backward.cu`` (lse,
     delta and dq per head and query tile; dk and dv per kv head and key
     tile); the rest its three fp32-FMA passes.  Neither uses atomics, so
     two launches on the same inputs agree bit for bit.  On the CPU:

@@ -13,7 +13,12 @@ ranks) or run on the CPU.  Each rank sets its card before any CUDA work,
 so ``device="cuda"`` means its own.  The group meets through a file store
 in a fresh temporary directory (no TCP port to contend for).  A rank that
 raises, or a run past the deadline, fails the call with ``RankFailure``;
-the other ranks are killed.
+the other ranks are killed.  Each rank's stderr goes to a file of its own,
+with ``faulthandler`` on, so that a rank killed by a signal (a C++ abort
+in a collective, a segfault) leaves its Python stacks there; the last
+lines of the failed rank's file, then the others', end ``RankFailure``'s
+message, and every rank's file is copied to the caller's stderr after
+the ranks end.
 
 The cases (``_cases``) drive the port's engines at full size across the
 ranks — each rank draws the problem on its card from the seed
@@ -43,6 +48,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
+import faulthandler
 import json
 import math
 import os
@@ -69,6 +75,8 @@ CHECK_EVERY = 4
 MAX_ITER = 300
 PATH_NUM = 12
 DESIGN_NUM = 4
+# lines of each rank's stderr that end a RankFailure's message
+STDERR_TAIL = 40
 
 
 class RankFailure(RuntimeError):
@@ -106,6 +114,13 @@ def _join_group(rank: int, world: int, backend: str, card: Optional[int],
 def _worker(rank, fn, args, world, backend, cards, store, out_dir,
             threads, timeout_s):
     import torch.distributed as dist
+    # this rank's stderr (Python's, C++'s, and faulthandler's stacks of
+    # every thread on a fatal signal) into a file the parent reads
+    err = os.open(os.path.join(out_dir, f"stderr-{rank}.txt"),
+                  os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(err, 2)
+    os.close(err)
+    faulthandler.enable(all_threads=True)
     torch.set_num_threads(threads)
     _join_group(rank, world, backend, cards[rank], f"file://{store}",
                 timeout_s)
@@ -124,12 +139,38 @@ def _worker(rank, fn, args, world, backend, cards, store, out_dir,
         dist.destroy_process_group()
 
 
+def _stderr_tails(work: str, first: Optional[int] = None) -> str:
+    """The last STDERR_TAIL lines of each rank's stderr that holds any,
+    rank ``first``'s first, for a RankFailure's message."""
+    files = sorted(Path(work).glob("stderr-*.txt"),
+                   key=lambda f: (int(f.stem[7:]) != first, int(f.stem[7:])))
+    tails = []
+    for f in files:
+        lines = f.read_text(errors="replace").rstrip().splitlines()
+        if lines:
+            tails.append(f"\n--- stderr of rank {f.stem[7:]}, last "
+                         f"{min(len(lines), STDERR_TAIL)} of {len(lines)} "
+                         "lines ---\n" + "\n".join(lines[-STDERR_TAIL:]))
+    return "".join(tails)
+
+
+def _forward_stderr(work: str) -> None:
+    """Every rank's stderr file to this process's stderr, each line
+    marked with its rank."""
+    for f in sorted(Path(work).glob("stderr-*.txt"),
+                    key=lambda f: int(f.stem[7:])):
+        for line in f.read_text(errors="replace").splitlines():
+            print(f"[rank {f.stem[7:]}] {line}", file=sys.stderr)
+    sys.stderr.flush()
+
+
 def spawn(fn: Callable, ranks: int, args=(), *, device: str = "cuda",
           deadline_s: float = 600.0, timeout_s: float = 300.0) -> List:
     """``fn(rank, *args)`` on ``ranks`` processes of one group; returns
     their results by rank.  ``fn`` and ``args`` are pickled (``fn`` by its
     import path).  ``timeout_s`` bounds each collective; past
-    ``deadline_s`` the ranks are killed and the call fails."""
+    ``deadline_s`` the ranks are killed and the call fails.  A failure's
+    message ends with the tails of the ranks' stderr (``_stderr_tails``)."""
     import torch.multiprocessing as tmp
     backend, cards = placement(ranks, device)
     work = tempfile.mkdtemp(prefix="ranks-")
@@ -147,19 +188,25 @@ def spawn(fn: Callable, ranks: int, args=(), *, device: str = "cuda",
                                                     - time.monotonic()))):
                 if time.monotonic() >= end:
                     raise RankFailure(f"{ranks} ranks still running after "
-                                      f"the {deadline_s:g} s deadline")
+                                      f"the {deadline_s:g} s deadline"
+                                      + _stderr_tails(work))
         except (tmp.ProcessRaisedException,
                 tmp.ProcessExitedException) as err:
-            raised = "; ".join(
-                f"rank {f.stem[6:]}: {f.read_text().strip().splitlines()[-1]}"
-                for f in sorted(Path(work).glob("error-*.txt")))
-            raise RankFailure(f"rank {err.error_index} failed ({raised or err})"
+            why = [f"rank {f.stem[6:]}: "
+                   f"{f.read_text().strip().splitlines()[-1]}"
+                   for f in sorted(Path(work).glob("error-*.txt"))]
+            if isinstance(err, tmp.ProcessExitedException):
+                why.insert(0, str(err))   # the signal or exit code
+            raise RankFailure(f"rank {err.error_index} failed "
+                              f"({'; '.join(why) or err})"
+                              + _stderr_tails(work, err.error_index)
                               ) from err
         finally:
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
                 p.join(10)
+            _forward_stderr(work)
         return [torch.load(os.path.join(work, f"result-{r}.pt"),
                            weights_only=False) for r in range(ranks)]
     finally:

@@ -194,6 +194,16 @@ def fail(rank):
     dist.barrier()
 
 
+def abort(rank):
+    """``spawn``'s ``fn`` for the signal check: rank 1 dies by SIGABRT, as
+    a C++ abort kills it, while the others wait for it in a collective."""
+    import os
+    import torch.distributed as dist
+    if rank == 1:
+        os.abort()
+    dist.barrier()
+
+
 def hang(rank):
     """``spawn``'s ``fn`` for the deadline check: the rank never returns."""
     import time

@@ -1174,9 +1174,9 @@ def test_moe_routes_on_the_card(cuda):
 def test_hybrid_prefill_at_head_dim_256_takes_the_fma_instance(cuda):
     """The reduced recurrentgemma at its full head dim (D = 256) and 5
     layers in bf16: block prefill of a prompt longer than the window, one
-    fp32-FMA flash launch per attention layer, logits within chip_smoke's
-    bf16 in-model limit of the plain attention's; decode from the wrapped
-    ring cache stays finite."""
+    flash launch per attention layer, on the tensor-core instance (bf16 at
+    D = 256 takes it), logits within chip_smoke's bf16 in-model limit of
+    the plain attention's."""
     from repro_torch import configs
     from repro_torch.models import model
     cfg = configs.get_reduced("recurrentgemma_2b", num_layers=5,
@@ -1186,7 +1186,7 @@ def test_hybrid_prefill_at_head_dim_256_takes_the_fma_instance(cuda):
     dev, _ = chip_smoke.kernel_vs_plain_in_model(
         torch, ops, cfg, params, label="reduced hybrid bf16 D=256",
         tol=chip_smoke.MODEL_TOL["bfloat16"], prompt=150)
-    assert ops.flash_launches == {"wgmma": 0, "fma": 2}
+    assert ops.flash_launches == {"wgmma": 2, "fma": 0}
     assert dev <= chip_smoke.MODEL_TOL["bfloat16"]
 
 
@@ -1258,8 +1258,8 @@ def test_flash_backward_matches_plain(cuda, case, dtype):
 
 
 # the cases of BACKWARD_SMALL that the tensor-core instance takes (bf16, D
-# = 64 or 128)
-BACKWARD_TC = [c for c in BACKWARD_SMALL if c[5] in (64, 128)]
+# = 64, 128 or 256)
+BACKWARD_TC = [c for c in BACKWARD_SMALL if c[5] in (64, 128, 256)]
 
 
 @pytest.mark.parametrize("instance", ["wgmma", "fma"])
@@ -1319,6 +1319,127 @@ def test_misaligned_bf16_backward_takes_the_fma_instance(cuda, what, fault):
         ops._flash_backward_launch(*args, "wgmma", causal=True, window=None,
                                    sm_scale=None)
     assert ops.launches == before
+
+
+# (B, H, KV, S, Sk, D, causal, window) at D = 256: recurrentgemma-2b's
+# long prompt (the window active) and training shape, a short prompt, and
+# keys of their own length (a ragged Sk, non-causal)
+HEAD_DIM_256 = [
+    (1, 10, 1, 2099, 2099, 256, True, 2048),
+    (2, 10, 1, 4096, 4096, 256, True, 2048),
+    (1, 10, 1, 77, 77, 256, True, None),
+    (1, 10, 1, 300, 517, 256, False, None),
+]
+
+
+@pytest.mark.parametrize("instance", ["wgmma", "fma"])
+@pytest.mark.parametrize("case", HEAD_DIM_256)
+def test_head_dim_256_forward_instances_match_plain(cuda, case, instance):
+    """Each instance of the forward at D = 256, forced by name, on the
+    model's transposed bf16 buffers: within one bf16 ulp (plus 1e-6) of
+    ``ref.mha``, two launches equal bit for bit and counted on their
+    instance; the wrapper's own choice there is the tensor-core one."""
+    B, H, KV, S, Sk, D, causal, window = case
+    q, k, v, _, _ = chip_smoke.backward_inputs(torch, ops, case, "bfloat16",
+                                               cuda, seed=6)
+    assert ops.flash_instance(q.dtype, D, q, k, v) == "wgmma"
+    kw = dict(causal=causal, window=window, sm_scale=None)
+    before = dict(ops.flash_launches)
+    got = ops._flash_launch(q, k, v, instance, **kw)
+    again = ops._flash_launch(q, k, v, instance, **kw)
+    assert ops.flash_launches[instance] == before[instance] + 2
+    assert torch.equal(got, again)
+    want = ref.mha(q, k, v, causal=causal, window=window)
+    assert got.stride() == q.stride()
+    assert chip_smoke.flash_deviation(torch, got, want, "bfloat16")[1] <= 1
+
+
+@pytest.mark.parametrize("instance", ["wgmma", "fma"])
+@pytest.mark.parametrize("case", HEAD_DIM_256)
+def test_head_dim_256_backward_instances_match_plain(cuda, case, instance):
+    """Each instance of the backward at D = 256, forced by name, against
+    ``ref.mha_backward`` on the same bf16 inputs (o the plain forward's):
+    dq, dk, dv within chip_smoke's bf16 rule, laid out as their inputs,
+    two launches equal bit for bit; the wrapper's choice is the tensor-core
+    one."""
+    B, H, KV, S, Sk, D, causal, window = case
+    q, k, v, _, do = chip_smoke.backward_inputs(torch, ops, case, "bfloat16",
+                                                cuda, seed=7)
+    o = ref.mha(q, k, v, causal=causal, window=window)
+    assert ops.flash_backward_instance(q.dtype, D, q, k, v, o, do) == "wgmma"
+    kw = dict(causal=causal, window=window, sm_scale=None)
+    before = dict(ops.flash_backward_launches)
+    got = ops._flash_backward_launch(q, k, v, o, do, instance, **kw)
+    again = ops._flash_backward_launch(q, k, v, o, do, instance, **kw)
+    assert ops.flash_backward_launches[instance] == before[instance] + 2
+    want = ref.mha_backward(q, k, v, o, do, causal=causal, window=window)
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert torch.equal(g, a)
+        assert g.stride() == t.stride()
+        assert chip_smoke.backward_deviation(torch, g, w, "bfloat16")[2] <= 1
+
+
+@pytest.mark.parametrize("fault", ["base", "stride"])
+def test_misaligned_bf16_at_head_dim_256_takes_the_fma_instance(cuda, fault):
+    """At D = 256 a bf16 q 2 bytes off a 16-byte boundary, or with a row
+    pitch of 260 elements, sends the forward and the backward to the
+    fp32-FMA instance (one launch each, within the limits); the
+    tensor-core instance forced by name refuses it before any launch."""
+    case = (1, 10, 1, 300, 300, 256, True, 128)
+    q, k, v, _, do = chip_smoke.backward_inputs(torch, ops, case, "bfloat16",
+                                                cuda, seed=8)
+    if fault == "base":
+        bad = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=cuda)[1:].view(q.shape)
+    else:
+        bad = torch.empty(*q.shape[:3], 260, dtype=q.dtype,
+                          device=cuda)[..., :256]
+    bad.copy_(q)
+    kw = dict(causal=True, window=128)
+    ops.reset_launches()
+    got = ops.flash_attention(bad, k, v, **kw)
+    assert ops.flash_launches == {"wgmma": 0, "fma": 1}
+    assert chip_smoke.flash_deviation(
+        torch, got, ref.mha(bad, k, v, **kw), "bfloat16")[1] <= 1
+    o = ref.mha(bad, k, v, **kw)
+    grads = ops.flash_attention_backward(bad, k, v, o, do, **kw)
+    assert ops.flash_backward_launches == {"wgmma": 0, "fma": 1}
+    for g, w in zip(grads, ref.mha_backward(bad, k, v, o, do, **kw)):
+        assert chip_smoke.backward_deviation(torch, g, w, "bfloat16")[2] <= 1
+    before = dict(ops.launches)
+    with pytest.raises(ValueError, match="16"):
+        ops._flash_launch(bad, k, v, "wgmma", sm_scale=None, **kw)
+    with pytest.raises(ValueError, match="16"):
+        ops._flash_backward_launch(bad, k, v, o, do, "wgmma", sm_scale=None,
+                                   **kw)
+    assert ops.launches == before
+
+
+def test_hybrid_training_at_head_dim_256_runs_on_the_tensor_cores(cuda):
+    """A reduced recurrentgemma step in bf16 at D = 256 with a window
+    shorter than S: the flash forward twice an attention layer (the pass
+    and its remat) and the backward once, every launch on the tensor-core
+    instances, no plain attention reached, finite gradients."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import attention, model
+    cfg = dataclasses.replace(
+        configs.get_reduced("recurrentgemma_2b", num_layers=5,
+                            head_dim=256), sliding_window=64,
+        param_dtype="bfloat16")
+    lm = model.init_params(cfg, seed=0, device=cuda, trainable=True)
+    batch = next(token_stream(cfg, 2, 200, seed=1, device=cuda))
+    attn = chip_smoke.kernel_layers(cfg)
+    ops.reset_launches()
+    with chip_smoke.counted_plain(ref, attention) as calls:
+        loss = model.loss_fn(lm, batch, cfg)
+        loss.backward()
+    assert sum(calls.values()) == 0
+    assert ops.flash_launches == {"wgmma": 2 * attn, "fma": 0}
+    assert ops.flash_backward_launches == {"wgmma": attn, "fma": 0}
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in lm.parameters())
 
 
 def test_bf16_training_backward_runs_on_the_tensor_cores(cuda):

@@ -576,6 +576,41 @@ def test_models_take_the_kernel_route_on_meta(monkeypatch):
     assert not any(ops.launches.values())
 
 
+@pytest.mark.parametrize("dtype,instance", [("bfloat16", "wgmma"),
+                                            ("float32", "fma")])
+def test_hybrid_train_step_at_head_dim_256_takes_the_card_instance(
+        dtype, instance):
+    """recurrentgemma's train step at its head dim (the reduced config
+    with head_dim 256, 5 layers, a window of 16 under S = 64), dry-run on
+    a (1, 1) mesh: every attention layer's flash forward (the pass and its
+    remat) and backward recorded on the instance the card runs — the
+    tensor-core one in bf16, the fp32-FMA one in fp32 — each with the
+    work ``kernels/cost.py`` counts for its shape, whatever the
+    instance."""
+    from repro_torch.data.synthetic import InputShape
+    cfg = dataclasses.replace(
+        tconfigs.get_reduced("recurrentgemma_2b", num_layers=5,
+                             head_dim=256), sliding_window=16,
+        param_dtype=dtype)
+    B, S, attn = 2, 64, 2
+    rec = dryrun.run_one(cfg, InputShape("train", S, B, "train"),
+                         M.abstract_mesh((1, 1), ("data", "model")),
+                         verbose=False)
+    fwd = rec["kernels"]["flash_attention"]
+    bwd = rec["kernels"]["flash_attention_backward"]
+    assert fwd["instances"] == {instance: 2 * attn}
+    assert bwd["instances"] == {instance: attn}
+    isz = 2 if dtype == "bfloat16" else 4
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    flops, nbytes = cost.attention_work(B, H, KV, S, 256, isz, 16, S, True)
+    assert (fwd["flops"], fwd["bytes"]) == (2 * attn * flops,
+                                            2 * attn * nbytes)
+    flops, nbytes, _ = cost.attention_backward_work(B, H, KV, S, S, 256,
+                                                    True, 16, isz)
+    assert (bwd["flops"], bwd["bytes"]) == (attn * flops, attn * nbytes)
+    assert not any(ops.launches.values())
+
+
 def test_phase22_rehearsal_on_the_cpu():
     """``chip_smoke.py`` phase 22 on the CPU at the reduced configs: the
     dry runs of the training and decode steps against the same steps run

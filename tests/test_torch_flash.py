@@ -206,9 +206,9 @@ def test_tensor_core_numerics_need_three_terms_of_p():
 
 @pytest.mark.parametrize("dtype,D,instance", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 256, "fma"),
+    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 256, "wgmma"),
     (torch.bfloat16, 96, "fma"), (torch.float32, 128, "fma"),
-    (torch.float32, 64, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 256, "fma"),
 ])
 def test_flash_instance_is_chosen_by_dtype_and_head_dim(dtype, D, instance):
     assert ops.flash_instance(dtype, D) == instance
@@ -290,6 +290,82 @@ def test_misaligned_bf16_operands_choose_the_fma_instance(what, fault):
         ops._check_attention(*fp32, None, "wgmma", causal=True)
     with pytest.raises(ValueError, match="unknown instance"):
         ops._check_attention(*fp32, None, "tc", causal=True)
+
+
+@pytest.mark.parametrize("fault", ["base", "stride"])
+def test_misaligned_bf16_at_head_dim_256_chooses_the_fma_instance(fault):
+    """At D = 256 as at 64 and 128: aligned bf16 operands take the
+    tensor-core instance; q 2 bytes off a 16-byte boundary, or with a row
+    pitch of 260 elements, goes to the fp32-FMA instance, whose checks
+    pass, and the tensor-core instance forced by name refuses it."""
+    ops_in = {"q": _bf16_zeros(1, 10, 8, 256), "k": _bf16_zeros(1, 1, 8, 256),
+              "v": _bf16_zeros(1, 1, 8, 256)}
+    assert ops.flash_instance(torch.bfloat16, 256,
+                              *ops_in.values()) == "wgmma"
+    ops._check_attention(*ops_in.values(), 4, "wgmma", causal=True)
+    if fault == "base":
+        ops_in["q"] = _bf16_zeros(1 + ops_in["q"].numel())[1:].view(
+            1, 10, 8, 256)
+    else:
+        ops_in["q"] = _bf16_zeros(1, 10, 8, 260)[..., :256]
+    assert ops.flash_instance(torch.bfloat16, 256, *ops_in.values()) == "fma"
+    ops._check_attention(*ops_in.values(), 4, "fma", causal=True)
+    with pytest.raises(ValueError, match="16"):
+        ops._check_attention(*ops_in.values(), 4, "wgmma", causal=True)
+
+
+def test_chip_smoke_forward_instance_rehearsal(monkeypatch):
+    """chip_smoke's phase 16, the forward, on CPU tensors at small shapes
+    of its cases (D = 64, 128 and 256, a window, keys of their own
+    length): both instance names run the plain version (every reading 0),
+    nothing timed."""
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "BACKWARD_CASES", [
+        ("causal", (1, 4, 2, 40, 40, 64, True, None)),
+        ("cross", (2, 4, 4, 24, 37, 128, False, None)),
+        ("window", (1, 2, 1, 30, 30, 256, True, 9))])
+    devs = {}
+    rows = chip_smoke.forward_instance_checks(torch, ops, ref, "cpu", devs)
+    assert [r["case"] for r in rows] == ["causal", "cross", "window"]
+    assert devs["flash_attention"] == {"bfloat16": 0.0}
+    for row in rows:
+        for inst in ops.FLASH_INSTANCES:
+            assert row[inst] == {"max_abs_dev": 0.0, "share": 0.0}
+
+
+def test_chip_smoke_tensor_core_build_reader_needs_every_head_dim(
+        monkeypatch):
+    """chip_smoke's build check of the forward's tensor-core instance: the
+    three instantiations (D = 64, 128, 256) must each issue wgmma and TMA
+    loads and spill nothing; a missing D = 256, a spill, or no HGMMA fails
+    the run."""
+    import types
+    import chip_smoke
+
+    def entry(D):
+        return (f"_ZN2tc15flash_tc_kernelILi{D}EEEv14CUtensorMap_stS1_S1_NS_"
+                "7OutArgsEiiifii")
+
+    def build_with(dims, spill=0, hgmma=2):
+        log_text = "".join(
+            f"ptxas info    : Compiling entry function '{entry(D)}' for "
+            f"'sm_90a'\n    0 bytes stack frame, {spill} bytes spill "
+            "stores, 0 bytes spill loads\nptxas info    : Used 250 "
+            "registers, used 1 barriers\n" for D in dims)
+        sass = "".join(
+            f"\t\tFunction : {entry(D)}\n        /*0100*/  UTMALDG.4D [UR8],"
+            " [UR4] ;\n" + "        /*0200*/  HGMMA.64x64x16.F32.BF16 R24, "
+            "gdesc[UR8], RZ ;\n" * hgmma for D in dims)
+        monkeypatch.setattr(chip_smoke, "disassemble", lambda b, name: sass)
+        return types.SimpleNamespace(build_log=lambda name: log_text)
+
+    found = chip_smoke.tensor_core_sass(build_with((64, 128, 256)))
+    assert found == {64: (2, 1), 128: (2, 1), 256: (2, 1)}
+    for kw, match in ((dict(dims=(64, 128)), "no wgmma"),
+                      (dict(dims=(64, 128, 256), spill=708), "spills"),
+                      (dict(dims=(64, 128, 256), hgmma=0), "no wgmma")):
+        with pytest.raises(chip_smoke.SmokeFailure, match=match):
+            chip_smoke.tensor_core_sass(build_with(**kw))
 
 
 def test_chip_smoke_reads_the_tensor_core_build():

@@ -255,8 +255,9 @@ def test_tensor_core_backward_numerics_need_two_terms(case):
 
 @pytest.mark.parametrize("dtype,D,instance", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 256, "fma"), (torch.bfloat16, 32, "fma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 256, "fma"),
 ])
 def test_backward_instance_by_dtype_and_head_dim(dtype, D, instance):
     assert ops.flash_backward_instance(dtype, D) == instance
@@ -298,12 +299,13 @@ def test_misaligned_backward_operands_choose_the_fma_instance(what, fault):
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 128),
-                                     (torch.bfloat16, 256),
+                                     (torch.bfloat16, 96),
                                      (torch.float32, 64)])
 def test_forced_tensor_core_backward_refuses_what_it_cannot_take(dtype, D):
-    """fp32 and D = 256 have no tensor-core backward: forced by name, the
-    check raises ValueError (before any launch); the default and the
-    fp32-FMA instance take them."""
+    """fp32, and bf16 at a head dim other than 64, 128 and 256, have no
+    tensor-core backward: forced by name, the check raises ValueError
+    (before any launch); the default and the fp32-FMA instance take
+    them."""
     ins = _backward_operands(D, dtype)
     with pytest.raises(ValueError, match="takes bf16"):
         ops._check_backward(*ins.values(), None, "wgmma", causal=True)
@@ -313,20 +315,54 @@ def test_forced_tensor_core_backward_refuses_what_it_cannot_take(dtype, D):
         ops._check_backward(*ins.values(), None, "tc", causal=True)
 
 
+@pytest.mark.parametrize("fault", ["none", "base", "stride"])
+def test_backward_at_head_dim_256_takes_the_tensor_core_instance(fault):
+    """bf16 at D = 256 with aligned q, k, v, o, do takes the tensor-core
+    backward, whose forced checks pass; do 2 bytes off a 16-byte boundary,
+    or with a row pitch of 260 elements, sends the call to the fp32-FMA
+    instance, and the tensor-core one forced by name refuses it."""
+    ins = _backward_operands(256)
+    if fault == "base":
+        ins["do"] = torch.zeros(1 + ins["do"].numel(),
+                                dtype=torch.bfloat16)[1:].view(1, 4, 8, 256)
+    elif fault == "stride":
+        ins["do"] = torch.zeros(1, 4, 8, 260, dtype=torch.bfloat16)[..., :256]
+    want = "wgmma" if fault == "none" else "fma"
+    assert ops.flash_backward_instance(torch.bfloat16, 256,
+                                       *ins.values()) == want
+    ops._check_backward(*ins.values(), 4, "fma", causal=True)
+    if fault == "none":
+        ops._check_backward(*ins.values(), 4, "wgmma", causal=True)
+    else:
+        with pytest.raises(ValueError, match="16"):
+            ops._check_backward(*ins.values(), 4, "wgmma", causal=True)
+
+
 def test_backward_scratch_by_instance():
     """The fp32-FMA instance keeps m, l and delta per row; the tensor-core
-    one lse and delta per row of its 128-row query tiles."""
+    one lse and delta per row of S rounded up to 128 rows (its 128-row
+    query tiles at D = 64 and 128, two 64-row tiles at D = 256)."""
     assert ops.backward_stats_floats(2, 40, 4096, "fma") == 3 * 2 * 40 * 4096
     assert ops.backward_stats_floats(2, 40, 4096, "wgmma") == \
         2 * 2 * 40 * 4096
     assert ops.backward_stats_floats(1, 14, 999, "wgmma") == 2 * 14 * 1024
+    # recurrentgemma-2b's long prompt: pass A writes rows up to 2112 (33
+    # tiles of 64), within the 2176 rows of the scratch
+    assert ops.backward_stats_floats(1, 10, 2099, "wgmma") == 2 * 10 * 2176
+    # and at D = 256 the per-head fp32 sums of dk and dv (pass B takes one
+    # query head a block there)
+    assert ops.backward_partials_floats(1, 10, 2099, 256, "wgmma") == \
+        2 * 10 * 2099 * 256
+    assert ops.backward_partials_floats(2, 40, 4096, 128, "wgmma") == 0
+    assert ops.backward_partials_floats(1, 10, 2099, 256, "fma") == 0
 
 
 def test_chip_smoke_backward_instance_rehearsal(monkeypatch):
     """chip_smoke's phase 16 on CPU tensors at small shapes of its cases:
-    the cases at D = 64/128 only, both instance names running the plain
-    version (every reading 0), each control far above the limit, nothing
-    timed; and its reader of the tensor-core kernels' build."""
+    every case (D = 64, 128 and 256: the tensor-core instance takes them
+    all), both instance names running the plain version (every reading
+    0), each control far above the limit, nothing timed; and its reader of
+    the tensor-core kernels' build."""
     import types
     import chip_smoke
     monkeypatch.setattr(chip_smoke, "BACKWARD_CASES", [
@@ -335,7 +371,7 @@ def test_chip_smoke_backward_instance_rehearsal(monkeypatch):
         ("window", (1, 2, 1, 30, 30, 256, True, 9))])
     devs = {}
     rows = chip_smoke.backward_instance_checks(torch, ops, ref, "cpu", devs)
-    assert [r["case"] for r in rows] == ["causal", "cross"]
+    assert [r["case"] for r in rows] == ["causal", "cross", "window"]
     assert devs["flash_attention_backward"] == {"bfloat16": 0.0}
     for row in rows:
         for inst in ("wgmma", "fma"):
@@ -345,7 +381,8 @@ def test_chip_smoke_backward_instance_rehearsal(monkeypatch):
 
     names = [f"_ZN2tc{len(k)}{k}ILi{D}EEEv14CUtensorMap_stS1_S1_S1_NS_5Args"
              f"{'A' if k.startswith('dq') else 'B'}E"
-             for k in chip_smoke.BACKWARD_TC_KERNELS for D in (64, 128)]
+             for k in chip_smoke.BACKWARD_TC_KERNELS
+             for D in chip_smoke.FLASH_TC_HEAD_DIMS]
     log_text = "".join(
         f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
@@ -361,8 +398,8 @@ def test_chip_smoke_backward_instance_rehearsal(monkeypatch):
     build = types.SimpleNamespace(build_log=lambda name: log_text)
     monkeypatch.setattr(chip_smoke, "disassemble", lambda b, name: sass)
     found = chip_smoke.backward_tensor_core_sass(build)
-    assert set(found) == {"dq_tc_kernel<64>", "dq_tc_kernel<128>",
-                          "dkdv_tc_kernel<64>", "dkdv_tc_kernel<128>"}
+    assert set(found) == {f"{k}<{D}>" for k in ("dq_tc_kernel", "dkdv_tc_kernel")
+                          for D in (64, 128, 256)}
     assert found["dkdv_tc_kernel<128>"]["HGMMA"] == 2
     assert found["dkdv_tc_kernel<128>"]["registers"] == 168
     spilled = log_text.replace("0 bytes spill stores", "708 bytes spill stores",

@@ -84,9 +84,10 @@ def groups(d):
 
 
 # a script that calls ``spawn`` as ``chip_smoke.py`` does: a rank that
-# never returns fails its call at the deadline (printed, seconds taken),
-# then a rank that raises while its peer waits in a collective fails the
-# script
+# never returns fails its call at the deadline (printed, seconds taken), a
+# rank killed by SIGABRT fails its call (the message printed between two
+# marker lines), then a rank that raises while its peer waits in a
+# collective fails the script
 FAILURES = """
 import sys, time
 import _torch_ranks as tr
@@ -96,6 +97,10 @@ try:
     ranks.spawn(tr.hang, 1, device="cpu", deadline_s=4.0)
 except ranks.RankFailure as err:
     print(f"hang: {err} after {time.monotonic() - t0:.1f} s", flush=True)
+try:
+    ranks.spawn(tr.abort, 2, device="cpu", deadline_s=120.0)
+except ranks.RankFailure as err:
+    print(f"abort begins\\n{err}\\nabort ends", flush=True)
 ranks.spawn(tr.fail, 2, device="cpu")
 """
 
@@ -338,16 +343,39 @@ def test_consensus_mix_across_ranks(d, groups, k):
     _one_rank(got, one, ("consensus",))
 
 
+def _failures(groups):
+    """The failure script's exit code, stdout and stderr, read once for
+    the tests that share it."""
+    if "failures read" not in groups:
+        script = groups["failures"]
+        out, err = script.communicate(timeout=180)
+        groups["failures read"] = (script.returncode, out, err)
+    return groups["failures read"]
+
+
 def test_a_failing_or_hanging_rank_fails_the_call(groups):
     """A rank that never returns fails ``spawn`` at its deadline, and is
     killed; a rank that raises makes a script that calls ``spawn`` (as
     ``chip_smoke.py`` does) exit non-zero with ``RankFailure`` naming the
     rank, though its peer still waits in a collective."""
-    script = groups["failures"]
-    out, err = script.communicate(timeout=120)
-    assert script.returncode != 0
+    returncode, out, err = _failures(groups)
+    assert returncode != 0
     hang = [line for line in out.splitlines() if line.startswith("hang: ")]
     assert len(hang) == 1 and "deadline" in hang[0], out
     assert 4.0 <= float(hang[0].rsplit(" after ", 1)[1].split()[0]) < 60.0
     assert "RankFailure: rank " in err
     assert "rank 1: ValueError: rank 1 raises on purpose" in err
+
+
+def test_a_rank_killed_by_a_signal_leaves_its_stack_in_the_failure(groups):
+    """A rank that dies by SIGABRT (as a C++ abort in gloo kills it) fails
+    ``spawn`` with a ``RankFailure`` that names the rank and ends with the
+    tail of its stderr: faulthandler's report of the signal and the Python
+    stack of the call that aborted, the dead rank's tail first."""
+    _, out, _ = _failures(groups)
+    text = out.split("abort begins\n", 1)[1].split("\nabort ends", 1)[0]
+    assert text.startswith("rank 1 failed")
+    assert "SIGABRT" in text.splitlines()[0]
+    tail = text.split("--- stderr of rank 1, last ", 1)[1]
+    assert "Fatal Python error: Aborted" in tail
+    assert 'in abort' in tail and "_torch_ranks.py" in tail

@@ -278,8 +278,10 @@ def test_chip_smoke_recurrentgemma_phases_rehearse_on_cpu(monkeypatch):
     again on one slot with and without block prefill (logits and tokens),
     the kernel against the plain attention inside
     the model (one launch per attention layer), the D = 256 attention and
-    RG-LRU timings (a stand-in for CUDA events runs each function once),
-    and the head on its features."""
+    RG-LRU timings (a stand-in for CUDA events runs each function once;
+    ``scaled_dot_product_attention`` timed causal where the window masks
+    nothing, with a boolean window mask where it is active), and the head
+    on its features."""
     import chip_smoke
     from repro_torch.kernels import ref
     from repro_torch.serving import engine
@@ -291,7 +293,7 @@ def test_chip_smoke_recurrentgemma_phases_rehearse_on_cpu(monkeypatch):
     assert chip_smoke.kernel_layers(cfg) == 2
     served = chip_smoke.backbone_serving(torch, ops, engine, cfg, params,
                                          prompts=(70, 20, 9), max_len=90,
-                                         instance="fma")
+                                         instance="wgmma")
     assert served["launches"]["flash_attention"] == 3 * 2
     for tol in (None, 1e-4):
         agree = chip_smoke.tokenwise_agreement(
@@ -300,7 +302,7 @@ def test_chip_smoke_recurrentgemma_phases_rehearse_on_cpu(monkeypatch):
         assert agree["equal"] and agree["first_logits_dev"] < 1e-4
         assert agree["control_dev"] > 1e-4
     dev, _ = chip_smoke.in_model_instances(torch, ops, cfg, params,
-                                           label="tiny", instance="fma",
+                                           label="tiny", instance="wgmma",
                                            prompt=30)
     assert dev == 0.0
     # the window active (S > window, as the long prompt's prefill) and not
@@ -308,7 +310,12 @@ def test_chip_smoke_recurrentgemma_phases_rehearse_on_cpu(monkeypatch):
         row = chip_smoke.flash_d256_timing(torch, ops, ref, "cpu", S=S,
                                            window=window)
         assert row["max_abs_dev"] == 0.0
-        assert (row["library_ms"] is None) == (S > window)
+        assert row["library_ms"] == 1.0
+        assert row["library_how"] == ("a boolean window mask" if S > window
+                                      else "causal")
+    mask = chip_smoke.window_mask(torch, 5, 5, 2, "cpu")
+    assert mask.tolist() == [[j <= i and j > i - 2 for j in range(5)]
+                             for i in range(5)]
     assert chip_smoke.attention_pairs(96, 64) == sum(
         min(i + 1, 64) for i in range(96))
     # at the card's S = 2048 the causal attention's operations bound it

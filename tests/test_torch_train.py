@@ -86,6 +86,39 @@ def test_loss_and_grads_match_jax(arch):
         assert dev <= GRAD_TOL * max(np.abs(w).max(), 1e-30), (name, dev)
 
 
+@pytest.mark.parametrize("layers", [2, 3])
+def test_loss_and_grads_match_jax_at_head_dim_256(layers):
+    """The registry's one D = 256 model at its head dim: the reduced
+    recurrentgemma with head_dim 256 and a window of 12 positions, shorter
+    than the batch's 32 (so the window masks), fp32; 2 layers (rec, attn)
+    and 3 (a tail rec layer after the pattern).  The port's loss and every
+    gradient against ``jax.value_and_grad(loss_fn)`` on the same
+    ``params_from_jax`` weights, at LOSS_TOL and GRAD_TOL."""
+    def cut(cfg):
+        return dataclasses.replace(cfg, head_dim=256, sliding_window=12,
+                                   num_layers=layers, param_dtype="float32")
+    jcfg = cut(jconfigs.get_reduced("recurrentgemma_2b"))
+    tcfg = cut(tconfigs.get_reduced("recurrentgemma_2b"))
+    assert tcfg.sliding_window < S
+    jp = jmodel.init_params(jcfg, KEY)
+    batch = _batch(tcfg, seed=11 + layers)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodel.loss_fn(p, b, jcfg)))(
+            jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    lm = model.trainable_(convert.params_from_jax(jp, tcfg, "cpu"))
+    assert lm.layers[1].attn.wq.shape[-1] == tcfg.num_heads * 256
+    loss = model.loss_fn(lm, batch, tcfg)
+    loss.backward()
+    assert abs(loss.item() - float(jloss)) <= LOSS_TOL
+    want = convert.flat_from_jax(jgrads, tcfg)
+    got = _grads(lm)
+    assert set(got) == set(want)
+    for name, g in got.items():
+        w = np.asarray(want[name])
+        dev = np.abs(g.numpy() - w).max()
+        assert dev <= GRAD_TOL * max(np.abs(w).max(), 1e-30), (name, dev)
+
+
 @pytest.mark.parametrize("arch", ["qwen3_14b", "internvl2_1b",
                                   "seamless_m4t_large_v2",
                                   "recurrentgemma_2b"])
