@@ -307,7 +307,31 @@ result lines):
    backward launches a step, all on ``"wgmma"``, nothing else; finite
    losses; step ms, forward + backward against the optimizer, tokens/s,
    peak memory on ``train recurrentgemma-2b ...`` lines) and a checkpoint
-   resume at the reduced config (bit for bit).
+   resume at the reduced config (bit for bit);
+24. granite-moe-3b-a800m trains on the card as configured (32 MoE layers,
+   40 experts top 8, 24 heads over 8 of D = 64, bf16; no cut): the flash
+   kernels at its training shape against ``ref`` (``check ... training``
+   and ``time ... training`` lines, beside the bound and SDPA's forward
+   and backward; the forward's unrounded output ``o32`` and the backward
+   given delta from it, as ``ops.FlashAttention`` runs them under grad),
+   the dry run of its step (``dry-train ...``), one step
+   through the kernels against the plain-attention step at B = 1 x 4096,
+   ``train_loop`` for 10 steps at B = 2 x 4096 (64 flash forward and 32
+   backward launches a step, all ``"wgmma"``, nothing else), the scatter
+   route against the dense route at a capacity that drops nothing, the
+   scatter step twice at capacity factor 1.25 (bit for bit) and timed
+   beside the dense route (``scatter ...`` lines), one step of each route
+   split by device kernel (``split ...`` lines), a resume;
+25. internvl2-1b the same way behind its 256-position media prefix (3840
+   text tokens from ``token_stream``, seeded media; ``make_train_step`` in
+   a loop of its own, since ``train_loop`` feeds no media: 48 forward and
+   24 backward launches a step) and ``ssd_scan`` timed at mamba2-370m's
+   training shape;
+26. seamless-m4t-large-v2 the same way through its encoder (1024 frames)
+   and cross-attention (the plain step swaps both attentions; its own
+   loop: ``train_loop`` feeds no ``enc_media``): 24 encoder, 24 decoder
+   and 24 cross calls a pass, each launched twice (pass and remat), 144
+   forward and 72 backward launches a step, counted by path.
 
 Between 7 and 8 (phase 7b), on phase 6's qwen3-14b weights: the
 decentralized CSVM head (``repro_torch.optim.decsvm_head``) — the
@@ -329,6 +353,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -761,6 +786,80 @@ RG_TRAIN_BATCH, RG_TRAIN_SEQ = 2, 4096
 # another batch's kernel gradients against this batch's plain ones, read
 # 0.428 at its smallest leaf; every leaf's must exceed the gradient limit.
 RG_STEP_TOL = dict(loss=5e-4, grad=0.18)
+
+# phases 24-26: the last three families train on the card as configured
+# (no cut): granite-moe-3b-a800m (32 MoE layers, d_model 1536, 24 heads
+# over 8 of D = 64, 40 experts top 8, d_ff 512, vocab 49,155 tied) on both
+# MoE routes; internvl2-1b (24 layers, d_model 896, 14 heads over 2 of D =
+# 64, vocab 151,655 tied) behind its 256-position media prefix;
+# seamless-m4t-large-v2 (24 encoder and 24 decoder layers, d_model 1024,
+# 16 heads over 16 of D = 64, d_ff 8192, learned positions, vocab 256,206)
+# through its encoder and cross-attention; all bf16.  Each phase: the
+# kernels at the family's training shapes (FAMILY_KERNEL_CASES), the
+# dry run of its step on mesh (1, 1), the kernel step against the
+# plain-attention step at B = FAMILY_STEP_BATCH x FAMILY_SEQ, then
+# TRAIN_STEPS steps at B = FAMILY_BATCH x FAMILY_SEQ (B = 1 where the dry
+# run predicts a peak above FAMILY_PEAK_LIMIT), and a checkpoint resume at
+# the reduced config.  JAX's train shape: S = 4096 positions, of which the
+# VLM's first 256 are its media prefix; the encoder-decoder's frames are
+# min(frontend_len, S / 4) = 1024.
+GRANITE_TRAIN_ARCH = "granite_moe_3b_a800m"
+VLM_TRAIN_ARCH = "internvl2_1b"
+ENCDEC_TRAIN_ARCH = "seamless_m4t_large_v2"
+FAMILY_STEP_BATCH = 1
+FAMILY_BATCH, FAMILY_SEQ = 2, 4096
+FAMILY_PEAK_LIMIT = 75e9
+# flash_attention and flash_attention_backward at each family's training
+# shape, (B, H, KV, Sq, Sk, D, causal, window), bf16, the model's
+# (B, rows, heads, D) buffers seen through .transpose(1, 2): against
+# ref.mha (one bf16 ulp) and ref.mha_backward (BACKWARD_TOL_F32's bf16
+# limit, the control above it), relaunched bit for bit, timed beside the
+# bound and scaled_dot_product_attention.  Not BACKWARD_CASES, which
+# phase 15 gates.
+FAMILY_KERNEL_CASES = {
+    GRANITE_TRAIN_ARCH: [
+        ("granite-moe-3b-a800m training",
+         (2, 24, 8, 4096, 4096, 64, True, None))],
+    VLM_TRAIN_ARCH: [
+        ("internvl2-1b training", (2, 14, 2, 4096, 4096, 64, True, None))],
+    ENCDEC_TRAIN_ARCH: [
+        ("seamless decoder training",
+         (2, 16, 16, 4096, 4096, 64, True, None)),
+        ("seamless encoder training",
+         (2, 16, 16, 1024, 1024, 64, False, None)),
+        ("seamless cross training",
+         (2, 16, 16, 4096, 1024, 64, False, None))],
+}
+# The kernel step against the plain-attention step (bf16 weights and
+# grads), as phases 15 and 23: |loss_k - loss_p| and, for each parameter,
+# max |g_k - g_p| over max |g_p|; the control, another batch's kernel
+# gradients against this batch's plain ones, must exceed the gradient
+# limit at every leaf.  The first H100 readings (NVIDIA H100 80GB HBM3,
+# 700.00 W): granite loss 4.11e-4 (of 12.187), gradients 8.07e-2
+# (layers.30.moe.w_down; control min 0.90); internvl2 3.48e-4 (of 12.115),
+# 5.59e-2 (layers.3.attn.bk; control 0.65); seamless 1.34e-5 (of 12.666),
+# 4.31e-2 (layers.16.attn.wk; control 0.69).  Each limit is about three
+# of its reading.  seamless read 0.649 (layers.18.attn.wk) while the
+# backward took delta = rowsum(do * o) from the bf16 o, whose error its
+# decoder's wq and wk gradients magnify: its cross-attention makes every
+# position's input nearly alike and those gradients nearly a zero sum
+# (``ops.FlashAttention`` now gives the backward delta from the forward's
+# unrounded o; csrc/flash_backward.cu).
+GRANITE_STEP_TOL = dict(loss=1.2e-3, grad=0.24)
+VLM_STEP_TOL = dict(loss=1e-3, grad=0.17)
+ENCDEC_STEP_TOL = dict(loss=4e-5, grad=0.13)
+# granite's scatter route at capacity factor E / k (C = T·k/E·5 + 1 > T:
+# nothing drops) against the dense route, one step from the same weights
+# and batch at B = FAMILY_STEP_BATCH x FAMILY_SEQ: the same measures and
+# control.  Both routes compute every kept (token, expert) product in
+# bf16, but sum the experts in other orders (the dense route's one
+# contraction over (e, f), the scatter route's sum over k).  The first
+# reading: loss 4.14e-4, gradients 9.78e-2 (layers.29.moe.w_up; control
+# min 0.90); the limits about three of it.
+SCATTER_STEP_TOL = dict(loss=1.2e-3, grad=0.3)
+# the scatter route's step at the configured capacity factor timed beside
+# the dense route's train_loop at B = FAMILY_BATCH x FAMILY_SEQ
+SCATTER_TIMED_STEPS = 3
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -3559,8 +3658,13 @@ def backward_deviation(torch, got, want, dtype):
     return worst, worst / max(scale, 1e-30), share
 
 
-def backward_checks(torch, ops, ref, device, devs: dict):
-    """At every case of BACKWARD_CASES, fp32 and bf16: the forward
+def backward_checks(torch, ops, ref, device, devs: dict, *,
+                    cases=None, dtypes=("float32", "bfloat16"),
+                    delta=False):
+    """At every case of ``cases`` (BACKWARD_CASES), in each of ``dtypes``
+    (fp32 and bf16; with ``delta``, both sides of the backward given
+    delta = rowsum(do * o) from the plain fp32 output, as the training
+    path gives it from the forward's unrounded o): the forward
     ``flash_attention`` against ``ref.mha`` (one launch of the instance
     ``ops.flash_instance`` names, within FLASH_TOL_F32 or one bf16 ulp);
     then ``flash_attention_backward`` against ``ref.mha_backward``, both
@@ -3571,9 +3675,10 @@ def backward_checks(torch, ops, ref, device, devs: dict):
     for bit; the control above the limit.  Returns the readings."""
     cuda = torch.device(device).type == "cuda"
     readings = []
-    for i, (label, case) in enumerate(BACKWARD_CASES):
+    for i, (label, case) in enumerate(BACKWARD_CASES if cases is None
+                                      else cases):
         B, H, KV, S, Sk, D, causal, window = case
-        for dtype in ("float32", "bfloat16"):
+        for dtype in dtypes:
             kw = dict(causal=causal, window=window)
             shape = (f"{label} B={B} H={H} KV={KV} S={S} Sk={Sk} D={D} "
                      f"causal={causal} window={window} {dtype}")
@@ -3598,6 +3703,11 @@ def backward_checks(torch, ops, ref, device, devs: dict):
             check(share <= 1.0, f"flash_attention {shape}: max|dev| "
                   f"{dev:.3e} is {share:.2f}x the limit")
             o = plain_o
+            if delta:
+                full = ref.mha(q.float(), k.float(), v.float(), **kw)
+                kw["delta"] = (do.float() * full).sum(-1)
+                shape += " delta from the fp32 o"
+                del full
             before = ops.launches["flash_attention_backward"]
             by = dict(ops.flash_backward_launches)
             got = ops.flash_attention_backward(q, k, v, o, do, **kw)
@@ -3723,23 +3833,29 @@ def sdpa_backward_ms(torch, q, k, v, do, causal, window):
           f"{tuple(q.shape)} kv {tuple(k.shape)} window {window}")
 
 
-def backward_timings(torch, ops, ref, device):
+def backward_timings(torch, ops, ref, device, *, cases=None, reps=None,
+                     delta=False):
     """The kernel beside ``ref.mha_backward`` (in turns), its bound and
     the backward of ``scaled_dot_product_attention`` on the same bf16
     inputs (the library's time, ``sdpa_backward_ms``), at every case of
-    BACKWARD_CASES; the first row is qwen3-14b's, also timed on fp32
-    inputs (``fp32_ms``)."""
+    ``cases`` (BACKWARD_CASES: the first row is qwen3-14b's, also timed on
+    fp32 inputs, ``fp32_ms``).  ``reps``: (kernel, plain) calls a sample
+    at every case, and no fp32 row.  ``delta``: both given delta, as the
+    training path gives it."""
     rows = []
-    for i, (label, case) in enumerate(BACKWARD_CASES):
+    for i, (label, case) in enumerate(BACKWARD_CASES if cases is None
+                                      else cases):
         B, H, KV, S, Sk, D, causal, window = case
         q, k, v, o, do = backward_inputs(torch, ops, case, "bfloat16", device,
                                          seed=200 + i)
         kw = dict(causal=causal, window=window)
-        big = i == 0
+        if delta:
+            kw["delta"] = (do.float() * o.float()).sum(-1)
+        big = i == 0 and reps is None
         times = paired_ms(
             torch, lambda: ops.flash_attention_backward(q, k, v, o, do, **kw),
             lambda: ref.mha_backward(q, k, v, o, do, **kw),
-            3 if big else 10, 1 if big else 3)
+            *(reps or ((3, 1) if big else (10, 3))))
         lib, backend = sdpa_backward_ms(torch, q, k, v, do, causal, window)
         (bms, by), pairs = backward_bound(case)
         instance = ops.flash_backward_instance(q.dtype, D, q, k, v, o, do)
@@ -3987,43 +4103,65 @@ def leaf_deviation(torch, got, want) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
+def attention_calls(cfg) -> int:
+    """Calls of the flash kernel in one forward pass of ``cfg``'s model:
+    one an attention layer; an encoder-decoder's encoder layers and its
+    decoder layers' cross-attention too."""
+    calls = kernel_layers(cfg)
+    if cfg.is_encoder_decoder:
+        calls += cfg.num_encoder_layers + kernel_layers(cfg)
+    return calls
+
+
+def step_grads(model, lm, cfg, batch):
+    """(loss, {name: gradient}) of one step of ``model.loss_fn`` on
+    ``batch`` from ``lm``'s weights, the gradients cleared from ``lm``
+    after."""
+    lm.zero_grad(set_to_none=True)
+    loss = model.loss_fn(lm, batch, cfg)
+    loss.backward()
+    grads = {n: p.grad for n, p in lm.named_parameters()}
+    lm.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
 def train_step_vs_plain(torch, ops, ref, model, cfg, batch, other, *,
-                        loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL):
+                        loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL,
+                        device="cuda"):
     """The step's loss and gradients with the kernels against the same
-    step with the plain attention swapped in, from the same weights and
-    batch; the control is the kernel step's gradients of ``other``.  The
-    kernel step must launch the flash forward twice an attention layer
-    (the pass and its remat) and the backward once, every launch on the
-    tensor-core instances, and call no plain attention."""
+    step with the plain attention swapped in (self- and cross-attention),
+    from the same weights and batch; the control is the kernel step's
+    gradients of ``other``.  The kernel step must launch the flash forward
+    twice a call of ``attention_calls`` (the pass and its remat) and the
+    backward once, every launch on the tensor-core instances, and call no
+    plain attention.  On the CPU (a rehearsal, stand-in counters) the
+    instances and the plain calls are not read."""
     from repro_torch.models import attention
-    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
-    L = kernel_layers(cfg)
+    on_card = torch.device(device).type == "cuda"
+    lm = model.init_params(cfg, seed=0, device=device, trainable=True)
+    L = attention_calls(cfg)
 
     def loss_and_grads(b):
-        lm.zero_grad(set_to_none=True)
-        loss = model.loss_fn(lm, b, cfg)
-        loss.backward()
-        grads = {n: p.grad for n, p in lm.named_parameters()}
-        lm.zero_grad(set_to_none=True)
-        return loss.detach(), grads
+        return step_grads(model, lm, cfg, b)
 
     ops.reset_launches()
     with counted_plain(ref, attention) as calls:
         loss_k, grads_k = loss_and_grads(batch)
-        torch.cuda.synchronize()
+        synchronize(torch, device)
     ran = dict(ops.launches)
-    check(sum(calls.values()) == 0, f"train step: a CUDA tensor under grad "
-          f"reached the plain attention: {dict(calls)}")
+    check(not on_card or sum(calls.values()) == 0, "train step: a CUDA "
+          f"tensor under grad reached the plain attention: {dict(calls)}")
     check(ran["flash_attention"] == 2 * L
           and ran["flash_attention_backward"] == L,
           f"train step: launches {ran}, expected {2 * L} flash forward "
           f"(pass + remat) and {L} backward")
-    check(ops.flash_launches["wgmma"] == 2 * L
-          and ops.flash_backward_launches["wgmma"] == L,
+    check(not on_card or (ops.flash_launches["wgmma"] == 2 * L
+                          and ops.flash_backward_launches["wgmma"] == L),
           f"train step: forward launches by instance {ops.flash_launches}, "
           f"backward {ops.flash_backward_launches}, expected all on wgmma")
-    kernel_attend = attention.self_attend
+    kernel_attend = attention.self_attend, attention.cross_attend
     attention.self_attend = plain_self_attend
+    attention.cross_attend = plain_cross_attend
     try:
         ops.reset_launches()
         loss_p, grads_p = loss_and_grads(batch)
@@ -4031,7 +4169,7 @@ def train_step_vs_plain(torch, ops, ref, model, cfg, batch, other, *,
               and ops.launches["flash_attention_backward"] == 0,
               f"train step with the plain attention launched {ops.launches}")
     finally:
-        attention.self_attend = kernel_attend
+        attention.self_attend, attention.cross_attend = kernel_attend
     _, grads_c = loss_and_grads(other)
     devs = {n: leaf_deviation(torch, g, grads_p[n])
             for n, g in grads_k.items()}
@@ -4064,21 +4202,37 @@ def train_step_vs_plain(torch, ops, ref, model, cfg, batch, other, *,
                control_min=min(ctl.values()),
                batch=int(batch["tokens"].shape[0]))
     del lm, grads_k, grads_p, grads_c
-    torch.cuda.empty_cache()
+    if on_card:
+        torch.cuda.empty_cache()
     return out
 
 
+class HostMark:
+    """A CUDA event's stand-in on the CPU (the rehearsals): the host
+    clock at its making."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end) -> float:
+        return (end.t - self.t) * 1e3
+
+
 @contextlib.contextmanager
-def step_events(torch, train):
+def step_events(torch, train, device="cuda"):
     """CUDA events around the two halves of each step that
     ``train.make_train_step`` builds, recorded inside the block: at the
     call of ``model.loss_fn`` (the forward, then its backward), at the
     call of ``adamw_update`` and at its return.  Yields a list that gets
-    one dict a step: the events, the loss and gnorm."""
+    one dict a step: the events, the loss and gnorm.  On the CPU (a
+    rehearsal) host-clock marks stand in for the events."""
     steps = []
     loss_fn, update = train.model.loss_fn, train.adamw_update
+    on_card = torch.device(device).type == "cuda"
 
     def mark():
+        if not on_card:
+            return HostMark()
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev
@@ -4101,23 +4255,23 @@ def step_events(torch, train):
         train.model.loss_fn, train.adamw_update = loss_fn, update
 
 
-def timed_train_loop(torch, ops, train, cfg, batch: int, seq: int,
-                     steps: int = TRAIN_STEPS):
-    """``train_loop`` for ``steps`` steps at batch x seq on
-    ``token_stream``, with the counters set to 0 just before and read just
-    after; each step timed by CUDA events from the call of ``loss_fn`` to
-    the end of ``adamw_update`` (``step_events``), every loss and gnorm
-    finite.  Returns the launches (by kernel and by instance), the step
-    times and the peak memory."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def timed_loop(torch, ops, train, run, batch: int, seq: int, steps: int,
+               device="cuda"):
+    """``run()`` — ``steps`` train steps at batch x seq, returning their
+    losses — with the counters set to 0 just before and read just after;
+    each step timed by CUDA events from the call of ``loss_fn`` to the end
+    of ``adamw_update`` (``step_events``), every loss and gnorm finite.
+    Returns the launches (by kernel and by instance), the step times and
+    the peak memory (0 on the CPU)."""
+    on_card = torch.device(device).type == "cuda"
+    synchronize(torch, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    with step_events(torch, train) as events:
-        _, losses = train.train_loop(cfg, steps=steps, batch=batch, seq=seq,
-                                     lr=3e-4, log_every=1, seed=0,
-                                     device="cuda")
-    torch.cuda.synchronize()
+    with step_events(torch, train, device) as events:
+        losses = run()
+    synchronize(torch, device)
     wall = time.perf_counter() - t0
     check(len(events) == steps and all("end" in e for e in events),
           f"train_loop: {len(events)} steps timed, expected {steps}")
@@ -4125,7 +4279,7 @@ def timed_train_loop(torch, ops, train, cfg, batch: int, seq: int,
                     ms=e["start"].elapsed_time(e["end"]),
                     fwd_bwd_ms=e["start"].elapsed_time(e["mid"]),
                     opt_ms=e["mid"].elapsed_time(e["end"])) for e in events]
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
     for i, h in enumerate(history):
         log(f"train step {i}: loss {h['loss']:.6f} gnorm {h['gnorm']:.6f} "
             f"{h['ms']:.2f} ms (forward + backward {h['fwd_bwd_ms']:.2f}, "
@@ -4145,6 +4299,18 @@ def timed_train_loop(torch, ops, train, cfg, batch: int, seq: int,
                 fwd_bwd_ms=median("fwd_bwd_ms"), opt_ms=median("opt_ms"),
                 tokens_per_s=batch * seq / med * 1e3, peak_bytes=peak,
                 wall_s=wall, steps=history, losses=losses)
+
+
+def timed_train_loop(torch, ops, train, cfg, batch: int, seq: int,
+                     steps: int = TRAIN_STEPS, device="cuda"):
+    """``timed_loop`` of ``train_loop`` for ``steps`` steps at batch x seq
+    on ``token_stream``."""
+    def run():
+        _, losses = train.train_loop(cfg, steps=steps, batch=batch, seq=seq,
+                                     lr=3e-4, log_every=1, seed=0,
+                                     device=device)
+        return losses
+    return timed_loop(torch, ops, train, run, batch, seq, steps, device)
 
 
 def train_run(torch, ops, train, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
@@ -4183,27 +4349,31 @@ def train_run(torch, ops, train, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
 
 
 def checkpoint_resume(torch, configs, model, train, data, ckpt,
-                      arch=CKPT_ARCH):
+                      arch=CKPT_ARCH, *, stream=None, device="cuda",
+                      path=None):
     """At ``arch``'s reduced config on the card: two steps, a checkpoint,
     step 3; then a fresh model and state restored from it take step 3
     again; the loss, gnorm, parameters and moments must equal bit for
-    bit."""
+    bit.  ``stream``: a function of the reduced config giving its batches
+    (default ``token_stream`` at CKPT_BATCH x CKPT_SEQ)."""
     import shutil
     from repro_torch.optim import AdamWConfig, adamw_init
     cfg = configs.get_reduced(arch)
-    lm = model.init_params(cfg, seed=0, device="cuda", trainable=True)
+    lm = model.init_params(cfg, seed=0, device=device, trainable=True)
     state = adamw_init(lm)
     step = train.make_train_step(cfg, AdamWConfig(lr=1e-3), total_steps=10)
-    stream = data.token_stream(cfg, CKPT_BATCH, CKPT_SEQ, seed=2,
-                               device="cuda")
-    batches = [next(stream) for _ in range(3)]
+    if stream is None:
+        stream = functools.partial(data.token_stream, batch=CKPT_BATCH,
+                                   seq=CKPT_SEQ, seed=2, device=device)
+    batches = stream(cfg)
+    batches = [next(batches) for _ in range(3)]
     for b in batches[:2]:
         lm, state, _ = step(lm, state, b)
-    path = ROOT / "build" / "ckpt_smoke"
+    path = Path(path) if path is not None else ROOT / "build" / "ckpt_smoke"
     shutil.rmtree(path, ignore_errors=True)
     ckpt.save_train_state(path, lm, state, cfg, step=2)
     lm, state, m = step(lm, state, batches[2])
-    lm2, state2, at = ckpt.restore_train_state(path, cfg, device="cuda")
+    lm2, state2, at = ckpt.restore_train_state(path, cfg, device=device)
     lm2, state2, m2 = step(lm2, state2, batches[2])
     shutil.rmtree(path, ignore_errors=True)
     own = dict(lm2.named_parameters())
@@ -4213,8 +4383,10 @@ def checkpoint_resume(torch, configs, model, train, data, ckpt,
             and all(torch.equal(t, state2[key][n]) for key in ("m", "v")
                     for n, t in state[key].items())
             and torch.equal(state["step"], state2["step"]))
-    log(f"checkpoint {cfg.name} ({cfg.param_dtype}, B={CKPT_BATCH} "
-        f"S={CKPT_SEQ}): step 3 after restoring step 2's checkpoint "
+    B, S = batches[2]["tokens"].shape
+    log(f"checkpoint {cfg.name} ({cfg.param_dtype}, B={B} S={S}"
+        f"{''.join(f', {k} {tuple(v.shape)}' for k, v in batches[2].items() if k.endswith('media'))}"
+        f"): step 3 after restoring step 2's checkpoint "
         f"{'equals' if same else 'differs from'} the continued run's bit "
         f"for bit (loss {float(m['loss']):.6f}, gnorm "
         f"{float(m['gnorm']):.6f})")
@@ -5481,6 +5653,536 @@ def rg_training_phase(torch, ops, ref):
                 seconds=seconds)
 
 
+# --------------------------------------------------------------------------
+# phases 24-26: granite-moe-3b-a800m, internvl2-1b and seamless-m4t-large-v2
+# train on the card
+# --------------------------------------------------------------------------
+
+def forward_shape_checks(torch, ops, ref, cases, device, devs: dict):
+    """``flash_attention`` at each case of ``cases`` (label, (B, H, KV, Sq,
+    Sk, D, causal, window)) on bf16 inputs in the model's transposed
+    layout: against ``ref.mha`` (one bf16 ulp), two launches of the
+    tensor-core instance equal bit for bit, the second also writing its
+    unrounded output (``o32``, as under grad): within FLASH_TOL_F32 of the
+    plain fp32 output and rounding to the first; on the card the kernel and
+    ``ref.mha`` timed in turns beside the bound and
+    ``scaled_dot_product_attention`` (timed only, never on the path).
+    Returns a row a case."""
+    from repro_torch.kernels import cost
+    F = torch.nn.functional
+    on_card = torch.device(device).type == "cuda"
+    rows = []
+    for i, (label, case) in enumerate(cases):
+        B, H, KV, S, Sk, D, causal, window = case
+        kw = dict(causal=causal, window=window)
+        before = dict(ops.flash_launches)
+        q, k, v, o, _ = backward_inputs(torch, ops, case, "bfloat16", device,
+                                        seed=300 + i)
+        o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        again = ops.flash_attention(q, k, v, o32=o32, **kw)
+        shape = (f"{label} B={B} H={H} KV={KV} Sq={S} Sk={Sk} D={D} "
+                 f"causal={causal} window={window} bfloat16")
+        instance = "plain"
+        if on_card:
+            instance = ops.flash_instance(q.dtype, D, q, k, v)
+            ran = {n: c - before[n] for n, c in ops.flash_launches.items()}
+            check(instance == "wgmma" and ran == {"wgmma": 2, "fma": 0},
+                  f"flash_attention {shape}: launched {ran}, expected two "
+                  "wgmma launches")
+        check(torch.equal(o, again), f"flash_attention {shape}: two "
+              "launches on the same inputs differ")
+        check(torch.equal(o32.to(o.dtype), o), f"flash_attention {shape}: "
+              "the unrounded output does not round to the output")
+        dev32 = float((o32 - ref.mha(q.float(), k.float(), v.float(), **kw))
+                      .abs().max())
+        check(dev32 <= FLASH_TOL_F32, f"flash_attention {shape}: the "
+              f"unrounded output's max|dev| {dev32:.3e} > {FLASH_TOL_F32}")
+        check(tuple(o.shape) == tuple(q.shape) and o.dtype == q.dtype
+              and bool(torch.isfinite(o).all()),
+              f"flash_attention {shape}: output {tuple(o.shape)} {o.dtype}")
+        dev, share = flash_deviation(torch, o, ref.mha(q, k, v, **kw),
+                                     "bfloat16")
+        record(devs, "flash_attention", "bfloat16", dev)
+        log(f"check flash_attention {shape} [{instance}]: max|dev| "
+            f"{dev:.3e} ({share:.3f} of the limit), relaunched bit for bit; "
+            f"its unrounded output (o32) against the plain fp32 one max|dev| "
+            f"{dev32:.3e} (limit {FLASH_TOL_F32:g}), rounding to it")
+        check(share <= 1.0, f"flash_attention {shape}: max|dev| {dev:.3e} "
+              f"is {share:.2f}x the limit")
+        row = dict(case=label, instance=instance, max_abs_dev=dev,
+                   share=share, o32_dev=dev32)
+        if on_card:
+            times = paired_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                              lambda: ref.mha(q, k, v, **kw), 10, 2)
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=H != KV), 10)
+            bms, by = attention_bound(B, H, KV, S, D, 2, window, Sk=Sk,
+                                      causal=causal)
+            flops, _ = cost.attention_work(B, H, KV, S, D, 2, window, Sk,
+                                           causal)
+            row.update(times, bound_ms=bms, bound_by=by, library_ms=lib,
+                       tflops=flops / times["ms"] / 1e9)
+            log(f"time flash_attention {shape} [{instance}]: "
+                f"{row['ms']:.4f} ms (samples {row['ms_samples'][0]:.4f}, "
+                f"{row['ms_samples'][1]:.4f}; {row['tflops']:.1f} TFLOP/s, "
+                f"{bms / row['ms']:.4f} of the bound), plain "
+                f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"scaled_dot_product_attention {lib:.4f} ms")
+        rows.append(row)
+        del q, k, v, o, again, o32
+        if on_card:
+            torch.cuda.empty_cache()
+    return rows
+
+
+def family_kernel_checks(torch, ops, ref, cases, device, devs: dict):
+    """The forward (``forward_shape_checks``) and the backward
+    (``backward_checks`` in bf16: against ``ref.mha_backward``, relaunched
+    bit for bit, the control above the limit; on the card
+    ``backward_timings``) at ``cases``."""
+    out = dict(forward=forward_shape_checks(torch, ops, ref, cases, device,
+                                            devs))
+    out["backward"] = backward_checks(torch, ops, ref, device, devs,
+                                      cases=cases, dtypes=("bfloat16",),
+                                      delta=True)
+    if torch.device(device).type == "cuda":
+        out["backward_timing"] = backward_timings(torch, ops, ref, device,
+                                                  cases=cases, reps=(5, 1),
+                                                  delta=True)
+    return out
+
+
+def ssd_train_timing(torch, ops, ref, device="cuda"):
+    """``ssd_scan`` at mamba2-370m's training shape (SSD_TRAIN_CASE, where
+    960 of its launches run: the pass and remat of ``train_loop``):
+    against ``ref.ssd_scan`` (phase 8's
+    bf16 limits), then the device time of a call by CUDA-graph replay (and
+    a call's time, host included) beside the bound and the plain version,
+    in turns.  No single torch call computes the scan: no library time."""
+    from repro_torch.launch.profile_ssd import graph_ms
+    b, s, h, p, n, chunk = case = SSD_TRAIN_CASE
+    args = ssd_inputs(torch, case, "bfloat16", device, seed=7)
+    x, B, C = args[0], args[3], args[4]
+    check(ops.ssd_instance(torch.bfloat16, p, n, chunk, x, B, C) == "wgmma",
+          "mamba2-370m's training scan does not take the tensor-core "
+          "instance")
+    (ydev, yshare), (sdev, sshare) = ssd_deviation(
+        torch, ops.ssd_scan(*args, chunk=chunk),
+        ref.ssd_scan(*args, chunk=chunk), "bfloat16")
+    check(yshare <= 1.0 and sshare <= 1.0, f"ssd_scan {case}: y at "
+          f"{yshare:.3f}, the state at {sshare:.3f} of the limit")
+    kernel = lambda: ops.ssd_scan(*args, chunk=chunk)  # noqa: E731
+    plain = lambda: ref.ssd_scan(*args, chunk=chunk)  # noqa: E731
+    g1 = graph_ms(kernel, 20)
+    p1, p2 = cuda_ms(torch, plain, 2), cuda_ms(torch, plain, 2)
+    g2 = graph_ms(kernel, 20)
+    call = cuda_ms(torch, kernel, 10)
+    bms, by = ssd_bound(*case, 2)
+    row = dict(ms=(g1 + g2) / 2, ms_samples=[g1, g2], call_ms=call,
+               plain_ms=(p1 + p2) / 2, plain_ms_samples=[p1, p2],
+               bound_ms=bms, bound_by=by, library_ms=None, y_dev=ydev,
+               y_share=yshare, state_dev=sdev, state_share=sshare,
+               shape=f"x ({b}, {s}, {h}, {p}), B/C ({b}, {s}, {n}) bf16 "
+                     f"strided, chunk {chunk}")
+    log(f"time ssd_scan training [{row['shape']}] [wgmma]: {row['ms']:.4f} "
+        f"ms on the device (graph samples {g1:.4f}, {g2:.4f}; "
+        f"{bms / row['ms']:.4f} of the bound), {call:.4f} ms a call, plain "
+        f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), library: "
+        f"none; against plain y {ydev:.3e} ({yshare:.3f} of the limit), "
+        f"state {sdev:.3e} ({sshare:.3f})")
+    del args
+    torch.cuda.empty_cache()
+    return row
+
+
+def dry_train_step(cfg, batch: int, seq: int, card: str):
+    """The dry run (``launch.dryrun.run_one``) of ``cfg``'s train step at
+    batch x seq on mesh (1, 1): argument bytes, predicted peak and the
+    roofline's least time."""
+    from repro_torch.data.synthetic import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(cfg, InputShape("train", seq, batch, "train"),
+                         M.abstract_mesh((1, 1), ("data", "model")),
+                         verbose=False)
+    mem, roof = rec["memory_analysis"], rec["roofline"]
+    least = max(roof[k] for k in ("compute_s", "memory_s", "collective_s"))
+    out = dict(batch=batch, seq=seq, argument_bytes=mem["argument_bytes"],
+               predicted_peak_bytes=mem["peak_bytes"],
+               predicted_temp_bytes=mem["temp_bytes"], least_s=least,
+               dominant=roof["dominant"],
+               kernels={k: v["instances"] for k, v in rec["kernels"].items()},
+               seconds=time.perf_counter() - t0)
+    log(f"dry-train {cfg.name} {cfg.num_layers} layers {cfg.param_dtype}, "
+        f"B={batch} S={seq}, mesh (1, 1) [{card}; a prediction]: argument "
+        f"bytes {mem['argument_bytes']}, predicted peak "
+        f"{mem['peak_bytes'] / 1e9:.3f} GB (argument + temp "
+        f"{mem['temp_bytes'] / 1e9:.3f}), least time {1e3 * least:.3f} ms "
+        f"({roof['dominant']}), kernels on meta {out['kernels']}; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def family_batches(torch, cfg, batch: int, seq: int, seed: int, device):
+    """Endless training batches of ``cfg`` at JAX's train shape of ``seq``
+    positions: {"tokens", "labels"} from ``token_stream`` (seq less the
+    VLM's media prefix: ``synthetic._text_len``) and, as
+    ``synthetic.sample_batch`` draws them, the VLM's "media" (batch,
+    frontend_len, d) or the encoder-decoder's "enc_media" (batch,
+    ``synthetic._enc_len(cfg, seq)``, d): N(0, 0.02^2) from a numpy
+    generator of ``seed``, in the model's dtype."""
+    import numpy as np
+    from repro_torch.data import synthetic as data
+    text = data.token_stream(cfg, batch, data._text_len(cfg, seq),
+                             seed=seed, device=device)
+    rng = np.random.default_rng(seed + 1)
+    dt = getattr(torch, cfg.param_dtype)
+
+    def draw(rows):
+        return data._floats(rng.standard_normal((batch, rows, cfg.d_model))
+                            * 0.02, dt, device)
+    while True:
+        b = next(text)
+        if cfg.frontend == "vision":
+            b["media"] = draw(cfg.frontend_len)
+        if cfg.is_encoder_decoder:
+            b["enc_media"] = draw(data._enc_len(cfg, seq))
+        yield b
+
+
+def expected_paths(cfg, steps: int) -> dict:
+    """Flash forward launches by path (``flash_paths``) of ``steps`` train
+    steps: each call of ``attention_calls`` twice a step (pass and
+    remat)."""
+    L = kernel_layers(cfg)
+    paths = dict(decoder=2 * L * steps)
+    if cfg.is_encoder_decoder:
+        paths.update(encoder=2 * cfg.num_encoder_layers * steps,
+                     cross=2 * L * steps)
+    return paths
+
+
+def family_train_run(torch, ops, train, model, cfg, batch: int, seq: int, *,
+                     steps: int = TRAIN_STEPS, device="cuda"):
+    """``steps`` train steps at batch x seq with the counters read around
+    them (``timed_loop``): through ``train_loop`` on ``token_stream`` where
+    the config takes no media, else ``make_train_step`` in a loop of its
+    own on ``family_batches`` (``train_loop`` feeds ``token_stream`` only,
+    which has neither "media" nor "enc_media"), from the same seed, lr
+    and schedule.  Each step launches the flash forward twice a call of
+    ``attention_calls`` (pass and remat; by path as ``expected_paths``)
+    and the backward once, on the card all on the tensor-core instances,
+    nothing else.  Returns the run."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    on_card = torch.device(device).type == "cuda"
+    calls = attention_calls(cfg)
+    if cfg.frontend == "vision" or cfg.is_encoder_decoder:
+        def run():
+            lm = model.init_params(cfg, seed=0, device=device,
+                                   trainable=True)
+            state = adamw_init(lm)
+            step = train.make_train_step(cfg, AdamWConfig(lr=3e-4),
+                                         total_steps=steps)
+            stream = family_batches(torch, cfg, batch, seq, seed=0,
+                                    device=device)
+            losses = []
+            for _ in range(steps):
+                lm, state, m = step(lm, state, next(stream))
+                losses.append(float(m["loss"]))
+            return losses
+    else:
+        def run():
+            _, losses = train.train_loop(cfg, steps=steps, batch=batch,
+                                         seq=seq, lr=3e-4, log_every=1,
+                                         seed=0, device=device)
+            return losses
+    with flash_paths(ops, collections.Counter()) as paths:
+        out = timed_loop(torch, ops, train, run, batch, seq, steps, device)
+    out["launches_by_path"] = dict(paths)
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(flash_attention=2 * calls * steps,
+                flash_attention_backward=calls * steps)
+    check(out["launches"] == want, f"train {cfg.name}: launches "
+          f"{out['launches']}, expected {want}")
+    check(out["launches_by_path"] == expected_paths(cfg, steps),
+          f"train {cfg.name}: flash forward launches by path "
+          f"{out['launches_by_path']}, expected {expected_paths(cfg, steps)}")
+    check(not on_card or (
+        out["flash_instances"] == {"wgmma": 2 * calls * steps, "fma": 0}
+        and out["backward_instances"] == {"wgmma": calls * steps, "fma": 0}),
+        f"train {cfg.name}: launches by instance, forward "
+        f"{out['flash_instances']}, backward {out['backward_instances']}; "
+        "expected every one on the tensor-core instance")
+    return out
+
+
+def scatter_route_checks(torch, ops, model, cfg, batch, other, *,
+                         tol=SCATTER_STEP_TOL, device="cuda"):
+    """granite's scatter route under grad, from one set of weights, through
+    the kernels.  (a) One step's loss and every gradient at capacity
+    factor E / k (nothing drops) against the dense route's on ``batch``;
+    the control: the scatter route's gradients of ``other``.  (b) The
+    step at the configured capacity factor twice: the loss and every
+    gradient equal bit for bit (the dispatch's backward gathers and sums
+    by index, no atomic add).  Returns the readings."""
+    from repro_torch.models import moe
+    on_card = torch.device(device).type == "cuda"
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    T = int(batch["tokens"].numel())
+    ample = dataclasses.replace(cfg, moe_routing="scatter",
+                                moe_capacity_factor=E / k)
+    tight = dataclasses.replace(cfg, moe_routing="scatter")
+    check(moe.capacity(ample, T) > T, f"{cfg.name}: capacity "
+          f"{moe.capacity(ample, T)} drops tokens")
+    lm = model.init_params(cfg, seed=0, device=device, trainable=True)
+
+    def loss_and_grads(c, b):
+        return step_grads(model, lm, c, b)
+
+    loss_d, grads_d = loss_and_grads(cfg, batch)
+    loss_s, grads_s = loss_and_grads(ample, batch)
+    _, grads_c = loss_and_grads(ample, other)
+    devs = {n: leaf_deviation(torch, g, grads_d[n])
+            for n, g in grads_s.items()}
+    ctl = {n: leaf_deviation(torch, g, grads_d[n])
+           for n, g in grads_c.items()}
+    del grads_d, grads_s, grads_c
+    loss_dev = abs(float(loss_s) - float(loss_d))
+    worst = max(devs, key=devs.get)
+    log(f"scatter {cfg.name} B={batch['tokens'].shape[0]} "
+        f"S={batch['tokens'].shape[1]}, capacity factor {E / k:g} (C = "
+        f"{moe.capacity(ample, T)}, nothing dropped) against the dense "
+        f"route: loss {float(loss_s):.6f} against {float(loss_d):.6f}, "
+        f"|dev| {loss_dev:.4e} (limit {tol['loss']:g}); gradients, max over "
+        f"{len(devs)} parameters of max|g_s - g_d| / max|g_d|: "
+        f"{devs[worst]:.4e} at {worst} (limit {tol['grad']:g}), median "
+        f"{sorted(devs.values())[len(devs) // 2]:.4e}; control (another "
+        f"batch's scatter gradients) min {min(ctl.values()):.4e} at "
+        f"{min(ctl, key=ctl.get)}")
+    for n in sorted(devs, key=devs.get)[-4:]:
+        log(f"scatter leaf {n}: {devs[n]:.4e} (control {ctl[n]:.4e})")
+    check(bool(torch.isfinite(loss_s)) and loss_dev <= tol["loss"],
+          f"scatter vs dense: loss |dev| {loss_dev:.4e} > {tol['loss']}")
+    check(devs[worst] <= tol["grad"], f"scatter vs dense: {worst} gradient "
+          f"{devs[worst]:.4e} > {tol['grad']}")
+    check(min(ctl.values()) > tol["grad"], "scatter vs dense: the control "
+          f"{min(ctl.values()):.4e} is within the limit at "
+          f"{min(ctl, key=ctl.get)}")
+    drops = []
+    slots = moe._slots
+
+    def counted_slots(idx, c):
+        C, slot = slots(idx, c)
+        drops.append(int((slot >= C).sum()))
+        return C, slot
+    moe._slots = counted_slots
+    try:
+        first = loss_and_grads(tight, batch)
+    finally:
+        moe._slots = slots
+    second = loss_and_grads(tight, batch)
+    same = torch.equal(first[0], second[0]) and all(
+        torch.equal(g, second[1][n]) for n, g in first[1].items())
+    L = kernel_layers(cfg)
+    dropped = sum(drops[:L])
+    log(f"scatter {cfg.name} at capacity factor {cfg.moe_capacity_factor:g} "
+        f"(C = {moe.capacity(tight, T)}; {dropped} of {T * k * L} "
+        f"assignments dropped over {L} layers): two steps from the same "
+        f"weights and batch {'equal' if same else 'differ'} bit for bit "
+        f"(loss {float(first[0]):.6f} and every gradient)")
+    check(same, f"{cfg.name}: two scatter steps differ")
+    del lm, first, second
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(loss_dense=float(loss_d), loss_scatter=float(loss_s),
+                loss_dev=loss_dev, grad_dev_max=devs[worst],
+                grad_dev_leaf=worst, control_min=min(ctl.values()), tol=tol,
+                capacity_ample=moe.capacity(ample, T),
+                capacity=moe.capacity(tight, T), dropped=dropped,
+                assignments=T * k * L, bit_equal=same)
+
+
+def moe_route_split(torch, model, cfg, batch: int, seq: int, card: str,
+                    device="cuda"):
+    """One step's forward + backward at batch x seq on each MoE route
+    (the config's dense one, then scatter at its capacity factor), by
+    device kernel (``kernel_split``: torch.profiler, after a warm-up):
+    each route's device ms and its six largest items."""
+    lm = model.init_params(cfg, seed=0, device=device, trainable=True)
+    b = next(family_batches(torch, cfg, batch, seq, seed=3, device=device))
+    rows = {}
+    for c in (cfg, dataclasses.replace(cfg, moe_routing="scatter")):
+        split = kernel_split(torch, lambda: step_grads(model, lm, c, b),
+                             reps=1)
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+        rows[c.moe_routing] = dict(device_ms=sum(split.values()), top=top)
+        log(f"split {cfg.name} {c.moe_routing} route B={batch} S={seq} "
+            f"[{card}]: {rows[c.moe_routing]['device_ms']:.2f} ms of device "
+            f"time in one forward + backward; largest: "
+            + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top))
+    del lm
+    torch.cuda.empty_cache()
+    return rows
+
+
+def family_training_phase(torch, ops, ref, devs: dict, arch: str,
+                          number: int, step_tol: dict, *, device="cuda",
+                          reduced=False, cases=None, steps=TRAIN_STEPS,
+                          seq=FAMILY_SEQ, ckpt_dir=None):
+    """Phases 24-26: ``arch`` as configured (the reduced config with
+    ``reduced``, the CPU rehearsals) trains on the card.  The kernels at
+    its training shapes (``family_kernel_checks`` at ``cases``, by default
+    FAMILY_KERNEL_CASES); the dry run of its step at FAMILY_BATCH x seq
+    (B = 1 where the predicted peak passes FAMILY_PEAK_LIMIT); one step
+    through the kernels against the plain-attention step at
+    FAMILY_STEP_BATCH x seq (``train_step_vs_plain`` at ``step_tol``); a
+    MoE config's ``scatter_route_checks``; ``steps`` steps with the
+    counters read around them (``family_train_run``), the peak beside the
+    dry run's; a MoE config's scatter route timed beside them and, on the
+    card, both routes split by kernel (``moe_route_split``); a checkpoint
+    resume at the reduced config on the family's batches.
+    Returns the phase's numbers."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs
+    from repro_torch.data import synthetic as data
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    card = _card_line(device)
+    cfg = (configs.get_reduced if reduced else configs.get)(arch)
+    full = configs.get(arch)
+    enc = (f"{cfg.num_encoder_layers} encoder + " if cfg.is_encoder_decoder
+           else "")
+    log(f"train {cfg.name}: {'reduced' if reduced else 'as configured, no cut'};"
+        f" {enc}{cfg.num_layers} layers ({attention_calls(cfg)} flash calls "
+        f"a pass), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, D {cfg.head_dim}, d_ff {cfg.d_ff}"
+        + (f", {cfg.num_experts} experts top {cfg.num_experts_per_tok}"
+           if cfg.num_experts else "")
+        + f", vocab {cfg.padded_vocab} (padded"
+        f"{', tied' if cfg.tie_embeddings else ''}), {cfg.param_dtype}; "
+        f"the registry's {full.num_layers} layers, d_model {full.d_model}")
+    out = dict(arch=cfg.name, card=card)
+    out["kernels"] = family_kernel_checks(
+        torch, ops, ref, FAMILY_KERNEL_CASES[arch] if cases is None else cases,
+        device, devs)
+    batch = FAMILY_BATCH
+    out["dry"] = dry_train_step(cfg, batch, seq, card)
+    if out["dry"]["predicted_peak_bytes"] > FAMILY_PEAK_LIMIT:
+        log(f"train {cfg.name}: the cut is the batch, B = {batch} -> 1 (a "
+            f"predicted peak of {out['dry']['predicted_peak_bytes'] / 1e9:.3f}"
+            f" GB passes {FAMILY_PEAK_LIMIT / 1e9:g} GB)")
+        batch = 1
+        out["dry"] = dry_train_step(cfg, batch, seq, card)
+    stream = family_batches(torch, cfg, FAMILY_STEP_BATCH, seq, seed=1,
+                            device=device)
+    one, other = next(stream), next(stream)
+    out["step_check"] = train_step_vs_plain(
+        torch, ops, ref, model, cfg, one, other, loss_tol=step_tol["loss"],
+        grad_tol=step_tol["grad"], device=device)
+    if cfg.num_experts:
+        out["scatter"] = scatter_route_checks(torch, ops, model, cfg, one,
+                                              other, device=device)
+    del stream, one, other
+    # the checks' models and gradients can outlive them in reference
+    # cycles until the collector runs (phase 23's note)
+    gc.collect()
+    held = 0
+    if on_card:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+    run = family_train_run(torch, ops, train, model, cfg, batch, seq,
+                           steps=steps, device=device)
+    run["held_before_bytes"] = held
+    losses = run.pop("losses")
+    dry = out["dry"]
+    log(f"train {cfg.name} B={batch} S={seq}"
+        + (f" (media prefix {cfg.frontend_len} + text "
+           f"{data._text_len(cfg, seq)})" if cfg.frontend == "vision" else "")
+        + (f" (enc_media {data._enc_len(cfg, seq)} frames)"
+           if cfg.is_encoder_decoder else "")
+        + f" [{card}]: {steps} steps in {run['wall_s']:.2f} s, median step "
+        f"{run['median_step_ms']:.2f} ms ({run['tokens_per_s']:.1f} tokens/s"
+        f" of B x S positions; forward + backward {run['fwd_bwd_ms']:.2f} "
+        f"ms, optimizer {run['opt_ms']:.2f} ms, CUDA events); peak "
+        f"{run['peak_bytes'] / 1e9:.3f} GB (torch.cuda.max_memory_allocated, "
+        f"{held / 1e9:.3f} GB held before) against the dry run's predicted "
+        f"{dry['predicted_peak_bytes'] / 1e9:.3f} GB (argument bytes "
+        f"{dry['argument_bytes']}); launches "
+        f"{run['launches']['flash_attention']} flash forward "
+        f"{json.dumps(run['flash_instances'])} by path "
+        f"{json.dumps(run['launches_by_path'])}, "
+        f"{run['launches']['flash_attention_backward']} backward "
+        f"{json.dumps(run['backward_instances'])}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    out["run"] = run
+    out["losses"] = losses
+    if cfg.num_experts:
+        tight = dataclasses.replace(cfg, moe_routing="scatter")
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        timed = family_train_run(torch, ops, train, model, tight, batch, seq,
+                                 steps=SCATTER_TIMED_STEPS, device=device)
+        timed.pop("losses")
+        out["scatter_run"] = timed
+        log(f"scatter {cfg.name} B={batch} S={seq} at capacity factor "
+            f"{cfg.moe_capacity_factor:g} [{card}]: median step "
+            f"{timed['median_step_ms']:.2f} ms of {SCATTER_TIMED_STEPS} "
+            f"(forward + backward {timed['fwd_bwd_ms']:.2f}, optimizer "
+            f"{timed['opt_ms']:.2f}; {timed['tokens_per_s']:.1f} tokens/s; "
+            f"peak {timed['peak_bytes'] / 1e9:.3f} GB) against the dense "
+            f"route's {run['median_step_ms']:.2f} ms (forward + backward "
+            f"{run['fwd_bwd_ms']:.2f}; peak {run['peak_bytes'] / 1e9:.3f} "
+            f"GB): scatter / dense {timed['median_step_ms'] / run['median_step_ms']:.4f}")
+        if on_card:
+            out["route_split"] = moe_route_split(torch, model, cfg, batch,
+                                                 seq, card)
+    if on_card:
+        torch.cuda.empty_cache()
+    out["resume"] = checkpoint_resume(
+        torch, configs, model, train, data, ckpt, arch=arch, device=device,
+        path=ckpt_dir, stream=lambda c: family_batches(
+            torch, c, CKPT_BATCH, CKPT_SEQ, seed=2, device=device))
+    out["batch"], out["seq"] = batch, seq
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase {number}: {out['seconds']:.1f} s")
+    return out
+
+
+def granite_training_phase(torch, ops, ref, devs: dict, **kw):
+    """Phase 24: granite-moe-3b-a800m trains on the card on the dense
+    route (its config's) through ``train_loop``; its scatter route against
+    the dense one, bit for bit, and timed (``family_training_phase``)."""
+    return family_training_phase(torch, ops, ref, devs, GRANITE_TRAIN_ARCH,
+                                 24, GRANITE_STEP_TOL, **kw)
+
+
+def vlm_training_phase(torch, ops, ref, devs: dict, **kw):
+    """Phase 25: internvl2-1b trains on the card behind its media prefix
+    (``family_training_phase``), and ``ssd_scan`` is timed at mamba2-370m's
+    training shape (``ssd_train_timing``) on the card."""
+    out = family_training_phase(torch, ops, ref, devs, VLM_TRAIN_ARCH, 25,
+                                VLM_STEP_TOL, **kw)
+    if torch.device(kw.get("device", "cuda")).type == "cuda":
+        out["ssd_train"] = ssd_train_timing(torch, ops, ref)
+    return out
+
+
+def encdec_training_phase(torch, ops, ref, devs: dict, **kw):
+    """Phase 26: seamless-m4t-large-v2 trains on the card through its
+    encoder and cross-attention (``family_training_phase``): per step 24
+    encoder, 24 decoder and 24 cross calls of the flash kernel, each twice
+    (pass and remat), and 72 backward launches."""
+    return family_training_phase(torch, ops, ref, devs, ENCDEC_TRAIN_ARCH,
+                                 26, ENCDEC_STEP_TOL, **kw)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5892,6 +6594,20 @@ def main() -> int:
     # step, train_loop (counters read around it), a resume
     phase23 = rg_training_phase(torch, ops, ref)
     rg_launches = phase23["run"]["launches"]
+    # phases 24-26: granite-moe-3b-a800m (both MoE routes), internvl2-1b
+    # (behind its media prefix) and seamless-m4t-large-v2 (through its
+    # encoder and cross-attention) train on the card as configured; the
+    # flash kernels at their training shapes; ssd_scan at mamba2-370m's
+    families = {}
+    for phase in (granite_training_phase, vlm_training_phase,
+                  encdec_training_phase):
+        rec = phase(torch, ops, ref, devs)
+        families[rec["arch"]] = rec
+    family_runs = {f"{name} {what}": rec[key]
+                   for name, rec in families.items()
+                   for key, what in (("run", "train"),
+                                     ("scatter_run", "train, scatter route"))
+                   if key in rec}
     for name in FIT_KERNELS:
         launches[name] += phase21["launches"][name]
     for inst, n in phase21["instances"]["round"].items():
@@ -5912,6 +6628,9 @@ def main() -> int:
         phase22["train"]["launches"]["flash_attention_backward"] \
         + rg_launches["flash_attention_backward"]
     launches["flash_attention"] += rg_launches["flash_attention"]
+    for run in family_runs.values():
+        for name in ("flash_attention", "flash_attention_backward"):
+            launches[name] += run["launches"][name]
     for h in heads.values():
         launches["flash_attention"] += h["flash_launches"]
         for name in FIT_KERNELS:
@@ -5983,7 +6702,13 @@ def main() -> int:
                     **{f"seamless-m4t-large-v2 {path} (B={run['B']}, "
                        f"S={run['S']})": n
                        for run in encdec["runs"]
+                       for path, n in run["launches_by_path"].items()},
+                    **{f"{what} ({TRAIN_STEPS if 'scatter' not in what else SCATTER_TIMED_STEPS}"
+                       f" steps: pass + remat) {path}": n
+                       for what, run in family_runs.items()
                        for path, n in run["launches_by_path"].items()}},
+                train_shapes={name: rec["kernels"]["forward"]
+                              for name, rec in families.items()},
                 serve_new_models={
                     srv_name: dict(prefill_ms=srv["prefill_ms"],
                                    decode_ms_median=float(np.median(
@@ -6030,7 +6755,23 @@ def main() -> int:
                         "steps")},
                     "launches": rg_launches,
                     "checkpoint_resume": phase23["resume"],
-                    "phase_s": phase23["seconds"]})
+                    "phase_s": phase23["seconds"]},
+                train_families={
+                    name: {**{k: rec[k] for k in (
+                        "card", "batch", "seq", "dry", "step_check",
+                        "losses", "resume", "route_split", "seconds")
+                        if k in rec},
+                        "scatter": rec.get("scatter"),
+                        "checks": rec["kernels"]["backward"],
+                        "timing": rec["kernels"].get("backward_timing"),
+                        **{key: {k: rec[key][k] for k in (
+                            "median_step_ms", "fwd_bwd_ms", "opt_ms",
+                            "tokens_per_s", "peak_bytes",
+                            "held_before_bytes", "wall_s", "launches",
+                            "launches_by_path", "flash_instances",
+                            "backward_instances", "steps") if k in rec[key]}
+                           for key in ("run", "scatter_run") if key in rec}}
+                    for name, rec in families.items()})
         elif name == "ssd_scan_backward":
             tol = {"float32": {k: f"{v:g} max|grad|"
                                for k, v in SSD_BACKWARD_TOL.items()},
@@ -6069,7 +6810,9 @@ def main() -> int:
                 launches_by_path={
                     "serve mamba2-370m": m_served["launches"]["ssd_scan"],
                     f"train_loop {MAMBA_TRAIN_ARCH} ({TRAIN_STEPS} steps: "
-                    "pass + remat)": mamba_launches["ssd_scan"]})
+                    "pass + remat)": mamba_launches["ssd_scan"]},
+                train_shape=families[configs.get(VLM_TRAIN_ARCH).name][
+                    "ssd_train"])
         else:
             tol = {dt: TOL[dt] for dt in devs[name]}
             row["library_ms"] = None

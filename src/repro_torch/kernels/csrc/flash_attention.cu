@@ -12,7 +12,11 @@
 //   s = -1e30 where k_pos >= Sk, or (causal) k_pos > q_pos, or
 //       (window) k_pos <= q_pos - window
 //   online softmax over the key tiles: m, l, acc in fp32
-//   o = acc / l, with l == 0 giving zeros, cast once to q's dtype.
+//   o = acc / l, with l == 0 giving zeros, cast once to q's dtype;
+//   where the caller passes o32 (training: ops.FlashAttention), the same
+//   acc / l also goes out unrounded in fp32, for the backward's
+//   delta = rowsum(do * o), which the rounded o would bias (see
+//   flash_backward.cu).
 // The Pallas kernel takes one length for both (Sk = S: self-attention).
 // Here the keys may have their own length Sk, as cross-attention needs
 // (queries of the decoder's prompt against the encoder's frames); the
@@ -130,9 +134,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int group,
-             int S, int Sk, int D, Strides qs, Strides ks, Strides vs,
-             Strides os, float scale, int causal, int window) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ o32, int H, int group, int S, int Sk, int D,
+             Strides qs, Strides ks, Strides vs, Strides os, float scale,
+             int causal, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);         // kBQ x (DP+1)
   float* Ps = Qs + kBQ * (DP + 1);                        // kBQ x (kBK+1)
@@ -259,6 +264,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   T* ob = o + b * os.b + h * os.h;
+  // the unrounded o, (B, H, S, D) dense, where the caller asks for it
+  float* o32b = o32 ? o32 + static_cast<long long>(bh) * S * D : nullptr;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qp = q0 + ty * kRows + i;
@@ -267,16 +274,20 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DP / kTX; ++j) {
       const int d = tx + kTX * j;
-      if (d < D) ob[qp * os.s + d] = narrow<T>(acc[i][j] / denom);
+      if (d >= D) continue;
+      const float x = acc[i][j] / denom;
+      ob[qp * os.s + d] = narrow<T>(x);
+      if (o32b) o32b[static_cast<long long>(qp) * D + d] = x;
     }
   }
 }
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int S, int Sk, int D, Strides qs,
-                   Strides ks, Strides vs, Strides os, float scale, int causal,
-                   int window, cudaStream_t stream) {
+                   float* o32, int B, int H, int KV, int S, int Sk, int D,
+                   Strides qs, Strides ks, Strides vs, Strides os,
+                   float scale, int causal, int window,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, DP>();
   // on every launch: the attribute is per device, and the call is cheap
   const cudaError_t err = cudaFuncSetAttribute(
@@ -286,26 +297,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / KV, S, Sk, D, qs,
-      ks, vs, os, scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), o32, H, H / KV, S, Sk, D,
+      qs, ks, vs, os, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KV, int S, int Sk, int D, Strides qs,
-                     Strides ks, Strides vs, Strides os, float scale,
-                     int causal, int window, cudaStream_t stream) {
+                     float* o32, int B, int H, int KV, int S, int Sk, int D,
+                     Strides qs, Strides ks, Strides vs, Strides os,
+                     float scale, int causal, int window,
+                     cudaStream_t stream) {
   if (D <= 32)
-    return launch<T, 32>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
-                         scale, causal, window, stream);
+    return launch<T, 32>(q, k, v, o, o32, B, H, KV, S, Sk, D, qs, ks, vs,
+                         os, scale, causal, window, stream);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
-                         scale, causal, window, stream);
+    return launch<T, 64>(q, k, v, o, o32, B, H, KV, S, Sk, D, qs, ks, vs,
+                         os, scale, causal, window, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
-                          scale, causal, window, stream);
-  return launch<T, 256>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
+    return launch<T, 128>(q, k, v, o, o32, B, H, KV, S, Sk, D, qs, ks, vs,
+                          os, scale, causal, window, stream);
+  return launch<T, 256>(q, k, v, o, o32, B, H, KV, S, Sk, D, qs, ks, vs, os,
                         scale, causal, window, stream);
 }
 
@@ -371,6 +383,7 @@ __device__ __forceinline__ void key_tiles(int first, int last, int Sk,
 struct OutArgs {
   __nv_bfloat16* o;
   long long sb, sh, ss;   // elements; D has unit stride
+  float* o32;             // the unrounded o, (B, H, S, D) dense, or null
 };
 
 template <int D>
@@ -626,14 +639,27 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
           *reinterpret_cast<__nv_bfloat162*>(row + 64 * hf + 8 * j + c0) =
               __floats2bfloat162_rn(acc[hf][x] * inv, acc[hf][x + 1] * inv);
         }
+      // the same values unrounded, where the caller asks for them (the
+      // backward's delta = rowsum(do * o) in training)
+      if (out.o32 != nullptr) {
+        float* row32 = out.o32 + (static_cast<long long>(bh) * S + qp) * D;
+#pragma unroll
+        for (int hf = 0; hf < L::kHalves; ++hf)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int x = 4 * j + 2 * i2;
+            *reinterpret_cast<float2*>(row32 + 64 * hf + 8 * j + c0) =
+                make_float2(acc[hf][x] * inv, acc[hf][x + 1] * inv);
+          }
+      }
     }
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KV, int S, int Sk, Strides qs, Strides ks, Strides vs,
-           Strides os, float scale, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* o32,
+           int B, int H, int KV, int S, int Sk, Strides qs, Strides ks,
+           Strides vs, Strides os, float scale, int causal, int window,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, D, S, H, B, qs.b, qs.h, qs.s, kBQ);
@@ -645,7 +671,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  const OutArgs out{static_cast<__nv_bfloat16*>(o), os.b, os.h, os.s};
+  const OutArgs out{static_cast<__nv_bfloat16*>(o), os.b, os.h, os.s, o32};
   flash_tc_kernel<D><<<grid, Loads<D>::kThreads, smem, stream>>>(
       tq, tk, tv, out, H, H / KV, S, Sk, scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -658,16 +684,18 @@ extern "C" {
 // o = attention(q, k, v) on `stream`; q, o are (B, H, S, D) and k, v
 // (B, KV, Sk, D), all fp32 (bf16 = 0) or all bf16, each with its own
 // element strides over (B, heads, rows) and a unit stride over D.  window
-// <= 0 means no window; Sk != S is refused under causal or window.  Returns
-// the cudaError_t of the launch (0 on success); does not synchronize or
-// allocate.
+// <= 0 means no window; Sk != S is refused under causal or window.  o32,
+// unless null, also gets o before its rounding to q's dtype, fp32 (B, H,
+// S, D) dense.  Returns the cudaError_t of the launch (0 on success); does
+// not synchronize or allocate.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int bf16, int B, int H, int KV, int S, int Sk, int D,
                     long long q_sb, long long q_sh, long long q_ss,
                     long long k_sb, long long k_sh, long long k_ss,
                     long long v_sb, long long v_sh, long long v_ss,
                     long long o_sb, long long o_sh, long long o_ss,
-                    float scale, int causal, int window, void* stream) {
+                    float scale, int causal, int window, void* o32,
+                    void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || Sk < 1 ||
       D < 1 || D > 256 || (S + kBQ - 1) / kBQ > 65535 ||
       (Sk != S && (causal || window > 0)))
@@ -676,10 +704,12 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks,
-                                     vs, os, scale, causal, window, st)
-           : dispatch<float>(q, k, v, o, B, H, KV, S, Sk, D, qs, ks, vs, os,
-                             scale, causal, window, st);
+      bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(o32),
+                                     B, H, KV, S, Sk, D, qs, ks, vs, os,
+                                     scale, causal, window, st)
+           : dispatch<float>(q, k, v, o, static_cast<float*>(o32), B, H, KV,
+                             S, Sk, D, qs, ks, vs, os, scale, causal,
+                             window, st);
   return static_cast<int>(err);
 }
 
@@ -687,15 +717,17 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
 // all bf16, D = 64, 128 or 256, with element strides over (B, heads, rows) that are
 // multiples of 8 (16 bytes, for the tensor maps; a dimension of size 1 may
 // pass any such stride), a unit stride over D and 16-byte-aligned q, k, v.
-// Same return convention as flash_attention, with the tensor-map errors
-// of flash_attention_error_string besides.
+// o32 as flash_attention's, 8-byte aligned.  Same return convention as
+// flash_attention, with the tensor-map errors of
+// flash_attention_error_string besides.
 int flash_attention_tc(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int KV, int S, int Sk, int D,
                        long long q_sb, long long q_sh, long long q_ss,
                        long long k_sb, long long k_sh, long long k_ss,
                        long long v_sb, long long v_sh, long long v_ss,
                        long long o_sb, long long o_sh, long long o_ss,
-                       float scale, int causal, int window, void* stream) {
+                       float scale, int causal, int window, void* o32,
+                       void* stream) {
   const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                                 v_sb, v_sh, v_ss};
   bool ok = B >= 1 && H >= 1 && KV >= 1 && H % KV == 0 && S >= 1 &&
@@ -706,18 +738,20 @@ int flash_attention_tc(const void* q, const void* k, const void* v, void* o,
   const void* const bases[3] = {q, k, v};
   for (const void* p : bases)
     ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  ok = ok && reinterpret_cast<uintptr_t>(o32) % 8 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o32f = static_cast<float*>(o32);
   if (D == 64)
-    return tc::launch<64>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs, os, scale,
-                          causal, window, st);
+    return tc::launch<64>(q, k, v, o, o32f, B, H, KV, S, Sk, qs, ks, vs, os,
+                          scale, causal, window, st);
   if (D == 128)
-    return tc::launch<128>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs, os,
+    return tc::launch<128>(q, k, v, o, o32f, B, H, KV, S, Sk, qs, ks, vs, os,
                            scale, causal, window, st);
-  return tc::launch<256>(q, k, v, o, B, H, KV, S, Sk, qs, ks, vs, os, scale,
-                         causal, window, st);
+  return tc::launch<256>(q, k, v, o, o32f, B, H, KV, S, Sk, qs, ks, vs, os,
+                         scale, causal, window, st);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -14,7 +14,7 @@
 // fp32 or bf16, query head h reading kv head h / (H / KV):
 //   s     = (q . k^T) * scale, masked as the forward masks (-1e30)
 //   P     = exp(s - m) / l          m, l: the row max and sum of exp(s - m)
-//   delta = rowsum(do * o)
+//   delta = rowsum(do * o), or the caller's delta (B, H, S) fp32
 //   dv    = P^T do                  summed over the g query heads of a kv head
 //   dS    = P * (do . v^T - delta)
 //   dq    = scale * dS k
@@ -23,6 +23,17 @@
 // below), each result rounded once to the inputs' dtype.  A row that
 // sees no key (l == 0, where the forward writes zeros) gets P = 0, so its
 // gradients are zero.
+//
+// delta stands for rowsum(P * dP) = do . (P v), the softmax's own row sum.
+// From the bf16 o it is off by do . (o - P v), up to a rounding of o, and
+// that error is common to every key of the row: each dS_ij takes
+// -P_ij (delta error), and sum_j dS_ij, exactly 0, is not.  Where the
+// layer's key inputs are alike (the decoder of a deep random encoder-
+// decoder, whose cross-attention gives every position nearly the same
+// output) wk's and wq's gradients are nearly that zero sum, and the error
+// is 10x the bf16 floor.  So the training path (ops.FlashAttention) passes
+// delta from the forward's unrounded o (csrc/flash_attention.cu's o32);
+// a call without it computes delta from o, as here.
 //
 // What bounds it on an H100: the bound counts 10*D flops per visible
 // (query, key) pair (s, dP, dV, dK, dQ: 2D each) at the bf16 tensor-core
@@ -46,7 +57,8 @@
 //      warpgroups as the forward's flash_tc_kernel: two consumers of 64
 //      rows, and one thread of the third issuing the loads, giving its
 //      registers to the consumers (setmaxnreg).  q and do are loaded once;
-//      delta = rowsum(do * o) from 16-byte loads of o and do; loop 1 over
+//      delta = rowsum(do * o) from 16-byte loads of o and do (or the
+//      caller's delta); loop 1 over
 //      the key tiles the tile sees computes s = q k^T (SS wgmma, both
 //      K-major) and the online max and sum, giving lse = m + log2 l per
 //      row (log2 units; +inf for rows past S, so that their P is 0), which
@@ -257,8 +269,9 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ o, const T* __restrict__ dout,
-             float* __restrict__ stats, int H, int group, int D, Mask mk,
-             Strides qs, Strides ks, Strides os, Strides dos, float scale) {
+             const float* __restrict__ delta_in, float* __restrict__ stats,
+             int H, int group, int D, Mask mk, Strides qs, Strides ks,
+             Strides os, Strides dos, float scale) {
   using TL = Tiles<DP>;
   constexpr int BQ = TL::BQ, BK = TL::BK, kR = TL::kR, kC = TL::kC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -316,19 +329,21 @@ stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // delta = rowsum(do * o), the 8 threads of a row over its D columns
+  // delta = rowsum(do * o), the 8 threads of a row over its D columns, or
+  // the caller's
   const long long BHS = static_cast<long long>(gridDim.x) * mk.S;
   const long long base = static_cast<long long>(bh) * mk.S;
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     const int qp = q0 + ty * kR + i;
     float dl = 0.0f;
-    if (qp < mk.S)
+    if (qp < mk.S && delta_in == nullptr)
       for (int d = tx; d < D; d += kTX)
         dl = fmaf(widen(dob[qp * dos.s + d]), widen(ob[qp * os.s + d]), dl);
 #pragma unroll
     for (int off = 1; off < kTX; off <<= 1)
       dl += __shfl_xor_sync(0xffffffffu, dl, off);
+    if (delta_in != nullptr && qp < mk.S) dl = delta_in[base + qp];
     if (tx == 0 && qp < mk.S) {
       stats[base + qp] = m[i];
       stats[BHS + base + qp] = l[i];
@@ -593,6 +608,7 @@ constexpr size_t dq_smem() {
 
 struct Args {
   const void *q, *k, *v, *o, *dout;
+  const float* delta;    // the caller's delta (B, H, S), or null
   void *dq, *dk, *dv;
   float* stats;
   int B, H, KV, D;
@@ -627,8 +643,8 @@ cudaError_t launch(const Args& a) {
   const T* dout = static_cast<const T*>(a.dout);
   const dim3 qgrid(a.B * a.H, (a.mk.S + TL::BQ - 1) / TL::BQ);
   stats_kernel<T, DP><<<qgrid, kThreads, stats_smem<DP>(), a.stream>>>(
-      q, k, o, dout, a.stats, a.H, group, a.D, a.mk, a.qs, a.ks, a.os,
-      a.dos, a.scale);
+      q, k, o, dout, a.delta, a.stats, a.H, group, a.D, a.mk, a.qs, a.ks,
+      a.os, a.dos, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 kgrid(a.B * a.KV, (a.mk.Sk + TL::BK - 1) / TL::BK);
@@ -851,6 +867,7 @@ struct ArgsA {
   long long o_sb, o_sh, o_ss;
   const __nv_bfloat16* dout;
   long long do_sb, do_sh, do_ss;
+  const float* delta;    // the caller's delta (B, H, S), or null
   Out dq;
   float* stats;          // lse (log2 units) | delta, each B * H * S_pad
   int H, group, S_pad;
@@ -1009,7 +1026,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i2 = 0; i2 < 2; ++i2) {
       const int qp = r0 + 8 * i2;
       float acc = 0.0f;
-      if (qp < S) {
+      if (qp < S && a.delta == nullptr) {
         const int d0 = (lane % 4) * (D / 4);
         const __nv_bfloat16* orow =
             a.o + b * a.o_sb + h * a.o_sh + qp * a.o_ss + d0;
@@ -1030,6 +1047,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
       acc += __shfl_xor_sync(0xffffffffu, acc, 1);
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (a.delta != nullptr && qp < S)
+        acc = a.delta[static_cast<long long>(bh) * S + qp];
       delta[i2] = acc;
     }
 
@@ -1352,6 +1371,7 @@ dkdv_reduce_kernel(const float* __restrict__ partials, Out dk, Out dv,
 // heads, rows) of q, k, v, o, do, dq, dk, dv, in that order.
 struct Call {
   const void *q, *k, *v, *o, *dout;
+  const float* delta;
   void *dq, *dk, *dv;
   float *stats, *partials;
   int B, H, KV, S, Sk;
@@ -1391,7 +1411,7 @@ int launch(const Call& c) {
   const ArgsA aa{static_cast<const __nv_bfloat16*>(c.o), c.st[3][0],
                  c.st[3][1], c.st[3][2],
                  static_cast<const __nv_bfloat16*>(c.dout), c.st[4][0],
-                 c.st[4][1], c.st[4][2], out(c.dq, 5), c.stats, c.H,
+                 c.st[4][1], c.st[4][2], c.delta, out(c.dq, 5), c.stats, c.H,
                  c.H / c.KV, stats_rows(c.S), mk, c.scale, scale_log2};
   dq_tc_kernel<D><<<dim3(c.B * c.H, q_tiles), PassA<D>::kThreads,
                     LayoutA<D>::kBytes, c.stream>>>(tq, tk, tv, tdo, aa);
@@ -1423,7 +1443,8 @@ extern "C" {
 // all bf16, each with its own element strides over (B, heads, rows) and a
 // unit stride over D.  `stats` is an fp32 scratch of 3 * B * H * S floats.
 // window <= 0 means no window; Sk != S is refused under causal or window.
-// Returns the cudaError_t of the launches (0 on success); does not
+// delta, unless null, is fp32 (B, H, S) dense and stands for rowsum(do *
+// o).  Returns the cudaError_t of the launches (0 on success); does not
 // synchronize or allocate.
 int flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o,
@@ -1435,7 +1456,7 @@ int flash_attention_backward(
     long long do_sh, long long do_ss, long long dq_sb, long long dq_sh,
     long long dq_ss, long long dk_sb, long long dk_sh, long long dk_ss,
     long long dv_sb, long long dv_sh, long long dv_ss, float scale,
-    int causal, int window, void* stream) {
+    int causal, int window, const void* delta, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || Sk < 1 ||
       D < 1 || D > 256 || (S + 31) / 32 > 65535 || (Sk + 15) / 16 > 65535 ||
       (Sk != S && (causal || window > 0)))
@@ -1446,6 +1467,7 @@ int flash_attention_backward(
   a.v = v;
   a.o = o;
   a.dout = dout;
+  a.delta = static_cast<const float*>(delta);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
@@ -1478,8 +1500,9 @@ int flash_attention_backward(
 // scratch of 2 * B * H * S_pad floats, S_pad = S rounded up to a multiple
 // of 128, 16-byte aligned; `partials`, at D = 256 only, an fp32 scratch of
 // 2 * B * H * Sk * D floats, 16-byte aligned (pass B's per-head sums; null
-// elsewhere).  Same return convention as flash_attention_backward, with the
-// tensor-map errors of flash_attention_backward_error_string besides.
+// elsewhere).  delta as flash_attention_backward's, 4-byte aligned.  Same
+// return convention as flash_attention_backward, with the tensor-map
+// errors of flash_attention_backward_error_string besides.
 int flash_attention_backward_tc(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* stats,
@@ -1491,8 +1514,9 @@ int flash_attention_backward_tc(
     long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
     long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
     long long dv_sh, long long dv_ss, float scale, int causal, int window,
-    void* stream) {
-  tc::Call c{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(stats),
+    const void* delta, void* stream) {
+  tc::Call c{q, k, v, o, dout, static_cast<const float*>(delta), dq, dk, dv,
+             static_cast<float*>(stats),
              static_cast<float*>(partials), B, H, KV, S, Sk,
              {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
               {o_sb, o_sh, o_ss}, {do_sb, do_sh, do_ss},

@@ -139,10 +139,10 @@ def _lib() -> ctypes.CDLL:
 def _flash_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.flash_attention.argtypes = [_P] * 4 + [_I] * 7 + [_LL] * 12 + [
-        _F, _I, _I, _P]
+        _F, _I, _I, _P, _P]
     lib.flash_attention.restype = ctypes.c_int
     lib.flash_attention_tc.argtypes = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [
-        _F, _I, _I, _P]
+        _F, _I, _I, _P, _P]
     lib.flash_attention_tc.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -153,10 +153,10 @@ def _flash_lib() -> ctypes.CDLL:
 def _flash_backward_lib() -> ctypes.CDLL:
     lib = build.load("flash_backward")
     lib.flash_attention_backward.argtypes = [_P] * 9 + [_I] * 7 + [
-        _LL] * 24 + [_F, _I, _I, _P]
+        _LL] * 24 + [_F, _I, _I, _P, _P]
     lib.flash_attention_backward.restype = ctypes.c_int
     lib.flash_attention_backward_tc.argtypes = [_P] * 10 + [_I] * 6 + [
-        _LL] * 24 + [_F, _I, _I, _P]
+        _LL] * 24 + [_F, _I, _I, _P, _P]
     lib.flash_attention_backward_tc.restype = ctypes.c_int
     lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
@@ -850,11 +850,24 @@ def _tma_strides(t):
                                                     t.stride()[:3])]
 
 
-def _flash_launch(q, k, v, instance, *, causal, window, sm_scale):
+def _check_fp32_rows(name, what, t, shape, device):
+    """``t`` must be a dense fp32 tensor of ``shape`` on ``device``."""
+    if (not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(shape)
+            or t.dtype != torch.float32 or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be a dense fp32 tensor of "
+                         f"shape {tuple(shape)} on {device}")
+
+
+def _flash_launch(q, k, v, instance, *, causal, window, sm_scale,
+                  o32=None):
     """One launch of ``instance`` on CUDA operands (checked here); returns
-    the output.  ``flash_attention`` calls it with ``flash_instance``'s
+    the output (and fills ``o32``, where given, as ``flash_attention``
+    says).  ``flash_attention`` calls it with ``flash_instance``'s
     choice; the fp32-FMA instance also takes bf16."""
     _check_attention(q, k, v, window, instance, causal=causal)
+    if o32 is not None:
+        _check_fp32_rows("flash_attention", "o32", o32, q.shape, q.device)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
     if q.is_meta:
@@ -866,7 +879,8 @@ def _flash_launch(q, k, v, instance, *, causal, window, sm_scale):
     lib = _flash_lib()
     shape = (B, H, k.shape[1], S, k.shape[2], D)
     tail = (*out.stride()[:3], scale, int(bool(causal)),
-            int(window) if window is not None else 0, _stream(q.device))
+            int(window) if window is not None else 0,
+            o32.data_ptr() if o32 is not None else None, _stream(q.device))
     with torch.cuda.device(q.device):
         if instance == "wgmma":
             err = lib.flash_attention_tc(
@@ -884,7 +898,7 @@ def _flash_launch(q, k, v, instance, *, causal, window, sm_scale):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    sm_scale=None):
+                    sm_scale=None, o32=None):
     """Grouped-query attention with an online softmax: q (B, H, S, D),
     k and v (B, KV, Sk, D), fp32 or bf16, H % KV == 0, D <= 256; causal
     and sliding-window (``window``) masks; ``sm_scale`` defaults to
@@ -901,13 +915,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     or 128 with 16-byte-aligned bases and strides of 16 bytes runs on the
     tensor cores; the rest, a misaligned bf16 view included, runs the
     fp32-FMA kernel.
+
+    ``o32``, a dense fp32 (B, H, S, D) tensor, also gets the output before
+    its rounding to q's dtype (the training path's, for the backward's
+    delta: ``FlashAttention``).
     """
     if not _is_cuda(q, "flash_attention"):
-        return ref.mha(q, k, v, causal=causal, window=window,
-                       sm_scale=sm_scale)
+        if o32 is None:
+            return ref.mha(q, k, v, causal=causal, window=window,
+                           sm_scale=sm_scale)
+        _check_fp32_rows("flash_attention", "o32", o32, q.shape, q.device)
+        # ref.mha computes in fp32 and rounds once: the same values
+        full = ref.mha(q.float(), k.float(), v.float(), causal=causal,
+                       window=window, sm_scale=sm_scale)
+        o32.copy_(full)
+        return full.to(q.dtype)
     instance = flash_instance(q.dtype, q.shape[-1], q, k, v)
     return _flash_launch(q, k, v, instance, causal=causal, window=window,
-                         sm_scale=sm_scale)
+                         sm_scale=sm_scale, o32=o32)
 
 
 def flash_backward_instance(dtype: torch.dtype, head_dim: int,
@@ -967,12 +992,15 @@ def backward_partials_floats(B: int, H: int, Sk: int, D: int,
 
 
 def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
-                           sm_scale):
+                           sm_scale, delta=None):
     """One call of ``instance`` on CUDA operands (checked here); returns
     (dq, dk, dv).  ``flash_attention_backward`` calls it with
     ``flash_backward_instance``'s choice; the fp32-FMA instance also takes
     bf16."""
     _check_backward(q, k, v, o, do, window, instance, causal=causal)
+    if delta is not None:
+        _check_fp32_rows("flash_attention_backward", "delta", delta,
+                         q.shape[:3], q.device)
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -990,7 +1018,9 @@ def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
     lib = _flash_backward_lib()
     ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, stats)]
     tail = (scale, int(bool(causal)),
-            int(window) if window is not None else 0, _stream(q.device))
+            int(window) if window is not None else 0,
+            delta.data_ptr() if delta is not None else None,
+            _stream(q.device))
     with torch.cuda.device(q.device):
         if instance == "wgmma":
             strides = [st for t in (q, k, v, o, do, dq, dk, dv)
@@ -1011,7 +1041,7 @@ def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
 
 
 def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
-                             window=None, sm_scale=None):
+                             window=None, sm_scale=None, delta=None):
     """dq, dk, dv of ``o = flash_attention(q, k, v, causal=, window=,
     sm_scale=)`` given ``do`` = dL/do: q, o, do (B, H, S, D), k, v (B, KV,
     Sk, D), one dtype (fp32 or bf16), the forward's masks and rules (Sk !=
@@ -1025,13 +1055,22 @@ def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
     delta and dq per head and query tile; dk and dv per kv head and key
     tile); the rest its three fp32-FMA passes.  Neither uses atomics, so
     two launches on the same inputs agree bit for bit.  On the CPU:
-    ``ref.mha_backward``."""
+    ``ref.mha_backward``.
+
+    ``delta``, a dense fp32 (B, H, S) tensor, stands for rowsum(do * o):
+    the training path passes it from the forward's unrounded o
+    (``FlashAttention``), since delta from the rounded o carries an error
+    common to every key of a row (``csrc/flash_backward.cu``)."""
     if not _is_cuda(q, "flash_attention_backward"):
+        if delta is not None:
+            _check_fp32_rows("flash_attention_backward", "delta", delta,
+                             q.shape[:3], q.device)
         return ref.mha_backward(q, k, v, o, do, causal=causal, window=window,
-                                sm_scale=sm_scale)
+                                sm_scale=sm_scale, delta=delta)
     instance = flash_backward_instance(q.dtype, q.shape[-1], q, k, v, o, do)
     return _flash_backward_launch(q, k, v, o, do, instance, causal=causal,
-                                  window=window, sm_scale=sm_scale)
+                                  window=window, sm_scale=sm_scale,
+                                  delta=delta)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -1040,24 +1079,35 @@ class FlashAttention(torch.autograd.Function):
     ``flash_attention_backward`` on them.  Inputs (B, heads, rows, D) as
     the wrappers take them.  ``FlashAttention.apply(q, k, v, causal,
     window, sm_scale)``; where no input requires grad (serving) it is the
-    one ``flash_attention`` launch, and its output has no graph."""
+    one ``flash_attention`` launch, and its output has no graph.  Under
+    grad a bf16 forward also writes its output unrounded (``o32``), and
+    the backward takes delta = rowsum(do * o32) from it: the softmax's own
+    row sum, as autograd of the plain attention has it, where the rounded
+    o would put an error common to every key of the row into dS."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, sm_scale):
+        o32 = None
+        if q.dtype != torch.float32 and any(ctx.needs_input_grad[:3]):
+            o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         o = flash_attention(q, k, v, causal=causal, window=window,
-                            sm_scale=sm_scale)
-        ctx.save_for_backward(q, k, v, o)
+                            sm_scale=sm_scale, o32=o32)
+        ctx.save_for_backward(q, k, v, o, o32)
         ctx.mask = (causal, window, sm_scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, o32 = ctx.saved_tensors
         causal, window, sm_scale = ctx.mask
         if do.stride(-1) != 1:
             do = do.contiguous()
+        delta = None
+        if o32 is not None:
+            delta = torch.sum(do.float() * o32, dim=-1).contiguous()
         dq, dk, dv = flash_attention_backward(
-            q, k, v, o, do, causal=causal, window=window, sm_scale=sm_scale)
+            q, k, v, o, do, causal=causal, window=window, sm_scale=sm_scale,
+            delta=delta)
         return dq, dk, dv, None, None, None
 
 

@@ -126,7 +126,7 @@ def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 def mha_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, *,
                  causal: bool = True, window: int | None = None,
-                 sm_scale: float | None = None):
+                 sm_scale: float | None = None, delta: Tensor | None = None):
     """dq, dk, dv of ``mha`` given its output o and do = dL/do: the closed
     form the ``flash_attention_backward`` kernel computes, in fp32, each
     result rounded once to its input's dtype.  P is recomputed as ``mha``
@@ -137,7 +137,7 @@ def mha_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, *,
 
     dk and dv summed over the g = H / KV query heads of each kv head.
     Shapes and rules as ``mha``: q, o, do (B, H, S, D); k, v (B, KV, Sk,
-    D)."""
+    D).  ``delta`` (B, H, S), where given, stands for rowsum(do * o)."""
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     check_key_length(S, Sk, causal, window)
@@ -157,7 +157,9 @@ def mha_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, *,
         mask &= ki > qi - window
     probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
     del logits
-    delta = torch.sum(dof * o.to(f32), dim=-1, keepdim=True)
+    if delta is None:
+        delta = torch.sum(dof * o.to(f32), dim=-1)
+    delta = delta.to(f32)[..., None]
     dv = torch.einsum("bhqk,bhqd->bhkd", probs, dof)
     ds = probs * (torch.einsum("bhqd,bhkd->bhqk", dof, vr) - delta)
     del probs

@@ -21,11 +21,28 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def stand_in_counters(monkeypatch):
+class _CountedBackward(torch.autograd.Function):
+    """The identity, whose backward counts one flash backward launch."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        from repro_torch.kernels import ops
+        ops.launches["flash_attention_backward"] += 1
+        return grad
+
+
+def stand_in_counters(monkeypatch, backward=False):
     """For the CPU rehearsals of chip_smoke.py's phases (the CPU has no
     kernel): each wrapper call of a CSVM kernel, and each self- and
-    cross-attention call of the model, counts as one launch; the counters
-    start at 0.  Returns ``repro_torch.kernels.ops``."""
+    cross-attention call of the model, counts as one launch; with
+    ``backward``, so does the backward of each attention output that
+    autograd differentiates (once an output of the pass under remat: the
+    recomputed graph is not differentiated).  The counters start at 0.
+    Returns ``repro_torch.kernels.ops``."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention
     for name in ("csvm_round_block", "csvm_block_update",
@@ -37,7 +54,10 @@ def stand_in_counters(monkeypatch):
     for name in ("self_attend", "cross_attend"):
         def attend(q, k, v, _fn=getattr(attention, name), **kw):
             ops.launches["flash_attention"] += 1
-            return _fn(q, k, v, **kw)
+            out = _fn(q, k, v, **kw)
+            if backward and out.requires_grad:
+                out = _CountedBackward.apply(out)
+            return out
         monkeypatch.setattr(attention, name, attend)
     ops.reset_launches()
     return ops

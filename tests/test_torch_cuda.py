@@ -1171,6 +1171,49 @@ def test_moe_routes_on_the_card(cuda):
     assert torch.equal(a, b)
 
 
+def test_scatter_route_backward_repeats_bit_for_bit(cuda):
+    """Reduced granite-moe in bf16 on the card under grad: the scatter
+    route at the configured capacity (assignments drop) differentiated
+    twice from the same weights and input gives the same gradients of x
+    and of every MoE weight bit for bit (the dispatch's gather and its
+    index-sum backward, the combine's sum over k: no atomic add); at a
+    capacity that drops nothing its gradient of x is within chip_smoke's
+    relative limit of the dense route's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import model, moe
+    cfg = configs.get_reduced("granite_moe_1b_a400m", param_dtype="bfloat16")
+    layer = model.init_params(cfg, seed=0, device=cuda,
+                              trainable=True).layers[0].moe
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    # tokens that share one direction: the router sends most of them to
+    # the same experts, past the capacity
+    base = torch.randn((1, 1, cfg.d_model), generator=gen, device=cuda)
+    h = (base + 0.1 * torch.randn((4, 512, cfg.d_model), generator=gen,
+                                  device=cuda)).to(torch.bfloat16)
+    w = torch.randn(h.shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+    def grads(c, forward):
+        layer.zero_grad(set_to_none=True)
+        x = h.clone().requires_grad_(True)
+        y, aux = forward(layer, x, c)
+        ((y.float() * w.float()).sum() + aux).backward()
+        return [x.grad] + [p.grad for p in layer.parameters()]
+    tight = dataclasses.replace(cfg, moe_routing="scatter")
+    _, idx, _ = moe._route(layer, h.reshape(-1, cfg.d_model), cfg)
+    assert int(torch.bincount(idx.reshape(-1)).max()) > moe.capacity(
+        tight, idx.shape[0])
+    first = grads(tight, moe.moe_forward_scatter)
+    second = grads(tight, moe.moe_forward_scatter)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    ample = dataclasses.replace(tight, moe_capacity_factor=2.0)
+    dense = grads(cfg, moe.moe_forward_dense)[0].float()
+    scat = grads(ample, moe.moe_forward_scatter)[0].float()
+    assert float((scat - dense).abs().max()) <= \
+        chip_smoke.MOE_LAYER_TOL * float(dense.abs().max())
+
+
 def test_hybrid_prefill_at_head_dim_256_takes_the_fma_instance(cuda):
     """The reduced recurrentgemma at its full head dim (D = 256) and 5
     layers in bf16: block prefill of a prompt longer than the window, one
@@ -1255,6 +1298,90 @@ def test_flash_backward_matches_plain(cuda, case, dtype):
         assert g.dtype == t.dtype and g.stride() == t.stride()
         _, _, share = chip_smoke.backward_deviation(torch, g, w, dtype)
         assert share <= 1.0
+
+
+# (B, H, KV, Sq, Sk, D, causal, window): queries four times as many as
+# the keys, non-causal, as seamless's training cross-attention (4096
+# queries over 1024 frames), at small sizes
+CROSS_BACKWARD = [(2, 4, 4, 256, 64, 64, False, None),
+                  (1, 16, 16, 520, 130, 64, False, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CROSS_BACKWARD)
+def test_cross_flash_backward_with_longer_queries_matches_plain(cuda, case,
+                                                                 dtype):
+    """The backward kernel with Sq != Sk (non-causal, Sq = 4 Sk) against
+    ``ref.mha_backward`` within chip_smoke's limits, each gradient laid
+    out as its input; two launches equal bit for bit."""
+    q, k, v, o, do = chip_smoke.backward_inputs(torch, ops, case, dtype,
+                                                cuda, seed=5)
+    got = ops.flash_attention_backward(q, k, v, o, do, causal=False)
+    again = ops.flash_attention_backward(q, k, v, o, do, causal=False)
+    want = ref.mha_backward(q, k, v, o, do, causal=False)
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert torch.equal(g, a)
+        assert g.shape == t.shape and g.stride() == t.stride()
+        _, _, share = chip_smoke.backward_deviation(torch, g, w, dtype)
+        assert share <= 1.0
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_function_takes_delta_from_the_unrounded_output(cuda, D):
+    """``ops.FlashAttention`` under grad on bf16 keys that are alike (a
+    common row plus a small spread): the forward's unrounded output within
+    chip_smoke's fp32 limit of the plain fp32 one, rounding to its output;
+    dk and dv within the bf16 limit of ``ref.mha_backward`` given the same
+    delta, rowsum(do * o32); a wk-like contraction x^T dk within 3x the
+    floor of rounding the exact dk, where delta from the bf16 o is far off
+    (tests/test_torch_flash_grad.py holds the plain closed forms).  dq is
+    not held to the per-entry rule here: over keys this alike it is itself
+    a zero sum, which the tensor-core instance's two-term dS moves past the
+    rule (chip_smoke's phases 24-26 hold dq on random inputs at the
+    training shapes)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    B, H, KV, S = 1, 4, 2, 512
+
+    def alike(heads, spread):
+        common = torch.randn((1, 1, 1, D), generator=gen, device=cuda)
+        return common + spread * torch.randn((B, S, heads, D), generator=gen,
+                                             device=cuda).transpose(1, 2)
+    x = alike(KV, 0.02)
+    q, k, v = (t.to(torch.bfloat16) for t in (alike(H, 0.05), x,
+                                              alike(KV, 0.05)))
+    do = torch.randn((B, H, S, D), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    ts = [t.float().requires_grad_() for t in (q, k, v)]
+    full = ref.mha(*ts, causal=True)
+    full.backward(do.float())
+    exact = torch.einsum("bhsd,bhse->de", x, ts[1].grad)
+    full = full.detach()
+    ws = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = dict(ops.flash_backward_launches)
+    out = ops.FlashAttention.apply(*ws, True, None, None)
+    out.backward(do)
+    assert ops.flash_backward_launches["wgmma"] == before["wgmma"] + 1
+    o32 = torch.empty(q.shape, dtype=torch.float32, device=cuda)
+    again = ops.flash_attention(q, k, v, causal=True, o32=o32)
+    assert torch.equal(again, out.detach())
+    assert torch.equal(o32.to(torch.bfloat16), again)
+    assert float((o32 - full).abs().max()) <= chip_smoke.FLASH_TOL_F32
+    delta = torch.sum(do.float() * o32, dim=-1)
+    want = ref.mha_backward(q, k, v, out.detach(), do, causal=True,
+                            delta=delta)
+    for g, w in zip((t.grad for t in ws[1:]), want[1:]):
+        _, _, share = chip_smoke.backward_deviation(torch, g, w, "bfloat16")
+        assert share <= 1.0
+
+    def contraction_error(dk):
+        got = torch.einsum("bhsd,bhse->de", x, dk.float())
+        return float((got - exact).abs().max() / exact.abs().max())
+    floor = contraction_error(ts[1].grad.to(torch.bfloat16))
+    assert contraction_error(ws[1].grad) <= 3 * floor
+    rounded = ops.flash_attention_backward(q, k, v, out.detach(), do,
+                                           causal=True)[1]
+    assert contraction_error(rounded) > 10 * floor
 
 
 # the cases of BACKWARD_SMALL that the tensor-core instance takes (bf16, D

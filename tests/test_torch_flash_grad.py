@@ -95,9 +95,10 @@ def test_flash_function_backward_on_cpu_tensors(case):
     """``ops.FlashAttention`` on CPU tensors: the plain forward and
     ``ref.mha_backward``, equal to autograd of ``_attend`` within ATOL; in
     bf16 the grads come back in bf16, equal to the closed form on the
-    same bf16 inputs, and within one bf16 ulp (+ 1e-6 of the largest
-    entry) of the same closed form on fp32 copies of them: each gradient
-    is rounded once."""
+    same bf16 inputs with delta = rowsum(do * o) from the unrounded output
+    (the forward's ``o32``), and within one bf16 ulp (+ 1e-6 of the
+    largest entry) of the same closed form on fp32 copies of them: each
+    gradient is rounded once."""
     causal, window = case[6], case[7]
     q, k, v, do = _inputs(case, seed=2)
     want = _autograd_of_attend(q, k, v, do, causal, window)
@@ -114,13 +115,16 @@ def test_flash_function_backward_on_cpu_tensors(case):
                 torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
             continue
         det = [t.detach() for t in ts]
+        full = ref.mha(*(t.float() for t in det), causal=causal,
+                       window=window)
+        assert torch.equal(full.to(dtype), out.detach())
+        delta = (dot.float() * full).sum(-1)
         closed = ref.mha_backward(*det, out.detach(), dot, causal=causal,
-                                  window=window)
+                                  window=window, delta=delta)
         for g, c in zip(grads, closed):
             assert torch.equal(g, c)
-        wide = ref.mha_backward(*(t.float() for t in det),
-                                out.detach().float(), dot.float(),
-                                causal=causal, window=window)
+        wide = ref.mha_backward(*(t.float() for t in det), full,
+                                dot.float(), causal=causal, window=window)
         for g, w in zip(grads, wide):
             limit = 2.0 ** -7 * w.abs() + 1e-6 * float(w.abs().max())
             assert bool(((g.float() - w).abs() <= limit).all())
@@ -424,3 +428,44 @@ def test_library_names_hash_the_shared_header(tmp_path, monkeypatch):
     assert build.library_path("k") == before
     header.write_text("// two\n")
     assert build.library_path("k") != before
+
+
+def test_delta_from_the_unrounded_output_where_keys_are_alike():
+    """Where a layer's key inputs are alike (a common row plus a small
+    spread, as the decoder of a deep random encoder-decoder gives them),
+    a wk-like contraction x^T dk is nearly the exact zero sum of dS over
+    the keys.  delta = rowsum(do * o) from the bf16 o carries an error
+    common to every key of a row, which puts that contraction 15x its
+    size off the fp32 autograd of the attention; delta from the unrounded
+    o (what ``FlashAttention`` passes) keeps it at the floor of rounding
+    the exact dk to bf16."""
+    gen = torch.Generator().manual_seed(0)
+    B, H, S, D = 1, 4, 512, 64
+
+    def alike(spread):
+        common = torch.randn((1, 1, 1, D), generator=gen)
+        return common + spread * torch.randn((B, H, S, D), generator=gen)
+    x = alike(0.02)
+    q, k, v = (t.to(torch.bfloat16) for t in (alike(0.05), x, alike(0.05)))
+    do = torch.randn((B, H, S, D), generator=gen).to(torch.bfloat16)
+    ts = [t.float().requires_grad_() for t in (q, k, v)]
+    full = ref.mha(*ts, causal=True)
+    full.backward(do.float())
+    exact = torch.einsum("bhsd,bhse->de", x, ts[1].grad)
+    full = full.detach()
+
+    def contraction_error(dk):
+        got = torch.einsum("bhsd,bhse->de", x, dk.float())
+        return float((got - exact).abs().max() / exact.abs().max())
+    o = ref.mha(q, k, v, causal=True)
+    rounded = contraction_error(ref.mha_backward(q, k, v, o, do)[1])
+    delta = (do.float() * full).sum(-1)
+    unrounded = contraction_error(
+        ref.mha_backward(q, k, v, o, do, delta=delta)[1])
+    floor = contraction_error(ts[1].grad.to(torch.bfloat16))
+    assert unrounded <= 1.5 * floor
+    assert rounded > 10 * floor
+    ws = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ops.FlashAttention.apply(*ws, True, None, None).backward(do)
+    assert torch.equal(ws[1].grad, ref.mha_backward(q, k, v, o, do,
+                                                    delta=delta)[1])

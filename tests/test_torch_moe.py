@@ -114,6 +114,54 @@ def test_scatter_matches_dense_with_ample_capacity():
     assert torch.equal(again, y_scat)
 
 
+def _scatter_grads(tp, tcfg, x, w):
+    """d(sum(y * w) + aux)/d(x and each MoE weight) of the port's scatter
+    route, by autograd."""
+    for p in tp.parameters():
+        p.requires_grad_(True)
+        p.grad = None
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, aux = moe.moe_forward_scatter(tp, xt, tcfg)
+    ((y * torch.from_numpy(w)).sum() + aux).backward()
+    grads = {name: p.grad for name, p in tp.named_parameters()}
+    return dict(grads, x=xt.grad)
+
+
+# the configured capacity factor (11 of 48 assignments drop, as in
+# test_routes_match_jax) and one where nothing drops
+@pytest.mark.parametrize("capacity_factor", [1.25, 2.0])
+def test_scatter_route_gradients_match_jax(capacity_factor):
+    """The scatter route under grad (the dispatch's gather and its
+    index-sum backward, the combine over k): the gradients of sum(y * w) +
+    aux with respect to x and every MoE weight against ``jax.grad`` of
+    ``repro.models.moe.moe_forward`` (scatter) on the same weights and
+    inputs, each within 2e-5 of its largest entry (fp32 summed in other
+    orders); two runs equal bit for bit."""
+    jcfg, jp, tcfg, tp = _mixer(moe_routing="scatter",
+                                moe_capacity_factor=capacity_factor)
+    x = _correlated((2, 12, jcfg.d_model), seed=3)
+    w = _x(x.shape, seed=4, scale=1.0)
+
+    def jloss(p, xx):
+        y, aux = jmoe.moe_forward(p, xx, jcfg)
+        return jnp.sum(y * w) + aux
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    want = dict(jgp, x=jgx)
+    got = _scatter_grads(tp, tcfg, x, w)
+    again = _scatter_grads(tp, tcfg, x, w)
+    assert set(got) == set(want) == {"x", "router", "w_gate", "w_up",
+                                     "w_down"}
+    for name, g in got.items():
+        ref_g = np.asarray(want[name])
+        dev = np.abs(g.numpy() - ref_g).max()
+        assert dev <= 2e-5 * np.abs(ref_g).max(), (name, dev)
+        assert torch.equal(g, again[name]), name
+    dropped = capacity_factor == 1.25
+    _, idx, _ = moe._route(tp, torch.from_numpy(x).reshape(24, -1), tcfg)
+    per_expert = torch.bincount(idx.reshape(-1), minlength=4)
+    assert (int(per_expert.max()) > moe.capacity(tcfg, 24)) == dropped
+
+
 @pytest.fixture(scope="module", params=GRANITE)
 def granite(request):
     arch = request.param

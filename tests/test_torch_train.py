@@ -172,15 +172,23 @@ def test_frozen_model_and_other_remat_policies():
             assert torch.equal(runs[policy][1][name], g), (policy, name)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "granite_moe_1b_a400m"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "granite_moe_1b_a400m",
+                                  "granite_moe_3b_a800m",
+                                  "granite_moe_3b_a800m:scatter",
+                                  "internvl2_1b", "seamless_m4t_large_v2"])
 def test_train_step_matches_jax(arch):
     """Three steps of ``make_train_step`` against JAX's jitted step from
     the same weights and batches: loss and gnorm at each step, and the
-    parameters after."""
-    jcfg = dataclasses.replace(jconfigs.get_reduced(arch),
-                               param_dtype="float32")
-    tcfg = dataclasses.replace(tconfigs.get_reduced(arch),
-                               param_dtype="float32")
+    parameters after.  "name:scatter" takes the MoE config's scatter route
+    (capacity factor 1.25: assignments drop).  The VLM and the
+    encoder-decoder are fed ``_batch`` with their "media" or "enc_media"
+    (``token_stream`` gives neither); the others ``token_stream``."""
+    arch, _, routing = arch.partition(":")
+    over = dict(param_dtype="float32")
+    if routing:
+        over["moe_routing"] = routing
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), **over)
+    tcfg = dataclasses.replace(tconfigs.get_reduced(arch), **over)
     jp = jmodel.init_params(jcfg, KEY)
     jstate = jadamw_init(jp)
     jstep = jax.jit(jmake_train_step(jcfg, JAdamWConfig(lr=1e-3),
@@ -188,12 +196,19 @@ def test_train_step_matches_jax(arch):
     lm = model.trainable_(convert.params_from_jax(jp, tcfg, "cpu"))
     state = adamw_init(lm)
     step = train.make_train_step(tcfg, AdamWConfig(lr=1e-3), total_steps=10)
-    jstream = jtoken_stream(jcfg, B, S, seed=3)
-    stream = token_stream(tcfg, B, S, seed=3, device="cpu")
+    if tcfg.frontend == "vision" or tcfg.is_encoder_decoder:
+        batches = [_batch(tcfg, seed=20 + i) for i in range(3)]
+        assert {"media", "enc_media"} & set(batches[0])
+        jstream = ({k: jnp.asarray(v) for k, v in b.items()}
+                   for b in batches)
+        stream = iter(batches)
+    else:
+        jstream = jtoken_stream(jcfg, B, S, seed=3)
+        stream = token_stream(tcfg, B, S, seed=3, device="cpu")
     for _ in range(3):
         jb, tb = next(jstream), next(stream)
         np.testing.assert_array_equal(np.asarray(jb["tokens"]),
-                                      tb["tokens"].numpy())
+                                      np.asarray(tb["tokens"]))
         jp, jstate, jm = jstep(jp, jstate, jb)
         lm, state, m = step(lm, state, tb)
         assert abs(float(m["loss"]) - float(jm["loss"])) <= STEP_TOL
