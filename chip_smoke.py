@@ -728,7 +728,7 @@ SHARD_TOL = dict(loss=1e-4, gnorm=2e-5, params=0.6, m=2.3e-2, v=4.6e-2)
 SERVE_ARCH = "qwen3_32b"
 SERVE_LAYERS = 4
 SERVE_MESH = (1, 4)
-SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 8, 8, 16, 64
+SHARD_SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 8, 8, 16, 64
 SERVE_TOL = {"float32": 1e-4, "bfloat16": 0.34}
 
 # phase 21: fit serving across four ranks (``ranks.run_fit_serving``) on the
@@ -762,7 +762,10 @@ DRY_FOUR_CARD = (
      "51.01 MB of collectives a step"),
     ("decode", "qwen3_32b", (2, 2), 8, 4096,
      "PERF.md §5: 363.61-478.99 ms a token, peak 35.02 GB a card, "
-     "25.51 MB of collectives a step"))
+     "25.51 MB of collectives a step"),
+    ("train", "glm4_9b", (2, 2), 4, 4096, "PERF.md §5"),
+    ("decode", "command_r_35b", (1, 4), 8, 4096, "PERF.md §5"),
+    ("decode", "command_r_35b", (2, 2), 8, 4096, "PERF.md §5"))
 DRY_JOBS = 7
 DRY_DEADLINE_S = 300.0
 
@@ -798,9 +801,9 @@ RG_STEP_TOL = dict(loss=5e-4, grad=0.18)
 # kernels at the family's training shapes (FAMILY_KERNEL_CASES), the
 # dry run of its step on mesh (1, 1), the kernel step against the
 # plain-attention step at B = FAMILY_STEP_BATCH x FAMILY_SEQ, then
-# TRAIN_STEPS steps at B = FAMILY_BATCH x FAMILY_SEQ (B = 1 where the dry
-# run predicts a peak above FAMILY_PEAK_LIMIT), and a checkpoint resume at
-# the reduced config.  JAX's train shape: S = 4096 positions, of which the
+# FAMILY_TRAIN_STEPS steps at B = FAMILY_BATCH x FAMILY_SEQ (B = 1 where the
+# dry run predicts a peak above FAMILY_PEAK_LIMIT), and a checkpoint resume
+# at the reduced config.  JAX's train shape: S = 4096 positions, of which the
 # VLM's first 256 are its media prefix; the encoder-decoder's frames are
 # min(frontend_len, S / 4) = 1024.
 GRANITE_TRAIN_ARCH = "granite_moe_3b_a800m"
@@ -809,6 +812,9 @@ ENCDEC_TRAIN_ARCH = "seamless_m4t_large_v2"
 FAMILY_STEP_BATCH = 1
 FAMILY_BATCH, FAMILY_SEQ = 2, 4096
 FAMILY_PEAK_LIMIT = 75e9
+# the timed steps of phases 23-29 (10 until phases 27-29 came: the script
+# keeps within its time)
+FAMILY_TRAIN_STEPS = 5
 # flash_attention and flash_attention_backward at each family's training
 # shape, (B, H, KV, Sq, Sk, D, causal, window), bf16, the model's
 # (B, rows, heads, D) buffers seen through .transpose(1, 2): against
@@ -829,6 +835,16 @@ FAMILY_KERNEL_CASES = {
          (2, 16, 16, 1024, 1024, 64, False, None)),
         ("seamless cross training",
          (2, 16, 16, 4096, 1024, 64, False, None))],
+    # phases 27-29: the GQA groups of 16, 8 and 2 (pass B of the backward
+    # splits glm4-9b's group in 4 and command-r-35b's in 2:
+    # ops.backward_splits)
+    "glm4_9b": [
+        ("glm4-9b training", (2, 32, 2, 4096, 4096, 128, True, None))],
+    "command_r_35b": [
+        ("command-r-35b training", (2, 64, 8, 4096, 4096, 128, True, None))],
+    "granite_moe_1b_a400m": [
+        ("granite-moe-1b-a400m training",
+         (2, 16, 8, 4096, 4096, 64, True, None))],
 }
 # The kernel step against the plain-attention step (bf16 weights and
 # grads), as phases 15 and 23: |loss_k - loss_p| and, for each parameter,
@@ -860,6 +876,51 @@ SCATTER_STEP_TOL = dict(loss=1.2e-3, grad=0.3)
 # the scatter route's step at the configured capacity factor timed beside
 # the dense route's train_loop at B = FAMILY_BATCH x FAMILY_SEQ
 SCATTER_TIMED_STEPS = 3
+
+# phases 27-29: the registry's last three configurations on the card.
+# glm4-9b (40 layers, d_model 4096, 32 heads over 2 of D = 128, partial
+# RoPE 0.5, attention bias, vocab 151,552 untied; 9.40 B parameters) serves
+# as configured with phase 6's traffic, block prefill against token-wise
+# decode as phase 12 holds it (bf16 first-token logits within a limit with
+# a control, an fp32 copy within MODEL_TOL's 1e-4 and the same tokens),
+# and trains at full width cut to GLM4_TRAIN_LAYERS layers (2.87 B
+# parameters, phase 15's size).  command-r-35b (40 layers, d_model 8192,
+# 64 heads over 8 of D = 128, LayerNorm, tied vocab 256,000; 30.28 B
+# parameters, 60.6 GB) serves as configured with phase 11's traffic from a
+# collected allocator, its peak beside the dry run's decode step, and
+# trains cut to COMMAND_R_TRAIN_LAYERS layers (3.51 B: the tied head under
+# grad).  granite-moe-1b-a400m (24 layers, d_model 1024, 16 heads over 8 of
+# D = 64, 32 experts top 8) serves with phase 11's traffic and trains as
+# configured on both MoE routes.
+GLM4_ARCH, COMMAND_R_ARCH = "glm4_9b", "command_r_35b"
+GRANITE1B_ARCH = "granite_moe_1b_a400m"
+GLM4_TRAIN_LAYERS = 8
+COMMAND_R_TRAIN_LAYERS = 2
+# Prefill logits through the kernel against the plain attention (bf16, a
+# MODEL_PROMPT-token prompt), each limit about three of its first H100
+# reading (NVIDIA H100 80GB HBM3, 700.00 W): glm4-9b 0.375 (max |logit|
+# 7.375; control 10.78), command-r-35b 0.820 (11.25; control 15.0),
+# granite-moe-1b-a400m 0.0710 (3.3125; control 0.797, under MODEL_TOL's
+# 1.0).  glm4-9b's block prefill against token-wise decode on phase 6's
+# 64-token prompt: the first generated token's bf16 logits 0.351 (control
+# 8.39; the same eight greedy tokens), the fp32 copy 8.99e-5 (limit 1e-4)
+# with the same tokens.
+GLM4_MODEL_TOL = 1.1
+COMMAND_R_MODEL_TOL = 2.5
+GRANITE1B_MODEL_TOL = 0.22
+GLM4_TOKENWISE_TOL = 1.05
+# The kernel step against the plain-attention step, as phases 24-26, each
+# limit about three of its first H100 reading: glm4-9b at 8 layers loss
+# 4.16e-4 (of 12.754), gradients 4.45e-2 (layers.6.attn.wq; control min
+# 0.99); command-r-35b at 2 layers 1.06e-4 (of 14.108), 2.01e-2 (embed,
+# the tied head; control 1.04); granite-moe-1b-a400m 1.91e-4 (of 11.748),
+# 7.40e-2 (layers.23.moe.w_gate; control 0.88).  Its scatter route
+# against its dense route, as phase 24's: loss 6.68e-5, gradients 7.52e-2
+# (layers.23.moe.w_gate; control 0.88).
+GLM4_STEP_TOL = dict(loss=1.2e-3, grad=0.13)
+COMMAND_R_STEP_TOL = dict(loss=3.2e-4, grad=6e-2)
+GRANITE1B_STEP_TOL = dict(loss=5.7e-4, grad=0.22)
+GRANITE1B_SCATTER_TOL = dict(loss=2e-4, grad=0.23)
 
 FIT_KERNELS = ("csvm_local_update", "csvm_block_update", "csvm_round_block")
 REPLACES = {
@@ -3012,11 +3073,11 @@ def new_model(torch, model, configs, name):
 
 
 def backbone_serving(torch, ops, engine, cfg, params, *, prompts, max_len,
-                     instance):
+                     instance, max_new=NEW_TOKENS):
     """The engine with block prefill on ``prompts`` (``serving_path``),
     every flash launch on ``instance``."""
     served = serving_path(torch, ops, engine, cfg, params, prompts=prompts,
-                          max_new=NEW_TOKENS, max_len=max_len)
+                          max_new=max_new, max_len=max_len)
     if params.device.type == "cuda":
         n = served["launches"]["flash_attention"]
         check(served["flash_instances"] == {
@@ -3736,6 +3797,22 @@ def backward_checks(torch, ops, ref, device, devs: dict, *,
                 check(bool(torch.isfinite(g).all()),
                       f"{what}: non-finite {name}")
                 reading[name] = backward_deviation(torch, g, w, dtype)
+            splits = ops.backward_splits(H, KV, S, D, instance)
+            whole = None
+            if cuda and splits > 1 and D < 256:
+                # the earlier instance, the whole group in one block of
+                # pass B: read, not gated
+                whole = {n: backward_deviation(torch, g, w, dtype)[2]
+                         for n, g, w in zip(("dq", "dk", "dv"),
+                                            ops._flash_backward_launch(
+                                                q, k, v, o, do, instance,
+                                                sm_scale=None, splits=1,
+                                                **kw), want)}
+                log(f"check {what}: pass B over {H // KV // splits} of the "
+                    f"group's {H // KV} heads a block ({splits} splits); "
+                    "the whole group in one block (splits 1) reads "
+                    + ", ".join(f"{n} {sh:.3f}" for n, sh in whole.items())
+                    + " of the limit")
             control = float((got[0][:, :, 1:].float()
                              - want[0][:, :, :-1].float()).abs().max()) / max(
                 float(want[0].float().abs().max()), 1e-30)
@@ -3751,7 +3828,8 @@ def backward_checks(torch, ops, ref, device, devs: dict, *,
             record(devs, "flash_attention_backward", dtype,
                    max(d for d, _, _ in reading.values()))
             readings.append(dict(case=label, dtype=dtype, control=control,
-                                 instance=instance,
+                                 instance=instance, splits=splits,
+                                 unsplit_share=whole,
                                  **{n: dict(max_abs_dev=d, rel=r, share=sh)
                                     for n, (d, r, sh) in reading.items()}))
             del q, k, v, o, do, got, want, plain_o
@@ -3860,8 +3938,22 @@ def backward_timings(torch, ops, ref, device, *, cases=None, reps=None,
         (bms, by), pairs = backward_bound(case)
         instance = ops.flash_backward_instance(q.dtype, D, q, k, v, o, do)
         per_pair = backward_executed(instance, D)
+        splits = ops.backward_splits(H, KV, S, D, instance)
+        if splits > 1 and D < 256:
+            # the split pass B against the whole group in one block (the
+            # instance before the split), in turns
+            both = paired_ms(
+                torch, lambda: ops.flash_attention_backward(q, k, v, o, do,
+                                                            **kw),
+                lambda: ops._flash_backward_launch(
+                    q, k, v, o, do, instance, sm_scale=None, splits=1, **kw),
+                (reps or (10,))[0], (reps or (10,))[0])
+            times.update(unsplit_ms=both["plain_ms"],
+                         unsplit_ms_samples=both["plain_ms_samples"],
+                         split_ms_in_turns=both["ms"])
         row = dict(times, bound_ms=bms, bound_by=by, library_ms=lib,
                    library_backend=backend, case=label, instance=instance,
+                   splits=splits,
                    tflops=per_pair * B * H * pairs * D / times["ms"] / 1e9,
                    shape=f"q (B={B}, H={H}, S={S}, D={D}), kv (KV={KV}, "
                          f"Sk={Sk}) bf16, causal={causal}, window={window}")
@@ -3879,7 +3971,13 @@ def backward_timings(torch, ops, ref, device, *, cases=None, reps=None,
             f"{bms / row['ms']:.4f} of the bound), plain "
             f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"scaled_dot_product_attention backward {lib_text}"
-            + (f"; fp32 inputs {row['fp32_ms']:.4f} ms" if big else ""))
+            + (f"; fp32 inputs {row['fp32_ms']:.4f} ms" if big else "")
+            + (f"; pass B in {splits} splits {row['split_ms_in_turns']:.4f} "
+               f"ms against the whole group in one block "
+               f"{row['unsplit_ms']:.4f} ms (samples "
+               f"{row['unsplit_ms_samples'][0]:.4f}, "
+               f"{row['unsplit_ms_samples'][1]:.4f}), in turns"
+               if "unsplit_ms" in row else ""))
         del q, k, v, o, do
         torch.cuda.empty_cache()
     return dict(rows[0], variants=rows[1:])
@@ -4313,30 +4411,31 @@ def timed_train_loop(torch, ops, train, cfg, batch: int, seq: int,
     return timed_loop(torch, ops, train, run, batch, seq, steps, device)
 
 
-def train_run(torch, ops, train, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
-    """``timed_train_loop`` for TRAIN_STEPS steps at batch x seq: each step
+def train_run(torch, ops, train, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              steps=TRAIN_STEPS):
+    """``timed_train_loop`` for ``steps`` steps at batch x seq: each step
     2 flash forward launches an attention layer (pass and remat) on the
     tensor-core instance and one backward, on the tensor-core instance
     too, nothing else launched.  Returns the launches and the times."""
     L = kernel_layers(cfg)
-    run = timed_train_loop(torch, ops, train, cfg, batch, seq)
+    run = timed_train_loop(torch, ops, train, cfg, batch, seq, steps)
     launches, instances = run["launches"], run["flash_instances"]
     backward_instances = run["backward_instances"]
     want = {name: 0 for name in ops.KERNELS}
-    want.update(flash_attention=2 * L * TRAIN_STEPS,
-                flash_attention_backward=L * TRAIN_STEPS)
+    want.update(flash_attention=2 * L * steps,
+                flash_attention_backward=L * steps)
     check(launches == want, f"train_loop launches {launches}, expected "
           f"{want}")
-    check(instances == {"wgmma": 2 * L * TRAIN_STEPS, "fma": 0},
+    check(instances == {"wgmma": 2 * L * steps, "fma": 0},
           f"train_loop: flash forward launches by instance {instances}, "
           "expected every one on the tensor-core instance")
-    check(backward_instances == {"wgmma": L * TRAIN_STEPS, "fma": 0},
+    check(backward_instances == {"wgmma": L * steps, "fma": 0},
           f"train_loop: backward launches by instance {backward_instances}, "
           "expected every one on the tensor-core instance")
     losses = run.pop("losses")
     log(f"train {cfg.name} {cfg.num_layers} layers ({L} attention), "
         f"B={batch} S={seq}: "
-        f"{TRAIN_STEPS} steps in {run['wall_s']:.2f} s, median step "
+        f"{steps} steps in {run['wall_s']:.2f} s, median step "
         f"{run['median_step_ms']:.2f} ms ({run['tokens_per_s']:.1f} "
         f"tokens/s; forward + backward {run['fwd_bwd_ms']:.2f} ms, "
         f"optimizer {run['opt_ms']:.2f} ms, CUDA events), peak memory "
@@ -5253,13 +5352,13 @@ def serve_sharded_phase(torch, device="cuda", arch=SERVE_ARCH,
     n = math.prod(SERVE_MESH)
     new = SERVE_STEPS - SERVE_PROMPT + 1
     try:
-        one = {dt: serve.reference_run(cfg, SERVE_BATCH, SERVE_PROMPT,
+        one = {dt: serve.reference_run(cfg, SHARD_SERVE_BATCH, SERVE_PROMPT,
                                        SERVE_STEPS, 0, str(ref_dir / dt),
                                        device)
                for dt, cfg in cfgs.items()}
         ref_s = time.perf_counter() - t0
         backend, cards = ranks.placement(n, device)
-        runs = [dict(cfg=cfgs[dt], shape=SERVE_MESH, batch=SERVE_BATCH,
+        runs = [dict(cfg=cfgs[dt], shape=SERVE_MESH, batch=SHARD_SERVE_BATCH,
                      prompt_len=SERVE_PROMPT, max_new=new,
                      max_len=SERVE_MAX_LEN, seed=0, device=device,
                      ref_path=str(ref_dir / dt), teacher=dt == "bfloat16")
@@ -5275,7 +5374,7 @@ def serve_sharded_phase(torch, device="cuda", arch=SERVE_ARCH,
         shutil.rmtree(ref_dir, ignore_errors=True)
     cfg = cfgs["bfloat16"]
     log(f"serve-sharded {cfg.name} {cfg.num_layers} layers, mesh "
-        f"{SERVE_MESH}, B={SERVE_BATCH}, {SERVE_STEPS} steps, cache "
+        f"{SERVE_MESH}, B={SHARD_SERVE_BATCH}, {SERVE_STEPS} steps, cache "
         f"{SERVE_MAX_LEN}: {n} ranks, backend {backend}, cards {cards}; the "
         f"one-rank references {ref_s:.1f} s (eager step fp32 "
         f"{one['float32']['ms']:.2f} ms, bf16 {one['bfloat16']['ms']:.2f} "
@@ -5642,7 +5741,8 @@ def rg_training_phase(torch, ops, ref):
     held = torch.cuda.memory_allocated()
     log(f"train {cfg.name}: {held / 1e9:.3f} GB allocated before train_loop "
         "(after gc.collect)")
-    run = train_run(torch, ops, train, cfg, RG_TRAIN_BATCH, RG_TRAIN_SEQ)
+    run = train_run(torch, ops, train, cfg, RG_TRAIN_BATCH, RG_TRAIN_SEQ,
+                    FAMILY_TRAIN_STEPS)
     run["held_before_bytes"] = held
     torch.cuda.empty_cache()
     resume = checkpoint_resume(torch, configs, model, train, data, ckpt,
@@ -5795,15 +5895,17 @@ def ssd_train_timing(torch, ops, ref, device="cuda"):
     return row
 
 
-def dry_train_step(cfg, batch: int, seq: int, card: str):
-    """The dry run (``launch.dryrun.run_one``) of ``cfg``'s train step at
-    batch x seq on mesh (1, 1): argument bytes, predicted peak and the
-    roofline's least time."""
+def dry_step(cfg, batch: int, seq: int, card: str, kind: str = "train"):
+    """The dry run (``launch.dryrun.run_one``) of ``cfg``'s ``kind`` step
+    ("train" at batch x seq, "decode" of ``batch`` slots over a cache of
+    ``seq``) on mesh (1, 1), at ``cfg``'s depth (the cut one where
+    ``family_training_phase`` cuts it): argument bytes, predicted peak and
+    the roofline's least time."""
     from repro_torch.data.synthetic import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as M
     t0 = time.perf_counter()
-    rec = dryrun.run_one(cfg, InputShape("train", seq, batch, "train"),
+    rec = dryrun.run_one(cfg, InputShape(kind, seq, batch, kind),
                          M.abstract_mesh((1, 1), ("data", "model")),
                          verbose=False)
     mem, roof = rec["memory_analysis"], rec["roofline"]
@@ -5814,8 +5916,9 @@ def dry_train_step(cfg, batch: int, seq: int, card: str):
                dominant=roof["dominant"],
                kernels={k: v["instances"] for k, v in rec["kernels"].items()},
                seconds=time.perf_counter() - t0)
-    log(f"dry-train {cfg.name} {cfg.num_layers} layers {cfg.param_dtype}, "
-        f"B={batch} S={seq}, mesh (1, 1) [{card}; a prediction]: argument "
+    log(f"dry-{kind} {cfg.name} {cfg.num_layers} layers {cfg.param_dtype}, "
+        f"B={batch} {'S' if kind == 'train' else 'cache'}={seq}, mesh (1, 1) "
+        f"[{card}; a prediction]: argument "
         f"bytes {mem['argument_bytes']}, predicted peak "
         f"{mem['peak_bytes'] / 1e9:.3f} GB (argument + temp "
         f"{mem['temp_bytes'] / 1e9:.3f}), least time {1e3 * least:.3f} ms "
@@ -6027,11 +6130,14 @@ def moe_route_split(torch, model, cfg, batch: int, seq: int, card: str,
 
 
 def family_training_phase(torch, ops, ref, devs: dict, arch: str,
-                          number: int, step_tol: dict, *, device="cuda",
-                          reduced=False, cases=None, steps=TRAIN_STEPS,
-                          seq=FAMILY_SEQ, ckpt_dir=None):
-    """Phases 24-26: ``arch`` as configured (the reduced config with
-    ``reduced``, the CPU rehearsals) trains on the card.  The kernels at
+                          number, step_tol: dict, *, device="cuda",
+                          reduced=False, cases=None,
+                          steps=FAMILY_TRAIN_STEPS, seq=FAMILY_SEQ,
+                          ckpt_dir=None, layers=None,
+                          scatter_tol=SCATTER_STEP_TOL):
+    """Phases 24-29: ``arch`` as configured (the reduced config with
+    ``reduced``, the CPU rehearsals), its depth cut to ``layers`` where
+    given, trains on the card.  The kernels at
     its training shapes (``family_kernel_checks`` at ``cases``, by default
     FAMILY_KERNEL_CASES); the dry run of its step at FAMILY_BATCH x seq
     (B = 1 where the predicted peak passes FAMILY_PEAK_LIMIT); one step
@@ -6056,29 +6162,35 @@ def family_training_phase(torch, ops, ref, devs: dict, arch: str,
     card = _card_line(device)
     cfg = (configs.get_reduced if reduced else configs.get)(arch)
     full = configs.get(arch)
+    cut = "as configured, no cut"
+    if layers is not None:
+        cut = f"depth cut {cfg.num_layers} -> {layers}, the one cut"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     enc = (f"{cfg.num_encoder_layers} encoder + " if cfg.is_encoder_decoder
            else "")
-    log(f"train {cfg.name}: {'reduced' if reduced else 'as configured, no cut'};"
+    log(f"train {cfg.name}: {('reduced, ' if reduced else '') + cut};"
         f" {enc}{cfg.num_layers} layers ({attention_calls(cfg)} flash calls "
         f"a pass), d_model {cfg.d_model}, {cfg.num_heads} heads over "
         f"{cfg.num_kv_heads}, D {cfg.head_dim}, d_ff {cfg.d_ff}"
         + (f", {cfg.num_experts} experts top {cfg.num_experts_per_tok}"
            if cfg.num_experts else "")
         + f", vocab {cfg.padded_vocab} (padded"
-        f"{', tied' if cfg.tie_embeddings else ''}), {cfg.param_dtype}; "
-        f"the registry's {full.num_layers} layers, d_model {full.d_model}")
+        f"{', tied' if cfg.tie_embeddings else ''}), "
+        f"{cfg.n_params() / 1e9:.3f} B parameters, "
+        f"{cfg.param_dtype}; the registry's {full.num_layers} layers, d_model "
+        f"{full.d_model}")
     out = dict(arch=cfg.name, card=card)
     out["kernels"] = family_kernel_checks(
         torch, ops, ref, FAMILY_KERNEL_CASES[arch] if cases is None else cases,
         device, devs)
     batch = FAMILY_BATCH
-    out["dry"] = dry_train_step(cfg, batch, seq, card)
+    out["dry"] = dry_step(cfg, batch, seq, card)
     if out["dry"]["predicted_peak_bytes"] > FAMILY_PEAK_LIMIT:
         log(f"train {cfg.name}: the cut is the batch, B = {batch} -> 1 (a "
             f"predicted peak of {out['dry']['predicted_peak_bytes'] / 1e9:.3f}"
             f" GB passes {FAMILY_PEAK_LIMIT / 1e9:g} GB)")
         batch = 1
-        out["dry"] = dry_train_step(cfg, batch, seq, card)
+        out["dry"] = dry_step(cfg, batch, seq, card)
     stream = family_batches(torch, cfg, FAMILY_STEP_BATCH, seq, seed=1,
                             device=device)
     one, other = next(stream), next(stream)
@@ -6087,7 +6199,8 @@ def family_training_phase(torch, ops, ref, devs: dict, arch: str,
         grad_tol=step_tol["grad"], device=device)
     if cfg.num_experts:
         out["scatter"] = scatter_route_checks(torch, ops, model, cfg, one,
-                                              other, device=device)
+                                              other, tol=scatter_tol,
+                                              device=device)
     del stream, one, other
     # the checks' models and gradients can outlive them in reference
     # cycles until the collector runs (phase 23's note)
@@ -6153,6 +6266,162 @@ def family_training_phase(torch, ops, ref, devs: dict, arch: str,
     out["seconds"] = time.perf_counter() - t0
     log(f"phase {number}: {out['seconds']:.1f} s")
     return out
+
+
+def registry_serving(torch, ops, engine, arch: str, *, prompts, max_new,
+                     model_tol, tokenwise_tol=None, dry_decode=False,
+                     max_len=SERVE_LEN, model_prompt=MODEL_PROMPT,
+                     device="cuda", reduced=False):
+    """Phases 27-29's serving: ``arch`` as configured (the reduced config
+    with ``reduced``, the CPU rehearsals) drawn from a collected allocator,
+    the bytes held before it logged; ``prompts`` through ``ServeEngine``
+    with block prefill, ``max_new`` tokens each, SERVE_BATCH slots of
+    ``max_len`` (``backbone_serving``: on the card every flash launch on
+    the tensor-core instance), the peak beside the dry run's decode step
+    (``dry_step``) with ``dry_decode``; the prefill logits through
+    the kernel against the plain attention within ``model_tol``, its
+    control above it (``in_model_instances``); with ``tokenwise_tol``,
+    block prefill against token-wise decode on the shortest prompt as
+    phase 12 holds it: the first generated token's logits within
+    ``tokenwise_tol`` (a control above it), then an fp32 copy of the model
+    with the same greedy tokens within MODEL_TOL's fp32 limit.  Frees the
+    model; returns the readings."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import blocks, model
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    gc.collect()
+    held = 0
+    if on_card:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+    card = _card_line(device)
+    cfg = (configs.get_reduced if reduced else configs.get)(arch)
+    out = dict(arch=cfg.name, card=card, held_before_bytes=held)
+    if dry_decode:
+        out["dry_decode"] = dry_step(cfg, SERVE_BATCH, max_len, card,
+                                     "decode")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=device)
+    synchronize(torch, device)
+    weights = list(params.parameters())
+    out.update(params=sum(p.numel() for p in weights),
+               weight_bytes=_tensor_bytes(weights))
+    del weights
+    log(f"model {cfg.name}: {cfg.num_layers} layers "
+        f"{json.dumps(dict(collections.Counter(blocks.block_kinds(cfg))))}, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, vocab "
+        f"{cfg.padded_vocab} (padded{', tied' if cfg.tie_embeddings else ''})"
+        f", {out['params'] / 1e9:.3f} B parameters, "
+        f"{out['weight_bytes'] / 1e9:.2f} GB {cfg.param_dtype}, drawn on "
+        f"{'the card' if on_card else 'the CPU'} in "
+        f"{time.perf_counter() - t1:.1f} s; {held / 1e9:.3f} GB allocated "
+        "before it (after gc.collect)")
+    served = backbone_serving(torch, ops, engine, cfg, params,
+                              prompts=prompts, max_len=max_len,
+                              instance="wgmma", max_new=max_new)
+    steps = [ms for _, ms in served["decode_ms"]]
+    out["serve"] = dict(launches=served["launches"]["flash_attention"],
+                        instances=served["flash_instances"],
+                        prefill_ms=served["prefill_ms"],
+                        decode_ms_median=float(np.median(steps)),
+                        wall_s=served["wall_s"])
+    if on_card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        dry = out.get("dry_decode")
+        log(f"serve {cfg.name} [{card}]: peak {out['peak_bytes'] / 1e9:.3f} "
+            f"GB (torch.cuda.max_memory_allocated, from {held / 1e9:.3f} GB "
+            f"held before the weights; weights {out['weight_bytes'] / 1e9:.3f}"
+            " GB)" + (f" against the dry run's decode step "
+                      f"{dry['predicted_peak_bytes'] / 1e9:.3f} GB (B="
+                      f"{dry['batch']}, cache {dry['seq']}; ratio "
+                      f"{dry['predicted_peak_bytes'] / out['peak_bytes']:.4f}"
+                      "; the prefill's activations are on top of it)"
+                      if dry else ""))
+    controls = {}
+    label = f"{cfg.name} {cfg.param_dtype} {cfg.num_layers} layers"
+    dev, scale = in_model_instances(torch, ops, cfg, params, label=label,
+                                    instance="wgmma", prompt=model_prompt,
+                                    tol=model_tol, controls=controls)
+    out["in_model"] = dict(max_abs_dev=dev, max_abs_logit=scale,
+                           tol=model_tol, control_dev=controls[label])
+    if tokenwise_tol is not None:
+        short = served["prompts"][-1]
+        out["tokenwise"] = [tokenwise_agreement(
+            torch, engine, cfg, params, short, max_len=max_len,
+            tol=tokenwise_tol, tokens=False)]
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        params = model.init_params(cfg32, seed=0, device=device)
+        out["tokenwise"].append(tokenwise_agreement(
+            torch, engine, cfg32, params, short, max_len=max_len,
+            tol=MODEL_TOL["float32"]))
+    del params, served
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve {cfg.name}: {out['seconds']:.1f} s")
+    return out
+
+
+def registry_phase(torch, ops, ref, engine, devs: dict, arch: str,
+                   number: int, step_tol: dict, serve: dict, *,
+                   serve_over=None, **kw):
+    """Phases 27-29: ``arch`` serves (``registry_serving`` with ``serve``,
+    updated by ``serve_over``), then trains (``family_training_phase``
+    with ``kw``); the phase's seconds and each part's logged."""
+    t0 = time.perf_counter()
+    args = dict(serve, **(serve_over or {}))
+    served = registry_serving(torch, ops, engine, arch,
+                              device=kw.get("device", "cuda"),
+                              reduced=kw.get("reduced", False), **args)
+    out = family_training_phase(torch, ops, ref, devs, arch,
+                                f"{number} training", step_tol, **kw)
+    out["served"] = served
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(f"phase {number}: {out['phase_seconds']:.1f} s (serving "
+        f"{served['seconds']:.1f}, training {out['seconds']:.1f})")
+    return out
+
+
+def glm4_phase(torch, ops, ref, engine, devs: dict, **kw):
+    """Phase 27: glm4-9b serves as configured with phase 6's traffic (block
+    prefill against token-wise decode, an fp32 copy too) and trains at
+    full width cut to GLM4_TRAIN_LAYERS layers."""
+    kw.setdefault("layers", GLM4_TRAIN_LAYERS)
+    return registry_phase(
+        torch, ops, ref, engine, devs, GLM4_ARCH, 27, GLM4_STEP_TOL,
+        dict(prompts=SERVE_PROMPTS, max_new=SERVE_NEW,
+             model_tol=GLM4_MODEL_TOL, tokenwise_tol=GLM4_TOKENWISE_TOL),
+        **kw)
+
+
+def command_r_phase(torch, ops, ref, engine, devs: dict, **kw):
+    """Phase 28: command-r-35b serves as configured with phase 11's
+    traffic, its peak beside the dry run's decode step, and trains at full
+    width cut to COMMAND_R_TRAIN_LAYERS layers (the 256,000-way tied head
+    under grad)."""
+    kw.setdefault("layers", COMMAND_R_TRAIN_LAYERS)
+    return registry_phase(
+        torch, ops, ref, engine, devs, COMMAND_R_ARCH, 28, COMMAND_R_STEP_TOL,
+        dict(prompts=GRANITE_PROMPTS, max_new=NEW_TOKENS,
+             model_tol=COMMAND_R_MODEL_TOL, dry_decode=True), **kw)
+
+
+def granite1b_phase(torch, ops, ref, engine, devs: dict, **kw):
+    """Phase 29: granite-moe-1b-a400m serves with phase 11's traffic and
+    trains as configured on both MoE routes (as phase 24)."""
+    kw.setdefault("scatter_tol", GRANITE1B_SCATTER_TOL)
+    return registry_phase(
+        torch, ops, ref, engine, devs, GRANITE1B_ARCH, 29, GRANITE1B_STEP_TOL,
+        dict(prompts=GRANITE_PROMPTS, max_new=NEW_TOKENS,
+             model_tol=GRANITE1B_MODEL_TOL), **kw)
 
 
 def granite_training_phase(torch, ops, ref, devs: dict, **kw):
@@ -6603,6 +6872,16 @@ def main() -> int:
                   encdec_training_phase):
         rec = phase(torch, ops, ref, devs)
         families[rec["arch"]] = rec
+    # phases 27-29: the registry's last three configurations — glm4-9b
+    # (serving with phase 6's traffic, block prefill against token-wise
+    # decode, training cut to 8 layers), command-r-35b (serving its 60.6 GB
+    # as configured, training cut to 2 layers), granite-moe-1b-a400m
+    # (serving, training on both MoE routes)
+    t27 = time.perf_counter()
+    for phase in (glm4_phase, command_r_phase, granite1b_phase):
+        rec = phase(torch, ops, ref, engine, devs)
+        families[rec["arch"]] = rec
+    log(f"new phases (27, 28, 29): {time.perf_counter() - t27:.1f} s")
     family_runs = {f"{name} {what}": rec[key]
                    for name, rec in families.items()
                    for key, what in (("run", "train"),
@@ -6642,6 +6921,9 @@ def main() -> int:
                 two_pass_instances[name][inst] += n
     for srv in (g_served, r_served, v_served):
         launches["flash_attention"] += srv["launches"]["flash_attention"]
+    for rec in families.values():
+        if "served" in rec:
+            launches["flash_attention"] += rec["served"]["serve"]["launches"]
     launches["flash_attention"] += v_media["launches"] + sum(
         run["launches"] for run in encdec["runs"])
     log(f"new phases (7b, 11, 12): {new_phase_s:.1f} s; head launches "
@@ -6697,14 +6979,17 @@ def main() -> int:
                         for r in phase19["sharded"]["ranks"]),
                     f"phase 22: {TRAIN_ARCH}'s step once against its dry "
                     "run": phase22["train"]["launches"]["flash_attention"],
-                    f"train_loop {RG_TRAIN_ARCH} ({TRAIN_STEPS} steps: pass "
-                    "+ remat)": rg_launches["flash_attention"],
+                    f"train_loop {RG_TRAIN_ARCH} ({FAMILY_TRAIN_STEPS} "
+                    "steps: pass + remat)": rg_launches["flash_attention"],
+                    **{f"serve {name}": rec["served"]["serve"]["launches"]
+                       for name, rec in families.items()
+                       if "served" in rec},
                     **{f"seamless-m4t-large-v2 {path} (B={run['B']}, "
                        f"S={run['S']})": n
                        for run in encdec["runs"]
                        for path, n in run["launches_by_path"].items()},
-                    **{f"{what} ({TRAIN_STEPS if 'scatter' not in what else SCATTER_TIMED_STEPS}"
-                       f" steps: pass + remat) {path}": n
+                    **{f"{what} ({len(run['steps'])} steps: pass + remat) "
+                       f"{path}": n
                        for what, run in family_runs.items()
                        for path, n in run["launches_by_path"].items()}},
                 train_shapes={name: rec["kernels"]["forward"]
@@ -6759,7 +7044,8 @@ def main() -> int:
                 train_families={
                     name: {**{k: rec[k] for k in (
                         "card", "batch", "seq", "dry", "step_check",
-                        "losses", "resume", "route_split", "seconds")
+                        "losses", "resume", "route_split", "seconds",
+                        "served", "phase_seconds")
                         if k in rec},
                         "scatter": rec.get("scatter"),
                         "checks": rec["kernels"]["backward"],

@@ -92,12 +92,15 @@
 //      (blockIdx.z) split them into halves of 128 columns of D, each
 //      recomputing s^T and dP^T over all of D (26*D flops a pair in all
 //      instead of 22*D; 192 KB of shared memory, 255 registers, no
-//      spill); and a block takes one query head, not the whole group
-//      (splits_b: a long chain of wgmma accumulations loses the low bits
-//      the bf16 rule's floor needs), storing fp32 sums that
-//      dkdv_reduce_kernel adds in head order, scales and rounds.  (The same
-//      one-warpgroup shape for pass A measured slower at qwen3-14b's shape,
-//      so pass A keeps the shared key stream of two consumers.)
+//      spill).  A long chain of wgmma accumulations loses the low bits
+//      the bf16 rule's floor needs, so the group may be split: `splits`
+//      blocks a (b, kv head), each over group / splits of its query heads
+//      (at D = 256 one head a block; at D = 64 and 128 as few splits as
+//      keep a block's chain within ops.BACKWARD_CHAIN_B k16 steps), each
+//      storing fp32 sums that dkdv_reduce_kernel adds in order, scales
+//      and rounds.  (The same one-warpgroup shape for pass A measured
+//      slower at qwen3-14b's shape, so pass A keeps the shared key stream
+//      of two consumers.)
 //   Numerics: the products of bf16 operands are exact in the fp32
 //   accumulators; P and dS, fp32 values, go into the tensor cores as the
 //   A operand split into two bf16 terms, hi + lo (lo the rounding of what
@@ -699,18 +702,18 @@ struct PassA {
 template <int D>
 constexpr int kColsB = D < 128 ? D : 128;
 
-// Pass B's blocks a (b, kv head): at D = 64 and 128 one block sums dk and
-// dv over the whole GQA group in its tensor-core accumulators.  At D = 256
-// one block a query head: the tensor cores' fp32 accumulation drops low
-// bits at each k16 step, and a chain over recurrentgemma's 10 heads x 2048
-// queries (~1,300 steps) carries dk and dv to ~2e-5 of their max from the
-// plain fp32 sums, the bf16 rule's floor, where one head's chain keeps
-// them near the fp32-FMA instance's ~3e-6; each block stores its fp32
-// partial sums and dkdv_reduce_kernel adds them in head order.
-template <int D>
-__host__ __device__ constexpr int splits_b(int group) {
-  return D == 256 ? group : 1;
-}
+// Pass B's blocks a (b, kv head), `splits`, the host's choice
+// (ops.backward_splits): a block sums dk and dv over group / splits query
+// heads in its tensor-core accumulators, one k16 step for every 16 query
+// rows.  The tensor cores' fp32 accumulation drops low bits at each step,
+// and a chain over recurrentgemma's 10 heads x 2048 queries (~1,300 steps,
+// D = 256) carried dk and dv to ~2e-5 of their max from the plain fp32
+// sums, the bf16 rule's floor, where one head's chain keeps them near the
+// fp32-FMA instance's ~3e-6.  So D = 256 takes one head a block, and D =
+// 64 and 128 as many heads as keep the chain within the longest one the
+// card has held there (internvl2-1b's 7 heads x 4096 queries, 1,792
+// steps).  With splits > 1 each block stores its fp32 partial sums and
+// dkdv_reduce_kernel adds them in order.
 
 // rows of the lse | delta scratch a (b, h): S rounded up to 128, whatever
 // pass A's tile
@@ -878,7 +881,7 @@ struct ArgsA {
 struct ArgsB {
   const float* stats;
   Out dk, dv;
-  float* partials;       // fp32 (2, B * H, Sk, D) when splits > 1
+  float* partials;       // fp32 (2, B * KV * splits, Sk, D) when splits > 1
   int H, KV, group, S_pad, splits;
   Mask mk;
   float scale, scale_log2;
@@ -1329,10 +1332,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// dk and dv from pass B's per-head fp32 partial sums (splits > 1): each
-// element of (b * KV + kvh, key, column) the sum over the group's heads in
-// order, dk times the scale, rounded once to bf16 through the outputs'
-// strides; two columns a thread.
+// dk and dv from pass B's fp32 partial sums (splits > 1): each element of
+// (b * KV + kvh, key, column) the sum over the group's splits in order, dk
+// times the scale, rounded once to bf16 through the outputs' strides; two
+// columns a thread.
 __global__ void __launch_bounds__(256)
 dkdv_reduce_kernel(const float* __restrict__ partials, Out dk, Out dv,
                    int KV, int splits, int Sk, int D, long long pairs,
@@ -1374,6 +1377,7 @@ struct Call {
   const float* delta;
   void *dq, *dk, *dv;
   float *stats, *partials;
+  int splits;
   int B, H, KV, S, Sk;
   long long st[8][3];
   float scale;
@@ -1417,7 +1421,7 @@ int launch(const Call& c) {
                     LayoutA<D>::kBytes, c.stream>>>(tq, tk, tv, tdo, aa);
   cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  const int splits = splits_b<D>(c.H / c.KV);
+  const int splits = c.splits;
   const ArgsB ab{c.stats, out(c.dk, 6), out(c.dv, 7), c.partials, c.H, c.KV,
                  c.H / c.KV, stats_rows(c.S), splits, mk, c.scale,
                  scale_log2};
@@ -1498,15 +1502,16 @@ int flash_attention_backward(
 // multiples of 8 (a dimension of size 1 may pass any such stride); dq, dk
 // and dv 4-byte-aligned bases and even strides.  `stats` is an fp32
 // scratch of 2 * B * H * S_pad floats, S_pad = S rounded up to a multiple
-// of 128, 16-byte aligned; `partials`, at D = 256 only, an fp32 scratch of
-// 2 * B * H * Sk * D floats, 16-byte aligned (pass B's per-head sums; null
-// elsewhere).  delta as flash_attention_backward's, 4-byte aligned.  Same
-// return convention as flash_attention_backward, with the tensor-map
-// errors of flash_attention_backward_error_string besides.
+// of 128, 16-byte aligned; `splits` pass B's blocks a (b, kv head), a
+// divisor of H / KV; `partials`, where splits > 1, an fp32 scratch of
+// 2 * B * KV * splits * Sk * D floats, 16-byte aligned (pass B's sums a
+// block; null elsewhere).  delta as flash_attention_backward's, 4-byte
+// aligned.  Same return convention as flash_attention_backward, with the
+// tensor-map errors of flash_attention_backward_error_string besides.
 int flash_attention_backward_tc(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* stats,
-    void* partials, int B,
+    void* partials, int splits, int B,
     int H, int KV, int S, int Sk, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -1517,7 +1522,7 @@ int flash_attention_backward_tc(
     const void* delta, void* stream) {
   tc::Call c{q, k, v, o, dout, static_cast<const float*>(delta), dq, dk, dv,
              static_cast<float*>(stats),
-             static_cast<float*>(partials), B, H, KV, S, Sk,
+             static_cast<float*>(partials), splits, B, H, KV, S, Sk,
              {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
               {o_sb, o_sh, o_ss}, {do_sb, do_sh, do_ss},
               {dq_sb, dq_sh, dq_ss}, {dk_sb, dk_sh, dk_ss},
@@ -1538,8 +1543,10 @@ int flash_attention_backward_tc(
   for (const void* p : stored)
     ok = ok && reinterpret_cast<uintptr_t>(p) % 4 == 0;
   ok = ok && reinterpret_cast<uintptr_t>(stats) % 16 == 0;
-  ok = ok && (D != 256 || (partials != nullptr &&
-                           reinterpret_cast<uintptr_t>(partials) % 16 == 0));
+  ok = ok && splits >= 1 && H % KV == 0 && (H / KV) % splits == 0;
+  ok = ok && (splits == 1 || (partials != nullptr &&
+                              reinterpret_cast<uintptr_t>(partials) % 16 ==
+                                  0));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64) return tc::launch<64>(c);
   if (D == 128) return tc::launch<128>(c);

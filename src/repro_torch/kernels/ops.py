@@ -155,7 +155,7 @@ def _flash_backward_lib() -> ctypes.CDLL:
     lib.flash_attention_backward.argtypes = [_P] * 9 + [_I] * 7 + [
         _LL] * 24 + [_F, _I, _I, _P, _P]
     lib.flash_attention_backward.restype = ctypes.c_int
-    lib.flash_attention_backward_tc.argtypes = [_P] * 10 + [_I] * 6 + [
+    lib.flash_attention_backward_tc.argtypes = [_P] * 10 + [_I] * 7 + [
         _LL] * 24 + [_F, _I, _I, _P, _P]
     lib.flash_attention_backward_tc.restype = ctypes.c_int
     lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
@@ -982,31 +982,66 @@ def backward_stats_floats(B: int, H: int, S: int, instance: str) -> int:
     return 3 * B * H * S
 
 
-def backward_partials_floats(B: int, H: int, Sk: int, D: int,
-                             instance: str) -> int:
-    """Floats of the fp32 scratch that one backward call of ``instance``
-    keeps for dk and dv beside the row statistics: at D = 256 the
-    tensor-core instance's pass B sums each query head apart, (2, B * H,
-    Sk, D), and adds the heads in order after; 0 otherwise."""
-    return 2 * B * H * Sk * D if instance == "wgmma" and D == 256 else 0
+# The longest chain of k16 tensor-core steps that one block of the
+# tensor-core backward's pass B may sum dk and dv over at D = 64 and 128
+# (csrc/flash_backward.cu): internvl2-1b's training shape, 7 query heads a
+# kv head x 4096 queries / 16, which the H100 holds within the bf16 rule.
+# glm4-9b's group of 16 at 4096 queries (4,096 steps) in one block read
+# 1.68 of the rule at dk; split in 4 it reads 0.97.  command-r-35b's 2,048
+# steps read 0.98 in one block, and split in 2 cost ~1 % of its time.
+BACKWARD_CHAIN_B = 1792
+
+
+def backward_splits(H: int, KV: int, S: int, D: int, instance: str) -> int:
+    """Blocks a (b, kv head) of the tensor-core backward's pass B, each
+    summing dk and dv over H / KV / splits query heads of S queries: one
+    head a block at D = 256; at D = 64 and 128 the fewest splits (a divisor
+    of the group) that keep a block's chain, heads x ceil(S / 64) x 4 k16
+    steps, within BACKWARD_CHAIN_B.  1 for the fp32-FMA instance."""
+    group = H // KV
+    if instance != "wgmma":
+        return 1
+    if D == 256:
+        return group
+    steps = -(-S // 64) * 4
+    for s in range(1, group):
+        if group % s == 0 and group // s * steps <= BACKWARD_CHAIN_B:
+            return s
+    return group
+
+
+def backward_partials_floats(B: int, KV: int, splits: int, Sk: int,
+                             D: int) -> int:
+    """Floats of the fp32 scratch that one tensor-core backward call keeps
+    for dk and dv beside the row statistics where pass B splits the group
+    (``backward_splits`` > 1): each block's sums, (2, B * KV * splits, Sk,
+    D), added in order after; 0 otherwise."""
+    return 2 * B * KV * splits * Sk * D if splits > 1 else 0
 
 
 def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
-                           sm_scale, delta=None):
+                           sm_scale, delta=None, splits=None):
     """One call of ``instance`` on CUDA operands (checked here); returns
     (dq, dk, dv).  ``flash_attention_backward`` calls it with
     ``flash_backward_instance``'s choice; the fp32-FMA instance also takes
-    bf16."""
+    bf16.  ``splits`` overrides ``backward_splits`` for the tensor-core
+    instance (a divisor of H / KV; 1: the whole group in one block)."""
     _check_backward(q, k, v, o, do, window, instance, causal=causal)
     if delta is not None:
         _check_fp32_rows("flash_attention_backward", "delta", delta,
                          q.shape[:3], q.device)
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
+    if splits is None:
+        splits = backward_splits(H, KV, S, D, instance)
+    elif instance != "wgmma" or splits < 1 or (H // KV) % splits:
+        raise ValueError(f"flash_attention_backward: splits {splits} needs "
+                         f"the tensor-core instance and a divisor of the "
+                         f"group {H // KV}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     stats = torch.empty(backward_stats_floats(B, H, S, instance),
                         dtype=torch.float32, device=q.device)
-    n_partial = backward_partials_floats(B, H, Sk, D, instance)
+    n_partial = backward_partials_floats(B, KV, splits, Sk, D)
     partials = (torch.empty(n_partial, dtype=torch.float32, device=q.device)
                 if n_partial else None)
     if q.is_meta:
@@ -1027,7 +1062,7 @@ def _flash_backward_launch(q, k, v, o, do, instance, *, causal, window,
                        for st in _tma_strides(t)]
             err = lib.flash_attention_backward_tc(
                 *ptrs, partials.data_ptr() if partials is not None else None,
-                B, H, KV, S, Sk, D, *strides, *tail)
+                splits, B, H, KV, S, Sk, D, *strides, *tail)
         else:
             strides = [st for t in (q, k, v, o, do, dq, dk, dv)
                        for st in t.stride()[:3]]

@@ -440,9 +440,15 @@ def _train_ranks(cfg: ModelConfig, *, steps, batch, seq, lr, log_every, seed,
                    timeout_s=900.0)
     for rec in recs:
         print(rank_line(rec), flush=True)
-    print("losses " + " ".join(f"{x:.4f}" for x in recs[0]["losses"]),
+    losses = recs[0]["losses"]
+    same = all(rec["losses"] == losses for rec in recs)
+    print("losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f" ({'equal' if same else 'not equal'} on every rank)",
           flush=True)
-    return recs, recs[0]["losses"]
+    if not same or not all(math.isfinite(x) for x in losses):
+        raise SystemExit("the ranks' losses differ or are not finite: "
+                         + "; ".join(str(rec["losses"]) for rec in recs))
+    return recs, losses
 
 
 def _mesh_arg(text: str):

@@ -1506,6 +1506,80 @@ def test_head_dim_256_backward_instances_match_plain(cuda, case, instance):
         assert chip_smoke.backward_deviation(torch, g, w, "bfloat16")[2] <= 1
 
 
+# (B, H, KV, S, Sk, D, causal, window, splits): glm4-9b's (32/2) and
+# command-r-35b's (64/8) head layouts at D = 128, causal, at the shortest
+# length where pass B of the backward splits the group (a block's chain
+# past ops.BACKWARD_CHAIN_B k16 steps), and granite-moe-1b-a400m's (16/8)
+# at D = 64, whose group of 2 stays in one block
+REGISTRY_BACKWARD = [
+    (1, 32, 2, 2048, 2048, 128, True, None, 2),
+    (1, 64, 8, 4096, 4096, 128, True, None, 2),
+    (1, 16, 8, 2048, 2048, 64, True, None, 1),
+]
+
+
+@pytest.mark.parametrize("case", REGISTRY_BACKWARD)
+def test_backward_at_registry_head_layouts_matches_plain(cuda, case):
+    """The backward at the last three configurations' head layouts, the
+    wrapper's own choice: the tensor-core instance with pass B in the
+    splits ``ops.backward_splits`` names, dq, dk, dv within chip_smoke's
+    bf16 rule of ``ref.mha_backward`` (delta given, as the training path
+    gives it), laid out as their inputs, two launches equal bit for bit.
+    Every other divisor of the group gives results within the rule too."""
+    B, H, KV, S, Sk, D, causal, window, splits = case
+    case = case[:8]
+    q, k, v, _, do = chip_smoke.backward_inputs(torch, ops, case, "bfloat16",
+                                                cuda, seed=9)
+    o = ref.mha(q, k, v, causal=causal)
+    delta = (do.float() * ref.mha(q.float(), k.float(), v.float(),
+                                  causal=causal)).sum(-1)
+    assert ops.backward_splits(H, KV, S, D, "wgmma") == splits
+    before = dict(ops.flash_backward_launches)
+    got = ops.flash_attention_backward(q, k, v, o, do, causal=causal,
+                                       delta=delta)
+    again = ops.flash_attention_backward(q, k, v, o, do, causal=causal,
+                                         delta=delta)
+    assert ops.flash_backward_launches["wgmma"] == before["wgmma"] + 2
+    want = ref.mha_backward(q, k, v, o, do, causal=causal, delta=delta)
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert torch.equal(g, a)
+        assert g.stride() == t.stride()
+        assert chip_smoke.backward_deviation(torch, g, w, "bfloat16")[2] <= 1
+    for other in (s for s in range(2, H // KV + 1)
+                  if (H // KV) % s == 0 and s != splits):
+        forced = ops._flash_backward_launch(q, k, v, o, do, "wgmma",
+                                            causal=causal, window=None,
+                                            sm_scale=None, delta=delta,
+                                            splits=other)
+        assert torch.equal(forced[0], got[0])       # pass A: dq unchanged
+        for g, w in zip(forced[1:], want[1:]):
+            assert chip_smoke.backward_deviation(torch, g, w,
+                                                 "bfloat16")[2] <= 1
+
+
+def test_backward_split_keeps_earlier_shapes(cuda):
+    """qwen3-14b's head layout (40/8, D = 128) at its training length keeps
+    the whole group in one block of pass B, as before the split came:
+    the wrapper's result equals the unsplit instance's (splits 1, forced)
+    bit for bit, with no partial sums; a split the group does not divide
+    is refused before any launch."""
+    case = (1, 40, 8, 4096, 4096, 128, True, None)
+    q, k, v, o, do = chip_smoke.backward_inputs(torch, ops, case, "bfloat16",
+                                                cuda, seed=10)
+    assert ops.backward_splits(40, 8, 4096, 128, "wgmma") == 1
+    assert ops.backward_partials_floats(1, 8, 1, 4096, 128) == 0
+    got = ops.flash_attention_backward(q, k, v, o, do, causal=True)
+    kw = dict(causal=True, window=None, sm_scale=None)
+    whole = ops._flash_backward_launch(q, k, v, o, do, "wgmma", splits=1,
+                                       **kw)
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)
+    before = dict(ops.launches)
+    with pytest.raises(ValueError, match="divisor"):
+        ops._flash_backward_launch(q, k, v, o, do, "wgmma", splits=3, **kw)
+    assert ops.launches == before
+
+
 @pytest.mark.parametrize("fault", ["base", "stride"])
 def test_misaligned_bf16_at_head_dim_256_takes_the_fma_instance(cuda, fault):
     """At D = 256 a bf16 q 2 bytes off a 16-byte boundary, or with a row

@@ -624,6 +624,11 @@ def test_phase22_rehearsal_on_the_cpu():
     assert rec["train"]["kernels"]["flash_attention"]["calls"] == 8
     assert rec["all"] == dict(rc=0, records=2, failures=[],
                               wall_s=rec["all"]["wall_s"])
-    assert [r["comm_bytes"] for r in rec["four_card"]][1:] == [
+    assert [r["comm_bytes"] for r in rec["four_card"]][1:3] == [
         {"psum": 57600, "all_gather": 49152, "pmax": 256},
         {"psum": 28800, "all_gather": 24576, "pmax": 128}]
+    # the four-card runs of phases 27-28's configurations predicted too
+    assert [(r["kind"], r["arch"], r["mesh"]) for r in rec["four_card"]][3:] \
+        == [("train", "glm4_9b", [2, 2]), ("decode", "command_r_35b", [1, 4]),
+            ("decode", "command_r_35b", [2, 2])]
+    assert all(r["peak_bytes"] > 0 for r in rec["four_card"])

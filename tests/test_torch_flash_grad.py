@@ -353,12 +353,16 @@ def test_backward_scratch_by_instance():
     # recurrentgemma-2b's long prompt: pass A writes rows up to 2112 (33
     # tiles of 64), within the 2176 rows of the scratch
     assert ops.backward_stats_floats(1, 10, 2099, "wgmma") == 2 * 10 * 2176
-    # and at D = 256 the per-head fp32 sums of dk and dv (pass B takes one
-    # query head a block there)
-    assert ops.backward_partials_floats(1, 10, 2099, 256, "wgmma") == \
+    # and where pass B splits the GQA group, the fp32 sums of dk and dv a
+    # block: at D = 256 one query head a block
+    assert ops.backward_splits(10, 1, 2099, 256, "wgmma") == 10
+    assert ops.backward_partials_floats(1, 1, 10, 2099, 256) == \
         2 * 10 * 2099 * 256
-    assert ops.backward_partials_floats(2, 40, 4096, 128, "wgmma") == 0
-    assert ops.backward_partials_floats(1, 10, 2099, 256, "fma") == 0
+    # qwen3-14b's (40/8, 4096, D = 128): a chain of 5 x 256 = 1,280 k16
+    # steps, the whole group in one block, no partial sums
+    assert ops.backward_splits(40, 8, 4096, 128, "wgmma") == 1
+    assert ops.backward_partials_floats(2, 8, 1, 4096, 128) == 0
+    assert ops.backward_splits(10, 1, 2099, 256, "fma") == 1
 
 
 def test_chip_smoke_backward_instance_rehearsal(monkeypatch):
@@ -469,3 +473,39 @@ def test_delta_from_the_unrounded_output_where_keys_are_alike():
     ops.FlashAttention.apply(*ws, True, None, None).backward(do)
     assert torch.equal(ws[1].grad, ref.mha_backward(q, k, v, o, do,
                                                     delta=delta)[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_group_of_16_matches_jax_autodiff_of_attend(dtype):
+    """glm4-9b's GQA group of 16 (one kv head for 16 query heads), causal:
+    ``ops.FlashAttention``'s gradients on CPU tensors against JAX's
+    autodiff of its model's ``_attend`` on the same inputs (B, S, heads, D).
+    fp32 within ATOL; bf16, where both sides round each gradient once from
+    fp32 sums of the same terms in other orders, within one bf16 ulp of
+    JAX's plus 1e-5 of its largest entry."""
+    from repro.models import attention as jattention
+    B, H, KV, S, D = 1, 16, 1, 40, 64
+    rng = np.random.default_rng(16)
+    q, do = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((B, S, KV, D)).astype(np.float32)
+            for _ in range(2))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    pos = jnp.arange(S)
+    _, vjp = jax.vjp(lambda a, b, c: jattention._attend(
+        a, b, c, pos, pos, causal=True, window=None),
+        *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do, jdt))
+    ts = [torch.tensor(a).to(tdt).transpose(1, 2).requires_grad_()
+          for a in (q, k, v)]
+    ops.FlashAttention.apply(*ts, True, None, None).backward(
+        torch.tensor(do).to(tdt).transpose(1, 2))
+    for t, w in zip(ts, want):
+        got = t.grad.transpose(1, 2).float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        assert t.grad.dtype == tdt
+        if dtype == "float32":
+            np.testing.assert_allclose(got, w, atol=ATOL, rtol=0)
+        else:
+            limit = 2.0 ** -7 * np.abs(w) + 1e-5 * np.abs(w).max()
+            assert (np.abs(got - w) <= limit).all()

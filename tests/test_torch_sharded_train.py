@@ -60,6 +60,8 @@ CASES = {
     "qwen3 2x2 rows 2": ("qwen3_14b", (2, 2), 2, True, {}),
     "mamba2 2x2": ("mamba2_370m", (2, 2), 4, True, {}),
     "granite 2x2": ("granite_moe_1b_a400m", (2, 2), 4, True, {}),
+    # glm4-9b's bias and partial-RoPE leaves under ZeRO-3
+    "glm4 2x2": ("glm4_9b", (2, 2), 4, True, {}),
     "qwen3 2x2 dots": ("qwen3_14b", (2, 2), 4, True,
                        {"remat_policy": "dots"}),
     # the scatter route with its rows split: global capacity and slots
@@ -349,3 +351,15 @@ def test_phase_19_rank_check_against_the_one_rank_step(runs):
             assert r[key]["leaves"] == len(dict(model.abstract_params(
                 tconfigs.get_reduced("qwen3_14b")).named_parameters()))
             assert r[key]["max"] <= chip_smoke.SHARD_TOL[key], (key, r[key])
+
+
+def test_train_loop_across_ranks_holds_the_losses_equal(capsys):
+    """``train_loop`` over two gloo ranks of the CPU (mesh (1, 2)), as the
+    four-card command line runs it: every rank's losses equal, finite, and
+    said so on the losses line."""
+    cfg = tconfigs.get_reduced("glm4_9b")
+    recs, losses = train.train_loop(cfg, steps=2, batch=2, seq=16,
+                                    device="cpu", ranks=2, mesh=(1, 2))
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert all(r["losses"] == losses for r in recs)
+    assert "(equal on every rank)" in capsys.readouterr().out

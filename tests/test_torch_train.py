@@ -175,7 +175,8 @@ def test_frozen_model_and_other_remat_policies():
 @pytest.mark.parametrize("arch", ["qwen3_14b", "granite_moe_1b_a400m",
                                   "granite_moe_3b_a800m",
                                   "granite_moe_3b_a800m:scatter",
-                                  "internvl2_1b", "seamless_m4t_large_v2"])
+                                  "internvl2_1b", "seamless_m4t_large_v2",
+                                  "glm4_9b", "command_r_35b"])
 def test_train_step_matches_jax(arch):
     """Three steps of ``make_train_step`` against JAX's jitted step from
     the same weights and batches: loss and gnorm at each step, and the
