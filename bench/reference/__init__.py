@@ -1,0 +1,1 @@
+"""Part of the benchmark of repro_torch (see bench/run.py)."""
