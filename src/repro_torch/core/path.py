@@ -36,6 +36,11 @@ Every entry point takes ``rho=`` to fix the per-node step sizes, as
 (``decsvm_path_cv`` takes its (k, m) as ``rho``); the ``_many`` entry
 points take them with a leading (B,) axis.  ``device`` defaults to X's
 device for a tensor, else CUDA (``admm.resolve_device``).
+
+With ``repro_torch.spans`` on, each problem of
+``decsvm_path_select_many`` (``path.problem``, with its index ``b``),
+each cold-started grid point (``path.point``) and the BIC scoring
+(``path.score``) is recorded as a span.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import sanitize, solver
 from repro_torch.core.admm import ADMMConfig, as_f32, resolve_device
 from repro_torch.core.tuning import _host, kfold_masks, modified_bic_jnp
@@ -83,9 +89,13 @@ def _problem(X, y, W, cfg, rho, mask=None):
 
 def _cold_path(prob, step, grid, cfg, lam_weights) -> Tensor:
     """Every grid point cold-started for ``cfg.max_iter`` rounds."""
-    return torch.stack([
-        solver.run_fixed(step, prob, float(lam), lam_weights,
-                         num_iters=cfg.max_iter).B for lam in grid])
+    points = []
+    for lam in grid:
+        with spans.span("path.point"):
+            points.append(solver.run_fixed(step, prob, float(lam),
+                                           lam_weights,
+                                           num_iters=cfg.max_iter).B)
+    return torch.stack(points)
 
 
 def _batched(X, y, W, grid, cfg, lam_weights, rho) -> Tensor:
@@ -190,7 +200,8 @@ def _path_select(X, y, W, grid, cfg, mode, tol, lam_weights, stop_rule,
         path, iters = _warm(X, y, W, grid, cfg, tol, lam_weights, stop_rule,
                             check_every, rho)
     if cv_masks is None:
-        crits = score_path(X, y, path)
+        with spans.span("path.score"):
+            crits = score_path(X, y, path)
     else:
         crits = _cv(X, y, W, grid, cfg, cv_masks, lam_weights, cv_rho)
     i = torch.argmin(crits)
@@ -300,8 +311,10 @@ def decsvm_path_select_many(Xs, ys, Ws, lams: Tensor | Sequence[float],
                              cv_seed, dev)
     grid, lw = _grid(lams), _opt(lam_weights, dev)
     rho, cv_rho = _opt(rho, dev), _opt(cv_rho, dev)
-    results = [_path_select(Xs[b], ys[b], Ws[b], grid, cfg, mode, tol, lw,
-                            stop_rule, cv_masks, check_every, _row(rho, b),
-                            _row(cv_rho, b))
-               for b in range(Xs.shape[0])]
+    results = []
+    for b in range(Xs.shape[0]):
+        with spans.span("path.problem", b=b):
+            results.append(_path_select(
+                Xs[b], ys[b], Ws[b], grid, cfg, mode, tol, lw, stop_rule,
+                cv_masks, check_every, _row(rho, b), _row(cv_rho, b)))
     return PathResult(*(torch.stack(field) for field in zip(*results)))

@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import losses
 from repro_torch.launch.mesh import collective
 
@@ -177,13 +178,18 @@ def make_problem(X: Tensor, y: Tensor, W: Tensor, cfg,
     rho/omega are always computed in the incoming (fp32) precision; X is
     cast to the backend's compute dtype *afterwards*, so the bf16 mode
     changes only the per-round matmul operands, never the step sizes
-    (``kernel_x`` makes the copy of X).
+    (``kernel_x`` makes the copy of X).  With ``repro_torch.spans`` on,
+    the two are the spans ``solver.rho`` and ``solver.kernel_x``.
     """
     deg = torch.sum(W, dim=1)
     if rho is None:
-        rho = compute_rho(X, cfg.h, cfg.kernel, cfg.rho_safety, mask=mask)
+        with spans.span("solver.rho"):
+            rho = compute_rho(X, cfg.h, cfg.kernel, cfg.rho_safety,
+                              mask=mask)
     omega = 1.0 / (2.0 * cfg.tau * deg + rho + cfg.lam0)
-    return Problem(kernel_x(X, cfg), y, deg, rho, omega, mask)
+    with spans.span("solver.kernel_x"):
+        Xc = kernel_x(X, cfg)
+    return Problem(Xc, y, deg, rho, omega, mask)
 
 
 def from_numpy(X, y, deg, rho, omega, B, P, t, *, device=None):

@@ -25,6 +25,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import metrics
 
 Tensor = torch.Tensor
@@ -213,7 +214,9 @@ def select_lambda_path_many(Xs, ys, Ws, cfg,
 
     Returns (best_lams (B,), best_Bs (B, m, p), tables, res) — the first
     two as numpy — where ``tables[b]`` is the per-problem (lambda,
-    criterion, support) table and ``res`` the batched ``PathResult``.
+    criterion, support) table and ``res`` the batched ``PathResult``.  With
+    ``repro_torch.spans`` on, the copies to the host and the tables are
+    the span ``path.tables``.
     """
     from repro_torch.core import path as path_mod  # local import: avoid cycle
 
@@ -224,10 +227,11 @@ def select_lambda_path_many(Xs, ys, Ws, cfg,
         stop_rule=stop_rule, criterion=criterion, cv_folds=cv_folds,
         cv_seed=cv_seed, check_every=check_every, rho=rho, cv_rho=cv_rho,
         device=device)
-    lams_np = _host(res.lams)          # (B, L)
-    crits_np = _host(res.criteria)     # (B, L)
-    path_np = _host(res.path)          # (B, L, m, p)
-    tables = [[(float(l), float(c), metrics.mean_support_size(B))
-               for l, c, B in zip(lams_np[b], crits_np[b], path_np[b])]
-              for b in range(path_np.shape[0])]
-    return _host(res.best_lam), _host(res.best_B), tables, res
+    with spans.span("path.tables"):
+        lams_np = _host(res.lams)          # (B, L)
+        crits_np = _host(res.criteria)     # (B, L)
+        path_np = _host(res.path)          # (B, L, m, p)
+        tables = [[(float(l), float(c), metrics.mean_support_size(B))
+                   for l, c, B in zip(lams_np[b], crits_np[b], path_np[b])]
+                  for b in range(path_np.shape[0])]
+        return _host(res.best_lam), _host(res.best_B), tables, res

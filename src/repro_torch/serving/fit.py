@@ -56,6 +56,16 @@ per-node step sizes of its full-data and fold fits; without them the
 engines compute ``compute_rho`` on the card.  ``DecsvmFitServer(device=)``
 defaults to the card and raises without one; pass ``device="cpu"`` to
 run the plain path on the CPU.  ``FitResult`` keeps JAX's host types.
+
+With ``repro_torch.spans`` on, the server records where its host time
+goes, on the profiler's clock: each request's wait from ``submit()`` to
+its bucket's start (``serve.queue``, with its ``rid`` and ``bucket``),
+each bucket from its start to its last handle set (``serve.bucket``: a
+per-server ``bucket`` count, ``size``, ``engine``), and inside a dense
+bucket the stack (``serve.stack``), the margins and the copy back
+(``serve.margins``) and the delivery (``serve.deliver``), around the
+path's own spans (``core.path``, ``core.tuning``, ``core.solver``).  To
+read them: ``spans.enable(True)``, serve, ``spans.take()``.
 """
 from __future__ import annotations
 
@@ -69,6 +79,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import metrics, solver, tuning
 from repro_torch.core.admm import (ADMMConfig, as_f32, hard_threshold_final,
                                    resolve_device)
@@ -144,6 +155,7 @@ class FitHandle:
         self._event = threading.Event()
         self._result: Optional[FitResult] = None
         self._error: Optional[BaseException] = None
+        self._queued_ns: Optional[int] = None   # stamped while spans are on
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -253,6 +265,7 @@ class DecsvmFitServer(FifoEngine):
         self._cv = threading.Condition(self._lock)
         self._inflight: set = set()          # rids popped into a running bucket
         self._last_bucket = 0
+        self._buckets = 0                    # buckets popped: a bucket's id
         self._worker: Optional[threading.Thread] = None
         self._stop = False
 
@@ -286,6 +299,8 @@ class DecsvmFitServer(FifoEngine):
                     f"undelivered (drain with run() / handle.result() first)")
             self._reqs[req.rid] = (req, handle, key, lams)
             self.queue.append(req.rid)
+            if spans.enabled():
+                handle._queued_ns = spans.clock()
             self._cv.notify_all()
         return handle
 
@@ -334,6 +349,13 @@ class DecsvmFitServer(FifoEngine):
             batch = self._pop_bucket_locked()
         if not batch:
             return 0
+        with spans.span("serve.bucket", bucket=self._buckets,
+                        size=len(batch), engine=batch[0][2][-1]):
+            self._resolve(batch)
+        return len(batch)
+
+    def _resolve(self, batch) -> None:
+        """Run a popped bucket and deliver its results or its error."""
         try:
             results = self._run_bucket([req for req, _, _, _ in batch],
                                        batch[0][2], batch[0][3])
@@ -351,7 +373,7 @@ class DecsvmFitServer(FifoEngine):
             raise
         except Exception as e:              # deliver failure to every handle
             results, error = None, e
-        with self._cv:
+        with spans.span("serve.deliver"), self._cv:
             for i, (req, handle, _, _) in enumerate(batch):
                 if error is None:
                     self._completed[req.rid] = results[i]
@@ -362,7 +384,6 @@ class DecsvmFitServer(FifoEngine):
             if error is not None:
                 self._errors.append(error)
             self._cv.notify_all()
-        return len(batch)
 
     def start(self) -> None:
         """Spawn the background worker (async mode)."""
@@ -469,7 +490,14 @@ class DecsvmFitServer(FifoEngine):
         batch = [self._reqs.pop(r) for r in rids]
         self._inflight |= taken
         self._last_bucket = len(batch)
+        self._buckets += 1
         self.bucket_log.append((key, len(batch)))
+        if spans.enabled():
+            now = spans.clock()
+            for req, handle, _, _ in batch:
+                if handle._queued_ns is not None:
+                    spans.record("serve.queue", handle._queued_ns, now,
+                                 rid=req.rid, bucket=self._buckets)
         return batch
 
     def _worker_loop(self) -> None:
@@ -572,9 +600,10 @@ class DecsvmFitServer(FifoEngine):
         r0 = reqs[0]
         dev = self.device
         # the stack moves to the card once; every call below reads it there
-        Xs = torch.stack([as_f32(r.X, dev) for r in reqs])
-        ys = torch.stack([as_f32(r.y, dev) for r in reqs])
-        Ws = torch.stack([as_f32(r.W, dev) for r in reqs])
+        with spans.span("serve.stack"):
+            Xs = torch.stack([as_f32(r.X, dev) for r in reqs])
+            ys = torch.stack([as_f32(r.y, dev) for r in reqs])
+            Ws = torch.stack([as_f32(r.W, dev) for r in reqs])
         rho, cv_rho = self._rhos(reqs, Xs, r0.cfg, r0.criterion == "cv")
         best_lams, _, tables, res = tuning.select_lambda_path_many(
             Xs, ys, Ws, r0.cfg, lams=lams, mode=r0.mode, tol=r0.tol,
@@ -600,10 +629,11 @@ class DecsvmFitServer(FifoEngine):
         if r0.threshold:
             # Theorem-4 hard thresholding at each problem's selected lambda
             best_B = hard_threshold_final(best_B, best_l[:, None, None])
-        margins = _host(torch.bmm(Xs.flatten(0, 1),
-                                  best_B.flatten(0, 1)[..., None])
-                        .reshape(ys.shape))
-        best_B, ys_h = _host(best_B), _host(ys)             # one transfer
+        with spans.span("serve.margins"):
+            margins = _host(torch.bmm(Xs.flatten(0, 1),
+                                      best_B.flatten(0, 1)[..., None])
+                            .reshape(ys.shape))
+            best_B, ys_h = _host(best_B), _host(ys)         # one transfer
         wall = time.perf_counter() - t0
         return [self._result(req, best_lams[i], best_B[i], tables[i],
                              None if lam_weights is None else lam_weights[i],
